@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of the EHYB SpMV framework (``repro``) for NVIDIA Hopper.
+
+Mirrors the JAX package's layout — ``core`` (host format build, device
+containers, plain applies, CG), ``kernels`` (hand-written CUDA and Triton
+kernels with their plain versions), ``autotune`` (format registry), ``api``
+(``plan → bind → apply/solve``) — and is held against it module by module.
+It imports ``torch`` and never ``jax`` or ``repro``.
+
+    from repro_torch.api import ExecutionConfig, plan
+
+    p  = plan(A, execution=ExecutionConfig(format="ehyb_packed",
+                                           partition_method="bfs"))
+    op = p.bind(A)                     # device tables (default: cuda)
+    y  = op @ x
+    r  = op.solve(b, precond="spai")
+"""
