@@ -35,13 +35,24 @@ class ExecutionConfig:
     partition_method  — EHYB partition strategy ("natural", "bfs", "mincut",
                         "hub"); None (the reference's default, autotuned
                         there) raises until the autotuner is ported.
+    k                 — expected rhs batch width of the applies (SpMM).  On
+                        the card the plan sizes its partitions so that a
+                        block holds ``min(k, 16)`` rhs columns of its x-slice
+                        and output tile; on the CPU it changes nothing.
+                        Applies still take any rhs width at run time — ``k``
+                        only steers planning.
     """
 
     format: str = "auto"
     dtype: Any = None
     partition_method: Optional[str] = None
+    k: int = 1
+
+    def __post_init__(self):
+        if not isinstance(self.k, int) or self.k < 1:
+            raise ValueError(f"k must be a positive int, got {self.k!r}")
 
     def token(self) -> tuple:
         """Hashable identity for the plan cache."""
         return (self.format, None if self.dtype is None else str(self.dtype),
-                self.partition_method)
+                self.partition_method, self.k)

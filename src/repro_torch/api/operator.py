@@ -1,7 +1,8 @@
 """Operator API: the value-bound :class:`LinearOperator` and its solver.
 
 The port of ``repro.api.operator`` for this slice.  ``op @ x`` works in
-:attr:`Space.ORIGINAL`; hot loops hoist the permutation with
+:attr:`Space.ORIGINAL`, on one vector ``(n,)`` or a batch ``(n, K)`` (K ≥ 2
+goes to the SpMM kernels); hot loops hoist the permutation with
 ``x̃ = op.to_space(x)`` / ``op.apply(x̃, space=Space.PERMUTED)`` /
 ``op.from_space(ỹ)``.  ``op.solve`` runs CG in the permuted space exactly as
 the JAX package's ``solve_operator`` does: b, x0 and the preconditioner

@@ -38,6 +38,7 @@ from ..core.matrices import SparseCSR
 from ..core.partition import (Partition, choose_vec_size,
                               choose_vec_size_cuda, get_strategy,
                               make_partition)
+from ..kernels.ehyb_spmm import SPMM_RHS_CHUNK
 from .config import ExecutionConfig
 
 # The partition is sized for fp32 tables whatever the bind dtype, so one
@@ -58,14 +59,22 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def partition_sizing(n: int, device: torch.device) -> tuple[int, int]:
-    """(n_parts, vec_size) for an ``n``-row pattern planned on ``device``."""
+def partition_sizing(n: int, device: torch.device,
+                     k: int = 1) -> tuple[int, int]:
+    """(n_parts, vec_size) for an ``n``-row pattern planned on ``device``
+    for applies of ``k`` right-hand sides.
+
+    On the card a block must hold ``min(k, SPMM_RHS_CHUNK)`` rhs columns of
+    its x-slice and output tile (the SpMM kernels sweep wider batches in
+    chunks of that width); on the CPU the reference's constants hold
+    whatever ``k`` is."""
     if device.type == "cpu":
         return choose_vec_size(n, _SIZING_BYTES)
     props = torch.cuda.get_device_properties(device)
     return choose_vec_size_cuda(n, _SIZING_BYTES,
                                 props.shared_memory_per_block_optin,
-                                props.multi_processor_count)
+                                props.multi_processor_count,
+                                rhs=min(k, SPMM_RHS_CHUNK))
 
 
 class PlanCache:
@@ -158,7 +167,7 @@ class Plan:
     def _create(cls, pattern: SparseCSR, key: str,
                 execution: ExecutionConfig, device: torch.device,
                 cache: PlanCache) -> "Plan":
-        n_parts, vec_size = partition_sizing(pattern.n, device)
+        n_parts, vec_size = partition_sizing(pattern.n, device, execution.k)
         part = cache.partition(pattern, key, execution.partition_method,
                                n_parts, vec_size)
         return cls(key=key, n=pattern.n, nnz=pattern.nnz,

@@ -5,10 +5,11 @@ The JAX package's device containers (``repro.core.spmv.EHYBDevice`` and
 numpy arrays (``{field: np.asarray(getattr(obj, field))}``), plus the static
 fields (``n``, ``n_pad``, ``n_parts``, ``vec_size``, ``has_er``) become the
 port's container of the same name on a given device — so both packages can
-compute on identical tables.  As everywhere in the port, the device defaults
-to ``cuda`` and raises without a card; pass ``device="cpu"`` for the plain
-CPU paths.  This module reads numpy arrays only; it imports nothing of the
-JAX package.
+compute on identical tables.  :func:`sparse_linear` carries a pruned layer
+(``repro.core.sparse_linear.SparseLinear``) across the same way.  As
+everywhere in the port, the device defaults to ``cuda`` and raises without
+a card; pass ``device="cpu"`` for the plain CPU paths.  This module reads
+numpy arrays only; it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from .core.matrices import SparseCSR
 from .core.spmv import EHYBDevice, EHYBPackedDevice
 
 _CONTAINERS = {"EHYBDevice": EHYBDevice, "EHYBPackedDevice": EHYBPackedDevice}
+_FORMATS = {"EHYBDevice": "ehyb", "EHYBPackedDevice": "ehyb_packed"}
 _STATIC = ("n", "n_pad", "n_parts", "vec_size", "has_er")
 _INDEX_FIELDS = ("perm", "inv_perm")   # int64 in the port (JAX keeps int32)
 
@@ -60,3 +62,35 @@ def csr_from_arrays(n: int, indptr, indices, data) -> SparseCSR:
     return SparseCSR(n=int(n), indptr=np.asarray(indptr, dtype=np.int64),
                      indices=np.asarray(indices, dtype=np.int32),
                      data=np.asarray(data, dtype=np.float64))
+
+
+def sparse_linear(kind: str, leaves: dict, static: dict, *, csr, d_in: int,
+                  d_out: int, density: float, partition_method: str,
+                  k: int = 1, device=None, cls=None):
+    """The port's :class:`~repro_torch.core.sparse_linear.SparseLinear` on
+    the JAX layer's own device tables (bf16 bit for bit).
+
+    ``kind``/``leaves``/``static`` are the JAX layer's ``op.obj`` as for
+    :func:`device_container`; ``csr`` is its host CSR (anything with ``n``,
+    ``indptr``, ``indices`` and ``data``), and ``partition_method`` the
+    strategy it was planned with.  The port plans the same pattern on
+    ``device`` and raises unless that plan lays the matrix out as the
+    tables do (the same permutation)."""
+    from .api.config import ExecutionConfig
+    from .api.operator import LinearOperator
+    from .api.plan import plan
+    from .core.sparse_linear import SparseLinear, _host_ehyb_of
+
+    obj = device_container(kind, leaves, static, device)
+    m = csr_from_arrays(csr.n, csr.indptr, csr.indices, csr.data)
+    p = plan(m, execution=ExecutionConfig(
+        format=_FORMATS[kind], partition_method=partition_method, k=k),
+        device=obj.perm.device)
+    op = LinearOperator(plan=p, obj=obj, dtype=obj.er_p_vals.dtype, csr=m)
+    e = _host_ehyb_of(op)
+    if not np.array_equal(e.perm, obj.perm.cpu().numpy()):
+        raise ValueError(f"the layer's tables were laid out by another "
+                         f"partition than the port's {p!r} on "
+                         f"{obj.perm.device}")
+    return (cls or SparseLinear)(d_in=d_in, d_out=d_out, op=op,
+                                 density=density, csr=m, ehyb=e)

@@ -104,16 +104,19 @@ def choose_vec_size(n: int, dtype_bytes: int = 4,
 
 
 def choose_vec_size_cuda(n: int, dtype_bytes: int, smem_per_block: int,
-                         sm_count: int) -> tuple[int, int]:
+                         sm_count: int, rhs: int = 1) -> tuple[int, int]:
     """The paper's Eq. 1–2 on an NVIDIA card: budget = the shared memory one
     block may opt into, P = the SM count, 32-row (warp) alignment.
 
-    The fused kernels keep two (vec_size,) tiles in shared memory: the
+    The fused kernels keep two (vec_size, rhs) tiles in shared memory: the
     x-slice in the table dtype and the fp32 output tile the ER rows scatter
-    into, so a row costs ``dtype_bytes + 4`` bytes of the budget.  Callers
-    read both constants from ``torch.cuda.get_device_properties``.
+    into, so a row costs ``rhs · (dtype_bytes + 4)`` bytes of the budget;
+    ``rhs`` is the number of right-hand-side columns one block holds at a
+    time.  Callers read both constants from
+    ``torch.cuda.get_device_properties``.
     """
-    return choose_vec_size(n, dtype_bytes + 4, vmem_budget_bytes=smem_per_block,
+    return choose_vec_size(n, rhs * (dtype_bytes + 4),
+                           vmem_budget_bytes=smem_per_block,
                            p_units=sm_count, sublane=32)
 
 

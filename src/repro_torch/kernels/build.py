@@ -14,6 +14,7 @@ toolkit (the CPU tests import every module of the package).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -93,6 +94,17 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(_finish(name, _start(name))))
     return lib
+
+
+@functools.cache
+def entry(lib: str, name: str, n_ptrs: int, n_ints: int):
+    """The C entry ``name`` of ``csrc/<lib>.cu``, typed once: (dtype code,
+    n_ptrs pointers, n_ints ints, stream) -> cudaError_t."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
+                   + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def triton_cache_dir() -> None:

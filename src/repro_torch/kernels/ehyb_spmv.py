@@ -13,13 +13,13 @@ launches it on the current stream, raises on a launch error and adds one to
 its ``launches`` count.  It never falls back.
 
 The kernels take one right-hand side (R = 1), fp32 or bf16 tables with x in
-the same dtype, and fp32 accumulation.  A batch (R ≥ 2) waits for the SpMM
-kernels and raises ``NotImplementedError``; fp64 raises ``TypeError``.
+the same dtype, and fp32 accumulation.  A batch (R ≥ 2) raises
+``NotImplementedError`` here: ``kernels.ops`` sends it to the SpMM kernels
+(``kernels.ehyb_spmm``).  fp64 raises ``TypeError``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -31,47 +31,44 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_THREADS = 1024
 
 
-@functools.cache
-def _entry(name: str, n_ptrs: int, n_ints: int):
-    """The C entry ``name`` of ``csrc/ehyb_spmv.cu``, typed once: (dtype
-    code, n_ptrs pointers, n_ints ints, stream) -> cudaError_t."""
-    fn = getattr(build.load("ehyb_spmv"), name)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs
-                   + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(x_new: torch.Tensor, vals: torch.Tensor, n_pad: int,
-           dtypes: dict, tables: list) -> torch.Tensor:
-    """Validate a CUDA launch; returns x_new as a contiguous (n_pad,) view."""
+def _check_tables(x: torch.Tensor, vals: torch.Tensor, dtypes: dict,
+                  tables: list) -> None:
+    """The checks every EHYB kernel's wrapper makes before a launch: x on a
+    Hopper card, fp32 or bf16 tables, x in the tables' dtype, and each
+    table of its dtype, on x's device and contiguous."""
     from .ops import check_cuda_device
 
-    check_cuda_device(x_new.device)
-    if x_new.dim() == 2:
-        if x_new.shape[1] != 1:
-            raise NotImplementedError(
-                f"the CUDA SpMV kernels take one right-hand side; got "
-                f"{x_new.shape[1]} (the SpMM kernels are not ported yet)")
-        x_new = x_new[:, 0]
-    if x_new.shape != (n_pad,):
-        raise ValueError(f"x_new has shape {tuple(x_new.shape)}, "
-                         f"expected ({n_pad},)")
+    check_cuda_device(x.device)
     if vals.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the CUDA SpMV kernels take float32 or bfloat16 "
+        raise TypeError(f"the CUDA EHYB kernels take float32 or bfloat16 "
                         f"tables, got {vals.dtype}")
-    if x_new.dtype != vals.dtype:
-        raise TypeError(f"x_new is {x_new.dtype} but the tables are "
-                        f"{vals.dtype}")
+    if x.dtype != vals.dtype:
+        raise TypeError(f"x is {x.dtype} but the tables are {vals.dtype}")
     for name, t in tables:
         want = dtypes.get(name)
         if want is not None and t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if t.device != x_new.device:
-            raise ValueError(f"{name} is on {t.device}, x_new on "
-                             f"{x_new.device}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(x_new: torch.Tensor, vals: torch.Tensor, n_pad: int,
+           dtypes: dict, tables: list) -> torch.Tensor:
+    """Validate a CUDA SpMV launch; returns x_new as a contiguous (n_pad,)
+    view.  A batch of R ≥ 2 columns belongs to the SpMM kernels
+    (``kernels.ehyb_spmm``), which ``kernels.ops`` routes it to."""
+    if x_new.dim() == 2:
+        if x_new.shape[1] != 1:
+            raise NotImplementedError(
+                f"the CUDA SpMV kernels take one right-hand side; got "
+                f"{x_new.shape[1]} (kernels.ehyb_spmm takes a batch)")
+        x_new = x_new[:, 0]
+    if x_new.shape != (n_pad,):
+        raise ValueError(f"x_new has shape {tuple(x_new.shape)}, "
+                         f"expected ({n_pad},)")
+    _check_tables(x_new, vals, dtypes, tables)
     return x_new.contiguous()
 
 
@@ -125,7 +122,7 @@ def ehyb_fused(x_new: torch.Tensor, ell_vals: torch.Tensor,
         raise ValueError("inconsistent EHYB tile shapes")
     threads = _smem_and_threads(x.device, v, e, x.element_size())
     y = torch.empty_like(x)
-    fn = _entry("ehyb_fused", 7, 7)
+    fn = build.entry("ehyb_spmv", "ehyb_fused", 7, 7)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
              ell_vals.data_ptr(), ell_cols.data_ptr(), er_p_vals.data_ptr(),
              er_p_cols.data_ptr(), er_p_rows.data_ptr(), p, v, w, e, we,
@@ -173,7 +170,7 @@ def ehyb_packed_fused(x_new: torch.Tensor, packed_vals: torch.Tensor,
         raise ValueError("inconsistent packed EHYB shapes")
     threads = _smem_and_threads(x.device, vec_size, e, x.element_size())
     y = torch.empty_like(x)
-    fn = _entry("ehyb_packed_fused", 9, 8)
+    fn = build.entry("ehyb_spmv", "ehyb_packed_fused", 9, 8)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
              packed_vals.data_ptr(), packed_cols.data_ptr(),
              col_starts.data_ptr(), col_rows.data_ptr(), er_p_vals.data_ptr(),

@@ -1,9 +1,12 @@
 """Container-level wrappers of the EHYB kernels, as in ``repro.kernels.ops``.
 
 ``ehyb_spmv_fused(_permuted)`` apply an :class:`EHYBDevice` through the
-uniform-tile kernel and ``ehyb_spmv_packed(_permuted)`` an
-:class:`EHYBPackedDevice` through the packed-staircase kernel (the native
-apply of the ``ehyb_packed`` format).  The ``*_permuted`` forms take and
+uniform-tile kernels and ``ehyb_spmv_packed(_permuted)`` an
+:class:`EHYBPackedDevice` through the packed-staircase kernels (the native
+apply of the ``ehyb_packed`` format), with the routing of
+``repro.kernels.ops``: one right-hand side to the SpMV kernels, K ≥ 2 to
+the SpMM kernels — fused, or ELL-only plus the plain ER part for ER-free
+operators and ``use_er_kernel=False``.  The ``*_permuted`` forms take and
 return permuted-space vectors, so solver loops skip the per-call
 pad/``perm``/``inv_perm`` gathers.
 
@@ -18,11 +21,16 @@ import functools
 
 import torch
 
-from ..core.spmv import (EHYBDevice, EHYBPackedDevice, _from_permuted,
-                         _to_permuted)
+from ..core.spmv import (EHYBDevice, EHYBPackedDevice, _as_2d,
+                         _from_permuted, _fused_er_parts, _to_permuted)
+from . import ehyb_spmm as _km
 from . import ehyb_spmv as _k
 
 MIN_CAPABILITY = (9, 0)
+# Rhs width from which the wrappers route to the SpMM kernels (the x tile
+# staged once for all rhs of a chunk) instead of the SpMV kernels, as
+# repro/kernels/ops.py:30 does.
+_SPMM_MIN_RHS = 2
 
 
 def check_cuda_device(device) -> None:
@@ -50,32 +58,81 @@ def _check_capability(index: int) -> None:
             f"(Hopper) and need {MIN_CAPABILITY[0]}.{MIN_CAPABILITY[1]}")
 
 
-def ehyb_spmv_fused_permuted(m: EHYBDevice,
-                             x_new: torch.Tensor) -> torch.Tensor:
-    """Permuted-space EHYB SpMV through the uniform-tile kernel:
-    x_new (n_pad,) or (n_pad, 1)."""
-    return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.er_p_vals,
-                         m.er_p_cols, m.er_p_rows, has_er=m.has_er)
+def _unfused_level_missing():
+    return NotImplementedError(
+        "use_er_kernel=False at one right-hand side needs the ELL-only SpMV "
+        "kernels (repro/kernels/ehyb_spmv.py ehyb_ell_pallas and "
+        "ehyb_ell_packed_pallas), which are not ported yet (ROADMAP Queue 2 "
+        "item 4)")
 
 
-def ehyb_spmv_fused(m: EHYBDevice, x: torch.Tensor) -> torch.Tensor:
-    """Original-space EHYB SpMV: permute in, one kernel launch, un-permute
-    out.  x: (n,) or (n, 1)."""
+def _spmm_unfused(m, x2: torch.Tensor, ell) -> torch.Tensor:
+    """The ELL-only SpMM kernel ``ell`` ((P, V, K) -> (P, V, K)), then the
+    partition's ER rows added by the plain per-partition path."""
+    k = x2.shape[1]
+    y_parts = ell(x2.reshape(m.n_parts, m.vec_size, k))
+    if m.has_er:
+        y_parts = y_parts + _fused_er_parts(
+            x2, m.er_p_vals, m.er_p_cols, m.er_p_rows,
+            m.vec_size).to(y_parts.dtype)
+    return y_parts.reshape(m.n_pad, k)
+
+
+def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
+                             use_er_kernel: bool = True) -> torch.Tensor:
+    """Permuted-space EHYB SpMV/SpMM on uniform tiles: x_new (n_pad,) or
+    (n_pad, K).
+
+    One column goes to the SpMV kernel; K ≥ 2 columns to the fused SpMM
+    kernel, or — for an ER-free operator, or with ``use_er_kernel=False`` —
+    to the ELL-only SpMM kernel, with the ER part then added by the plain
+    per-partition path (the reference's unfused level)."""
+    x2 = _as_2d(x_new)[0]
+    if x2.shape[1] < _SPMM_MIN_RHS:
+        if not use_er_kernel:
+            raise _unfused_level_missing()
+        return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.er_p_vals,
+                             m.er_p_cols, m.er_p_rows, has_er=m.has_er)
+    if m.has_er and use_er_kernel:
+        return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols, m.er_p_vals,
+                                   m.er_p_cols, m.er_p_rows)
+    return _spmm_unfused(m, x2, lambda xp: _km.ehyb_ell_spmm(
+        xp, m.ell_vals, m.ell_cols))
+
+
+def ehyb_spmv_fused(m: EHYBDevice, x: torch.Tensor,
+                    **kw) -> torch.Tensor:
+    """Original-space EHYB SpMV/SpMM: permute in, one kernel launch,
+    un-permute out.  x: (n,) or (n, K); ``kw`` as for
+    :func:`ehyb_spmv_fused_permuted`."""
     x_new, squeeze = _to_permuted(m, x)
-    return _from_permuted(m, ehyb_spmv_fused_permuted(m, x_new), squeeze)
+    return _from_permuted(m, ehyb_spmv_fused_permuted(m, x_new, **kw),
+                          squeeze)
 
 
-def ehyb_spmv_packed_permuted(m: EHYBPackedDevice,
-                              x_new: torch.Tensor) -> torch.Tensor:
-    """Permuted-space EHYB SpMV through the packed-staircase kernel:
-    x_new (n_pad,) or (n_pad, 1)."""
-    return _k.ehyb_packed_fused(x_new, m.packed_vals, m.packed_cols,
-                                m.col_starts, m.col_rows, m.er_p_vals,
-                                m.er_p_cols, m.er_p_rows,
-                                vec_size=m.vec_size, has_er=m.has_er)
+def ehyb_spmv_packed_permuted(m: EHYBPackedDevice, x_new: torch.Tensor, *,
+                              use_er_kernel: bool = True) -> torch.Tensor:
+    """Permuted-space EHYB SpMV/SpMM on the packed staircase, routed as
+    :func:`ehyb_spmv_fused_permuted`: x_new (n_pad,) or (n_pad, K)."""
+    x2 = _as_2d(x_new)[0]
+    if x2.shape[1] < _SPMM_MIN_RHS:
+        if not use_er_kernel:
+            raise _unfused_level_missing()
+        return _k.ehyb_packed_fused(x_new, m.packed_vals, m.packed_cols,
+                                    m.col_starts, m.col_rows, m.er_p_vals,
+                                    m.er_p_cols, m.er_p_rows,
+                                    vec_size=m.vec_size, has_er=m.has_er)
+    if m.has_er and use_er_kernel:
+        return _km.ehyb_packed_fused_spmm(
+            x2, m.packed_vals, m.packed_cols, m.col_starts, m.col_rows,
+            m.er_p_vals, m.er_p_cols, m.er_p_rows, vec_size=m.vec_size)
+    return _spmm_unfused(m, x2, lambda xp: _km.ehyb_ell_packed_spmm(
+        xp, m.packed_vals, m.packed_cols, m.col_starts, m.col_rows))
 
 
-def ehyb_spmv_packed(m: EHYBPackedDevice, x: torch.Tensor) -> torch.Tensor:
-    """Original-space packed EHYB SpMV.  x: (n,) or (n, 1)."""
+def ehyb_spmv_packed(m: EHYBPackedDevice, x: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """Original-space packed EHYB SpMV/SpMM.  x: (n,) or (n, K)."""
     x_new, squeeze = _to_permuted(m, x)
-    return _from_permuted(m, ehyb_spmv_packed_permuted(m, x_new), squeeze)
+    return _from_permuted(m, ehyb_spmv_packed_permuted(m, x_new, **kw),
+                          squeeze)

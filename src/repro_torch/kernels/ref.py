@@ -4,8 +4,10 @@ Each function computes what its kernel computes with plain tensor ops (no
 custom kernel, no tricks).  The wrappers run them for tensors on the CPU,
 the CPU tests hold them against the JAX package, and ``chip_smoke.py``
 holds each kernel against its plain version on the card.  They mirror
-``repro.kernels.ref`` (``ehyb_fused_ref``) and add the packed-staircase
-and CG-step oracles the JAX package keeps inline.
+``repro.kernels.ref`` (``ehyb_fused_ref``) and add the ELL-only,
+packed-staircase and CG-step oracles the JAX package keeps inline.  The
+fused and ELL-only versions take any number of right-hand sides, so they
+are the plain versions of the SpMV and the SpMM kernels alike.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ def ehyb_fused_ref(x_new: torch.Tensor, ell_vals: torch.Tensor,
     if has_er:
         y = y + _fused_er_parts(x_new, er_p_vals, er_p_cols, er_p_rows, v)
     return y.reshape(-1, r).to(x_new.dtype)
+
+
+def ehyb_ell_ref(x_parts: torch.Tensor, ell_vals: torch.Tensor,
+                 ell_cols: torch.Tensor) -> torch.Tensor:
+    """Cached (sliced-ELL) part alone: x_parts (P, V, K) -> y_parts
+    (P, V, K) in x's dtype (accumulated in fp32, or fp64) — the oracle of
+    the ELL-only SpMM kernel."""
+    return _ehyb_ell_part(ell_vals, ell_cols, x_parts).to(x_parts.dtype)
 
 
 def unpack_staircase(packed_vals: torch.Tensor, packed_cols: torch.Tensor,
@@ -62,6 +72,16 @@ def ehyb_packed_fused_ref(x_new: torch.Tensor, packed_vals: torch.Tensor,
                                   col_rows, vec_size)
     return ehyb_fused_ref(x_new, vals, cols, er_p_vals, er_p_cols, er_p_rows,
                           has_er)
+
+
+def ehyb_ell_packed_ref(x_parts: torch.Tensor, packed_vals: torch.Tensor,
+                        packed_cols: torch.Tensor, col_starts: torch.Tensor,
+                        col_rows: torch.Tensor) -> torch.Tensor:
+    """Cached part alone on the packed staircase: x_parts (P, V, K) ->
+    y_parts (P, V, K) — the staircase unpacked, then :func:`ehyb_ell_ref`."""
+    vals, cols = unpack_staircase(packed_vals, packed_cols, col_starts,
+                                  col_rows, x_parts.shape[1])
+    return ehyb_ell_ref(x_parts, vals, cols)
 
 
 def cg_update_ref(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
