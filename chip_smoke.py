@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Two main paths, each driven with every kernel's launch count set to 0 just
-before it and read just after:
+Three main paths, each driven with every kernel's launch count set to 0
+just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
   nnz — a 3-dof 27-point stiffness matrix the size of ``audikw_1``),
@@ -14,7 +14,18 @@ before it and read just after:
 * the batched apply: the same matrix planned for 16 right-hand sides
   (``ExecutionConfig(k=16)``), then ``op @ X`` on 16 load cases,
   ``op.apply(X̃, space="permuted")``, the uniform-tile wrapper, the
-  unfused ``use_er_kernel=False`` level on both layouts, K = 32 and bf16.
+  unfused ``use_er_kernel=False`` level on both layouts, K = 32 and bf16;
+* the reliability path, on the solve's plan: the unfused level at one
+  right-hand side on both layouts (fp32 and bf16, the ELL-only SpMV
+  kernels), the fused SpMV rebuilt from the ELL-only kernel and the
+  standalone ER kernel, the guard's fallback chain under fault injection
+  (``chaos``: the native level fails, every kernel level fails, NaN
+  output under a ``SolvePolicy``), and BiCGStab at full width.
+
+Every apply goes through the plan's guard; outside the chaos phases the
+script fails on any downgrade (``plan.degraded`` of every plan it built,
+the ``guard.downgrade`` counter), so a kernel that does not build or launch
+fails the run instead of degrading it.
 
 Around them the script builds every kernel from the sources in the
 checkout; holds each kernel against its plain PyTorch version and the
@@ -22,8 +33,9 @@ applies against ``scipy.sparse`` in float64; runs K = 16 on the solver's
 k = 1 plan, an ER-free operator at full row count, and the pruned
 llama3_2_1b FFN down projection (2048 x 8192, density 0.1, 16 tokens)
 through ``pruned_linear``; sweeps every ``SUITE`` matrix in fp32 and bf16
-through the SpMV and SpMM kernels; times every kernel with CUDA events; and
-prints one line of numbers per phase.  Any failed check raises and the exit
+through the SpMV, ELL-only, ER and SpMM kernels; times every kernel with
+CUDA events; and prints one line of numbers per phase and the script's
+seconds.  Any failed check raises and the exit
 code is non-zero.
 
 The last two lines are a JSON object of per-kernel numbers and the result
@@ -36,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -56,6 +69,9 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 # tolerance in bf16 (tests/test_spmm.py)
 SPMM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the ELL-only SpMV and ER kernels (#4-#6) against their plain versions:
+# the same fp32 sums over at most a row's entries, so 1e-5 in fp32
+REL_KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def log(phase: str, **numbers) -> None:
@@ -170,8 +186,33 @@ def spmm_cases(o, u, x_new) -> dict:
     }
 
 
-def check_spmm(cases: dict, tol: float, what: str) -> dict:
-    """Run each SpMM kernel and its plain version; raises past ``tol``.
+def rel_cases(o, u, x_new) -> dict:
+    """{kernel: (kernel call, plain call)} for the reliability path's three
+    kernels on one build — ``o`` its packed container, ``u`` its uniform
+    one — at the permuted-space vector ``x_new`` (n_pad,): the ELL-only
+    SpMV kernels on (P, V) slices and the ER kernel on the global ER
+    table."""
+    from repro_torch.kernels import ehyb_spmv as K
+    from repro_torch.kernels import ref
+
+    xp = x_new.reshape(o.n_parts, o.vec_size)
+    stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
+    return {
+        "ehyb_ell": (
+            lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols),
+            lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
+                                     u.ell_cols)[..., 0]),
+        "ehyb_ell_packed": (
+            lambda: K.ehyb_ell_packed(xp, *stair),
+            lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
+        "er": (
+            lambda: K.er(x_new, o.er_vals, o.er_cols),
+            lambda: ref.er_ref(x_new[:, None], o.er_vals, o.er_cols)[:, 0]),
+    }
+
+
+def check_cases(cases: dict, tol: float, what: str) -> dict:
+    """Run each kernel and its plain version; raises past ``tol``.
     Returns {kernel: (relative error, max abs error)}."""
     import torch
 
@@ -187,6 +228,30 @@ def check_spmm(cases: dict, tol: float, what: str) -> dict:
     return out
 
 
+def resolve_guards(op) -> None:
+    """Resolve both guards of ``op``'s plan.  Each probes its native level
+    once (a kernel launch on a CUDA plan) on its first apply, so a path's
+    launch counts are zeroed only after this."""
+    import torch
+
+    op @ torch.zeros(op.n, device=op.device)
+    op.apply(torch.zeros(op.n_pad, device=op.device), space="permuted")
+
+
+def check_healthy(plans: list, chaos_downgrades: int, phase: str) -> None:
+    """Outside fault injection every plan runs its native level: no plan
+    reports a downgrade and the downgrade counter holds only the chaos
+    phases' own."""
+    from repro_torch.core import counters
+
+    bad = {f"{p.format}/{p.key[:8]}": p.degraded for p in plans
+           if p.degraded}
+    check(not bad, f"{phase}: unexpected downgrade {bad}")
+    n = counters.COUNTERS.get("guard.downgrade", 0)
+    check(n == chaos_downgrades,
+          f"{phase}: guard.downgrade {n} outside the chaos phases")
+
+
 def main() -> int:
     import torch
 
@@ -194,26 +259,35 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    run(torch.device("cuda"), NX)
+    t0 = time.perf_counter()
+    rows = run(torch.device("cuda"), NX)
+    log("script", seconds=round(time.perf_counter() - t0, 3))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def run(dev, nx: int) -> None:
-    """Every phase on ``dev`` with the main path at ``elasticity3d(nx)``;
-    raises on the first failed check."""
+def run(dev, nx: int) -> list:
+    """Every phase on ``dev`` with the main paths at ``elasticity3d(nx)``;
+    raises on the first failed check.  Returns the rows of the kernels
+    line."""
     import torch
     import numpy as np
     import scipy.sparse as sp
 
-    from repro_torch.api import ExecutionConfig, plan, pruned_linear
-    from repro_torch.core.matrices import SUITE, elasticity3d, from_coo
+    from repro_torch.api import (ExecutionConfig, SolvePolicy, chaos, plan,
+                                 pruned_linear)
+    from repro_torch.core import counters
+    from repro_torch.core.matrices import (SUITE, elasticity3d, from_coo,
+                                           unstructured)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import ehyb_spmm as KM
     from repro_torch.kernels import ehyb_spmv as K
     from repro_torch.kernels import solver_step as S
+    from repro_torch.reliability import ReliabilityWarning
+    from repro_torch.reliability.guard import reset_warned
 
     kernels = {"ehyb_fused": K.ehyb_fused,
                "ehyb_packed_fused": K.ehyb_packed_fused,
@@ -222,7 +296,14 @@ def run(dev, nx: int) -> None:
                     "ehyb_packed_fused_spmm": KM.ehyb_packed_fused_spmm,
                     "ehyb_ell_spmm": KM.ehyb_ell_spmm,
                     "ehyb_ell_packed_spmm": KM.ehyb_ell_packed_spmm}
-    all_kernels = {**kernels, **spmm_kernels}
+    rel_kernels = {"ehyb_ell": K.ehyb_ell,
+                   "ehyb_ell_packed": K.ehyb_ell_packed, "er": K.er}
+    all_kernels = {**kernels, **spmm_kernels, **rel_kernels}
+    plans = []                 # every plan built: none may degrade
+    chaos_down = {"n": 0}      # guard.downgrade bumps of the chaos phases
+
+    def healthy(phase: str) -> None:
+        check_healthy(plans, chaos_down["n"], phase)
 
     # ---- 1. card -----------------------------------------------------------
     smi = subprocess.run(
@@ -255,6 +336,7 @@ def run(dev, nx: int) -> None:
     t_bind = time.perf_counter() - t0
     op_u = plan(m, execution=ExecutionConfig(format="ehyb", **cfg),
                 device=dev).bind(m)           # same partition + host build
+    plans += [p_packed, op_u.plan]
     e = p_packed.host_build(m)
     pk = e._packed
     nnz_er = int(m.nnz - e.nnz_in)
@@ -281,6 +363,7 @@ def run(dev, nx: int) -> None:
     torch.cuda.synchronize()
 
     # ---- main path: counts from 0, then op @ x, op.solve, uniform wrapper --
+    resolve_guards(op)
     for fn in all_kernels.values():
         fn.launches = 0
     y = op @ x
@@ -305,6 +388,12 @@ def run(dev, nx: int) -> None:
           and after_solve["fused_cg_update"] > 0, "op.solve went through "
           "the packed kernel and the CG-step kernel")
     check(all(v > 0 for v in launches.values()), "every kernel launched")
+    levels = {k: g.level for k, g in p_packed._guards.items()}
+    log("guard", levels=levels, degraded=p_packed.degraded)
+    check(levels == {"apply": "ehyb_packed:native",
+                     "permuted": "ehyb_packed:native"},
+          "op @ x and the solve run the native level")
+    healthy("main-path")
 
     # ---- 3. SpMV against the plain version and scipy -----------------------
     a_sp = sp.csr_matrix((m.data, m.indices, m.indptr), shape=(m.n, m.n))
@@ -328,6 +417,7 @@ def run(dev, nx: int) -> None:
     check(err_plain <= KERNEL_TOL["float32"] and err_sp <= TOL["float32"],
           "op @ x within 1e-4")
     check(err_sp16 <= TOL["bfloat16"], "bf16 op @ x within 1e-1")
+    healthy("spmv")
 
     # ---- 4. kernel #1 on the same build ------------------------------------
     y_u_plain = op_u @ x                     # the registered plain apply
@@ -338,6 +428,7 @@ def run(dev, nx: int) -> None:
     check(err_u <= KERNEL_TOL["float32"] and err_u_sp <= TOL["float32"],
           "uniform kernel within 1e-4")
     u = op_u.obj
+    healthy("uniform")
 
     # ---- 5. batched main path: 16 load cases on a plan sized for them ------
     t0 = time.perf_counter()
@@ -354,6 +445,7 @@ def run(dev, nx: int) -> None:
     opb16_u = plan(m, execution=ExecutionConfig(format="ehyb", k=K_RHS,
                                                 **cfg),
                    device=dev).bind(m, dtype=torch.bfloat16)
+    plans += [pb, opb_u.plan]
     t_bind_more = time.perf_counter() - t0
     eb = pb.host_build(m)
     ob, ub = opb.obj, opb_u.obj
@@ -377,6 +469,8 @@ def run(dev, nx: int) -> None:
     xb32_host = rng.standard_normal((m.n, 2 * K_RHS))
     xb32 = torch.as_tensor(xb32_host, dtype=torch.float32, device=dev)
     xb_new = opb.to_space(xb)
+    resolve_guards(opb)
+    resolve_guards(opb_u)
     torch.cuda.synchronize()
     for fn in all_kernels.values():
         fn.launches = 0
@@ -421,12 +515,12 @@ def run(dev, nx: int) -> None:
             xb16_new, o16.packed_vals, o16.packed_cols, o16.col_starts,
             o16.col_rows, o16.er_p_vals, o16.er_p_cols, o16.er_p_rows,
             o16.vec_size).float().cpu())
-    spmm_b = check_spmm(spmm_cases(ob, ub, xb_new), KERNEL_TOL["float32"],
+    spmm_b = check_cases(spmm_cases(ob, ub, xb_new), KERNEL_TOL["float32"],
                         "batched k=16 plan")
-    spmm_b16 = check_spmm(spmm_cases(o16, opb16_u.obj, xb16_new),
+    spmm_b16 = check_cases(spmm_cases(o16, opb16_u.obj, xb16_new),
                           KERNEL_TOL["bfloat16"], "batched k=16 plan bf16")
     xb32_new = opb.to_space(xb32)
-    spmm_b32 = check_spmm({"ehyb_packed_fused_spmm": spmm_cases(
+    spmm_b32 = check_cases({"ehyb_packed_fused_spmm": spmm_cases(
         ob, ub, xb32_new)["ehyb_packed_fused_spmm"]}, KERNEL_TOL["float32"],
         "batched K=32")
     log("batched", shape=tuple(yb.shape), **checks_b,
@@ -443,6 +537,7 @@ def run(dev, nx: int) -> None:
     check(same, "op.apply(permuted) is op @ X")
     check(err_b16 <= SPMM_TOL["bfloat16"], "bf16 op @ X within 5e-2")
     check(err_b16_plain <= KERNEL_TOL["bfloat16"], "bf16 kernel vs plain")
+    healthy("batched")
     del yb32, xb32, xb32_new, cols, opb16, opb16_u, o16, xb16_new
 
     # ---- 6. K = 16 on the solver's k = 1 plan (chunked re-sweep) -----------
@@ -450,13 +545,14 @@ def run(dev, nx: int) -> None:
                            props.shared_memory_per_block_optin)
     y1 = op @ xb
     x1_new = op.to_space(xb)
-    spmm_1 = check_spmm(spmm_cases(o, u, x1_new), KERNEL_TOL["float32"],
+    spmm_1 = check_cases(spmm_cases(o, u, x1_new), KERNEL_TOL["float32"],
                         "k=1 plan at K=16")
     err_1 = rel_err(y1.cpu(), ab_sp)
     log("k1-plan-batched", n_parts=o.n_parts, vec_size=o.vec_size,
         rhs_chunk=kc1, passes_over_A=-(-K_RHS // kc1), vs_scipy_f64=err_1,
         **{f"{k}_vs_plain": v[0] for k, v in spmm_1.items()})
     check(err_1 <= SPMM_TOL["float32"], "k=1 plan op @ X within 1e-4")
+    healthy("k1-plan-batched")
 
     # ---- 7. an ER-free operator at full row count: A's diagonal ------------
     row_of = np.repeat(np.arange(m.n), m.row_lengths())
@@ -480,6 +576,8 @@ def run(dev, nx: int) -> None:
                     "ehyb_ell_spmm": 1, "ehyb_ell_packed_spmm": 1},
           "ER-free K=16 goes to the ELL-only SpMM kernels")
     check(max(err_d) <= 1e-6, "diagonal apply within 1e-6")
+    plans += [opd.plan, opd_u.plan]
+    healthy("er-free")
     del opd, opd_u, yd, yd_u
 
     # ---- 8. pruned llama3_2_1b FFN down projection, 16 tokens --------------
@@ -530,6 +628,8 @@ def run(dev, nx: int) -> None:
           "pruned layer within 1e-4")
     check(layer_launches == 1,
           "the layer went through the packed SpMM kernel once")
+    plans.append(layer.op.plan)
+    healthy("pruned-layer")
     del layer, w_dense, tok_new, tok_new_t
 
     # ---- 9. every SUITE matrix, fp32 and bf16, SpMV and SpMM kernels ------
@@ -558,6 +658,10 @@ def run(dev, nx: int) -> None:
                     opu.apply(xn, space="permuted").float().cpu()),
             }
             dn = str(dtype).split(".")[1]
+            errs.update({k: v[0] for k, v in check_cases(
+                rel_cases(q, qu, xn), REL_KERNEL_TOL[dn],
+                f"{name} {dn}").items()})
+            plans += [opp.plan, opu.plan]
             for kname, err in errs.items():
                 check(err <= KERNEL_TOL[dn], f"{name} {dn} {kname}: {err}")
             for kk in SUITE_K:     # the four SpMM kernels, plans sized for K
@@ -569,14 +673,15 @@ def run(dev, nx: int) -> None:
                           device=dev).bind(ms, dtype=dtype)
                 bu = plan(ms, execution=ExecutionConfig(format="ehyb", **ex),
                           device=dev).bind(ms, dtype=dtype)
-                got = check_spmm(spmm_cases(bp.obj, bu.obj,
+                got = check_cases(spmm_cases(bp.obj, bu.obj,
                                             bp.to_space(xk)),
                                  KERNEL_TOL[dn], f"{name} {dn} K={kk}")
                 for kname, v in got.items():
                     worst[(kname, dn)] = max(worst.get((kname, dn), 0.0),
                                              v[0])
                 errs[f"spmm_k{kk}"] = max(v[0] for v in got.values())
-            for kname in ("packed", "uniform"):
+                plans += [bp.plan, bu.plan]
+            for kname in ("packed", "uniform", *rel_kernels):
                 worst[(kname, dn)] = max(worst.get((kname, dn), 0.0),
                                          errs[kname])
             log("suite", matrix=name, dtype=dn, has_er=q.has_er,
@@ -584,6 +689,7 @@ def run(dev, nx: int) -> None:
                 er_tile=tuple(q.er_p_vals.shape), **errs)
     torch.cuda.synchronize()
     log("suite-worst", **{f"{k}_{d}": v for (k, d), v in worst.items()})
+    healthy("suite")
 
     # ---- 10. kernel #3 at the main path's shape ----------------------------
     # the solve runs CG in the permuted space: vectors of n_pad rows (not a
@@ -632,6 +738,215 @@ def run(dev, nx: int) -> None:
           "both solves converged")
     check(abs(int(res.iters) - int(res_plain.iters)) <= 1, "iters within 1")
     check(true_res <= 1e-5, "true residual ≤ 1e-5")
+    healthy("solve")
+
+    def true_residual(mat, rhs_host, r_):
+        xs = r_.x.double().cpu().numpy()
+        rhs = rhs_host.astype(np.float32).astype(np.float64)
+        return float(np.linalg.norm(rhs - mat.spmv(xs)) / np.linalg.norm(rhs))
+
+    def guard_warnings(caught):
+        return [w for w in caught if w.category is ReliabilityWarning
+                and "degraded" in str(w.message)]
+
+    # ---- 11b. reliability main path: counts from 0, then the unfused level
+    # at one rhs, ELL-only + ER, the chaos rungs and BiCGStab on the solve's
+    # plan; the counts are read before any kernel is held against its plain
+    # version
+    t0 = time.perf_counter()
+    op_u16 = plan(m, execution=ExecutionConfig(format="ehyb", **cfg),
+                  device=dev).bind(m, dtype=torch.bfloat16)
+    o16, u16 = op16.obj, op_u16.obj
+    x16_new = op16.to_space(x)
+    m_ns = unstructured(512, 10, seed=9)     # tests/test_reliability.py's
+    op_ns = plan(m_ns, execution=ExecutionConfig(format="ehyb_packed", **cfg),
+                 device=dev).bind(m_ns)
+    b_ns_host = rng.standard_normal(m_ns.n)
+    plans += [op_u16.plan, op_ns.plan]
+    resolve_guards(op_ns)
+    t_rel_setup = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    unf = {"packed": ops.ehyb_spmv_packed_permuted(o, x_new,
+                                                   use_er_kernel=False),
+           "uniform": ops.ehyb_spmv_fused_permuted(u, x_new,
+                                                   use_er_kernel=False),
+           "packed_bf16": ops.ehyb_spmv_packed_permuted(
+               o16, x16_new, use_er_kernel=False),
+           "uniform_bf16": ops.ehyb_spmv_fused_permuted(
+               u16, x16_new, use_er_kernel=False)}
+    torch.cuda.synchronize()
+    after_unfused = {k: f.launches for k, f in all_kernels.items()}
+    # the fused SpMV rebuilt from its halves: ELL-only (#5), then the ER
+    # kernel's (#6) per-slot partials added at er_row_idx (padded slots
+    # carry row 0 and add 0)
+    y_er = K.er(x_new, o.er_vals, o.er_cols)
+    y_comp = K.ehyb_ell_packed(x_new.reshape(o.n_parts, o.vec_size),
+                               o.packed_vals, o.packed_cols, o.col_starts,
+                               o.col_rows).reshape(-1)
+    y_comp.index_add_(0, o.er_row_idx.long(), y_er)
+    torch.cuda.synchronize()
+    # chaos rung 1: the native level fails -> the unfused level
+    reset_warned()
+    n_down0 = counters.COUNTERS.get("guard.downgrade", 0)
+    c0 = {k: f.launches for k, f in all_kernels.items()}
+    with warnings.catch_warnings(record=True) as w_native:
+        warnings.simplefilter("always")
+        with chaos(kernel_failure=("ehyb_packed:native",)) as cfg_native:
+            res_native = op.solve(b, precond="spai", tol=1e-6)
+            torch.cuda.synchronize()
+            degraded_native = dict(p_packed.degraded)
+    c1 = {k: f.launches for k, f in all_kernels.items()}
+    op.apply(x_new, space="permuted")        # re-resolved after the block
+    torch.cuda.synchronize()
+    degraded_after = dict(p_packed.degraded)
+    # chaos rung 2: every kernel level fails -> the reference level, on
+    # the card
+    with chaos(kernel_failure=("ehyb_packed:*",)) as cfg_all:
+        y_reference = op @ x
+        torch.cuda.synchronize()
+        degraded_all = dict(p_packed.degraded)
+    op @ x
+    n_down = counters.COUNTERS.get("guard.downgrade", 0) - n_down0
+    # chaos rung 3: NaN output under a SolvePolicy -> the solve ladder
+    before = counters.snapshot()
+    with warnings.catch_warnings(record=True) as w_nan:
+        warnings.simplefilter("always")
+        with chaos(nan_apply=True) as cfg_nan:
+            t0 = time.perf_counter()
+            res_nan = op.solve(b, precond="spai", tol=1e-6,
+                               policy=SolvePolicy())
+            torch.cuda.synchronize()
+            t_nan = time.perf_counter() - t0
+    after = counters.snapshot()
+    chaos_down["n"] = counters.COUNTERS.get("guard.downgrade", 0)
+    # BiCGStab at full width (first solve), and on a non-symmetric matrix
+    t0 = time.perf_counter()
+    res_bi = op.solve(b, method="bicgstab", precond="spai", tol=1e-6)
+    torch.cuda.synchronize()
+    t_bi_first = time.perf_counter() - t0
+    res_ns = op_ns.solve(b_ns_host, method="bicgstab", precond="spai",
+                         tol=1e-6)
+    torch.cuda.synchronize()
+    launches_r = {k: f.launches for k, f in all_kernels.items()}
+    log("reliability-main-path", setup_s=round(t_rel_setup, 3),
+        after_unfused=after_unfused, launches=launches_r)
+    check(all(launches_r[k] > 0 for k in rel_kernels),
+          "the reliability path went through #4, #5 and #6")
+    check(after_unfused["ehyb_ell_packed"] == 2
+          and after_unfused["ehyb_ell"] == 2
+          and after_unfused["ehyb_packed_fused"] == 0
+          and after_unfused["ehyb_fused"] == 0,
+          "the unfused level at K = 1 launched each ELL-only kernel once "
+          "per dtype and no fused kernel")
+
+    # the unfused level against the fused kernels, scipy and bf16
+    y_fused = {"packed": ops.ehyb_spmv_packed_permuted(o, x_new),
+               "uniform": ops.ehyb_spmv_fused_permuted(u, x_new),
+               "packed_bf16": ops.ehyb_spmv_packed_permuted(o16, x16_new),
+               "uniform_bf16": ops.ehyb_spmv_fused_permuted(u16, x16_new)}
+    errs_u = {}
+    for k, y_k in unf.items():
+        errs_u[f"{k}_vs_fused"] = rel_err(y_k.float().cpu(),
+                                          y_fused[k].float().cpu())
+        errs_u[f"{k}_vs_scipy_f64"] = rel_err(
+            op.from_space(y_k).float().cpu(), y_sp)
+    rel_chk = check_cases(rel_cases(o, u, x_new), REL_KERNEL_TOL["float32"],
+                          "k=1 plan")
+    rel_chk16 = check_cases(rel_cases(o16, u16, x16_new),
+                            REL_KERNEL_TOL["bfloat16"], "k=1 plan bf16")
+    log("unfused-k1", **errs_u,
+        **{f"{k}_vs_plain": v[0] for k, v in rel_chk.items()},
+        **{f"{k}_bf16_vs_plain": v[0] for k, v in rel_chk16.items()})
+    for k in ("packed", "uniform"):
+        check(errs_u[f"{k}_vs_fused"] <= 1e-5, f"unfused {k} vs fused")
+        check(errs_u[f"{k}_vs_scipy_f64"] <= TOL["float32"],
+              f"unfused {k} vs scipy")
+        check(errs_u[f"{k}_bf16_vs_fused"] <= KERNEL_TOL["bfloat16"],
+              f"unfused {k} bf16 vs fused")
+        check(errs_u[f"{k}_bf16_vs_scipy_f64"] <= TOL["bfloat16"],
+              f"unfused {k} bf16 vs scipy")
+
+    err_comp = rel_err(y_comp.cpu(), y_fused["packed"].cpu())
+    err_comp_sp = rel_err(op.from_space(y_comp).cpu(), y_sp)
+    log("er", er_rows=tuple(o.er_vals.shape), live=nnz_er,
+        er_vs_plain=rel_chk["er"][0], ell_plus_er_vs_fused=err_comp,
+        ell_plus_er_vs_scipy_f64=err_comp_sp)
+    check(err_comp <= 1e-5 and err_comp_sp <= TOL["float32"],
+          "ELL-only + ER partials equal the fused SpMV")
+
+    tr_native = true_residual(m, b_host, res_native)
+    d_native = {k: c1[k] - c0[k] for k in all_kernels}
+    log("chaos-native-fails", injected=dict(cfg_native.injected),
+        degraded=degraded_native, degraded_after=degraded_after,
+        launches=d_native, warnings=len(guard_warnings(w_native)),
+        iters=int(res_native.iters), healthy_iters=int(res.iters),
+        status=res_native.status, true_residual_f64=tr_native)
+    check(cfg_native.injected["kernel:ehyb_packed:native"] > 0,
+          "native-level fault fired")
+    check(degraded_native == {"permuted": "ehyb_packed:unfused"},
+          "the solve ran the unfused level")
+    check(d_native["ehyb_ell_packed"] > 0
+          and d_native["ehyb_packed_fused"] == 0,
+          "under the fault #5 ran and #2 did not")
+    check(len(guard_warnings(w_native)) == 1, "one ReliabilityWarning")
+    check(res_native.status == "converged"
+          and abs(int(res_native.iters) - int(res.iters)) <= 1
+          and tr_native <= 1e-5, "the unfused-level solve converged")
+    check(degraded_after == {}, "the guard is back on native after chaos")
+
+    err_ref_lvl = rel_err(y_reference.cpu(), y_sp)
+    log("chaos-all-kernels-fail", injected=dict(cfg_all.injected),
+        degraded=degraded_all, device=str(y_reference.device),
+        vs_scipy_f64=err_ref_lvl, downgrades=n_down)
+    check(cfg_all.injected["kernel:ehyb_packed:native"] > 0
+          and cfg_all.injected["kernel:ehyb_packed:unfused"] > 0,
+          "both kernel-level faults fired")
+    check(degraded_all == {"apply": "reference"}
+          and y_reference.device.type == "cuda"
+          and err_ref_lvl <= TOL["float32"],
+          "the reference level ran on the card within 1e-4")
+    check(n_down == 2, "one downgrade per faulted guard resolution")
+
+    tr_nan = true_residual(m, b_host, res_nan)
+    ladder = [str(w.message) for w in w_nan if "escalated" in str(w.message)]
+    d_ctr = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("solver.restart", "solver.escalate_method",
+                       "solver.escalate_reference", "solver.recovered")}
+    log("chaos-nan", injected=dict(cfg_nan.injected), counters=d_ctr,
+        ladder=repr(ladder), status=res_nan.status,
+        iters=int(res_nan.iters), true_residual_f64=tr_nan,
+        wall_s=round(t_nan, 4))
+    check(cfg_nan.injected["nan"] > 0, "NaN fault fired")
+    check(len(ladder) == 1 and "restart[cg], escalate:bicgstab, "
+          "escalate:reference" in ladder[0], "the ladder's three stages")
+    check(d_ctr == {"solver.restart": 1, "solver.escalate_method": 1,
+                    "solver.escalate_reference": 1, "solver.recovered": 1},
+          "one rung each, then recovered")
+    check(res_nan.status == "converged" and tr_nan <= 1e-5,
+          "the reference solve converged on the card")
+
+    t0 = time.perf_counter()
+    res_bi2 = op.solve(b, method="bicgstab", precond="spai", tol=1e-6)
+    torch.cuda.synchronize()
+    t_bi_warm = time.perf_counter() - t0
+    tr_bi = true_residual(m, b_host, res_bi)
+    tr_ns = true_residual(m_ns, b_ns_host, res_ns)
+    log("bicgstab", iters=int(res_bi.iters), status=res_bi.status,
+        residual=float(res_bi.residual), true_residual_f64=tr_bi,
+        first_wall_s=round(t_bi_first, 4), warm_wall_s=round(t_bi_warm, 4),
+        cg_iters=int(res.iters), cg_warm_wall_s=round(warm["fused"], 4),
+        unstructured_iters=int(res_ns.iters),
+        unstructured_status=res_ns.status, unstructured_true_residual=tr_ns)
+    check(res_bi.status == "converged" and tr_bi <= 1e-5,
+          "BiCGStab converged at full width")
+    check(int(res_bi2.iters) == int(res_bi.iters),
+          "a warm BiCGStab solve repeats its iteration count")
+    check(res_ns.status == "converged" and tr_ns <= 1e-5,
+          "BiCGStab converged on the non-symmetric matrix")
+    healthy("reliability")
+    del unf, y_fused, y_comp, y_reference, op_u16, x16_new
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)
@@ -662,6 +977,44 @@ def run(dev, nx: int) -> None:
         time_ms(lambda: ref.cg_update_ref(*vecs, alpha), dev), None,
         max(cg_bound_b, cg_bound_o),
         "bytes" if cg_bound_b >= cg_bound_o else "operations")
+    # the reliability path's kernels at the solve plan's shapes.  Library
+    # yardsticks: torch CSR @ x of the in-partition entries (what #4 and #5
+    # compute) and of the live ER entries, one CSR row per ER slot (what #6
+    # computes)
+    a_in = perm_csr(m, o, dev, in_part_only=True)
+    lib_in_ms = time_ms(lambda: a_in @ x_new2, dev)
+    del a_in
+    er_w = e.er_width
+    er_dst = e.fill_plan["er_dst"]
+    er_sp = sp.csr_matrix((e.er_vals.reshape(-1)[er_dst],
+                           (er_dst // er_w, e.er_cols.reshape(-1)[er_dst])),
+                          shape=(e.er_rows, o.n_pad))
+    er_t = torch.sparse_csr_tensor(
+        torch.as_tensor(er_sp.indptr, dtype=torch.int64, device=dev),
+        torch.as_tensor(er_sp.indices, dtype=torch.int64, device=dev),
+        torch.as_tensor(er_sp.data, dtype=torch.float32, device=dev),
+        size=er_sp.shape, check_invariants=False)
+    err_lib_er = rel_err((er_t @ x_new2)[:, 0].cpu(),
+                         K.er(x_new, o.er_vals, o.er_cols).cpu())
+    lib_er_ms = time_ms(lambda: er_t @ x_new2, dev)
+    del er_t
+    # #6 needs each live ER entry (8 B), x once and its (Rr,) output once
+    er_bytes = 8 * nnz_er + o.n_pad * 4 + e.er_rows * 4
+    er_bound_b = er_bytes / BANDWIDTH * 1e3
+    er_bound_o = 2 * nnz_er / FP32_PEAK * 1e3
+    padded_er_ms = (e.er_rows * er_w * 8 + o.n_pad * 4 + e.er_rows * 4) \
+        / BANDWIDTH * 1e3
+    cases_r = rel_cases(o, u, x_new)
+    bound_in = spmv_bound(o.n_pad, e.nnz_in, 0, 0, 4)
+    for k in ("ehyb_ell", "ehyb_ell_packed"):
+        t[k] = (time_ms(cases_r[k][0], dev), time_ms(cases_r[k][1], dev),
+                lib_in_ms, *bound_in)
+    t["er"] = (time_ms(cases_r["er"][0], dev), time_ms(cases_r["er"][1], dev),
+               lib_er_ms, max(er_bound_b, er_bound_o),
+               "bytes" if er_bound_b >= er_bound_o else "operations")
+    log("er-bound", live_bytes=er_bytes, bound_ms=t["er"][3],
+        padded_table_bytes=e.er_rows * er_w * 8, padded_table_ms=padded_er_ms,
+        library_vs_kernel=err_lib_er)
     for k, (ms_k, ms_p, ms_l, bd, by) in t.items():
         log("time", kernel=k, kernel_ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
             bound_ms=bd, bound_by=by, bound_share=round(bd / ms_k, 4))
@@ -699,6 +1052,8 @@ def run(dev, nx: int) -> None:
     for k in spmm_kernels:
         t[k] = t_spmm[("k16", k)]
 
+    healthy("times")
+
     # ---- 13. kernels line + result -----------------------------------------
     y_u_new = ops.ehyb_spmv_fused_permuted(u, x_new)
     y_u_plain_new = op_u.apply(x_new, space="permuted")
@@ -710,6 +1065,8 @@ def run(dev, nx: int) -> None:
         **{k: v[1] for k, v in spmm_b.items()},
     }
     launches.update({k: launches_b[k] for k in spmm_kernels})
+    launches.update({k: launches_r[k] for k in rel_kernels})
+    max_abs.update({k: v[1] for k, v in rel_chk.items()})
     # (route, source, replaces, device kernels per counted wrapper call:
     # the CG step runs its update pass, then its fixed-order sum of partials)
     meta = {
@@ -727,6 +1084,12 @@ def run(dev, nx: int) -> None:
                           "src/repro/kernels/ehyb_spmm.py:71", 1),
         "ehyb_ell_packed_spmm": ("cuda", "src/repro_torch/csrc/ehyb_spmm.cu",
                                  "src/repro/kernels/ehyb_spmm.py:185", 1),
+        "ehyb_ell": ("cuda", "src/repro_torch/csrc/ehyb_spmv.cu",
+                     "src/repro/kernels/ehyb_spmv.py:69", 1),
+        "ehyb_ell_packed": ("cuda", "src/repro_torch/csrc/ehyb_spmv.cu",
+                            "src/repro/kernels/ehyb_spmv.py:125", 1),
+        "er": ("cuda", "src/repro_torch/csrc/ehyb_spmv.cu",
+               "src/repro/kernels/ehyb_spmv.py:317", 1),
     }
     rows = []
     for k in all_kernels:
@@ -738,7 +1101,7 @@ def run(dev, nx: int) -> None:
                      "max_abs_err": max_abs[k], "ms": ms_k, "plain_ms": ms_p,
                      "bound_ms": bd, "bound_by": by, "library_ms": ms_l})
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": rows}), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -15,6 +15,11 @@ A plan fixes the format, the device, the cache sizing and the partition;
 partition (memoized by a value-inclusive hash) and uploads them.  Plans are
 memoized in a :class:`PlanCache` keyed by the pattern hash.
 
+Every apply of a bound operator goes through the plan's guard
+(``reliability.guard``): ``_raw_apply()``/``_raw_apply_permuted()`` hand
+out one guard per kind, which resolves the level of the format's fallback
+chain that runs and reports any downgrade in :attr:`Plan.degraded`.
+
 Every entry point takes ``device=``; the default is ``cuda``, and without a
 card it raises rather than carrying on on the CPU.  On the CPU the plan
 keeps the reference's cache-sizing constants, so its builds are
@@ -25,16 +30,17 @@ with the card's own shared memory and SM count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..autotune.cost import matrix_key, pattern_hash
-from ..autotune.registry import get_format
+from ..autotune.registry import get_format, shared_packed
 from ..core.cache import BoundedCache
 from ..core.ehyb import EHYB, build_ehyb
 from ..core.matrices import SparseCSR
+from ..core.spmv import EHYBPackedDevice, value_index
 from ..core.partition import (Partition, choose_vec_size,
                               choose_vec_size_cuda, get_strategy,
                               make_partition)
@@ -162,6 +168,11 @@ class Plan:
     pattern: SparseCSR
     cache: PlanCache
     _indices_ok: Optional[bool] = None    # bind-time index check, memoized
+    _guards: dict = dataclasses.field(default_factory=dict)  # kind -> guard
+    _layout: Optional[EHYB] = None   # a host build (pattern-only scatters)
+    _coo: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    _coo_t: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    _value_idx: Optional[torch.Tensor] = None
 
     @classmethod
     def _create(cls, pattern: SparseCSR, key: str,
@@ -239,8 +250,69 @@ class Plan:
         if validate:
             self._validate_bind(csr.data)
         e = self.cache.host_ehyb(csr, self.key, self.partition)
+        if self._layout is None:
+            self._layout = e
         obj = get_format(self.format).build(e, dtype, self.device)
         return LinearOperator(plan=self, obj=obj, dtype=dtype, csr=csr)
+
+    # ---- guarded applies ---------------------------------------------------
+
+    def _raw_apply(self):
+        """The format's original-space ``(obj, x) -> y`` apply, wrapped in
+        the reliability guard: a kernel that fails to build or launch
+        downgrades through the fallback chain (fused -> unfused ->
+        reference) instead of crashing the apply."""
+        from ..reliability.guard import guarded_apply
+
+        return guarded_apply(self, "apply")
+
+    def _raw_apply_permuted(self):
+        """The guarded permuted-space apply (the solver's matvec)."""
+        from ..reliability.guard import guarded_apply
+
+        return guarded_apply(self, "permuted")
+
+    @property
+    def degraded(self) -> dict:
+        """Non-primary guard resolutions, ``{kind: level_name}`` — empty
+        when every apply runs its native level (or none resolved yet)."""
+        return {kind: g.level for kind, g in self._guards.items()
+                if g.level is not None and g.chain and g.level != g.chain[0]}
+
+    # ---- pattern and values ------------------------------------------------
+
+    def coo(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-nnz (rows, cols) of the pattern in CSR order (host int64)."""
+        if self._coo is None:
+            rows = np.repeat(np.arange(self.n, dtype=np.int64),
+                             self.pattern.row_lengths())
+            self._coo = (rows, self.pattern.indices.astype(np.int64))
+        return self._coo
+
+    def coo_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`coo` as int64 tensors on the plan's device (memoized)."""
+        if self._coo_t is None:
+            self._coo_t = tuple(torch.from_numpy(a).to(self.device)
+                                for a in self.coo())
+        return self._coo_t
+
+    def values_of(self, obj) -> torch.Tensor:
+        """The per-nnz values in CSR order, read on the device from the
+        container ``obj`` bound on this plan (each value once, from the
+        tables its apply reads), in the container's value dtype.
+
+        The port's counterpart of the JAX package's probed value maps: the
+        positions come from the host build's own scatters
+        (``core.spmv.value_index``), which depend on the pattern alone, so
+        they hold for every bind of the plan."""
+        if self._value_idx is None:
+            e = self._layout or self.host_build(self.pattern)
+            pk = shared_packed(e) if isinstance(obj, EHYBPackedDevice) \
+                else None
+            self._value_idx = torch.from_numpy(value_index(e, pk)).to(
+                self.device)
+        flat = torch.cat([t.reshape(-1) for t in obj.value_tables()])
+        return flat.index_select(0, self._value_idx)
 
     def __repr__(self):
         return (f"Plan(n={self.n}, nnz={self.nnz}, format={self.format!r}, "

@@ -1,18 +1,22 @@
 """Format registry: the EHYB formats the port carries, behind one interface.
 
-The subset of ``repro.autotune.registry`` this slice needs.  A
+The subset of ``repro.autotune.registry`` the port needs.  A
 :class:`FormatSpec` bundles how to build a format's device container from
-the shared host EHYB build and its original- and permuted-space applies.
-As in the JAX package, the registered apply of ``ehyb`` is the plain path
-(``core.spmv``) and the apply of ``ehyb_packed`` is the packed-staircase
-kernel (``kernels.ops``).  The other five formats wait for the autotuner's
-port.
+the shared host EHYB build, its original- and permuted-space applies, what
+runs them (``kernel``: ``"cuda"`` for hand-written kernels, ``"plain"``
+for plain PyTorch) and the guarded apply's unfused level
+(``fallback``/``fallback_permuted``, None when the format has none).  As in
+the JAX package, the registered apply of ``ehyb`` is the plain path
+(``core.spmv``; its chain is native → reference) and the apply of
+``ehyb_packed`` is the packed-staircase kernel (``kernels.ops``), with
+``use_er_kernel=False`` as its unfused level.  The other five formats wait
+for the autotuner's port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ..core.ehyb import EHYB, pack_staircase
 from ..core.spmv import (EHYBDevice, EHYBPackedDevice, ehyb_spmv,
@@ -26,6 +30,9 @@ class FormatSpec:
     build: Callable      # (host EHYB, dtype, device) -> device container
     apply: Callable      # (obj, x) -> y, original space
     permuted: Callable   # (obj, x_new) -> y_new, permuted space
+    kernel: str = "plain"              # "cuda": the applies launch kernels
+    fallback: Optional[Callable] = None            # unfused level, original
+    fallback_permuted: Optional[Callable] = None   # unfused level, permuted
     description: str = ""
 
 
@@ -64,10 +71,20 @@ def _build_ehyb_packed(e: EHYB, dtype, device) -> EHYBPackedDevice:
                                         device=device)
 
 
+def _packed_unfused(d, x):
+    return ehyb_spmv_packed(d, x, use_er_kernel=False)
+
+
+def _packed_unfused_permuted(d, x_new):
+    return ehyb_spmv_packed_permuted(d, x_new, use_er_kernel=False)
+
+
 register_format(FormatSpec(
     "ehyb", _build_ehyb, ehyb_spmv, ehyb_spmv_permuted,
-    "EHYB uniform tiles, uint16 local cols; plain PyTorch apply"))
+    description="EHYB uniform tiles, uint16 local cols; plain PyTorch "
+                "apply"))
 register_format(FormatSpec(
     "ehyb_packed", _build_ehyb_packed, ehyb_spmv_packed,
-    ehyb_spmv_packed_permuted,
-    "EHYB packed staircase; fused CUDA kernel on the card"))
+    ehyb_spmv_packed_permuted, kernel="cuda", fallback=_packed_unfused,
+    fallback_permuted=_packed_unfused_permuted,
+    description="EHYB packed staircase; fused CUDA kernel on the card"))

@@ -8,8 +8,11 @@ port's container of the same name on a given device — so both packages can
 compute on identical tables.  :func:`sparse_linear` carries a pruned layer
 (``repro.core.sparse_linear.SparseLinear``) across the same way.  As
 everywhere in the port, the device defaults to ``cuda`` and raises without
-a card; pass ``device="cpu"`` for the plain CPU paths.  This module reads
-numpy arrays only; it imports nothing of the JAX package.
+a card; pass ``device="cpu"`` for the plain CPU paths.
+:func:`solve_policy` carries a ``repro.reliability.SolvePolicy`` across
+field by field, so both packages' escalation ladders can run under one
+policy.  This module reads numpy arrays and attributes only; it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from .api.plan import resolve_device
 from .core.matrices import SparseCSR
 from .core.spmv import EHYBDevice, EHYBPackedDevice
+from .reliability.policy import SolvePolicy
 
 _CONTAINERS = {"EHYBDevice": EHYBDevice, "EHYBPackedDevice": EHYBPackedDevice}
 _FORMATS = {"EHYBDevice": "ehyb", "EHYBPackedDevice": "ehyb_packed"}
@@ -55,6 +59,13 @@ def device_container(kind: str, leaves: dict, static: dict, device=None):
         kw[f.name] = t.to(torch.int64) if f.name in _INDEX_FIELDS else t
     kw["has_er"] = bool(kw["has_er"])
     return cls(**kw)
+
+
+def solve_policy(p) -> SolvePolicy:
+    """The port's :class:`SolvePolicy` with the fields of ``p`` (a JAX
+    ``SolvePolicy``, or anything with the same attribute names)."""
+    return SolvePolicy(**{f.name: getattr(p, f.name)
+                          for f in dataclasses.fields(SolvePolicy)})
 
 
 def csr_from_arrays(n: int, indptr, indices, data) -> SparseCSR:

@@ -1,8 +1,8 @@
-"""Preconditioned conjugate gradients — the paper's target workload (§1, §6).
+"""Preconditioned Krylov solvers — the paper's target workload (§1, §6).
 
-The port of ``repro.core.solver``'s CG with its status register and its
-breakdown, divergence and stagnation guards, and of the diagonal
-preconditioners (``jacobi`` and diagonal ``spai``).  The solver takes an
+The port of ``repro.core.solver``'s CG and BiCGStab with their status
+register and their breakdown, divergence and stagnation guards, and of the
+diagonal preconditioners (``jacobi`` and diagonal ``spai``).  The solver takes an
 opaque ``matvec``, so any SpMV path drops in — the paper's experiment: same
 Krylov loop, swap the SpMV.  ``api.operator.solve_operator`` runs it in the
 EHYB permuted space (b and the preconditioner diagonal permuted once per
@@ -198,8 +198,136 @@ def cg(matvec: Callable, b: torch.Tensor,
         status = torch.where(run, status_n, status)
         best = torch.where(run, torch.minimum(best, rr), best)
         since = torch.where(run, since_n, since)
+    return _result(x, k, rr, bnorm2, status, tol)
+
+
+def _result(x, k, rr, bnorm2, status, tol) -> SolveResult:
     res = torch.sqrt(rr / bnorm2)
     status = _classify_exit(status, res, tol)
     return SolveResult(x=x, iters=k, residual=res,
                        converged=status == STATUS_CONVERGED,
                        status_code=status)
+
+
+def bicgstab(matvec: Callable, b: torch.Tensor,
+             precond: Optional[Callable] = None, tol: float = 1e-6,
+             max_iters: int = 500, *, x0: Optional[torch.Tensor] = None,
+             stag_window: int = 0, stag_rtol: float = 1e-8,
+             div_factor: float = 1e12,
+             breakdown_tol: Optional[float] = None) -> SolveResult:
+    """Preconditioned BiCGStab for non-symmetric systems, on (n,) vectors.
+
+    ``precond`` maps r to z (None = identity); ``x0`` warm starts as in
+    :func:`cg`.  Its vector updates are plain tensor ops on every device:
+    the JAX package has no fused BiCGStab step either.
+
+    Breakdown is detected, not masked: ``|ρ| ≤ breakdown_tol·√(‖r̂‖²‖r‖²)``
+    (Cauchy–Schwarz-relative; ``breakdown_tol=None`` is the accumulation
+    dtype's eps) or ``|r̂·v| ≤ 1e-30`` keeps the pre-step iterate and exits
+    ``"breakdown"``; ``t·t ≤ 1e-30`` with ``s`` not yet converged keeps the
+    valid half-step (x += α·p̂, r = s) and exits ``"breakdown"``; when ``s``
+    has converged the half-step finishes the solve.  Divergence rolls back
+    and stagnation stops as in :func:`cg`.  The loop is :func:`cg`'s: device
+    scalars, a host read of the stop condition every ``_CHECK_EVERY``
+    iterations and masked iterations in between, so it stops where the JAX
+    ``while_loop`` does.
+    """
+    dt = b.dtype
+    acc = torch.promote_types(dt, torch.float32)   # dots/norms in ≥fp32
+    dev = b.device
+
+    def _dot(u, v):
+        return torch.dot(u.to(acc), v.to(acc))
+
+    def _z(r):
+        return (r if precond is None else precond(r)).to(dt)
+
+    x = torch.zeros_like(b) if x0 is None else x0.to(dtype=dt, device=dev)
+    r = (b - matvec(x)).to(dt)
+    rhat = r
+    rr = _dot(r, r)
+    rhat2 = rr                        # ‖r̂‖² (r̂ is frozen at r₀)
+    bt = torch.finfo(acc).eps if breakdown_tol is None else breakdown_tol
+    bnorm2 = torch.clamp(_dot(b, b), min=torch.finfo(acc).tiny)
+    thresh2 = (tol ** 2) * bnorm2
+    div_thresh = div_factor * torch.maximum(bnorm2, rr)
+    one = torch.ones((), dtype=acc, device=dev)
+    rho, alpha, omega = one, one, one
+    v = torch.zeros_like(b)
+    p = torch.zeros_like(b)
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    status = torch.full((), _RUNNING, dtype=torch.int32, device=dev)
+    best = rr.clone()
+    since = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def nz(d):           # keeps a discarded branch's arithmetic finite
+        return torch.where(d == 0, 1e-30, d)
+
+    for it in range(max_iters):
+        run = (status < 0) & (rr > thresh2) & (k < max_iters)
+        if it % _CHECK_EVERY == 0 and not bool(run):
+            break
+        rho_new = _dot(rhat, r)
+        rho_break = rho_new.abs() <= bt * torch.sqrt(rhat2) * torch.sqrt(rr)
+        beta = (rho_new / nz(rho)) * (alpha / nz(omega))
+        p_n = (r + beta * (p - omega * v)).to(dt)
+        ph = _z(p_n)
+        v_n = matvec(ph)
+        rv = _dot(rhat, v_n)
+        rv_break = rv.abs() <= 1e-30
+        alpha_n = rho_new / torch.where(rv_break, one, rv)
+        s = (r - alpha_n * v_n).to(dt)
+        ss = _dot(s, s)
+        s_conv = ss <= thresh2
+        sh = _z(s)
+        t = matvec(sh)
+        tt = _dot(t, t)
+        tt_break = (tt <= 1e-30) & ~s_conv
+        omega_n = _dot(t, s) / torch.clamp(tt, min=1e-30)
+        x_half = (x + alpha_n * ph).to(dt)
+        x_full = (x_half + omega_n * sh).to(dt)
+        r_full = (s - omega_n * t).to(dt)
+        rr_full = _dot(r_full, r_full)
+        # three-way select: dead recurrence -> keep the pre-step iterate;
+        # early s-convergence or t-breakdown -> keep the valid half-step;
+        # otherwise the full BiCGStab step
+        pick_old = rho_break | rv_break
+        pick_half = ~pick_old & (s_conv | tt_break)
+
+        def sel(old, half, full):
+            return torch.where(pick_old, old,
+                               torch.where(pick_half, half, full))
+
+        x_n, r_n, rr_n = sel(x, x_half, x_full), sel(r, s, r_full), \
+            sel(rr, ss, rr_full)
+        blow = (~torch.isfinite(rr_n) | (rr_n > div_thresh)) & ~pick_old
+        x_n = torch.where(blow, x, x_n)
+        r_n = torch.where(blow, r, r_n)
+        rr_n = torch.where(blow, rr, rr_n)
+        improved = rr_n < best * (1 - stag_rtol)
+        bad = pick_old | blow
+        since_n = torch.where(improved | bad, 0, since + 1).to(torch.int32)
+        stalled = (stag_window > 0) & (since_n >= stag_window) \
+            & (rr_n > thresh2)
+        status_n = torch.where(
+            pick_old | tt_break, STATUS_BREAKDOWN,
+            torch.where(blow, STATUS_DIVERGED,
+                        torch.where(stalled, STATUS_STAGNATED,
+                                    _RUNNING))).to(torch.int32)
+        # once the loop has stopped the whole state stays as it was
+        x = torch.where(run, x_n, x)
+        r = torch.where(run, r_n, r)
+        rho = torch.where(run, rho_new, rho)
+        alpha = torch.where(run, alpha_n, alpha)
+        omega = torch.where(run, omega_n, omega)
+        v = torch.where(run, v_n, v)
+        p = torch.where(run, p_n, p)
+        rr = torch.where(run, rr_n, rr)
+        k = k + (run & ~bad).to(torch.int32)
+        status = torch.where(run, status_n, status)
+        best = torch.where(run, torch.minimum(best, rr_n), best)
+        since = torch.where(run, since_n, since)
+    return _result(x, k, rr, bnorm2, status, tol)
+
+
+SOLVERS = {"cg": cg, "bicgstab": bicgstab}

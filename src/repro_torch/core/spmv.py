@@ -16,6 +16,7 @@ tables) and come back in x's dtype, as the kernels do.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,6 +73,10 @@ class EHYBDevice:
                    _tensor(g["er_p_rows"], device),
                    _tensor(e.perm, device), _tensor(e.inv_perm, device))
 
+    def value_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The value tables the apply reads: ELL tiles and grouped ER."""
+        return self.ell_vals, self.er_p_vals
+
 
 @dataclasses.dataclass
 class EHYBPackedDevice:
@@ -112,6 +117,43 @@ class EHYBPackedDevice:
                    _tensor(g["er_p_cols"], device),
                    _tensor(g["er_p_rows"], device),
                    _tensor(e.perm, device), _tensor(e.inv_perm, device))
+
+    def value_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The value tables the apply reads: staircase and grouped ER."""
+        return self.packed_vals, self.er_p_vals
+
+
+def value_index(e: EHYB, pk: Optional[PackedEHYB] = None) -> np.ndarray:
+    """Where each nonzero's value lives in a bound container: (nnz,) int64
+    positions, in CSR order, into the concatenation of the flattened
+    ``value_tables()`` of the container built from ``e`` — the packed
+    staircase ``pk`` of ``e`` or, when None, the uniform tiles — then the
+    grouped ER tiles.
+
+    Replays the build's own scatters — ``e.fill_plan`` (ELL and ER), the
+    staircase packing (column k of partition p starts at
+    ``col_starts[p, k]``) and the ER grouping — which depend on the pattern
+    alone, so the index holds for every bind of the pattern.  Each value is
+    read once: from the grouped ER tiles the apply reads, never from the
+    global ER copy beside them."""
+    fp = e.fill_plan
+    v, w = e.vec_size, e.ell_width
+    rows, k = np.divmod(fp["ell_dst"], w)
+    if pk is not None:
+        part = rows // v
+        ell_pos = part * pk.packed_len + pk.col_starts[part, k] + rows % v
+        n_ell = e.n_parts * pk.packed_len
+    else:
+        ell_pos, n_ell = fp["ell_dst"], e.n_pad * w
+    g = group_er_by_partition(e)
+    ep, we = g["er_p_vals"].shape[1:]
+    grouped_row = np.empty(e.er_rows, dtype=np.int64)
+    grouped_row[g["src"]] = g["own"] * ep + g["slot"]
+    slot, kk = np.divmod(fp["er_dst"], we)
+    idx = np.empty(e.nnz, dtype=np.int64)
+    idx[fp["ell_src"]] = ell_pos
+    idx[fp["er_src"]] = n_ell + grouped_row[slot] * we + kk
+    return idx
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +214,19 @@ def _fused_er_parts(x_new, er_p_vals, er_p_cols, er_p_rows, vec_size):
     rows = er_p_rows.to(torch.int64)[:, :, None].expand(p, e, r)
     out = torch.zeros((p, vec_size, r), dtype=acc, device=x_new.device)
     return out.scatter_add_(1, rows, ye)
+
+
+def coo_spmv(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             x2: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain COO product y = A x2: x2 (n, R) gathered by ``cols``, scaled by
+    ``vals`` and summed into ``rows`` with ``index_add_`` (int64 index
+    tensors on x2's device); accumulated in fp32 (fp64 for fp64), returned
+    in x2's dtype.  On CUDA ``index_add_`` sums with atomics, so the result
+    is not bit-reproducible from run to run."""
+    acc = _acc_dtype(torch.promote_types(vals.dtype, x2.dtype))
+    contrib = vals[:, None].to(acc) * x2.index_select(0, cols).to(acc)
+    y = torch.zeros((n, x2.shape[1]), dtype=acc, device=x2.device)
+    return y.index_add_(0, rows, contrib).to(x2.dtype)
 
 
 def ehyb_spmv_permuted(m: EHYBDevice, x_new: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,17 @@
 //                      (_ehyb_fused_kernel + _er_stage): uniform (V, W) tiles
 //   ehyb_packed_fused <- repro/kernels/ehyb_spmv.py::ehyb_packed_fused_pallas
 //                      (_ehyb_packed_fused_kernel): packed staircase
-// Both compute y_new = A x_new in the permuted space for one right-hand side.
+//   ehyb_ell        <- repro/kernels/ehyb_spmv.py::ehyb_ell_pallas
+//                      (_ehyb_ell_kernel): the uniform tiles' ELL part alone
+//   ehyb_ell_packed <- repro/kernels/ehyb_spmv.py::ehyb_ell_packed_pallas
+//                      (_ehyb_packed_kernel): the staircase's ELL part alone
+//   er              <- repro/kernels/ehyb_spmv.py::er_pallas (_er_kernel):
+//                      uncached ER rows -> per-slot partial sums
+// The fused kernels compute y_new = A x_new in the permuted space for one
+// right-hand side; the ELL-only ones (the guarded apply's unfused level)
+// compute y_parts = A_in x_parts, partition by partition, and are the fused
+// bodies with the ER stage compiled out (template flag ELL_ONLY): they write
+// each row's sum straight to y and need no shared output tile.
 //
 // What bounds them: device-memory bytes.  Per stored entry the kernel reads a
 // value (4 or 2 bytes) and a uint16 local column and does 2 flops, so an H100
@@ -28,6 +38,12 @@
 //     shared-memory atomicAdd -- padded ER slots all carry local row 0 (value
 //     0), so several writers share that row; the tile is then written out
 //     once, in x's dtype.
+//   * ER kernel (standalone, no caller on the hot path): one warp per row
+//     of the row-major (Rr, W) ER table; lane j reads slots j, j + 32, ...
+//     (coalesced along W), gathers x through L2 and the warp reduces with
+//     shuffles in a fixed order -- no atomics, deterministic.  Padded slots
+//     carry value 0 and column 0 and add 0.  It reads the padded table, so
+//     its bytes are the table's (Rr * W), not the live entries'.
 // Accumulation is fp32 for fp32 and bf16 tables.
 
 #include <cuda_bf16.h>
@@ -85,7 +101,24 @@ __device__ __forceinline__ void store_tile(T* __restrict__ y, const float* ys,
 
 constexpr int kMaxThreads = 1024;
 
-template <typename T>
+// Shared memory of a block: the fp32 y tile unless ELL_ONLY, then the
+// x-slice in the table dtype.
+template <typename T, bool ELL_ONLY>
+__host__ __device__ constexpr size_t smem_bytes(int V) {
+  return (size_t)V * ((ELL_ONLY ? 0 : sizeof(float)) + sizeof(T));
+}
+
+// Row i's ELL sum: to y directly (ELL_ONLY), else to the shared tile.
+template <typename T, bool ELL_ONLY>
+__device__ __forceinline__ void put_row(T* __restrict__ y, float* ys, int p,
+                                        int V, int i, float acc) {
+  if constexpr (ELL_ONLY)
+    y[(size_t)p * V + i] = from_f<T>(acc);
+  else
+    ys[i] = acc;
+}
+
+template <typename T, bool ELL_ONLY>
 __global__ void __launch_bounds__(kMaxThreads) ehyb_fused_kernel(
     const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ ell_vals,
     const uint16_t* __restrict__ ell_cols, const T* __restrict__ er_vals,
@@ -93,7 +126,8 @@ __global__ void __launch_bounds__(kMaxThreads) ehyb_fused_kernel(
     int W, int E, int We, int has_er) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ys = reinterpret_cast<float*>(smem);
-  T* xs = reinterpret_cast<T*>(smem + (size_t)V * sizeof(float));
+  T* xs = reinterpret_cast<T*>(smem + smem_bytes<T, ELL_ONLY>(V)
+                               - (size_t)V * sizeof(T));
   const int p = blockIdx.x;
   stage_x_slice(x, xs, p, V);
   __syncthreads();
@@ -103,17 +137,19 @@ __global__ void __launch_bounds__(kMaxThreads) ehyb_fused_kernel(
     const uint16_t* cr = ell_cols + tile + (size_t)i * W;
     float acc = 0.f;
     for (int k = 0; k < W; ++k) acc += to_f(vr[k]) * to_f(xs[cr[k]]);
-    ys[i] = acc;
+    put_row<T, ELL_ONLY>(y, ys, p, V, i, acc);
   }
-  __syncthreads();
-  if (has_er) {
-    er_stage(ys, x, er_vals, er_cols, er_rows, p, E, We);
+  if constexpr (!ELL_ONLY) {
     __syncthreads();
+    if (has_er) {
+      er_stage(ys, x, er_vals, er_cols, er_rows, p, E, We);
+      __syncthreads();
+    }
+    store_tile(y, ys, p, V);
   }
-  store_tile(y, ys, p, V);
 }
 
-template <typename T>
+template <typename T, bool ELL_ONLY>
 __global__ void __launch_bounds__(kMaxThreads) ehyb_packed_fused_kernel(
     const T* __restrict__ x, T* __restrict__ y,
     const T* __restrict__ packed_vals, const uint16_t* __restrict__ packed_cols,
@@ -123,7 +159,8 @@ __global__ void __launch_bounds__(kMaxThreads) ehyb_packed_fused_kernel(
     int has_er) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ys = reinterpret_cast<float*>(smem);
-  T* xs = reinterpret_cast<T*>(smem + (size_t)V * sizeof(float));
+  T* xs = reinterpret_cast<T*>(smem + smem_bytes<T, ELL_ONLY>(V)
+                               - (size_t)V * sizeof(T));
   const int p = blockIdx.x;
   stage_x_slice(x, xs, p, V);
   __syncthreads();
@@ -138,14 +175,40 @@ __global__ void __launch_bounds__(kMaxThreads) ehyb_packed_fused_kernel(
       const int off = __ldg(cs + k) + i;
       acc += to_f(pv[off]) * to_f(xs[pc[off]]);
     }
-    ys[i] = acc;
+    put_row<T, ELL_ONLY>(y, ys, p, V, i, acc);
   }
-  __syncthreads();
-  if (has_er) {
-    er_stage(ys, x, er_vals, er_cols, er_rows, p, E, We);
+  if constexpr (!ELL_ONLY) {
     __syncthreads();
+    if (has_er) {
+      er_stage(ys, x, er_vals, er_cols, er_rows, p, E, We);
+      __syncthreads();
+    }
+    store_tile(y, ys, p, V);
   }
-  store_tile(y, ys, p, V);
+}
+
+constexpr int kErWarps = 8;  // ER rows (one per warp) of an ER block
+
+// out[e * R + r] = sum_k er_vals[e][k] * x[er_cols[e][k] * R + r]; block
+// (blockIdx.x, r) takes rows blockIdx.x * kErWarps + warp.
+template <typename T>
+__global__ void __launch_bounds__(kErWarps * 32) er_kernel(
+    const T* __restrict__ x, T* __restrict__ out,
+    const T* __restrict__ er_vals, const int* __restrict__ er_cols, int Rr,
+    int W, int R) {
+  const int lane = threadIdx.x & 31;
+  const int e = blockIdx.x * kErWarps + (threadIdx.x >> 5);
+  const int r = blockIdx.y;
+  if (e >= Rr) return;  // whole warps only: the shuffles below stay full
+  const T* vr = er_vals + (size_t)e * W;
+  const int* cr = er_cols + (size_t)e * W;
+  float acc = 0.f;
+  for (int k = lane; k < W; k += 32)
+    acc += to_f(vr[k]) * to_f(x[(size_t)cr[k] * R + r]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[(size_t)e * R + r] = from_f<T>(acc);
 }
 
 template <typename K>
@@ -156,15 +219,15 @@ cudaError_t prepare(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
+template <typename T, bool ELL_ONLY = false>
 int launch_fused(const void* x, void* y, const void* ell_vals,
                  const void* ell_cols, const void* er_vals, const void* er_cols,
                  const void* er_rows, int P, int V, int W, int E, int We,
                  int has_er, int threads, cudaStream_t stream) {
-  const size_t smem = (size_t)V * (sizeof(float) + sizeof(T));
-  cudaError_t err = prepare(ehyb_fused_kernel<T>, smem);
+  const size_t smem = smem_bytes<T, ELL_ONLY>(V);
+  cudaError_t err = prepare(ehyb_fused_kernel<T, ELL_ONLY>, smem);
   if (err != cudaSuccess) return (int)err;
-  ehyb_fused_kernel<T><<<P, threads, smem, stream>>>(
+  ehyb_fused_kernel<T, ELL_ONLY><<<P, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<const T*>(ell_vals), static_cast<const uint16_t*>(ell_cols),
       static_cast<const T*>(er_vals), static_cast<const int*>(er_cols),
@@ -172,23 +235,35 @@ int launch_fused(const void* x, void* y, const void* ell_vals,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ELL_ONLY = false>
 int launch_packed(const void* x, void* y, const void* packed_vals,
                   const void* packed_cols, const void* col_starts,
                   const void* col_rows, const void* er_vals,
                   const void* er_cols, const void* er_rows, int P, int V,
                   int L, int W, int E, int We, int has_er, int threads,
                   cudaStream_t stream) {
-  const size_t smem = (size_t)V * (sizeof(float) + sizeof(T));
-  cudaError_t err = prepare(ehyb_packed_fused_kernel<T>, smem);
+  const size_t smem = smem_bytes<T, ELL_ONLY>(V);
+  cudaError_t err = prepare(ehyb_packed_fused_kernel<T, ELL_ONLY>, smem);
   if (err != cudaSuccess) return (int)err;
-  ehyb_packed_fused_kernel<T><<<P, threads, smem, stream>>>(
+  ehyb_packed_fused_kernel<T, ELL_ONLY><<<P, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<const T*>(packed_vals),
       static_cast<const uint16_t*>(packed_cols),
       static_cast<const int*>(col_starts), static_cast<const int*>(col_rows),
       static_cast<const T*>(er_vals), static_cast<const int*>(er_cols),
       static_cast<const int*>(er_rows), V, L, W, E, We, has_er);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_er(const void* x, void* out, const void* er_vals,
+              const void* er_cols, int Rr, int W, int R, cudaStream_t stream) {
+  if (Rr < 1 || W < 1 || R < 1 || R > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((Rr + kErWarps - 1) / kErWarps, R);
+  er_kernel<T><<<grid, kErWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out),
+      static_cast<const T*>(er_vals), static_cast<const int*>(er_cols), Rr, W,
+      R);
   return (int)cudaGetLastError();
 }
 
@@ -229,5 +304,53 @@ extern "C" int ehyb_packed_fused(int dtype, const void* x, void* y,
                                         col_starts, col_rows, er_vals, er_cols,
                                         er_rows, P, V, L, W, E, We, has_er,
                                         threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ELL-only instances: x_parts, y_parts (P, V) contiguous, one rhs.
+extern "C" int ehyb_ell(int dtype, const void* x_parts, void* y_parts,
+                        const void* ell_vals, const void* ell_cols, int P,
+                        int V, int W, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_fused<float, true>(x_parts, y_parts, ell_vals, ell_cols,
+                                     nullptr, nullptr, nullptr, P, V, W, 0, 0,
+                                     0, threads, s);
+  if (dtype == 1)
+    return launch_fused<__nv_bfloat16, true>(x_parts, y_parts, ell_vals,
+                                             ell_cols, nullptr, nullptr,
+                                             nullptr, P, V, W, 0, 0, 0,
+                                             threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ehyb_ell_packed(int dtype, const void* x_parts, void* y_parts,
+                               const void* packed_vals,
+                               const void* packed_cols,
+                               const void* col_starts, const void* col_rows,
+                               int P, int V, int L, int W, int threads,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_packed<float, true>(x_parts, y_parts, packed_vals,
+                                      packed_cols, col_starts, col_rows,
+                                      nullptr, nullptr, nullptr, P, V, L, W,
+                                      0, 0, 0, threads, s);
+  if (dtype == 1)
+    return launch_packed<__nv_bfloat16, true>(
+        x_parts, y_parts, packed_vals, packed_cols, col_starts, col_rows,
+        nullptr, nullptr, nullptr, P, V, L, W, 0, 0, 0, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ER partials: x (n_pad, R) and out (Rr, R) row-major; er_vals, er_cols
+// (Rr, W) row-major, int32 global columns.
+extern "C" int er(int dtype, const void* x, void* out, const void* er_vals,
+                  const void* er_cols, int Rr, int W, int R, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_er<float>(x, out, er_vals, er_cols, Rr, W, R, s);
+  if (dtype == 1)
+    return launch_er<__nv_bfloat16>(x, out, er_vals, er_cols, Rr, W, R, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,11 +4,14 @@
 uniform-tile kernels and ``ehyb_spmv_packed(_permuted)`` an
 :class:`EHYBPackedDevice` through the packed-staircase kernels (the native
 apply of the ``ehyb_packed`` format), with the routing of
-``repro.kernels.ops``: one right-hand side to the SpMV kernels, K ≥ 2 to
-the SpMM kernels — fused, or ELL-only plus the plain ER part for ER-free
-operators and ``use_er_kernel=False``.  The ``*_permuted`` forms take and
-return permuted-space vectors, so solver loops skip the per-call
-pad/``perm``/``inv_perm`` gathers.
+``repro.kernels.ops``: one right-hand side to the fused SpMV kernels, K ≥ 2
+to the fused SpMM kernels; ``use_er_kernel=False`` (the guarded apply's
+unfused level), and ER-free operators at K ≥ 2, to the ELL-only kernels
+(SpMV at one right-hand side, SpMM at K ≥ 2) plus the plain per-partition
+ER part.  The ``*_permuted`` forms take and return permuted-space vectors,
+so solver loops skip the per-call pad/``perm``/``inv_perm`` gathers.
+:func:`ehyb_ell_only` is the cached part alone, for validation and
+benchmarking.
 
 :func:`check_cuda_device` takes the place of the JAX package's
 ``backend_supports_pallas`` probe: it reads the card's compute capability,
@@ -58,24 +61,35 @@ def _check_capability(index: int) -> None:
             f"(Hopper) and need {MIN_CAPABILITY[0]}.{MIN_CAPABILITY[1]}")
 
 
-def _unfused_level_missing():
-    return NotImplementedError(
-        "use_er_kernel=False at one right-hand side needs the ELL-only SpMV "
-        "kernels (repro/kernels/ehyb_spmv.py ehyb_ell_pallas and "
-        "ehyb_ell_packed_pallas), which are not ported yet (ROADMAP Queue 2 "
-        "item 4)")
-
-
-def _spmm_unfused(m, x2: torch.Tensor, ell) -> torch.Tensor:
-    """The ELL-only SpMM kernel ``ell`` ((P, V, K) -> (P, V, K)), then the
-    partition's ER rows added by the plain per-partition path."""
+def _unfused(m, x_new: torch.Tensor, ell) -> torch.Tensor:
+    """The unfused apply: the ELL-only kernels ``ell(m, x_parts)`` ((P, V, K)
+    -> (P, V, K)), then the partition's ER rows added by the plain
+    per-partition path.  x_new (n_pad,) or (n_pad, K), result alike."""
+    x2, squeeze = _as_2d(x_new)
     k = x2.shape[1]
-    y_parts = ell(x2.reshape(m.n_parts, m.vec_size, k))
+    y_parts = ell(m, x2.reshape(m.n_parts, m.vec_size, k))
     if m.has_er:
         y_parts = y_parts + _fused_er_parts(
             x2, m.er_p_vals, m.er_p_cols, m.er_p_rows,
             m.vec_size).to(y_parts.dtype)
-    return y_parts.reshape(m.n_pad, k)
+    y = y_parts.reshape(m.n_pad, k)
+    return y[:, 0] if squeeze else y
+
+
+def _ell_uniform(m: EHYBDevice, x_parts: torch.Tensor) -> torch.Tensor:
+    """ELL-only kernel on uniform tiles: SpMV for one column, else SpMM."""
+    ell = _k.ehyb_ell if x_parts.shape[2] < _SPMM_MIN_RHS else \
+        _km.ehyb_ell_spmm
+    return ell(x_parts, m.ell_vals, m.ell_cols)
+
+
+def _ell_packed(m: EHYBPackedDevice, x_parts: torch.Tensor) -> torch.Tensor:
+    """ELL-only kernel on the packed staircase, routed as
+    :func:`_ell_uniform`."""
+    ell = _k.ehyb_ell_packed if x_parts.shape[2] < _SPMM_MIN_RHS else \
+        _km.ehyb_ell_packed_spmm
+    return ell(x_parts, m.packed_vals, m.packed_cols, m.col_starts,
+               m.col_rows)
 
 
 def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
@@ -83,21 +97,20 @@ def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
     """Permuted-space EHYB SpMV/SpMM on uniform tiles: x_new (n_pad,) or
     (n_pad, K).
 
-    One column goes to the SpMV kernel; K ≥ 2 columns to the fused SpMM
-    kernel, or — for an ER-free operator, or with ``use_er_kernel=False`` —
-    to the ELL-only SpMM kernel, with the ER part then added by the plain
-    per-partition path (the reference's unfused level)."""
+    One column goes to the fused SpMV kernel, K ≥ 2 columns to the fused
+    SpMM kernel.  With ``use_er_kernel=False`` (the reference's unfused
+    level), and for an ER-free operator at K ≥ 2, the ELL-only kernel runs
+    and the plain per-partition path adds the ER part."""
     x2 = _as_2d(x_new)[0]
+    if not use_er_kernel:
+        return _unfused(m, x_new, _ell_uniform)
     if x2.shape[1] < _SPMM_MIN_RHS:
-        if not use_er_kernel:
-            raise _unfused_level_missing()
         return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.er_p_vals,
                              m.er_p_cols, m.er_p_rows, has_er=m.has_er)
-    if m.has_er and use_er_kernel:
+    if m.has_er:
         return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols, m.er_p_vals,
                                    m.er_p_cols, m.er_p_rows)
-    return _spmm_unfused(m, x2, lambda xp: _km.ehyb_ell_spmm(
-        xp, m.ell_vals, m.ell_cols))
+    return _unfused(m, x2, _ell_uniform)
 
 
 def ehyb_spmv_fused(m: EHYBDevice, x: torch.Tensor,
@@ -110,24 +123,33 @@ def ehyb_spmv_fused(m: EHYBDevice, x: torch.Tensor,
                           squeeze)
 
 
+def ehyb_ell_only(m: EHYBDevice, x: torch.Tensor) -> torch.Tensor:
+    """The cached (sliced-ELL) part alone, from original-space x (n,) or
+    (n, R): y_parts (P, V, R) in the permuted partition layout, as
+    ``repro.kernels.ops.ehyb_ell_only_pallas`` returns it (for validation
+    and benchmarking)."""
+    x_new, _ = _to_permuted(m, x)
+    return _ell_uniform(m, x_new.reshape(m.n_parts, m.vec_size,
+                                         x_new.shape[1]))
+
+
 def ehyb_spmv_packed_permuted(m: EHYBPackedDevice, x_new: torch.Tensor, *,
                               use_er_kernel: bool = True) -> torch.Tensor:
     """Permuted-space EHYB SpMV/SpMM on the packed staircase, routed as
     :func:`ehyb_spmv_fused_permuted`: x_new (n_pad,) or (n_pad, K)."""
     x2 = _as_2d(x_new)[0]
+    if not use_er_kernel:
+        return _unfused(m, x_new, _ell_packed)
     if x2.shape[1] < _SPMM_MIN_RHS:
-        if not use_er_kernel:
-            raise _unfused_level_missing()
         return _k.ehyb_packed_fused(x_new, m.packed_vals, m.packed_cols,
                                     m.col_starts, m.col_rows, m.er_p_vals,
                                     m.er_p_cols, m.er_p_rows,
                                     vec_size=m.vec_size, has_er=m.has_er)
-    if m.has_er and use_er_kernel:
+    if m.has_er:
         return _km.ehyb_packed_fused_spmm(
             x2, m.packed_vals, m.packed_cols, m.col_starts, m.col_rows,
             m.er_p_vals, m.er_p_cols, m.er_p_rows, vec_size=m.vec_size)
-    return _spmm_unfused(m, x2, lambda xp: _km.ehyb_ell_packed_spmm(
-        xp, m.packed_vals, m.packed_cols, m.col_starts, m.col_rows))
+    return _unfused(m, x2, _ell_packed)
 
 
 def ehyb_spmv_packed(m: EHYBPackedDevice, x: torch.Tensor,

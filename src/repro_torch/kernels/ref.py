@@ -4,7 +4,7 @@ Each function computes what its kernel computes with plain tensor ops (no
 custom kernel, no tricks).  The wrappers run them for tensors on the CPU,
 the CPU tests hold them against the JAX package, and ``chip_smoke.py``
 holds each kernel against its plain version on the card.  They mirror
-``repro.kernels.ref`` (``ehyb_fused_ref``) and add the ELL-only,
+``repro.kernels.ref`` (``ehyb_fused_ref``, ``er_ref``) and add the ELL-only,
 packed-staircase and CG-step oracles the JAX package keeps inline.  The
 fused and ELL-only versions take any number of right-hand sides, so they
 are the plain versions of the SpMV and the SpMM kernels alike.
@@ -40,6 +40,21 @@ def ehyb_ell_ref(x_parts: torch.Tensor, ell_vals: torch.Tensor,
     (P, V, K) in x's dtype (accumulated in fp32, or fp64) — the oracle of
     the ELL-only SpMM kernel."""
     return _ehyb_ell_part(ell_vals, ell_cols, x_parts).to(x_parts.dtype)
+
+
+def er_ref(x_new: torch.Tensor, er_vals: torch.Tensor,
+           er_cols: torch.Tensor) -> torch.Tensor:
+    """Uncached ER part: global gather + row dot — the oracle of the ER
+    kernel.
+
+    x_new (n_pad, R); er_vals/er_cols (Rr, W) with int32 global columns.
+    Returns (Rr, R) per-ER-slot partial sums in x's dtype (accumulated in
+    fp32, or fp64); the caller scatter-adds them by ``er_row_idx``."""
+    acc = _acc_dtype(x_new.dtype)
+    rr, w = er_cols.shape
+    g = x_new.index_select(0, er_cols.reshape(-1).to(torch.int64))
+    return torch.einsum("ew,ewr->er", er_vals.to(acc),
+                        g.reshape(rr, w, -1).to(acc)).to(x_new.dtype)
 
 
 def unpack_staircase(packed_vals: torch.Tensor, packed_cols: torch.Tensor,

@@ -59,8 +59,12 @@ def test_unported_planning_choices_raise():
     with pytest.raises(ValueError):
         plan(m, execution=PINNED, device="meta")
     op = plan(m, execution=PINNED, device="cpu").bind(m)
-    with pytest.raises(NotImplementedError, match="bicgstab"):
-        op.solve(np.ones(m.n), method="bicgstab")
+    with pytest.raises(ValueError, match="bicgstab"):   # the roster
+        op.solve(np.ones(m.n), method="gmres")
+    r = op.solve(np.ones(m.n), method="bicgstab")
+    assert r.status == "converged"
+    with pytest.raises(ValueError, match="fused"):
+        op.solve(np.ones(m.n), method="bicgstab", fused_update=True)
 
 
 def test_bind_validates_values_and_pattern():

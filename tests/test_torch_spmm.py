@@ -214,6 +214,7 @@ def calls(monkeypatch):
     through their plain versions on the CPU)."""
     seen = []
     for mod, name in ((K, "ehyb_fused"), (K, "ehyb_packed_fused"),
+                      (K, "ehyb_ell"), (K, "ehyb_ell_packed"),
                       (KM, "ehyb_fused_spmm"), (KM, "ehyb_packed_fused_spmm"),
                       (KM, "ehyb_ell_spmm"), (KM, "ehyb_ell_packed_spmm")):
         real = getattr(mod, name)
@@ -226,14 +227,15 @@ def calls(monkeypatch):
 
 
 ROUTES = {"ehyb": (ops.ehyb_spmv_fused_permuted, "ehyb_fused",
-                   "ehyb_fused_spmm", "ehyb_ell_spmm"),
+                   "ehyb_fused_spmm", "ehyb_ell_spmm", "ehyb_ell"),
           "ehyb_packed": (ops.ehyb_spmv_packed_permuted, "ehyb_packed_fused",
-                          "ehyb_packed_fused_spmm", "ehyb_ell_packed_spmm")}
+                          "ehyb_packed_fused_spmm", "ehyb_ell_packed_spmm",
+                          "ehyb_ell_packed")}
 
 
 @pytest.mark.parametrize("fmt", sorted(ROUTES))
 def test_routing_by_rhs_width_and_er(fmt, calls):
-    apply, spmv, fused, ell = ROUTES[fmt]
+    apply, spmv, fused, ell, ell1 = ROUTES[fmt]
     tm, _ = _mats("powerlaw")
     o = _port_op(tm, fmt).obj
     assert o.has_er
@@ -251,8 +253,13 @@ def test_routing_by_rhs_width_and_er(fmt, calls):
     y_unfused = apply(o, xk, use_er_kernel=False)
     assert calls == [ell]
     torch.testing.assert_close(y_unfused, y, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        apply(o, x1, use_er_kernel=False)
+    # one column with use_er_kernel=False: the ELL-only SpMV kernel plus
+    # the plain ER part, equal to the fused result
+    del calls[:]
+    y1 = apply(o, x1)
+    y1_unfused = apply(o, x1, use_er_kernel=False)
+    assert calls == [spmv, ell1] and y1_unfused.shape == (o.n_pad,)
+    torch.testing.assert_close(y1_unfused, y1, rtol=1e-5, atol=1e-5)
     # an ER-free operator: the diagonal, ER-free under every partition
     n = tm.n
     d = from_coo(n, np.arange(n), np.arange(n, dtype=np.int32),
