@@ -199,7 +199,7 @@ def rel_cases(o, u, x_new) -> dict:
     stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
     return {
         "ehyb_ell": (
-            lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols),
+            lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols, u.col_rows),
             lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
                                      u.ell_cols)[..., 0]),
         "ehyb_ell_packed": (
@@ -209,6 +209,27 @@ def rel_cases(o, u, x_new) -> dict:
             lambda: K.er(x_new, o.er_vals, o.er_cols),
             lambda: ref.er_ref(x_new[:, None], o.er_vals, o.er_cols)[:, 0]),
     }
+
+
+def ptxas_registers(report: str, names: tuple) -> dict:
+    """{kernel instance: "registers/spill bytes"} of the kernels in
+    ``ptxas -v``'s ``report`` whose mangled names contain one of
+    ``names``."""
+    import re
+
+    out, fn, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn and any(n in fn for n in names):
+            out[fn] = f"{m.group(1)}/{spill}"
+    return out
 
 
 def check_cases(cases: dict, tol: float, what: str) -> dict:
@@ -280,6 +301,7 @@ def run(dev, nx: int) -> list:
     from repro_torch.api import (ExecutionConfig, SolvePolicy, chaos, plan,
                                  pruned_linear)
     from repro_torch.core import counters
+    from repro_torch.core.ehyb import er_stream
     from repro_torch.core.matrices import (SUITE, elasticity3d, from_coo,
                                            unstructured)
     from repro_torch.kernels import build, ops, ref
@@ -321,6 +343,9 @@ def run(dev, nx: int) -> list:
     libs = build.build_all()
     log("kernels-built", seconds=round(time.perf_counter() - t0, 3),
         libraries=",".join(str(p.relative_to(ROOT)) for p in libs.values()))
+    log("ptxas-registers-spills", **ptxas_registers(
+        build.ptxas_report("ehyb_spmv"),
+        ("ehyb_fused_kernel", "ehyb_packed_fused_kernel")))
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -401,10 +426,9 @@ def run(dev, nx: int) -> list:
     y_sp = a_sp @ x_host
     o = op.obj
     x_new = op.to_space(x)
-    y_plain_new = ref.ehyb_packed_fused_ref(
+    y_plain_new = ref.ehyb_packed_fused_stream_ref(
         x_new[:, None], o.packed_vals, o.packed_cols, o.col_starts,
-        o.col_rows, o.er_p_vals, o.er_p_cols, o.er_p_rows, o.vec_size,
-        o.has_er)[:, 0]
+        o.col_rows, o.er_stream(), o.vec_size, o.has_er)[:, 0]
     y_plain = op.from_space(y_plain_new)
     err_plain = rel_err(y.cpu(), y_plain.cpu())
     err_sp = rel_err(y.cpu(), y_sp)
@@ -429,6 +453,34 @@ def run(dev, nx: int) -> list:
           "uniform kernel within 1e-4")
     u = op_u.obj
     healthy("uniform")
+
+    # ---- 4b. #1, #2, #4, #5: bit-reproducible; the ER bytes they read ------
+    xp_new = x_new.reshape(o.n_parts, o.vec_size)
+    stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
+    twice = {
+        "ehyb_fused": lambda: K.ehyb_fused(x_new, u.ell_vals, u.ell_cols,
+                                           u.col_rows, u.er_stream()),
+        "ehyb_packed_fused": lambda: K.ehyb_packed_fused(
+            x_new, *stair, o.er_stream(), vec_size=o.vec_size),
+        "ehyb_ell": lambda: K.ehyb_ell(xp_new, u.ell_vals, u.ell_cols,
+                                       u.col_rows),
+        "ehyb_ell_packed": lambda: K.ehyb_ell_packed(xp_new, *stair),
+    }
+    same_bits = {k: bool(torch.equal(f(), f())) for k, f in twice.items()}
+    er_p_shape = tuple(o.er_p_vals.shape)
+    er_read = {
+        # the compact stream: value + int32 column an entry, row pointer +
+        # local row a live row, and the partition pointers
+        "compact": nnz_er * 8 + er_live * 8 + (o.n_parts + 1) * 4,
+        # the padded (P, E, We) tiles and the (P, E) rows read before
+        "padded": o.er_p_vals.numel() * 8 + o.er_p_rows.numel() * 4}
+    log("determinism-and-er-bytes", bit_identical=same_bits,
+        er_tile=er_p_shape, er_live_rows=er_live, er_live_entries=nnz_er,
+        er_bytes_now=er_read["compact"], er_bytes_before=er_read["padded"])
+    check(all(same_bits.values()), "two launches give the same bits")
+    check(int(o.er_s_vals.numel()) == nnz_er
+          and int(o.er_s_rows.numel()) == er_live,
+          "the compact stream holds every live ER entry and row")
 
     # ---- 5. batched main path: 16 load cases on a plan sized for them ------
     t0 = time.perf_counter()
@@ -646,17 +698,28 @@ def run(dev, nx: int) -> list:
                        device=dev).bind(ms, dtype=dtype)
             xn = opp.to_space(xs)
             q, qu = opp.obj, opu.obj
+            y_q = opp.apply(xn, space="permuted")
+            y_qu = ops.ehyb_spmv_fused_permuted(qu, xn)
             errs = {
                 "packed": rel_err(
-                    opp.apply(xn, space="permuted").float().cpu(),
-                    ref.ehyb_packed_fused_ref(
+                    y_q.float().cpu(),
+                    ref.ehyb_packed_fused_stream_ref(
                         xn[:, None], q.packed_vals, q.packed_cols,
-                        q.col_starts, q.col_rows, q.er_p_vals, q.er_p_cols,
-                        q.er_p_rows, q.vec_size, q.has_er)[:, 0].float().cpu()),
+                        q.col_starts, q.col_rows, q.er_stream(), q.vec_size,
+                        q.has_er)[:, 0].float().cpu()),
                 "uniform": rel_err(
-                    ops.ehyb_spmv_fused_permuted(qu, xn).float().cpu(),
+                    y_qu.float().cpu(),
+                    ref.ehyb_fused_stream_ref(
+                        xn[:, None], qu.ell_vals, qu.ell_cols,
+                        qu.er_stream(), qu.has_er)[:, 0].float().cpu()),
+                # the padded tiles' plain apply: the same product
+                "uniform_vs_tiles": rel_err(
+                    y_qu.float().cpu(),
                     opu.apply(xn, space="permuted").float().cpu()),
             }
+            check(torch.equal(y_q, opp.apply(xn, space="permuted"))
+                  and torch.equal(y_qu, ops.ehyb_spmv_fused_permuted(qu, xn)),
+                  f"{name} {dtype}: two launches of #1 and #2 bit-identical")
             dn = str(dtype).split(".")[1]
             errs.update({k: v[0] for k, v in check_cases(
                 rel_cases(q, qu, xn), REL_KERNEL_TOL[dn],
@@ -738,7 +801,36 @@ def run(dev, nx: int) -> list:
           "both solves converged")
     check(abs(int(res.iters) - int(res_plain.iters)) <= 1, "iters within 1")
     check(true_res <= 1e-5, "true residual ≤ 1e-5")
+    check(int(res.iters) == 6, "the solve takes 6 iterations")
     healthy("solve")
+
+    # ---- 11a. where a warm solve's time goes: a profiler trace ------------
+    # device busy time (the device's own activities in the trace: kernels,
+    # copies, fills — not the host ops that launched them, nor the
+    # profiler's buffer requests) against the unprofiled warm wall time
+    # above; the trace's own wall time carries the profiler's host overhead
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        op.solve(b, precond="spai", tol=1e-6)
+        torch.cuda.synchronize()
+        t_traced = time.perf_counter() - t0
+    dev_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and ev.self_device_time_total > 0
+              and not ev.key.startswith("Activity Buffer")}
+    busy_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    log("solve-trace", warm_wall_ms=warm["fused"] * 1e3,
+        traced_wall_ms=t_traced * 1e3, device_busy_ms=busy_ms,
+        idle_share=(1 - busy_ms / (warm["fused"] * 1e3)) if busy_ms else
+        "not measured",
+        top_device_us={k[:60]: round(v, 1) for k, v in top},
+        device_activities=sum(ev.count for ev in prof.key_averages()
+                              if ev.key in dev_us))
 
     def true_residual(mat, rhs_host, r_):
         xs = r_.x.double().cpu().numpy()
@@ -957,16 +1049,14 @@ def run(dev, nx: int) -> list:
     t = {
         "ehyb_packed_fused": (
             time_ms(lambda: ops.ehyb_spmv_packed_permuted(o, x_new), dev),
-            time_ms(lambda: ref.ehyb_packed_fused_ref(
-                x_new2, o.packed_vals, o.packed_cols, o.col_starts,
-                o.col_rows, o.er_p_vals, o.er_p_cols, o.er_p_rows,
-                o.vec_size, o.has_er), dev),
+            time_ms(lambda: ref.ehyb_packed_fused_stream_ref(
+                x_new2, *stair, o.er_stream(), o.vec_size, o.has_er), dev),
             lib_ms, bound, bound_by),
         "ehyb_fused": (
             time_ms(lambda: ops.ehyb_spmv_fused_permuted(u, x_new), dev),
-            time_ms(lambda: ref.ehyb_fused_ref(
-                x_new2, u.ell_vals, u.ell_cols, u.er_p_vals, u.er_p_cols,
-                u.er_p_rows, u.has_er), dev),
+            time_ms(lambda: ref.ehyb_fused_stream_ref(
+                x_new2, u.ell_vals, u.ell_cols, u.er_stream(), u.has_er),
+                dev),
             lib_ms, bound, bound_by),
     }
     cg_bytes = (5 + 3) * n * 4 + 4 + 8
@@ -1012,6 +1102,20 @@ def run(dev, nx: int) -> list:
     t["er"] = (time_ms(cases_r["er"][0], dev), time_ms(cases_r["er"][1], dev),
                lib_er_ms, max(er_bound_b, er_bound_o),
                "bytes" if er_bound_b >= er_bound_o else "operations")
+    # the largest partition's bytes against the mean: with one block a
+    # partition and one partition an SM, the largest sets a floor of its
+    # bytes over an SM's share of the card's rate (6 B an ELL entry, 12 B
+    # an ER entry: value, column, x gather; x-slice and y 4 B a row each)
+    s_host = er_stream(e)
+    ell_part = pk.col_starts[:, -1].astype(np.int64) * 6 + o.vec_size * 8
+    er_part = np.diff(s_host["row_ptr"][s_host["part_ptr"]]) * 12
+    for label, part_bytes in (("ehyb_ell_packed", ell_part),
+                              ("ehyb_packed_fused", ell_part + er_part)):
+        log("partition-balance", kernel=label,
+            max_mb=float(part_bytes.max()) / 1e6,
+            median_mb=float(np.median(part_bytes)) / 1e6,
+            mean_mb=float(part_bytes.mean()) / 1e6,
+            floor_ms=float(part_bytes.max()) * o.n_parts / BANDWIDTH * 1e3)
     log("er-bound", live_bytes=er_bytes, bound_ms=t["er"][3],
         padded_table_bytes=e.er_rows * er_w * 8, padded_table_ms=padded_er_ms,
         library_vs_kernel=err_lib_er)

@@ -24,13 +24,18 @@ import torch
 
 from .api.plan import resolve_device
 from .core.matrices import SparseCSR
-from .core.spmv import EHYBDevice, EHYBPackedDevice
+from .core.spmv import (ER_STREAM, EHYBDevice, EHYBPackedDevice,
+                        column_rows, er_stream_tensors)
 from .reliability.policy import SolvePolicy
 
 _CONTAINERS = {"EHYBDevice": EHYBDevice, "EHYBPackedDevice": EHYBPackedDevice}
 _FORMATS = {"EHYBDevice": "ehyb", "EHYBPackedDevice": "ehyb_packed"}
 _STATIC = ("n", "n_pad", "n_parts", "vec_size", "has_er")
 _INDEX_FIELDS = ("perm", "inv_perm")   # int64 in the port (JAX keeps int32)
+# the port's own fields of each container, laid out from the pattern (the
+# packed container's col_rows is the staircase's, a leaf)
+_LAID_OUT = {EHYBDevice: ER_STREAM + ("col_rows",),
+             EHYBPackedDevice: ER_STREAM}
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -44,20 +49,40 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def device_container(kind: str, leaves: dict, static: dict, device=None):
+def device_container(kind: str, leaves: dict, static: dict, device=None, *,
+                     host=None):
     """The port's ``kind`` container (``"EHYBDevice"`` or
     ``"EHYBPackedDevice"``) on ``device`` (default ``cuda``) from the JAX
     container's leaves and static fields; leaves the port does not carry
-    are ignored."""
+    are ignored.
+
+    ``host`` is required: the host EHYB build the leaves came from (the JAX
+    package's or the port's).  The port's own fields — the compact ER
+    stream ``er_s_*`` and the uniform container's ``col_rows`` — are laid
+    out from its pattern, which the leaves do not hold.  Raises
+    ``ValueError`` without ``host``, or when ``host`` lays the matrix out
+    otherwise than the leaves (another permutation or another ER
+    grouping)."""
     device = resolve_device(device)
+    if host is None:
+        raise ValueError("device_container needs host=, the host EHYB build "
+                         "the leaves came from: the compact ER stream and "
+                         "col_rows are laid out from its pattern")
+    if not np.array_equal(np.asarray(host.perm),
+                          np.asarray(leaves["perm"])):
+        raise ValueError("host= was partitioned otherwise than the leaves "
+                         "(another permutation)")
     cls = _CONTAINERS[kind]
     kw = {k: static[k] for k in _STATIC}
     for f in dataclasses.fields(cls):
-        if f.name in _STATIC:
+        if f.name in _STATIC or f.name in _LAID_OUT[cls]:
             continue
         t = tensor_from_numpy(leaves[f.name], device)
         kw[f.name] = t.to(torch.int64) if f.name in _INDEX_FIELDS else t
     kw["has_er"] = bool(kw["has_er"])
+    kw.update(er_stream_tensors(host, kw["er_p_vals"], kw["er_p_cols"]))
+    if cls is EHYBDevice:
+        kw["col_rows"] = torch.from_numpy(column_rows(host)).to(device)
     return cls(**kw)
 
 
@@ -86,22 +111,19 @@ def sparse_linear(kind: str, leaves: dict, static: dict, *, csr, d_in: int,
     ``indptr``, ``indices`` and ``data``), and ``partition_method`` the
     strategy it was planned with.  The port plans the same pattern on
     ``device`` and raises unless that plan lays the matrix out as the
-    tables do (the same permutation)."""
+    tables do (the same permutation, :func:`device_container`)."""
     from .api.config import ExecutionConfig
     from .api.operator import LinearOperator
     from .api.plan import plan
-    from .core.sparse_linear import SparseLinear, _host_ehyb_of
+    from .core.sparse_linear import SparseLinear
 
-    obj = device_container(kind, leaves, static, device)
+    device = resolve_device(device)
     m = csr_from_arrays(csr.n, csr.indptr, csr.indices, csr.data)
     p = plan(m, execution=ExecutionConfig(
         format=_FORMATS[kind], partition_method=partition_method, k=k),
-        device=obj.perm.device)
+        device=device)
+    e = p.host_build(m)
+    obj = device_container(kind, leaves, static, device, host=e)
     op = LinearOperator(plan=p, obj=obj, dtype=obj.er_p_vals.dtype, csr=m)
-    e = _host_ehyb_of(op)
-    if not np.array_equal(e.perm, obj.perm.cpu().numpy()):
-        raise ValueError(f"the layer's tables were laid out by another "
-                         f"partition than the port's {p!r} on "
-                         f"{obj.perm.device}")
     return (cls or SparseLinear)(d_in=d_in, d_out=d_out, op=op,
                                  density=density, csr=m, ehyb=e)

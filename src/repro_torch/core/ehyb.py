@@ -362,6 +362,66 @@ def group_er_by_partition(e: EHYB, sublane: int = 8) -> dict:
     return out
 
 
+def er_stream(e: EHYB) -> dict:
+    """The live ER entries alone, grouped by owning partition: the compact
+    stream the CUDA SpMV kernels read in place of the padded ``er_p_*``
+    tiles (a device layout of the same operator; the port's own, the JAX
+    package has no counterpart).
+
+    Laid out from the pattern — ``e.fill_plan["er_dst"]`` and the grouping's
+    ``own``/``slot``/``src`` — never from the values, so a stored zero keeps
+    its entry and the layout holds for every bind of the pattern.  The
+    partitions' rows come in the grouping's order, which is descending
+    length (the build sorts ER rows by descending count, the grouping is a
+    stable sort by owner), and each row's entries in column order, so the
+    stream is the live slots of ``er_p_*`` read in row-major order:
+
+      ``part_ptr`` (P+1,)       int32 — partition p's rows are
+                                        ``[part_ptr[p], part_ptr[p+1])``
+      ``row_ptr``  (Rlive+1,)   int32 — row r's entries are
+                                        ``[row_ptr[r], row_ptr[r+1])``
+      ``rows``     (Rlive,)     int32 — row r's LOCAL row in its partition
+      ``pos``      (nnz_er,)    int64 — each entry's flat position in the
+                                        ``(P, E, We)`` tiles, to gather the
+                                        values and columns from them
+      ``tile_shape``            (P, E, We) of the tiles ``pos`` indexes
+
+    Raises if two live ER rows of a partition share a local row: the
+    kernels add each row's sum into the block's tile with a plain add.
+    Memoized on ``e``."""
+    cached = getattr(e, "_er_stream", None)
+    if cached is not None:
+        return cached
+    if e.fill_plan is None:
+        raise ValueError("the compact ER stream is laid out from the "
+                         "pattern: the build has no fill_plan")
+    g = group_er_by_partition(e)
+    p_, v_, we = e.n_parts, e.vec_size, e.er_width
+    ep = g["er_p_vals"].shape[1]
+    own, slot, src = g["own"], g["slot"], g["src"]
+    slot_len = np.bincount(e.fill_plan["er_dst"] // we,
+                           minlength=e.er_rows)
+    row_len = slot_len[src]
+    rows = g["er_p_rows"][own, slot]
+    if len(np.unique(own * v_ + rows)) != len(rows):
+        raise ValueError("two live ER rows of a partition share a local row")
+    part_ptr = np.zeros(p_ + 1, dtype=np.int64)
+    part_ptr[1:] = np.cumsum(np.bincount(own, minlength=p_))
+    row_ptr = np.zeros(len(src) + 1, dtype=np.int64)
+    row_ptr[1:] = np.cumsum(row_len)
+    if row_ptr[-1] >= 2 ** 31:
+        raise ValueError("the ER stream exceeds int32 offsets")
+    # entry j of row r sits at slot (own[r], slot[r]), position j - row_ptr[r]
+    pos = (np.repeat((own * ep + slot) * we - row_ptr[:-1], row_len)
+           + np.arange(row_ptr[-1]))
+    out = {"part_ptr": part_ptr.astype(np.int32),
+           "row_ptr": row_ptr.astype(np.int32),
+           "rows": rows.astype(np.int32), "pos": pos,
+           "tile_shape": tuple(g["er_p_vals"].shape)}
+    e._er_stream = out
+    return out
+
+
 # ---------------------------------------------------------------------------
 # packed "staircase" layout (kernel v2 — beyond-paper §Perf optimization)
 # ---------------------------------------------------------------------------

@@ -21,13 +21,49 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ehyb import EHYB, PackedEHYB, group_er_by_partition
+from .ehyb import EHYB, PackedEHYB, er_stream, group_er_by_partition
+
+ER_STREAM = ("er_s_part_ptr", "er_s_row_ptr", "er_s_rows", "er_s_cols",
+             "er_s_vals")
 
 
 def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     """Host numpy array -> tensor on ``device`` (``dtype`` casts floats)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def column_rows(e: EHYB) -> np.ndarray:
+    """(P, W) int32: how many rows of each partition hold an entry in ELL
+    column k — the staircase's ``col_rows``, from the pattern's row widths
+    (rows are width-sorted, so they are the prefix ``[0, col_rows[p, k])``
+    and row i's width is the number of k with ``col_rows[p, k] > i``)."""
+    widths = e.fill_plan["ell_widths"].reshape(e.n_parts, e.vec_size)
+    ks = np.arange(e.ell_width)[None, None, :]
+    return (widths[:, :, None] > ks).sum(axis=1).astype(np.int32)
+
+
+def er_stream_tensors(e, er_p_vals: torch.Tensor,
+                      er_p_cols: torch.Tensor) -> dict:
+    """The compact ER stream of host build ``e``
+    (:func:`repro_torch.core.ehyb.er_stream`) as the containers' ``er_s_*``
+    tensors, on the tiles' device: the pointers and local rows from the
+    pattern, the values and columns gathered from the ``(P, E, We)`` tiles
+    (so they equal the tiles' bit for bit).  Raises unless the tiles have
+    the shape of ``e``'s grouping, which the gather positions index."""
+    s = er_stream(e)
+    if tuple(er_p_vals.shape) != s["tile_shape"] or \
+            er_p_cols.shape != er_p_vals.shape:
+        raise ValueError(f"the ER tiles are {tuple(er_p_vals.shape)} and "
+                         f"{tuple(er_p_cols.shape)}; the host build groups "
+                         f"its ER rows as {s['tile_shape']}")
+    dev = er_p_vals.device
+    pos = _tensor(s["pos"], dev)
+    return {"er_s_part_ptr": _tensor(s["part_ptr"], dev),
+            "er_s_row_ptr": _tensor(s["row_ptr"], dev),
+            "er_s_rows": _tensor(s["rows"], dev),
+            "er_s_cols": er_p_cols.reshape(-1).index_select(0, pos),
+            "er_s_vals": er_p_vals.reshape(-1).index_select(0, pos)}
 
 
 @dataclasses.dataclass
@@ -37,9 +73,22 @@ class EHYBDevice:
     Besides the global ER tables, the container carries the ER slots
     regrouped by owning partition (``er_p_*``, from
     :func:`repro_torch.core.ehyb.group_er_by_partition`) so the fused
-    kernel — and the plain path mirroring it — accumulate ER rows inside the
-    block that owns them.  ``has_er`` lets both skip the ER stage on
-    ER-free matrices.
+    kernels — and the plain paths mirroring them — accumulate ER rows
+    inside the block that owns them.  ``has_er`` lets both skip the ER
+    stage on ER-free matrices.
+
+    Fields the JAX container lacks (device layouts of the same operator,
+    laid out from the pattern of a host build):
+
+    * ``er_s_*`` — the compact ER stream (:func:`repro_torch.core.ehyb.
+      er_stream`): the live ER entries only, grouped by partition, with a
+      row pointer and a local row per live ER row.  The K = 1 fused SpMV
+      kernels read it instead of the padded ``er_p_*`` tiles, which the
+      SpMM kernels, the unfused level, the plain paths and
+      :meth:`value_tables` still read.
+    * ``col_rows`` — (P, W) rows per ELL column (:func:`column_rows`), from
+      which the SpMV kernels take each row's width and skip the tile's
+      padded tail.
     """
 
     n: int
@@ -57,21 +106,34 @@ class EHYBDevice:
     er_p_rows: torch.Tensor   # (P, E) int32 local row within the partition
     perm: torch.Tensor        # (n_pad,) int64
     inv_perm: torch.Tensor    # (n_pad,) int64
+    er_s_part_ptr: torch.Tensor  # (P+1,) int32
+    er_s_row_ptr: torch.Tensor   # (Rlive+1,) int32
+    er_s_rows: torch.Tensor      # (Rlive,) int32 local rows
+    er_s_cols: torch.Tensor      # (nnz_er,) int32 global-new
+    er_s_vals: torch.Tensor      # (nnz_er,) table dtype
+    col_rows: torch.Tensor       # (P, W) int32 rows per ELL column
 
     @classmethod
     def from_ehyb(cls, e: EHYB, dtype=torch.float32, *,
                   device) -> "EHYBDevice":
         g = group_er_by_partition(e)
+        er_p_vals = _tensor(g["er_p_vals"], device, dtype)
+        er_p_cols = _tensor(g["er_p_cols"], device)
         return cls(e.n, e.n_pad, e.n_parts, e.vec_size, g["has_er"],
                    _tensor(e.ell_vals, device, dtype),
                    _tensor(e.ell_cols, device),
                    _tensor(e.er_vals, device, dtype),
                    _tensor(e.er_cols, device),
                    _tensor(e.er_row_idx, device),
-                   _tensor(g["er_p_vals"], device, dtype),
-                   _tensor(g["er_p_cols"], device),
+                   er_p_vals, er_p_cols,
                    _tensor(g["er_p_rows"], device),
-                   _tensor(e.perm, device), _tensor(e.inv_perm, device))
+                   _tensor(e.perm, device), _tensor(e.inv_perm, device),
+                   **er_stream_tensors(e, er_p_vals, er_p_cols),
+                   col_rows=_tensor(column_rows(e), device))
+
+    def er_stream(self) -> tuple:
+        """The compact ER stream, in ``ER_STREAM`` order."""
+        return tuple(getattr(self, f) for f in ER_STREAM)
 
     def value_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The value tables the apply reads: ELL tiles and grouped ER."""
@@ -80,7 +142,9 @@ class EHYBDevice:
 
 @dataclasses.dataclass
 class EHYBPackedDevice:
-    """Device-side packed-staircase EHYB, fields as in the JAX package."""
+    """Device-side packed-staircase EHYB, fields as in the JAX package,
+    plus the compact ER stream ``er_s_*`` (see :class:`EHYBDevice`), which
+    the K = 1 fused SpMV kernel reads."""
 
     n: int
     n_pad: int
@@ -99,12 +163,19 @@ class EHYBPackedDevice:
     er_p_rows: torch.Tensor
     perm: torch.Tensor
     inv_perm: torch.Tensor
+    er_s_part_ptr: torch.Tensor
+    er_s_row_ptr: torch.Tensor
+    er_s_rows: torch.Tensor
+    er_s_cols: torch.Tensor
+    er_s_vals: torch.Tensor
 
     @classmethod
     def from_packed(cls, pk: PackedEHYB, dtype=torch.float32, *,
                     device) -> "EHYBPackedDevice":
         e = pk.base
         g = group_er_by_partition(e)
+        er_p_vals = _tensor(g["er_p_vals"], device, dtype)
+        er_p_cols = _tensor(g["er_p_cols"], device)
         return cls(e.n, e.n_pad, e.n_parts, e.vec_size, g["has_er"],
                    _tensor(pk.packed_vals, device, dtype),
                    _tensor(pk.packed_cols, device),
@@ -113,10 +184,14 @@ class EHYBPackedDevice:
                    _tensor(e.er_vals, device, dtype),
                    _tensor(e.er_cols, device),
                    _tensor(e.er_row_idx, device),
-                   _tensor(g["er_p_vals"], device, dtype),
-                   _tensor(g["er_p_cols"], device),
+                   er_p_vals, er_p_cols,
                    _tensor(g["er_p_rows"], device),
-                   _tensor(e.perm, device), _tensor(e.inv_perm, device))
+                   _tensor(e.perm, device), _tensor(e.inv_perm, device),
+                   **er_stream_tensors(e, er_p_vals, er_p_cols))
+
+    def er_stream(self) -> tuple:
+        """The compact ER stream, in ``ER_STREAM`` order."""
+        return tuple(getattr(self, f) for f in ER_STREAM)
 
     def value_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The value tables the apply reads: staircase and grouped ER."""

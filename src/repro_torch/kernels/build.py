@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, under
 ``build/repro_torch/`` at the repository root, in a file named after a hash
 of the source and the flags — an edited source builds anew, an unchanged
-one is loaded as it is.  :func:`build_all` starts one ``nvcc`` per source,
+one is loaded as it is.  Beside each library lies ``nvcc``'s output, with
+``ptxas -v``'s registers and spills of every kernel (:func:`ptxas_report`).  :func:`build_all` starts one ``nvcc`` per source,
 all at once, so the build takes as long as the slowest file.
 
 Nothing here runs at import, so the module imports where there is no CUDA
@@ -25,7 +26,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -76,6 +77,7 @@ def _finish(name: str, started) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{out}")
+        lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
     return lib
 
@@ -86,6 +88,14 @@ def build_all() -> Dict[str, Path]:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     started = {n: _start(n) for n in names}
     return {n: _finish(n, s) for n, s in started.items()}
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said of each kernel of ``csrc/<name>.cu`` when it
+    was built (registers, shared memory, spills); empty if the library was
+    built by an earlier process and its log is gone."""
+    log = _target(name)[1].with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,18 +4,33 @@
 (uniform (V, W) tiles) and ``ehyb_packed_fused`` replaces
 ``ehyb_packed_fused_pallas`` (packed staircase, the native apply of the
 ``ehyb_packed`` format).  Both compute y_new = A x_new in the permuted
-space, one thread block per partition.  ``ehyb_ell`` and
-``ehyb_ell_packed`` replace ``ehyb_ell_pallas`` and
+space, one thread block per partition, and read the partition's ER rows
+from the compact ER stream (``EHYBDevice.er_s_*``: the live entries only,
+a row pointer and a local row per live ER row), not from the padded
+``er_p_*`` tiles, which the SpMM kernels and the plain paths read.
+``ehyb_ell`` and ``ehyb_ell_packed`` replace ``ehyb_ell_pallas`` and
 ``ehyb_ell_packed_pallas``: the cached (sliced-ELL) part alone, the
-guarded apply's unfused level at one right-hand side.  ``er`` replaces
-``er_pallas``: the uncached ER rows as per-slot partial sums, which the
-caller scatter-adds by ``er_row_idx``.  The CUDA source says what bounds
-them and how.
+guarded apply's unfused level at one right-hand side; they are the fused
+kernels' bodies without the ER stage.  ``er`` replaces ``er_pallas``: the
+uncached ER rows as per-slot partial sums, which the caller scatter-adds
+by ``er_row_idx``.
+
+What bounds them is device-memory bytes, and with one block a partition,
+the bytes each SM keeps in flight.  The packed kernel gives a thread to a
+row of the staircase (coalesced along each column) with 8 independent
+loads in flight; the uniform kernels give a group of lanes (4 in #1, 8 in
+#4) to a row of the row-major tile and read it to the row's width, which
+they take from ``col_rows``; the ER stage gives 4 lanes to an ER row of
+the stream.  The group widths are fixed in the CUDA source, and each body
+picks its block size there.  Every sum runs in a fixed order (shuffle
+reductions, a plain add of each ER row into the block's tile, no atomics),
+so two launches give the same bits.  The CUDA source says more.
 
 For tensors on the CPU each wrapper runs its plain version
-(``kernels.ref``); for CUDA tensors it checks what the kernel takes,
-launches it on the current stream, raises on a launch error and adds one to
-its ``launches`` count.  It never falls back.
+(``kernels.ref``; the fused ones on the same compact stream); for CUDA
+tensors it checks what the kernel takes, launches it on the current
+stream, raises on a launch error and adds one to its ``launches`` count.
+It never falls back.
 
 The SpMV and ELL-only kernels take one right-hand side (R = 1), fp32 or
 bf16 tables with x in the same dtype, and fp32 accumulation.  A batch
@@ -31,11 +46,12 @@ import functools
 import torch
 
 from . import build
-from .ref import (ehyb_ell_packed_ref, ehyb_ell_ref, ehyb_fused_ref,
-                  ehyb_packed_fused_ref, er_ref)
+from .ref import (ehyb_ell_packed_ref, ehyb_ell_ref, ehyb_fused_stream_ref,
+                  ehyb_packed_fused_stream_ref, er_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_THREADS = 1024
+_PACKED_DTYPES = {"packed_cols": torch.uint16, "col_starts": torch.int32,
+                  "col_rows": torch.int32}
 
 
 def _check_tables(x: torch.Tensor, vals: torch.Tensor, dtypes: dict,
@@ -85,17 +101,20 @@ def _smem_optin(index: int) -> int:
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
-def _smem_and_threads(device: torch.device, v: int, e: int,
-                      itemsize: int, acc_bytes: int = 4) -> int:
-    """Threads per block; raises when the (V,) x-slice and the fp32 output
-    tile (``acc_bytes`` a row; 0 for the ELL-only kernels, which keep no
-    tile) exceed the opt-in shared memory of one block."""
+def _smem_and_stage(device: torch.device, v: int, itemsize: int,
+                    acc_bytes: int, n_meta: int) -> int:
+    """Whether the block's ``n_meta`` int32 of row metadata (``col_rows``,
+    and ``col_starts`` for the staircase) go into shared memory beside the
+    (V,) x-slice and the fp32 output tile (``acc_bytes`` a row; 0 for the
+    ELL-only kernels, which keep no tile); without room the kernel reads
+    them through L1.  Raises when the tiles alone exceed the opt-in shared
+    memory of one block."""
     smem = v * (acc_bytes + itemsize)
     limit = _smem_optin(device.index)
     if smem > limit:
         raise ValueError(f"vec_size {v} needs {smem} bytes of shared memory "
                          f"per block; the card allows {limit}")
-    return min(_MAX_THREADS, max(32, -(-max(v, e) // 32) * 32))
+    return int(smem + 4 * n_meta <= limit)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -103,38 +122,60 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
+def _stream_tables(er_stream: tuple, p: int, vals: torch.Tensor) -> list:
+    """The compact ER stream's (name, tensor) pairs for ``_check``; raises
+    on inconsistent shapes."""
+    part_ptr, row_ptr, rows, cols, er_vals = er_stream
+    n_rows, nnz = rows.shape[0], cols.shape[0]
+    if part_ptr.shape != (p + 1,) or row_ptr.shape != (n_rows + 1,) \
+            or rows.shape != (n_rows,) or cols.shape != (nnz,) \
+            or er_vals.shape != (nnz,):
+        raise ValueError("inconsistent compact ER stream shapes")
+    return [("er_s_part_ptr", part_ptr), ("er_s_row_ptr", row_ptr),
+            ("er_s_rows", rows), ("er_s_cols", cols), ("er_s_vals", er_vals)]
+
+
+def _stream_dtypes(vals: torch.Tensor) -> dict:
+    return {"er_s_part_ptr": torch.int32, "er_s_row_ptr": torch.int32,
+            "er_s_rows": torch.int32, "er_s_cols": torch.int32,
+            "er_s_vals": vals.dtype}
+
+
+def _ptrs(tables: list) -> list:
+    return [t.data_ptr() for _, t in tables]
+
+
 def ehyb_fused(x_new: torch.Tensor, ell_vals: torch.Tensor,
-               ell_cols: torch.Tensor, er_p_vals: torch.Tensor,
-               er_p_cols: torch.Tensor, er_p_rows: torch.Tensor,
-               has_er: bool = True) -> torch.Tensor:
+               ell_cols: torch.Tensor, col_rows: torch.Tensor,
+               er_stream: tuple, has_er: bool = True) -> torch.Tensor:
     """Fused uniform-tile EHYB SpMV, permuted space: y_new (n_pad[, 1]).
 
-    x_new (n_pad,) or (n_pad, R); ell_vals/ell_cols (P, V, W) with uint16
-    local columns; er_p_vals/er_p_cols (P, E, We) with int32 global columns;
-    er_p_rows (P, E) int32 local rows."""
+    x_new (n_pad,) or (n_pad, 1); ell_vals/ell_cols (P, V, W) with uint16
+    local columns; ``col_rows`` (P, W) int32 rows per ELL column
+    (``EHYBDevice.col_rows``), from which the kernel takes each row's width
+    and so skips the tile's padded tail; ``er_stream`` the compact ER
+    stream, the five ``EHYBDevice.er_s_*`` tensors in
+    ``core.spmv.ER_STREAM`` order."""
     if x_new.device.type == "cpu":
         squeeze = x_new.dim() == 1
-        y = ehyb_fused_ref(x_new[:, None] if squeeze else x_new, ell_vals,
-                           ell_cols, er_p_vals, er_p_cols, er_p_rows, has_er)
+        y = ehyb_fused_stream_ref(x_new[:, None] if squeeze else x_new,
+                                  ell_vals, ell_cols, er_stream, has_er)
         return y[:, 0] if squeeze else y
     p, v, w = ell_vals.shape
-    _, e, we = er_p_vals.shape
+    er_tables = _stream_tables(er_stream, p, ell_vals)
+    tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols),
+              ("col_rows", col_rows)]
     x = _check(x_new, ell_vals, p * v,
-               {"ell_cols": torch.uint16, "er_p_cols": torch.int32,
-                "er_p_rows": torch.int32, "er_p_vals": ell_vals.dtype},
-               [("ell_vals", ell_vals), ("ell_cols", ell_cols),
-                ("er_p_vals", er_p_vals), ("er_p_cols", er_p_cols),
-                ("er_p_rows", er_p_rows)])
-    if ell_cols.shape != ell_vals.shape or er_p_cols.shape != er_p_vals.shape \
-            or er_p_rows.shape != (p, e):
+               {"ell_cols": torch.uint16, "col_rows": torch.int32,
+                **_stream_dtypes(ell_vals)}, tables + er_tables)
+    if ell_cols.shape != ell_vals.shape or col_rows.shape != (p, w):
         raise ValueError("inconsistent EHYB tile shapes")
-    threads = _smem_and_threads(x.device, v, e, x.element_size())
+    stage = _smem_and_stage(x.device, v, x.element_size(), 4, w)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmv", "ehyb_fused", 7, 7)
+    fn = build.entry("ehyb_spmv", "ehyb_fused", 10, 6)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-             ell_vals.data_ptr(), ell_cols.data_ptr(), er_p_vals.data_ptr(),
-             er_p_cols.data_ptr(), er_p_rows.data_ptr(), p, v, w, e, we,
-             int(has_er), threads,
+             *_ptrs(tables), *_ptrs(er_tables), p, v, w,
+             er_stream[2].shape[0], int(has_er), stage,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "ehyb_fused")
     ehyb_fused.launches += 1
@@ -146,44 +187,38 @@ ehyb_fused.launches = 0
 
 def ehyb_packed_fused(x_new: torch.Tensor, packed_vals: torch.Tensor,
                       packed_cols: torch.Tensor, col_starts: torch.Tensor,
-                      col_rows: torch.Tensor, er_p_vals: torch.Tensor,
-                      er_p_cols: torch.Tensor, er_p_rows: torch.Tensor, *,
+                      col_rows: torch.Tensor, er_stream: tuple, *,
                       vec_size: int, has_er: bool = True) -> torch.Tensor:
     """Fused packed-staircase EHYB SpMV, permuted space: y_new (n_pad[, 1]).
 
     packed_vals/packed_cols (P, L); col_starts (P, W+1) and col_rows (P, W)
-    int32, col_rows non-increasing along W; ER tiles as in
+    int32, col_rows non-increasing along W; ``er_stream`` as in
     :func:`ehyb_fused`."""
     if x_new.device.type == "cpu":
         squeeze = x_new.dim() == 1
-        y = ehyb_packed_fused_ref(x_new[:, None] if squeeze else x_new,
-                                  packed_vals, packed_cols, col_starts,
-                                  col_rows, er_p_vals, er_p_cols, er_p_rows,
-                                  vec_size, has_er)
+        y = ehyb_packed_fused_stream_ref(
+            x_new[:, None] if squeeze else x_new, packed_vals, packed_cols,
+            col_starts, col_rows, er_stream, vec_size, has_er)
         return y[:, 0] if squeeze else y
     p, l = packed_vals.shape
     w = col_rows.shape[1]
-    _, e, we = er_p_vals.shape
+    er_tables = _stream_tables(er_stream, p, packed_vals)
     x = _check(x_new, packed_vals, p * vec_size,
-               {"packed_cols": torch.uint16, "col_starts": torch.int32,
-                "col_rows": torch.int32, "er_p_cols": torch.int32,
-                "er_p_rows": torch.int32, "er_p_vals": packed_vals.dtype},
+               {**_PACKED_DTYPES, **_stream_dtypes(packed_vals)},
                [("packed_vals", packed_vals), ("packed_cols", packed_cols),
-                ("col_starts", col_starts), ("col_rows", col_rows),
-                ("er_p_vals", er_p_vals), ("er_p_cols", er_p_cols),
-                ("er_p_rows", er_p_rows)])
+                ("col_starts", col_starts), ("col_rows", col_rows)]
+               + er_tables)
     if packed_cols.shape != (p, l) or col_starts.shape != (p, w + 1) \
-            or col_rows.shape != (p, w) or er_p_cols.shape != er_p_vals.shape \
-            or er_p_rows.shape != (p, e):
+            or col_rows.shape != (p, w):
         raise ValueError("inconsistent packed EHYB shapes")
-    threads = _smem_and_threads(x.device, vec_size, e, x.element_size())
+    stage = _smem_and_stage(x.device, vec_size, x.element_size(), 4,
+                            2 * w + 1)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmv", "ehyb_packed_fused", 9, 8)
+    fn = build.entry("ehyb_spmv", "ehyb_packed_fused", 11, 7)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
              packed_vals.data_ptr(), packed_cols.data_ptr(),
-             col_starts.data_ptr(), col_rows.data_ptr(), er_p_vals.data_ptr(),
-             er_p_cols.data_ptr(), er_p_rows.data_ptr(), p, vec_size, l, w, e,
-             we, int(has_er), threads,
+             col_starts.data_ptr(), col_rows.data_ptr(), *_ptrs(er_tables),
+             p, vec_size, l, w, er_stream[2].shape[0], int(has_er), stage,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "ehyb_packed_fused")
     ehyb_packed_fused.launches += 1
@@ -216,25 +251,28 @@ def _cpu_parts(ref_fn, x_parts: torch.Tensor, *tables) -> torch.Tensor:
 
 
 def ehyb_ell(x_parts: torch.Tensor, ell_vals: torch.Tensor,
-             ell_cols: torch.Tensor) -> torch.Tensor:
+             ell_cols: torch.Tensor, col_rows: torch.Tensor) -> torch.Tensor:
     """Cached (sliced-ELL) part alone on uniform tiles: y_parts of
     x_parts's shape, (P, V) or (P, V, 1).
 
-    ell_vals/ell_cols (P, V, W) with uint16 local columns."""
+    ell_vals/ell_cols (P, V, W) with uint16 local columns; ``col_rows`` as
+    in :func:`ehyb_fused`."""
     if x_parts.device.type == "cpu":
         return _cpu_parts(ehyb_ell_ref, x_parts, ell_vals, ell_cols)
     p, v, w = ell_vals.shape
     x = _one_rhs_parts(x_parts, p, v)
-    _check_tables(x, ell_vals, {"ell_cols": torch.uint16},
-                  [("ell_vals", ell_vals), ("ell_cols", ell_cols)])
-    if ell_cols.shape != ell_vals.shape:
+    tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols),
+              ("col_rows", col_rows)]
+    _check_tables(x, ell_vals, {"ell_cols": torch.uint16,
+                                "col_rows": torch.int32}, tables)
+    if ell_cols.shape != ell_vals.shape or col_rows.shape != (p, w):
         raise ValueError("inconsistent EHYB tile shapes")
     x = x.contiguous()
-    threads = _smem_and_threads(x.device, v, 0, x.element_size(), 0)
+    stage = _smem_and_stage(x.device, v, x.element_size(), 0, w)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmv", "ehyb_ell", 4, 4)
+    fn = build.entry("ehyb_spmv", "ehyb_ell", 5, 4)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-             ell_vals.data_ptr(), ell_cols.data_ptr(), p, v, w, threads,
+             *_ptrs(tables), p, v, w, stage,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "ehyb_ell")
     ehyb_ell.launches += 1
@@ -259,21 +297,19 @@ def ehyb_ell_packed(x_parts: torch.Tensor, packed_vals: torch.Tensor,
     w = col_rows.shape[1]
     v = x_parts.shape[1]
     x = _one_rhs_parts(x_parts, p, v)
-    _check_tables(x, packed_vals,
-                  {"packed_cols": torch.uint16, "col_starts": torch.int32,
-                   "col_rows": torch.int32},
+    _check_tables(x, packed_vals, _PACKED_DTYPES,
                   [("packed_vals", packed_vals), ("packed_cols", packed_cols),
                    ("col_starts", col_starts), ("col_rows", col_rows)])
     if packed_cols.shape != (p, l) or col_starts.shape != (p, w + 1) \
             or col_rows.shape != (p, w):
         raise ValueError("inconsistent packed EHYB shapes")
     x = x.contiguous()
-    threads = _smem_and_threads(x.device, v, 0, x.element_size(), 0)
+    stage = _smem_and_stage(x.device, v, x.element_size(), 0, 2 * w + 1)
     y = torch.empty_like(x)
     fn = build.entry("ehyb_spmv", "ehyb_ell_packed", 6, 5)
     err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
              packed_vals.data_ptr(), packed_cols.data_ptr(),
-             col_starts.data_ptr(), col_rows.data_ptr(), p, v, l, w, threads,
+             col_starts.data_ptr(), col_rows.data_ptr(), p, v, l, w, stage,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "ehyb_ell_packed")
     ehyb_ell_packed.launches += 1

@@ -78,9 +78,9 @@ def _unfused(m, x_new: torch.Tensor, ell) -> torch.Tensor:
 
 def _ell_uniform(m: EHYBDevice, x_parts: torch.Tensor) -> torch.Tensor:
     """ELL-only kernel on uniform tiles: SpMV for one column, else SpMM."""
-    ell = _k.ehyb_ell if x_parts.shape[2] < _SPMM_MIN_RHS else \
-        _km.ehyb_ell_spmm
-    return ell(x_parts, m.ell_vals, m.ell_cols)
+    if x_parts.shape[2] < _SPMM_MIN_RHS:
+        return _k.ehyb_ell(x_parts, m.ell_vals, m.ell_cols, m.col_rows)
+    return _km.ehyb_ell_spmm(x_parts, m.ell_vals, m.ell_cols)
 
 
 def _ell_packed(m: EHYBPackedDevice, x_parts: torch.Tensor) -> torch.Tensor:
@@ -97,16 +97,18 @@ def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
     """Permuted-space EHYB SpMV/SpMM on uniform tiles: x_new (n_pad,) or
     (n_pad, K).
 
-    One column goes to the fused SpMV kernel, K ≥ 2 columns to the fused
-    SpMM kernel.  With ``use_er_kernel=False`` (the reference's unfused
-    level), and for an ER-free operator at K ≥ 2, the ELL-only kernel runs
-    and the plain per-partition path adds the ER part."""
+    One column goes to the fused SpMV kernel, which reads the compact ER
+    stream (``m.er_s_*``) and the row widths (``m.col_rows``); K ≥ 2
+    columns go to the fused SpMM kernel, which reads the padded ``er_p_*``
+    tiles.  With ``use_er_kernel=False`` (the reference's unfused level),
+    and for an ER-free operator at K ≥ 2, the ELL-only kernel runs and the
+    plain per-partition path adds the ER part from ``er_p_*``."""
     x2 = _as_2d(x_new)[0]
     if not use_er_kernel:
         return _unfused(m, x_new, _ell_uniform)
     if x2.shape[1] < _SPMM_MIN_RHS:
-        return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.er_p_vals,
-                             m.er_p_cols, m.er_p_rows, has_er=m.has_er)
+        return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.col_rows,
+                             m.er_stream(), has_er=m.has_er)
     if m.has_er:
         return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols, m.er_p_vals,
                                    m.er_p_cols, m.er_p_rows)
@@ -142,8 +144,7 @@ def ehyb_spmv_packed_permuted(m: EHYBPackedDevice, x_new: torch.Tensor, *,
         return _unfused(m, x_new, _ell_packed)
     if x2.shape[1] < _SPMM_MIN_RHS:
         return _k.ehyb_packed_fused(x_new, m.packed_vals, m.packed_cols,
-                                    m.col_starts, m.col_rows, m.er_p_vals,
-                                    m.er_p_cols, m.er_p_rows,
+                                    m.col_starts, m.col_rows, m.er_stream(),
                                     vec_size=m.vec_size, has_er=m.has_er)
     if m.has_er:
         return _km.ehyb_packed_fused_spmm(

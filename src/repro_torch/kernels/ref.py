@@ -7,7 +7,9 @@ holds each kernel against its plain version on the card.  They mirror
 ``repro.kernels.ref`` (``ehyb_fused_ref``, ``er_ref``) and add the ELL-only,
 packed-staircase and CG-step oracles the JAX package keeps inline.  The
 fused and ELL-only versions take any number of right-hand sides, so they
-are the plain versions of the SpMV and the SpMM kernels alike.
+are the plain versions of the SpMV and the SpMM kernels alike; the
+``*_stream_ref`` forms read the ER part from the compact stream, as the
+K = 1 fused kernels do.
 """
 
 from __future__ import annotations
@@ -31,6 +33,48 @@ def ehyb_fused_ref(x_new: torch.Tensor, ell_vals: torch.Tensor,
     y = _ehyb_ell_part(ell_vals, ell_cols, x_new.reshape(p, v, r))
     if has_er:
         y = y + _fused_er_parts(x_new, er_p_vals, er_p_cols, er_p_rows, v)
+    return y.reshape(-1, r).to(x_new.dtype)
+
+
+def er_stream_ref(x_new: torch.Tensor, er_s_part_ptr: torch.Tensor,
+                  er_s_row_ptr: torch.Tensor, er_s_rows: torch.Tensor,
+                  er_s_cols: torch.Tensor, er_s_vals: torch.Tensor,
+                  vec_size: int) -> torch.Tensor:
+    """ER part from the compact stream (``EHYBDevice.er_s_*``): each live
+    entry's value times x at its global column, added with ``index_add_``
+    at its row in the permuted space (partition · vec_size + local row).
+
+    x_new (n_pad, R).  Returns (n_pad, R) in the accumulation dtype (fp32,
+    or fp64), zero on rows without ER entries."""
+    acc = _acc_dtype(x_new.dtype)
+    dev = x_new.device
+    n_rows = er_s_rows.shape[0]
+    parts = torch.repeat_interleave(
+        torch.arange(er_s_part_ptr.shape[0] - 1, device=dev),
+        er_s_part_ptr.diff().to(torch.int64), output_size=n_rows)
+    row_of = parts * vec_size + er_s_rows.to(torch.int64)
+    entry_row = torch.repeat_interleave(
+        row_of, er_s_row_ptr.diff().to(torch.int64),
+        output_size=er_s_cols.shape[0])
+    contrib = er_s_vals[:, None].to(acc) * x_new.index_select(
+        0, er_s_cols.to(torch.int64)).to(acc)
+    y = torch.zeros((x_new.shape[0], x_new.shape[1]), dtype=acc, device=dev)
+    return y.index_add_(0, entry_row, contrib)
+
+
+def ehyb_fused_stream_ref(x_new: torch.Tensor, ell_vals: torch.Tensor,
+                          ell_cols: torch.Tensor, er_stream: tuple,
+                          has_er: bool = True) -> torch.Tensor:
+    """Fused EHYB SpMV with the ER part from the compact stream — the plain
+    version of the K = 1 fused kernel: the sliced-ELL part, plus
+    :func:`er_stream_ref` on ``er_stream`` (the five ``er_s_*`` tensors in
+    ``core.spmv.ER_STREAM`` order).  x_new (n_pad, R) -> y_new (n_pad, R)
+    in x's dtype."""
+    p, v, _ = ell_vals.shape
+    r = x_new.shape[1]
+    y = _ehyb_ell_part(ell_vals, ell_cols, x_new.reshape(p, v, r))
+    if has_er:
+        y = y + er_stream_ref(x_new, *er_stream, v).reshape(p, v, r)
     return y.reshape(-1, r).to(x_new.dtype)
 
 
@@ -87,6 +131,20 @@ def ehyb_packed_fused_ref(x_new: torch.Tensor, packed_vals: torch.Tensor,
                                   col_rows, vec_size)
     return ehyb_fused_ref(x_new, vals, cols, er_p_vals, er_p_cols, er_p_rows,
                           has_er)
+
+
+def ehyb_packed_fused_stream_ref(x_new: torch.Tensor,
+                                 packed_vals: torch.Tensor,
+                                 packed_cols: torch.Tensor,
+                                 col_starts: torch.Tensor,
+                                 col_rows: torch.Tensor, er_stream: tuple,
+                                 vec_size: int,
+                                 has_er: bool = True) -> torch.Tensor:
+    """The packed-staircase form of :func:`ehyb_fused_stream_ref`: the
+    staircase unpacked to uniform tiles, then the same sums."""
+    vals, cols = unpack_staircase(packed_vals, packed_cols, col_starts,
+                                  col_rows, vec_size)
+    return ehyb_fused_stream_ref(x_new, vals, cols, er_stream, has_er)
 
 
 def ehyb_ell_packed_ref(x_parts: torch.Tensor, packed_vals: torch.Tensor,

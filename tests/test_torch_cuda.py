@@ -65,24 +65,133 @@ def test_spmv_kernels_match_plain(cuda_device, name, dtype):
         x_new = op.to_space(x)
         if fmt == "ehyb":
             n0 = K.ehyb_fused.launches
-            y = K.ehyb_fused(x_new, o.ell_vals, o.ell_cols, o.er_p_vals,
-                             o.er_p_cols, o.er_p_rows, o.has_er)
+            y = K.ehyb_fused(x_new, o.ell_vals, o.ell_cols, o.col_rows,
+                             o.er_stream(), o.has_er)
             assert K.ehyb_fused.launches == n0 + 1
-            y_ref = ref.ehyb_fused_ref(x_new[:, None], o.ell_vals, o.ell_cols,
-                                       o.er_p_vals, o.er_p_cols, o.er_p_rows,
-                                       o.has_er)[:, 0]
+            y_ref = ref.ehyb_fused_stream_ref(
+                x_new[:, None], o.ell_vals, o.ell_cols, o.er_stream(),
+                o.has_er)[:, 0]
+            # the padded tiles' plain version computes the same product
+            y_tiles = ref.ehyb_fused_ref(
+                x_new[:, None], o.ell_vals, o.ell_cols, o.er_p_vals,
+                o.er_p_cols, o.er_p_rows, o.has_er)[:, 0]
         else:
             op.apply(x_new, space="permuted")   # the guard's probe launches
             n0 = K.ehyb_packed_fused.launches   # once, on the first apply
             y = op.apply(x_new, space="permuted")
             assert K.ehyb_packed_fused.launches == n0 + 1
-            y_ref = ref.ehyb_packed_fused_ref(
-                x_new[:, None], o.packed_vals, o.packed_cols, o.col_starts,
-                o.col_rows, o.er_p_vals, o.er_p_cols, o.er_p_rows,
-                o.vec_size, o.has_er)[:, 0]
+            stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
+            y_ref = ref.ehyb_packed_fused_stream_ref(
+                x_new[:, None], *stair, o.er_stream(), o.vec_size,
+                o.has_er)[:, 0]
+            y_tiles = ref.ehyb_packed_fused_ref(
+                x_new[:, None], *stair, o.er_p_vals, o.er_p_cols,
+                o.er_p_rows, o.vec_size, o.has_er)[:, 0]
         torch.cuda.synchronize()
         assert y.dtype == dtype and y.shape == (o.n_pad,)
         assert _rel(y, y_ref) <= TOL[dtype], (name, fmt, dtype)
+        assert _rel(y, y_tiles) <= TOL[dtype], (name, fmt, dtype)
+
+
+def _spmv_launches(m, dtype, device):
+    """{kernel: (wrapper, call, plain call)} for #1, #2, #4 and #5 on
+    ``m``'s uniform and packed builds at a random permuted-space x."""
+    ex = dict(partition_method="bfs")
+    op = plan(m, execution=ExecutionConfig(format="ehyb_packed", **ex),
+              device=device).bind(m, dtype=dtype)
+    u = plan(m, execution=ExecutionConfig(format="ehyb", **ex),
+             device=device).bind(m, dtype=dtype).obj
+    o = op.obj
+    x_new = op.to_space(torch.as_tensor(
+        np.random.default_rng(7).standard_normal(m.n), device=device))
+    xp = x_new.reshape(o.n_parts, o.vec_size)
+    stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
+    return o, u, {
+        "ehyb_fused": (
+            K.ehyb_fused,
+            lambda: K.ehyb_fused(x_new, u.ell_vals, u.ell_cols, u.col_rows,
+                                 u.er_stream(), u.has_er),
+            lambda: ref.ehyb_fused_stream_ref(
+                x_new[:, None], u.ell_vals, u.ell_cols, u.er_stream(),
+                u.has_er)[:, 0]),
+        "ehyb_packed_fused": (
+            K.ehyb_packed_fused,
+            lambda: K.ehyb_packed_fused(x_new, *stair, o.er_stream(),
+                                        vec_size=o.vec_size,
+                                        has_er=o.has_er),
+            lambda: ref.ehyb_packed_fused_stream_ref(
+                x_new[:, None], *stair, o.er_stream(), o.vec_size,
+                o.has_er)[:, 0]),
+        "ehyb_ell": (
+            K.ehyb_ell,
+            lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols, u.col_rows),
+            lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
+                                     u.ell_cols)[..., 0]),
+        "ehyb_ell_packed": (
+            K.ehyb_ell_packed, lambda: K.ehyb_ell_packed(xp, *stair),
+            lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", MATS)
+def test_spmv_kernels_are_bit_reproducible(cuda_device, name, dtype):
+    """Two launches of #1, #2, #4 and #5 on the same inputs give the same
+    bits: every sum runs in a fixed order, with no float atomics."""
+    _, _, cases = _spmv_launches(SUITE[name](), dtype, cuda_device)
+    for kname, (_, run, _) in cases.items():
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), (name, kname, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["powerlaw_4k", "circuit_4k"])
+def test_fused_kernels_on_er_heavy_matrices(cuda_device, name, dtype):
+    """ER-heavy builds: rows at the full ER width (hundreds of entries, far
+    past one unrolled step of a lane group) and partitions that own no ER
+    row; #1 and #2 against their plain versions."""
+    m = SUITE[name]()
+    o, u, cases = _spmv_launches(m, dtype, cuda_device)
+    lens = o.er_s_row_ptr.diff()
+    e = plan(m, execution=ExecutionConfig(format="ehyb_packed",
+                                          partition_method="bfs"),
+             device=cuda_device).host_build(m)
+    assert int(lens.max()) == e.er_width > 32 * 4
+    assert bool((o.er_s_part_ptr.diff() == 0).any())
+    for kname in ("ehyb_fused", "ehyb_packed_fused"):
+        wrapper, run, plain = cases[kname]
+        n0 = wrapper.launches
+        y = run()
+        assert wrapper.launches == n0 + 1
+        y_ref = plain()
+        torch.cuda.synchronize()
+        assert _rel(y, y_ref) <= TOL[dtype], (name, kname, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", MATS)
+def test_ell_kernels_with_row_widths_match_plain(cuda_device, name, dtype):
+    """#4 and #5 against their plain versions at the ELL-only tolerance;
+    #4 also with a ``col_rows`` that makes every row W wide, so that it
+    reads the padded tail (zeros) as well."""
+    _, u, cases = _spmv_launches(SUITE[name](), dtype, cuda_device)
+    for kname in ("ehyb_ell", "ehyb_ell_packed"):
+        wrapper, run, plain = cases[kname]
+        n0 = wrapper.launches
+        y = run()
+        assert wrapper.launches == n0 + 1
+        torch.cuda.synchronize()
+        assert _rel(y, plain()) <= REL_TOL[dtype], (name, kname, dtype)
+    xp = torch.randn((u.n_parts, u.vec_size), device=cuda_device).to(dtype)
+    want = ref.ehyb_ell_ref(xp[..., None], u.ell_vals, u.ell_cols)[..., 0]
+    for col_rows in (u.col_rows, torch.full_like(u.col_rows, u.vec_size)):
+        y = K.ehyb_ell(xp, u.ell_vals, u.ell_cols, col_rows)
+        torch.cuda.synchronize()
+        assert _rel(y, want) <= REL_TOL[dtype], (name, dtype)
 
 
 @pytest.mark.cuda
@@ -96,8 +205,7 @@ def test_spmv_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(NotImplementedError):      # a batch is SpMM's
         K.ehyb_packed_fused(torch.ones((o.n_pad, 2), device=cuda_device),
                             o.packed_vals, o.packed_cols, o.col_starts,
-                            o.col_rows, o.er_p_vals, o.er_p_cols, o.er_p_rows,
-                            vec_size=o.vec_size)
+                            o.col_rows, o.er_stream(), vec_size=o.vec_size)
     with pytest.raises(NotImplementedError):      # ELL-only: one rhs too
         K.ehyb_ell_packed(torch.ones((o.n_parts, o.vec_size, 2),
                                      device=cuda_device),
@@ -299,7 +407,8 @@ def test_ell_and_er_kernels_match_plain(cuda_device, name, dtype):
     xp = x_new.reshape(o.n_parts, o.vec_size)
     stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
     cases = [
-        (K.ehyb_ell, lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols),
+        (K.ehyb_ell, lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols,
+                                        u.col_rows),
          lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
                                   u.ell_cols)[..., 0]),
         (K.ehyb_ell_packed, lambda: K.ehyb_ell_packed(xp, *stair),

@@ -112,7 +112,8 @@ def test_plain_ell_matches_pallas_interpret(v, w, r, dt, tol):
     """``kernels.ehyb_ell`` (the plain version of #4 on the CPU) against
     ``ehyb_ell_pallas`` in interpret mode: the sweep of
     tests/test_kernels.py; one rhs as (P, V) and (P, V, 1), R ≥ 2 as
-    (P, V, R)."""
+    (P, V, R).  The random tiles are not width-sorted, so their
+    ``col_rows`` says every row is W wide."""
     rng = np.random.default_rng(v * 100 + w + r)
     x = rng.standard_normal((4, v, r)).astype(np.float32)
     vals = (rng.standard_normal((4, v, w))
@@ -126,11 +127,12 @@ def test_plain_ell_matches_pallas_interpret(v, w, r, dt, tol):
     tx = torch.as_tensor(x).to(tdt)
     tv = torch.as_tensor(vals).to(tdt)
     tc = torch.as_tensor(cols.astype(np.int32)).to(torch.uint16)
-    got = tk.ehyb_ell(tx, tv, tc)
+    cr = torch.full((4, w), v, dtype=torch.int32)
+    got = tk.ehyb_ell(tx, tv, tc, cr)
     assert got.shape == (4, v, r) and got.dtype == tdt
     assert _err(got.float(), want) <= tol
     if r == 1:
-        flat = tk.ehyb_ell(tx[..., 0], tv, tc)
+        flat = tk.ehyb_ell(tx[..., 0], tv, tc, cr)
         assert flat.shape == (4, v)
         torch.testing.assert_close(flat, got[..., 0], rtol=0, atol=0)
 
@@ -200,13 +202,14 @@ def test_unfused_level_matches_jax_interpret(gen, reached):
     fused result."""
     jm = jmat.poisson3d(8) if gen == "poisson3d_8" else \
         jmat.unstructured(1024, 12)
-    jdev = JEHYBDevice.from_ehyb(jax_build_ehyb(jm))
+    je = jax_build_ehyb(jm)
+    jdev = JEHYBDevice.from_ehyb(je)
     leaves = {f.name: np.asarray(getattr(jdev, f.name))
               for f in dataclasses.fields(jdev)
               if not isinstance(getattr(jdev, f.name), (int, bool, tuple))}
     u = convert.device_container("EHYBDevice", leaves,
                                  {k: getattr(jdev, k) for k in STATIC},
-                                 device="cpu")
+                                 device="cpu", host=je)
     x = np.random.default_rng(3).standard_normal(jm.n).astype(np.float32)
     want = np.asarray(jops.ehyb_spmv_pallas(jdev, jnp.asarray(x),
                                             interpret=True,

@@ -66,8 +66,10 @@ def _leaves(obj):
             {k: getattr(obj, k) for k in STATIC})
 
 
-def _port_container(obj):
-    return convert.device_container(*_leaves(obj), device="cpu")
+def _port_container(obj, e):
+    """The port's container on the JAX container's tables; ``e``, the host
+    build they came from, lays out the port's own fields."""
+    return convert.device_container(*_leaves(obj), device="cpu", host=e)
 
 
 def _port_op(m, fmt, k=1, dtype=torch.float32):
@@ -129,8 +131,9 @@ def test_batched_apply_equals_column_applies(fmt):
 def test_plain_spmm_matches_pallas_interpret(dt, rhs_chunk):
     jdt, tdt, tol = TOL[dt]
     _, jm = _mats("powerlaw")
-    jd = JEHYBDevice.from_ehyb(jehyb.build_ehyb(jm, method="bfs"), jdt)
-    td = _port_container(jd)
+    e = jehyb.build_ehyb(jm, method="bfs")
+    jd = JEHYBDevice.from_ehyb(e, jdt)
+    td = _port_container(jd, e)
     x = np.random.default_rng(2).standard_normal((jd.n_pad, 5))
     xj = jnp.asarray(x, jdt)
     xt = torch.as_tensor(x).to(tdt)
@@ -160,9 +163,9 @@ def test_packed_plain_spmm_matches_uniform_and_jax(kind, dt):
     _, jm = _mats(kind)
     e = jehyb.build_ehyb(jm, method="bfs")
     jp = _port_container(JEHYBPackedDevice.from_packed(
-        jehyb.pack_staircase(e), jdt))
+        jehyb.pack_staircase(e), jdt), e)
     ju = JEHYBDevice.from_ehyb(e, jdt)
-    tu = _port_container(ju)
+    tu = _port_container(ju, e)
     x = np.random.default_rng(3).standard_normal((e.n_pad, 5))
     xt = torch.as_tensor(x).to(tdt)
     xp = xt.reshape(e.n_parts, e.vec_size, 5)

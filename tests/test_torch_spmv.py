@@ -49,16 +49,17 @@ def jax_build(name):
     return m, e
 
 
-def to_port(obj, kind):
+def to_port(obj, kind, e):
     """The JAX container's leaves as numpy arrays + its static fields, through
-    ``repro_torch.convert``."""
+    ``repro_torch.convert``; the host build ``e`` lays out the port's
+    compact ER stream."""
     lv, _ = obj.tree_flatten()
     names = [f.name for f in dataclasses.fields(obj)
              if not isinstance(getattr(obj, f.name), (int, bool, tuple))]
     assert len(names) == len(lv)
     return convert.device_container(
         kind, {k: np.asarray(getattr(obj, k)) for k in names},
-        {k: getattr(obj, k) for k in STATIC}, device="cpu")
+        {k: getattr(obj, k) for k in STATIC}, device="cpu", host=e)
 
 
 def x_for(n, seed=0):
@@ -72,7 +73,7 @@ def test_plain_fused_matches_pallas_interpret(name, dt):
     jdt, tdt, tol = TOL[dt]
     _, e = jax_build(name)
     jd = JEHYBDevice.from_ehyb(e, jdt)
-    td = to_port(jd, "EHYBDevice")
+    td = to_port(jd, "EHYBDevice", e)
     x_new = x_for(e.n_pad)
     want = ehyb_fused_pallas(jnp.asarray(x_new, jdt)[:, None], jd.ell_vals,
                              jd.ell_cols, jd.er_p_vals, jd.er_p_cols,
@@ -94,7 +95,7 @@ def test_plain_packed_matches_ehyb_spmv_permuted(name, dt):
     jdt, tdt, tol = TOL[dt]
     m, e = jax_build(name)
     jp = JEHYBPackedDevice.from_packed(jehyb.pack_staircase(e), jdt)
-    tp = to_port(jp, "EHYBPackedDevice")
+    tp = to_port(jp, "EHYBPackedDevice", e)
     x_new = x_for(e.n_pad, 1)
     want = jax_ehyb_spmv_permuted(JEHYBDevice.from_ehyb(e, jdt),
                                     jnp.asarray(x_new, jdt))
@@ -109,7 +110,7 @@ def test_plain_packed_matches_ehyb_spmv_permuted(name, dt):
 
 def test_uniform_original_space_matches_csr():
     m, e = jax_build("powerlaw_4k")
-    td = to_port(JEHYBDevice.from_ehyb(e), "EHYBDevice")
+    td = to_port(JEHYBDevice.from_ehyb(e), "EHYBDevice", e)
     x = x_for(m.n, 3)
     for fn in (ehyb_spmv, ops.ehyb_spmv_fused):
         y = fn(td, torch.as_tensor(x, dtype=torch.float32))
