@@ -165,18 +165,18 @@ def spmm_cases(o, u, x_new) -> dict:
     from repro_torch.kernels import ref
 
     xp = x_new.reshape(o.n_parts, o.vec_size, x_new.shape[1])
-    er_u = (u.er_p_vals, u.er_p_cols, u.er_p_rows)
-    er_o = (o.er_p_vals, o.er_p_cols, o.er_p_rows)
     stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
     return {
         "ehyb_fused_spmm": (
-            lambda: KM.ehyb_fused_spmm(x_new, u.ell_vals, u.ell_cols, *er_u),
-            lambda: ref.ehyb_fused_ref(x_new, u.ell_vals, u.ell_cols, *er_u)),
+            lambda: KM.ehyb_fused_spmm(x_new, u.ell_vals, u.ell_cols,
+                                       u.er_stream()),
+            lambda: ref.ehyb_fused_stream_ref(x_new, u.ell_vals, u.ell_cols,
+                                              u.er_stream())),
         "ehyb_packed_fused_spmm": (
-            lambda: KM.ehyb_packed_fused_spmm(x_new, *stair, *er_o,
+            lambda: KM.ehyb_packed_fused_spmm(x_new, *stair, o.er_stream(),
                                               vec_size=o.vec_size),
-            lambda: ref.ehyb_packed_fused_ref(x_new, *stair, *er_o,
-                                              o.vec_size)),
+            lambda: ref.ehyb_packed_fused_stream_ref(
+                x_new, *stair, o.er_stream(), o.vec_size)),
         "ehyb_ell_spmm": (
             lambda: KM.ehyb_ell_spmm(xp, u.ell_vals, u.ell_cols),
             lambda: ref.ehyb_ell_ref(xp, u.ell_vals, u.ell_cols)),
@@ -191,7 +191,7 @@ def rel_cases(o, u, x_new) -> dict:
     kernels on one build — ``o`` its packed container, ``u`` its uniform
     one — at the permuted-space vector ``x_new`` (n_pad,): the ELL-only
     SpMV kernels on (P, V) slices and the ER kernel on the global ER
-    table."""
+    table's live prefixes."""
     from repro_torch.kernels import ehyb_spmv as K
     from repro_torch.kernels import ref
 
@@ -206,8 +206,9 @@ def rel_cases(o, u, x_new) -> dict:
             lambda: K.ehyb_ell_packed(xp, *stair),
             lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
         "er": (
-            lambda: K.er(x_new, o.er_vals, o.er_cols),
-            lambda: ref.er_ref(x_new[:, None], o.er_vals, o.er_cols)[:, 0]),
+            lambda: K.er(x_new, o.er_vals, o.er_cols, o.er_col_rows),
+            lambda: ref.er_live_ref(x_new[:, None], o.er_vals, o.er_cols,
+                                    o.er_col_rows)[:, 0]),
     }
 
 
@@ -345,7 +346,9 @@ def run(dev, nx: int) -> list:
         libraries=",".join(str(p.relative_to(ROOT)) for p in libs.values()))
     log("ptxas-registers-spills", **ptxas_registers(
         build.ptxas_report("ehyb_spmv"),
-        ("ehyb_fused_kernel", "ehyb_packed_fused_kernel")))
+        ("ehyb_fused_kernel", "ehyb_packed_fused_kernel", "er_kernel")))
+    log("ptxas-registers-spills-spmm", **ptxas_registers(
+        build.ptxas_report("ehyb_spmm"), ("ehyb_spmm_kernel",)))
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -465,6 +468,7 @@ def run(dev, nx: int) -> list:
         "ehyb_ell": lambda: K.ehyb_ell(xp_new, u.ell_vals, u.ell_cols,
                                        u.col_rows),
         "ehyb_ell_packed": lambda: K.ehyb_ell_packed(xp_new, *stair),
+        "er": lambda: K.er(x_new, o.er_vals, o.er_cols, o.er_col_rows),
     }
     same_bits = {k: bool(torch.equal(f(), f())) for k, f in twice.items()}
     er_p_shape = tuple(o.er_p_vals.shape)
@@ -506,6 +510,13 @@ def run(dev, nx: int) -> list:
     check(ob.n_parts % props.multi_processor_count == 0
           and ob.vec_size * K_RHS * 8 <= props.shared_memory_per_block_optin,
           "the batched plan holds 16 fp32 rhs columns a block")
+    # the ER bytes the fused SpMM kernels read per rhs chunk on this plan:
+    # the compact stream against the padded tiles they read before
+    log("batched-er-bytes", er_tile=tuple(ob.er_p_vals.shape),
+        er_live_rows=er_live_b, er_live_entries=nnz_er_b,
+        er_bytes_now=nnz_er_b * 8 + er_live_b * 8 + (ob.n_parts + 1) * 4,
+        er_bytes_before=ob.er_p_vals.numel() * 8 + ob.er_p_rows.numel() * 4,
+        x_gathers_now=nnz_er_b, x_gathers_before=ob.er_p_vals.numel())
     log("batched-setup", plan_s=round(t_plan_b, 3), bind_s=round(t_bind_b, 3),
         uniform_and_bf16_binds_s=round(t_bind_more, 3),
         ehyb_s=round(eb.preprocess_seconds["total"], 3),
@@ -563,10 +574,9 @@ def run(dev, nx: int) -> list:
     o16 = opb16.obj
     err_b16_plain = rel_err(
         opb16.apply(xb16_new, space="permuted").float().cpu(),
-        ref.ehyb_packed_fused_ref(
+        ref.ehyb_packed_fused_stream_ref(
             xb16_new, o16.packed_vals, o16.packed_cols, o16.col_starts,
-            o16.col_rows, o16.er_p_vals, o16.er_p_cols, o16.er_p_rows,
-            o16.vec_size).float().cpu())
+            o16.col_rows, o16.er_stream(), o16.vec_size).float().cpu())
     spmm_b = check_cases(spmm_cases(ob, ub, xb_new), KERNEL_TOL["float32"],
                         "batched k=16 plan")
     spmm_b16 = check_cases(spmm_cases(o16, opb16_u.obj, xb16_new),
@@ -589,6 +599,12 @@ def run(dev, nx: int) -> list:
     check(same, "op.apply(permuted) is op @ X")
     check(err_b16 <= SPMM_TOL["bfloat16"], "bf16 op @ X within 5e-2")
     check(err_b16_plain <= KERNEL_TOL["bfloat16"], "bf16 kernel vs plain")
+    # 4b on the batched plan: two launches of #7 and #8 give the same bits
+    cases_b = spmm_cases(ob, ub, xb_new)
+    same_bits_b = {k: bool(torch.equal(cases_b[k][0](), cases_b[k][0]()))
+                   for k in ("ehyb_fused_spmm", "ehyb_packed_fused_spmm")}
+    log("determinism-batched", bit_identical=same_bits_b)
+    check(all(same_bits_b.values()), "two SpMM launches give the same bits")
     healthy("batched")
     del yb32, xb32, xb32_new, cols, opb16, opb16_u, o16, xb16_new
 
@@ -651,18 +667,16 @@ def run(dev, nx: int) -> list:
     y_tok_ref = tok_host @ w_pruned.T                 # float64
     lo = layer.op.obj
     tok_new = layer.to_permuted(tok)
-    y_tok_plain = layer.from_permuted(ref.ehyb_packed_fused_ref(
+    y_tok_plain = layer.from_permuted(ref.ehyb_packed_fused_stream_ref(
         tok_new.T.contiguous(), lo.packed_vals, lo.packed_cols,
-        lo.col_starts, lo.col_rows, lo.er_p_vals, lo.er_p_cols,
-        lo.er_p_rows, lo.vec_size).T)
+        lo.col_starts, lo.col_rows, lo.er_stream(), lo.vec_size).T)
     err_l = rel_err(y_tok.cpu(), y_tok_ref)
     err_lp = rel_err(y_tok.cpu(), y_tok_plain.cpu())
     w_dense = torch.as_tensor(w_pruned, dtype=torch.float32, device=dev)
     tok_new_t = tok_new.T.contiguous()
     layer_kernel_ms = time_ms(lambda: KM.ehyb_packed_fused_spmm(
         tok_new_t, lo.packed_vals, lo.packed_cols, lo.col_starts,
-        lo.col_rows, lo.er_p_vals, lo.er_p_cols, lo.er_p_rows,
-        vec_size=lo.vec_size), dev)
+        lo.col_rows, lo.er_stream(), vec_size=lo.vec_size), dev)
     layer_ms = time_ms(lambda: layer(tok), dev)
     dense_ms = time_ms(lambda: tok @ w_dense.T, dev)
     el = layer.ehyb
@@ -671,7 +685,8 @@ def run(dev, nx: int) -> list:
         n_parts=lo.n_parts, vec_size=lo.vec_size,
         in_part_fraction=round(el.in_part_fraction, 4),
         er_tile=tuple(lo.er_p_vals.shape),
-        launches=layer_launches, vs_f64=err_l, vs_plain=err_lp,
+        er_live_entries=int(lo.er_s_vals.numel()), launches=layer_launches,
+        vs_f64=err_l, vs_plain=err_lp,
         layer_ms=layer_ms, kernel_ms=layer_kernel_ms, dense_matmul_ms=dense_ms,
         **{f"bytes_{k}": v for k, v in layer.bytes_vs_dense().items()})
     check(y_tok.shape == (TOKENS, D_MODEL)
@@ -871,9 +886,9 @@ def run(dev, nx: int) -> list:
     torch.cuda.synchronize()
     after_unfused = {k: f.launches for k, f in all_kernels.items()}
     # the fused SpMV rebuilt from its halves: ELL-only (#5), then the ER
-    # kernel's (#6) per-slot partials added at er_row_idx (padded slots
-    # carry row 0 and add 0)
-    y_er = K.er(x_new, o.er_vals, o.er_cols)
+    # kernel's (#6) per-slot partials added at er_row_idx (the sublane
+    # padding rows carry row 0 and write 0)
+    y_er = K.er(x_new, o.er_vals, o.er_cols, o.er_col_rows)
     y_comp = K.ehyb_ell_packed(x_new.reshape(o.n_parts, o.vec_size),
                                o.packed_vals, o.packed_cols, o.col_starts,
                                o.col_rows).reshape(-1)
@@ -1084,24 +1099,54 @@ def run(dev, nx: int) -> list:
         torch.as_tensor(er_sp.indices, dtype=torch.int64, device=dev),
         torch.as_tensor(er_sp.data, dtype=torch.float32, device=dev),
         size=er_sp.shape, check_invariants=False)
-    err_lib_er = rel_err((er_t @ x_new2)[:, 0].cpu(),
-                         K.er(x_new, o.er_vals, o.er_cols).cpu())
+    err_lib_er = rel_err((er_t @ x_new2)[:, 0].cpu(), K.er(
+        x_new, o.er_vals, o.er_cols, o.er_col_rows).cpu())
     lib_er_ms = time_ms(lambda: er_t @ x_new2, dev)
-    del er_t
-    # #6 needs each live ER entry (8 B), x once and its (Rr,) output once
-    er_bytes = 8 * nnz_er + o.n_pad * 4 + e.er_rows * 4
-    er_bound_b = er_bytes / BANDWIDTH * 1e3
-    er_bound_o = 2 * nnz_er / FP32_PEAK * 1e3
+
+    def er_bound(r: int) -> tuple[float, str]:
+        """#6 at r rhs columns: each live ER entry (8 B) once, x and the
+        (Rr, r) output once; 2 flops an entry and column."""
+        tb = (8 * nnz_er + (o.n_pad + e.er_rows) * 4 * r) / BANDWIDTH * 1e3
+        to = 2 * r * nnz_er / FP32_PEAK * 1e3
+        return max(tb, to), "bytes" if tb >= to else "operations"
+
     padded_er_ms = (e.er_rows * er_w * 8 + o.n_pad * 4 + e.er_rows * 4) \
         / BANDWIDTH * 1e3
+    # what #6 reads now: each row's live prefix of values and of columns in
+    # 32-byte sectors (row e starts at byte e * W * 4 of both tables), then
+    # x and its output
+    widths = np.bincount(er_dst // er_w, minlength=e.er_rows)
+    first = np.arange(e.er_rows) * er_w * 4
+    sectors = np.where(widths > 0,
+                       (first + widths * 4 - 1) // 32 - first // 32 + 1, 0)
+    er_read = 2 * 32 * int(sectors.sum()) + (o.n_pad + e.er_rows) * 4
     cases_r = rel_cases(o, u, x_new)
     bound_in = spmv_bound(o.n_pad, e.nnz_in, 0, 0, 4)
     for k in ("ehyb_ell", "ehyb_ell_packed"):
         t[k] = (time_ms(cases_r[k][0], dev), time_ms(cases_r[k][1], dev),
                 lib_in_ms, *bound_in)
     t["er"] = (time_ms(cases_r["er"][0], dev), time_ms(cases_r["er"][1], dev),
-               lib_er_ms, max(er_bound_b, er_bound_o),
-               "bytes" if er_bound_b >= er_bound_o else "operations")
+               lib_er_ms, *er_bound(1))
+    # #6 at R = 16 (the load cases on this plan), fp32 and bf16, beside
+    # torch CSR @ X of the live ER entries
+    x16_16 = x1_new.bfloat16()
+    er16 = {"float32": (
+        lambda: K.er(x1_new, o.er_vals, o.er_cols, o.er_col_rows),
+        lambda: ref.er_live_ref(x1_new, o.er_vals, o.er_cols,
+                                o.er_col_rows)),
+        "bfloat16": (
+        lambda: K.er(x16_16, o16.er_vals, o16.er_cols, o16.er_col_rows),
+        lambda: ref.er_live_ref(x16_16, o16.er_vals, o16.er_cols,
+                                o16.er_col_rows))}
+    err16 = {dn: check_cases({"er": c}, REL_KERNEL_TOL[dn],
+                             f"er R={K_RHS} {dn}")["er"][0]
+             for dn, c in er16.items()}
+    er16_ms = (time_ms(er16["float32"][0], dev),
+               time_ms(er16["float32"][1], dev),
+               time_ms(lambda: er_t @ x1_new, dev), *er_bound(K_RHS))
+    same16 = bool(torch.equal(er16["float32"][0](), er16["float32"][0]()))
+    check(same16, f"two launches of #6 at R={K_RHS} give the same bits")
+    del er_t, x16_16
     # the largest partition's bytes against the mean: with one block a
     # partition and one partition an SM, the largest sets a floor of its
     # bytes over an SM's share of the card's rate (6 B an ELL entry, 12 B
@@ -1116,9 +1161,15 @@ def run(dev, nx: int) -> list:
             median_mb=float(np.median(part_bytes)) / 1e6,
             mean_mb=float(part_bytes.mean()) / 1e6,
             floor_ms=float(part_bytes.max()) * o.n_parts / BANDWIDTH * 1e3)
-    log("er-bound", live_bytes=er_bytes, bound_ms=t["er"][3],
+    log("er-bound", bytes_needed=8 * nnz_er + (o.n_pad + e.er_rows) * 4,
+        bound_ms=t["er"][3], bytes_read_now=er_read,
+        bytes_read_now_ms=er_read / BANDWIDTH * 1e3,
         padded_table_bytes=e.er_rows * er_w * 8, padded_table_ms=padded_er_ms,
         library_vs_kernel=err_lib_er)
+    log("time-er-r16", r=K_RHS, kernel_ms=er16_ms[0], plain_ms=er16_ms[1],
+        library_ms=er16_ms[2], bound_ms=er16_ms[3], bound_by=er16_ms[4],
+        bound_share=round(er16_ms[3] / er16_ms[0], 4), vs_plain=err16,
+        bit_identical=same16)
     for k, (ms_k, ms_p, ms_l, bd, by) in t.items():
         log("time", kernel=k, kernel_ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
             bound_ms=bd, bound_by=by, bound_share=round(bd / ms_k, 4))

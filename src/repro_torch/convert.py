@@ -25,7 +25,7 @@ import torch
 from .api.plan import resolve_device
 from .core.matrices import SparseCSR
 from .core.spmv import (ER_STREAM, EHYBDevice, EHYBPackedDevice,
-                        column_rows, er_stream_tensors)
+                        column_rows, er_column_rows, er_stream_tensors)
 from .reliability.policy import SolvePolicy
 
 _CONTAINERS = {"EHYBDevice": EHYBDevice, "EHYBPackedDevice": EHYBPackedDevice}
@@ -34,8 +34,8 @@ _STATIC = ("n", "n_pad", "n_parts", "vec_size", "has_er")
 _INDEX_FIELDS = ("perm", "inv_perm")   # int64 in the port (JAX keeps int32)
 # the port's own fields of each container, laid out from the pattern (the
 # packed container's col_rows is the staircase's, a leaf)
-_LAID_OUT = {EHYBDevice: ER_STREAM + ("col_rows",),
-             EHYBPackedDevice: ER_STREAM}
+_LAID_OUT = {EHYBDevice: ER_STREAM + ("col_rows", "er_col_rows"),
+             EHYBPackedDevice: ER_STREAM + ("er_col_rows",)}
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -58,11 +58,11 @@ def device_container(kind: str, leaves: dict, static: dict, device=None, *,
 
     ``host`` is required: the host EHYB build the leaves came from (the JAX
     package's or the port's).  The port's own fields — the compact ER
-    stream ``er_s_*`` and the uniform container's ``col_rows`` — are laid
-    out from its pattern, which the leaves do not hold.  Raises
-    ``ValueError`` without ``host``, or when ``host`` lays the matrix out
-    otherwise than the leaves (another permutation or another ER
-    grouping)."""
+    stream ``er_s_*``, ``er_col_rows`` and the uniform container's
+    ``col_rows`` — are laid out from its pattern, which the leaves do not
+    hold.  Raises ``ValueError`` without ``host``, or when ``host`` lays
+    the matrix out otherwise than the leaves (another permutation, another
+    ER table or another ER grouping)."""
     device = resolve_device(device)
     if host is None:
         raise ValueError("device_container needs host=, the host EHYB build "
@@ -72,6 +72,10 @@ def device_container(kind: str, leaves: dict, static: dict, device=None, *,
                           np.asarray(leaves["perm"])):
         raise ValueError("host= was partitioned otherwise than the leaves "
                          "(another permutation)")
+    if tuple(np.shape(leaves["er_vals"])) != (host.er_rows, host.er_width):
+        raise ValueError(f"the ER table is {np.shape(leaves['er_vals'])}; "
+                         f"host= lays it out as "
+                         f"{(host.er_rows, host.er_width)}")
     cls = _CONTAINERS[kind]
     kw = {k: static[k] for k in _STATIC}
     for f in dataclasses.fields(cls):
@@ -81,6 +85,7 @@ def device_container(kind: str, leaves: dict, static: dict, device=None, *,
         kw[f.name] = t.to(torch.int64) if f.name in _INDEX_FIELDS else t
     kw["has_er"] = bool(kw["has_er"])
     kw.update(er_stream_tensors(host, kw["er_p_vals"], kw["er_p_cols"]))
+    kw["er_col_rows"] = torch.from_numpy(er_column_rows(host)).to(device)
     if cls is EHYBDevice:
         kw["col_rows"] = torch.from_numpy(column_rows(host)).to(device)
     return cls(**kw)

@@ -43,6 +43,32 @@ def column_rows(e: EHYB) -> np.ndarray:
     return (widths[:, :, None] > ks).sum(axis=1).astype(np.int32)
 
 
+def er_column_rows(e: EHYB) -> np.ndarray:
+    """(W,) int32: how many rows of the global ``(Rr, W)`` ER table hold
+    more than k live entries — ``er_col_rows``, from the pattern
+    (``fill_plan["er_dst"]``), never from the values, so a stored zero
+    keeps its entry.  The build sorts the ER rows by descending live count
+    and fills each row's live entries as a prefix, so row r's live count
+    is the number of k with ``er_col_rows[k] > r``; raises if the table is
+    not laid out so."""
+    if e.fill_plan is None:
+        raise ValueError("er_col_rows is laid out from the pattern: the "
+                         "build has no fill_plan")
+    w = e.er_width
+    dst = e.fill_plan["er_dst"]
+    live = np.bincount(dst // w, minlength=e.er_rows)
+    out = (live[None, :] > np.arange(w)[:, None]).sum(axis=1).astype(
+        np.int32)
+    prefix = np.arange(w)[None, :] < live[:, None]          # (Rr, W)
+    if (np.diff(out) > 0).any() or not np.array_equal(
+            (out[None, :] > np.arange(e.er_rows)[:, None]).sum(axis=1),
+            live) or not np.array_equal(np.sort(dst),
+                                        np.flatnonzero(prefix)):
+        raise ValueError("the ER table's live entries are not prefixes of "
+                         "rows in descending length")
+    return out
+
+
 def er_stream_tensors(e, er_p_vals: torch.Tensor,
                       er_p_cols: torch.Tensor) -> dict:
     """The compact ER stream of host build ``e``
@@ -82,13 +108,16 @@ class EHYBDevice:
 
     * ``er_s_*`` — the compact ER stream (:func:`repro_torch.core.ehyb.
       er_stream`): the live ER entries only, grouped by partition, with a
-      row pointer and a local row per live ER row.  The K = 1 fused SpMV
-      kernels read it instead of the padded ``er_p_*`` tiles, which the
-      SpMM kernels, the unfused level, the plain paths and
-      :meth:`value_tables` still read.
+      row pointer and a local row per live ER row.  The fused SpMV and
+      SpMM kernels read it instead of the padded ``er_p_*`` tiles, which
+      the unfused level, the plain paths and :meth:`value_tables` still
+      read.
     * ``col_rows`` — (P, W) rows per ELL column (:func:`column_rows`), from
       which the SpMV kernels take each row's width and skip the tile's
       padded tail.
+    * ``er_col_rows`` — (We,) rows of the global ER table per column
+      (:func:`er_column_rows`), from which the standalone ER kernel takes
+      each row's live prefix.
     """
 
     n: int
@@ -112,6 +141,7 @@ class EHYBDevice:
     er_s_cols: torch.Tensor      # (nnz_er,) int32 global-new
     er_s_vals: torch.Tensor      # (nnz_er,) table dtype
     col_rows: torch.Tensor       # (P, W) int32 rows per ELL column
+    er_col_rows: torch.Tensor    # (We,) int32 ER rows per ER column
 
     @classmethod
     def from_ehyb(cls, e: EHYB, dtype=torch.float32, *,
@@ -129,7 +159,8 @@ class EHYBDevice:
                    _tensor(g["er_p_rows"], device),
                    _tensor(e.perm, device), _tensor(e.inv_perm, device),
                    **er_stream_tensors(e, er_p_vals, er_p_cols),
-                   col_rows=_tensor(column_rows(e), device))
+                   col_rows=_tensor(column_rows(e), device),
+                   er_col_rows=_tensor(er_column_rows(e), device))
 
     def er_stream(self) -> tuple:
         """The compact ER stream, in ``ER_STREAM`` order."""
@@ -143,8 +174,8 @@ class EHYBDevice:
 @dataclasses.dataclass
 class EHYBPackedDevice:
     """Device-side packed-staircase EHYB, fields as in the JAX package,
-    plus the compact ER stream ``er_s_*`` (see :class:`EHYBDevice`), which
-    the K = 1 fused SpMV kernel reads."""
+    plus the compact ER stream ``er_s_*``, which the fused SpMV and SpMM
+    kernels read, and ``er_col_rows`` (see :class:`EHYBDevice`)."""
 
     n: int
     n_pad: int
@@ -168,6 +199,7 @@ class EHYBPackedDevice:
     er_s_rows: torch.Tensor
     er_s_cols: torch.Tensor
     er_s_vals: torch.Tensor
+    er_col_rows: torch.Tensor
 
     @classmethod
     def from_packed(cls, pk: PackedEHYB, dtype=torch.float32, *,
@@ -187,7 +219,8 @@ class EHYBPackedDevice:
                    er_p_vals, er_p_cols,
                    _tensor(g["er_p_rows"], device),
                    _tensor(e.perm, device), _tensor(e.inv_perm, device),
-                   **er_stream_tensors(e, er_p_vals, er_p_cols))
+                   **er_stream_tensors(e, er_p_vals, er_p_cols),
+                   er_col_rows=_tensor(er_column_rows(e), device))
 
     def er_stream(self) -> tuple:
         """The compact ER stream, in ``ER_STREAM`` order."""

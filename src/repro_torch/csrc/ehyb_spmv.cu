@@ -58,17 +58,22 @@
 //   * group widths are fixed per body (measured on elasticity3d(64) by
 //     tools/ehyb_lane_sweep.py): 4 lanes an ER row and a row of #1's tile,
 //     whose rows are short enough that narrow groups keep more rows in
-//     flight; 8 lanes a row of #4's tile, which has no ER stage beside it.
-//     The launch takes whole warps enough for the larger stage, at most
-//     1024 threads;
+//     flight; 8 lanes a row of #4's tile, which has no ER stage beside it;
+//     4 lanes a row of #6's ER table.  The launch takes whole warps enough
+//     for the larger stage, at most 1024 threads;
 //   * determinism: every sum runs in a fixed order, so two launches on the
 //     same inputs give the same bits;
-//   * ER kernel (standalone, no caller on the hot path): one warp per row
-//     of the row-major (Rr, W) ER table; lane j reads slots j, j + 32, ...
-//     (coalesced along W), gathers x through L2 and the warp reduces with
-//     shuffles in a fixed order -- no atomics, deterministic.  Padded slots
-//     carry value 0 and column 0 and add 0.  It reads the padded table, so
-//     its bytes are the table's (Rr * W), not the live entries'.
+//   * ER kernel (standalone, no caller on the hot path): a group of
+//     kErRowLanes lanes per row of the row-major (Rr, W) ER table.  The
+//     build sorts the table's rows by descending live count and fills each
+//     row's live entries as a prefix, so er_col_rows (the rows with more
+//     than k live entries) gives each row's width by the same binary
+//     search as col_rows; the lanes stride that prefix only (coalesced,
+//     kErRowUnroll loads in flight), gather x through L2 and read each entry
+//     once for up to 32 rhs columns held in registers.  The group sums
+//     with shuffles in a fixed order -- no atomics, deterministic.  Its
+//     bytes are the live entries' (plus a sector of tail a row and
+//     array), not the padded table's.
 // Accumulation is fp32 for fp32 and bf16 tables.
 
 #include <cuda_bf16.h>
@@ -338,28 +343,93 @@ __global__ void __launch_bounds__(kMaxThreads) ehyb_packed_fused_kernel(
   if constexpr (!ELL_ONLY) finish<T>(y, ys, x, er, p, V, has_er);
 }
 
-constexpr int kErWarps = 8;  // ER rows (one per warp) of an ER block
+constexpr int kErRowLanes = 4;    // #6: lanes of a row of the ER table
+constexpr int kErRowUnroll = 4;   // #6: entries in flight a lane
+constexpr int kErThreads = 256;   // #6: threads of a block
+constexpr int kErStageMax = 4096; // #6: er_col_rows staged up to this W
 
-// out[e * R + r] = sum_k er_vals[e][k] * x[er_cols[e][k] * R + r]; block
-// (blockIdx.x, r) takes rows blockIdx.x * kErWarps + warp.
-template <typename T>
-__global__ void __launch_bounds__(kErWarps * 32) er_kernel(
-    const T* __restrict__ x, T* __restrict__ out,
-    const T* __restrict__ er_vals, const int* __restrict__ er_cols, int Rr,
-    int W, int R) {
-  const int lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kErWarps + (threadIdx.x >> 5);
-  const int r = blockIdx.y;
-  if (e >= Rr) return;  // whole warps only: the shuffles below stay full
-  const T* vr = er_vals + (size_t)e * W;
-  const int* cr = er_cols + (size_t)e * W;
-  float acc = 0.f;
-  for (int k = lane; k < W; k += 32)
-    acc += to_f(vr[k]) * to_f(x[(size_t)cr[k] * R + r]);
+// Row e's partials for columns c0 .. c0 + RC - 1 of R: out[e * R + c] =
+// sum over the row's live prefix (k < w) of er_vals[e][k] *
+// x[er_cols[e][k] * R + c].  The G lanes of the row's group stride the
+// prefix (coalesced: it is contiguous in the row-major table), kErRowUnroll
+// entries in flight a lane, each entry's value and column read once for
+// the RC columns; the group sums with an xor butterfly, which leaves the
+// same bits on every lane, and lane j % G writes column c0 + j.
+template <typename T, int RC>
+__device__ __forceinline__ void er_row(const T* __restrict__ x,
+                                       T* __restrict__ out,
+                                       const T* __restrict__ vr,
+                                       const int* __restrict__ cr, int w,
+                                       int lane, int e, bool live, int R,
+                                       int c0) {
+  constexpr int G = kErRowLanes;
+  const int rc = min(RC, R - c0);
+  const T* xc = x + c0;
+  float acc[RC];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[(size_t)e * R + r] = from_f<T>(acc);
+  for (int j = 0; j < RC; ++j) acc[j] = 0.f;
+  constexpr int U = kErRowUnroll;
+  int k = lane;
+  for (; k + (U - 1) * G < w; k += U * G) {
+    T v[U];
+    int c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = vr[k + u * G];
+      c[u] = cr[k + u * G];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const T* xr = xc + (size_t)c[u] * R;
+#pragma unroll
+      for (int j = 0; j < RC; ++j)
+        if (j < rc) acc[j] += to_f(v[u]) * to_f(xr[j]);
+    }
+  }
+  for (; k < w; k += G) {
+    const float a = to_f(vr[k]);
+    const T* xr = xc + (size_t)cr[k] * R;
+#pragma unroll
+    for (int j = 0; j < RC; ++j)
+      if (j < rc) acc[j] += a * to_f(xr[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < RC; ++j) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off, G);
+    if (live && j < rc && (j & (G - 1)) == lane)
+      out[(size_t)e * R + c0 + j] = from_f<T>(acc[j]);
+  }
+}
+
+// #6: a group of kErRowLanes lanes per row of the (Rr, W) table; the row's
+// live width from a binary search over er_col_rows (non-increasing, the ER
+// rows with more than k live entries), staged in shared memory when W <=
+// kErStageMax.  Rows past the live count, and the sublane padding rows,
+// have width 0 and write 0.  Every lane of a warp runs the shuffles, rows
+// past Rr included (they write nothing).
+template <typename T, int RC>
+__global__ void __launch_bounds__(kErThreads) er_kernel(
+    const T* __restrict__ x, T* __restrict__ out,
+    const T* __restrict__ er_vals, const int* __restrict__ er_cols,
+    const int* __restrict__ er_col_rows, int Rr, int W, int R) {
+  extern __shared__ int ecr_s[];
+  const int* ecr = er_col_rows;
+  if (W <= kErStageMax) {
+    stage_ints(ecr_s, er_col_rows, W);
+    ecr = ecr_s;
+  }
+  __syncthreads();
+  constexpr int G = kErRowLanes;
+  const int lane = threadIdx.x & (G - 1);
+  const int e = blockIdx.x * (kErThreads / G) + threadIdx.x / G;
+  const bool live = e < Rr;
+  const int w = live ? row_width(ecr, W, e) : 0;
+  const T* vr = er_vals + (size_t)(live ? e : 0) * W;
+  const int* cr = er_cols + (size_t)(live ? e : 0) * W;
+  for (int c0 = 0; c0 < R; c0 += RC)
+    er_row<T, RC>(x, out, vr, cr, w, lane, e, live, R, c0);
 }
 
 template <typename K>
@@ -466,16 +536,28 @@ int run_dtype(int dtype, const void* x, void* y, const void* vals,
   return (int)cudaErrorInvalidValue;
 }
 
+// The narrowest register accumulator that holds min(R, 32) columns; wider
+// R runs in chunks of 32, each chunk re-reading the row's prefix.
 template <typename T>
 int launch_er(const void* x, void* out, const void* er_vals,
-              const void* er_cols, int Rr, int W, int R, cudaStream_t stream) {
-  if (Rr < 1 || W < 1 || R < 1 || R > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Rr + kErWarps - 1) / kErWarps, R);
-  er_kernel<T><<<grid, kErWarps * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const T*>(er_vals), static_cast<const int*>(er_cols), Rr, W,
-      R);
-  return (int)cudaGetLastError();
+              const void* er_cols, const void* er_col_rows, int Rr, int W,
+              int R, cudaStream_t stream) {
+  if (Rr < 1 || W < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (Rr + kErThreads / kErRowLanes - 1) /
+                     (kErThreads / kErRowLanes);
+  const size_t smem = W <= kErStageMax ? (size_t)W * sizeof(int) : 0;
+  auto args = [&](auto kernel) {
+    kernel<<<blocks, kErThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out),
+        static_cast<const T*>(er_vals), static_cast<const int*>(er_cols),
+        static_cast<const int*>(er_col_rows), Rr, W, R);
+    return (int)cudaGetLastError();
+  };
+  if (R == 1) return args(er_kernel<T, 1>);
+  if (R <= 4) return args(er_kernel<T, 4>);
+  if (R <= 8) return args(er_kernel<T, 8>);
+  if (R <= 16) return args(er_kernel<T, 16>);
+  return args(er_kernel<T, 32>);
 }
 
 }  // namespace
@@ -535,13 +617,18 @@ extern "C" int ehyb_ell_packed(int dtype, const void* x_parts, void* y_parts,
 }
 
 // ER partials: x (n_pad, R) and out (Rr, R) row-major; er_vals, er_cols
-// (Rr, W) row-major, int32 global columns.
+// (Rr, W) row-major, int32 global columns; er_col_rows (W,) the rows with
+// more than k live entries (EHYBDevice.er_col_rows).  Only each row's live
+// prefix is read.
 extern "C" int er(int dtype, const void* x, void* out, const void* er_vals,
-                  const void* er_cols, int Rr, int W, int R, void* stream) {
+                  const void* er_cols, const void* er_col_rows, int Rr, int W,
+                  int R, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_er<float>(x, out, er_vals, er_cols, Rr, W, R, s);
+    return launch_er<float>(x, out, er_vals, er_cols, er_col_rows, Rr, W, R,
+                            s);
   if (dtype == 1)
-    return launch_er<__nv_bfloat16>(x, out, er_vals, er_cols, Rr, W, R, s);
+    return launch_er<__nv_bfloat16>(x, out, er_vals, er_cols, er_col_rows,
+                                    Rr, W, R, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,18 +13,24 @@ Each replaces one Pallas kernel of ``repro.kernels.ehyb_spmm``:
 ``ehyb_ell_packed_spmm``   ``ehyb_ell_packed_spmm_pallas`` — the staircase
                            alone.
 
+The fused kernels read each partition's ER rows from the compact ER stream
+(``EHYBDevice.er_s_*``: the live entries only), as the fused SpMV kernels
+do, never the padded ``er_p_*`` tiles.  The packed kernels take each row's
+width from ``col_rows``; the CUDA source picks each block's size.
+
 One thread block per partition sweeps the K columns in chunks of Kc:
 ``rhs_chunk`` (None = :data:`SPMM_RHS_CHUNK`, as in the reference), cut to
 what the partition's (V, Kc) x tile and fp32 output tile leave of the
 block's shared memory, and to :data:`MAX_RHS_CHUNK`, the widest register
 accumulator the kernels are built with.  The chunk width changes the
 number of passes over A, never the result: each column's sum runs in the
-same order whatever the chunks.
+same order whatever the chunks, and two launches give the same bits.
 
 For tensors on the CPU each wrapper runs its plain version
-(``kernels.ref``); for CUDA tensors it checks what the kernel takes (the
-checks of ``kernels.ehyb_spmv``), makes X contiguous, launches on the
-current stream, raises on a launch error and adds one to its ``launches``
+(``kernels.ref``; the fused ones on the same compact stream); for CUDA
+tensors it checks what the kernel takes (the checks of
+``kernels.ehyb_spmv``), makes X contiguous, launches on the current
+stream, raises on a launch error and adds one to its ``launches``
 count.  It never falls back.  Tables are fp32 or bf16, X in their dtype;
 accumulation is fp32.
 """
@@ -34,15 +40,15 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .ehyb_spmv import _DTYPE_CODE, _check_tables, _raise_on, _smem_optin
-from .ref import (ehyb_ell_packed_ref, ehyb_ell_ref, ehyb_fused_ref,
-                  ehyb_packed_fused_ref)
+from .ehyb_spmv import (_DTYPE_CODE, _check_tables, _ptrs, _raise_on,
+                        _smem_optin, _stream_dtypes, _stream_tables)
+from .ref import (ehyb_ell_packed_ref, ehyb_ell_ref, ehyb_fused_stream_ref,
+                  ehyb_packed_fused_stream_ref)
 
 # rhs columns per chunk by default (repro/kernels/ehyb_spmm.py:36)
 SPMM_RHS_CHUNK = 16
 # the widest register accumulator csrc/ehyb_spmm.cu instantiates
 MAX_RHS_CHUNK = 32
-_MAX_THREADS = 512
 
 
 def _requested_chunk(rhs_chunk) -> int:
@@ -66,33 +72,26 @@ def rhs_chunk_for(k: int, v: int, itemsize: int, rhs_chunk, smem: int) -> int:
 
 
 def _prepare(x: torch.Tensor, shape: tuple, vals: torch.Tensor, dtypes: dict,
-             tables: list, v: int, e: int, rhs_chunk):
-    """Check a CUDA launch; returns (contiguous x, Kc, threads)."""
+             tables: list, v: int, rhs_chunk, n_meta: int = 0):
+    """Check a CUDA launch; returns (contiguous x, Kc, stage): ``stage`` = 1
+    when the ``n_meta`` int32 of row metadata (the staircase's ``col_rows``
+    and ``col_starts``) fit in shared memory beside the tiles."""
     if tuple(x.shape) != shape or shape[-1] < 1:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                          f"{shape[:-1] + ('K',)} with K ≥ 1")
     _check_tables(x, vals, dtypes, tables)
-    kc = rhs_chunk_for(shape[-1], v, x.element_size(), rhs_chunk,
-                       _smem_optin(x.device.index))
-    threads = min(_MAX_THREADS, max(32, -(-max(v, e) // 32) * 32))
-    return x.contiguous(), kc, threads
+    smem = _smem_optin(x.device.index)
+    kc = rhs_chunk_for(shape[-1], v, x.element_size(), rhs_chunk, smem)
+    stage = int(v * kc * (x.element_size() + 4) + 4 * n_meta <= smem)
+    return x.contiguous(), kc, stage
 
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-_ER_DTYPES = {"er_p_cols": torch.int32, "er_p_rows": torch.int32}
 _PACKED_DTYPES = {"packed_cols": torch.uint16, "col_starts": torch.int32,
                   "col_rows": torch.int32}
-
-
-def _check_er(er_p_vals, er_p_cols, er_p_rows, p: int) -> tuple[int, int]:
-    _, e, we = er_p_vals.shape
-    if er_p_vals.shape[0] != p or er_p_cols.shape != er_p_vals.shape \
-            or er_p_rows.shape != (p, e):
-        raise ValueError("inconsistent ER tile shapes")
-    return e, we
 
 
 def _check_packed(packed_vals, packed_cols, col_starts, col_rows):
@@ -105,36 +104,33 @@ def _check_packed(packed_vals, packed_cols, col_starts, col_rows):
 
 
 def ehyb_fused_spmm(x_new: torch.Tensor, ell_vals: torch.Tensor,
-                    ell_cols: torch.Tensor, er_p_vals: torch.Tensor,
-                    er_p_cols: torch.Tensor, er_p_rows: torch.Tensor, *,
+                    ell_cols: torch.Tensor, er_stream: tuple, *,
                     rhs_chunk=None) -> torch.Tensor:
     """Fused uniform-tile EHYB SpMM, permuted space: y_new (n_pad, K).
 
     x_new (n_pad, K); ell_vals/ell_cols (P, V, W) with uint16 local
-    columns; er_p_vals/er_p_cols (P, E, We) with int32 global columns;
-    er_p_rows (P, E) int32 local rows."""
+    columns; ``er_stream`` the compact ER stream, the five
+    ``EHYBDevice.er_s_*`` tensors in ``core.spmv.ER_STREAM`` order (the
+    live ER entries only)."""
     _requested_chunk(rhs_chunk)
     if x_new.device.type == "cpu":
-        return ehyb_fused_ref(x_new, ell_vals, ell_cols, er_p_vals,
-                              er_p_cols, er_p_rows)
+        return ehyb_fused_stream_ref(x_new, ell_vals, ell_cols, er_stream)
     p, v, w = ell_vals.shape
-    e, we = _check_er(er_p_vals, er_p_cols, er_p_rows, p)
     if ell_cols.shape != ell_vals.shape:
         raise ValueError("inconsistent ELL tile shapes")
+    er_tables = _stream_tables(er_stream, p, ell_vals)
     k = x_new.shape[-1]
-    x, kc, threads = _prepare(
+    tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols)]
+    x, kc, _ = _prepare(
         x_new, (p * v, k), ell_vals,
-        {"ell_cols": torch.uint16, "er_p_vals": ell_vals.dtype, **_ER_DTYPES},
-        [("ell_vals", ell_vals), ("ell_cols", ell_cols),
-         ("er_p_vals", er_p_vals), ("er_p_cols", er_p_cols),
-         ("er_p_rows", er_p_rows)], v, e, rhs_chunk)
+        {"ell_cols": torch.uint16, **_stream_dtypes(ell_vals)},
+        tables + er_tables, v, rhs_chunk)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmm", "ehyb_fused_spmm", 7, 8)
+    fn = build.entry("ehyb_spmm", "ehyb_fused_spmm", 9, 6)
     _raise_on(fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-                 ell_vals.data_ptr(), ell_cols.data_ptr(),
-                 er_p_vals.data_ptr(), er_p_cols.data_ptr(),
-                 er_p_rows.data_ptr(), p, v, w, e, we, k, kc, threads,
-                 _stream(x)), "ehyb_fused_spmm")
+                 *_ptrs(tables), *_ptrs(er_tables), p, v, w,
+                 er_stream[2].shape[0], k, kc, _stream(x)),
+              "ehyb_fused_spmm")
     ehyb_fused_spmm.launches += 1
     return y
 
@@ -144,37 +140,33 @@ ehyb_fused_spmm.launches = 0
 
 def ehyb_packed_fused_spmm(x_new: torch.Tensor, packed_vals: torch.Tensor,
                            packed_cols: torch.Tensor, col_starts: torch.Tensor,
-                           col_rows: torch.Tensor, er_p_vals: torch.Tensor,
-                           er_p_cols: torch.Tensor, er_p_rows: torch.Tensor,
-                           *, vec_size: int, rhs_chunk=None) -> torch.Tensor:
+                           col_rows: torch.Tensor, er_stream: tuple, *,
+                           vec_size: int, rhs_chunk=None) -> torch.Tensor:
     """Fused packed-staircase EHYB SpMM, permuted space: y_new (n_pad, K).
 
     packed_vals/packed_cols (P, L); col_starts (P, W+1) and col_rows (P, W)
-    int32, col_rows non-increasing along W; ER tiles as in
+    int32, col_rows non-increasing along W; ``er_stream`` as in
     :func:`ehyb_fused_spmm`."""
     _requested_chunk(rhs_chunk)
     if x_new.device.type == "cpu":
-        return ehyb_packed_fused_ref(x_new, packed_vals, packed_cols,
-                                     col_starts, col_rows, er_p_vals,
-                                     er_p_cols, er_p_rows, vec_size)
+        return ehyb_packed_fused_stream_ref(x_new, packed_vals, packed_cols,
+                                            col_starts, col_rows, er_stream,
+                                            vec_size)
     p, l, w = _check_packed(packed_vals, packed_cols, col_starts, col_rows)
-    e, we = _check_er(er_p_vals, er_p_cols, er_p_rows, p)
+    er_tables = _stream_tables(er_stream, p, packed_vals)
     k = x_new.shape[-1]
-    x, kc, threads = _prepare(
+    tables = [("packed_vals", packed_vals), ("packed_cols", packed_cols),
+              ("col_starts", col_starts), ("col_rows", col_rows)]
+    x, kc, stage = _prepare(
         x_new, (p * vec_size, k), packed_vals,
-        {**_PACKED_DTYPES, "er_p_vals": packed_vals.dtype, **_ER_DTYPES},
-        [("packed_vals", packed_vals), ("packed_cols", packed_cols),
-         ("col_starts", col_starts), ("col_rows", col_rows),
-         ("er_p_vals", er_p_vals), ("er_p_cols", er_p_cols),
-         ("er_p_rows", er_p_rows)], vec_size, e, rhs_chunk)
+        {**_PACKED_DTYPES, **_stream_dtypes(packed_vals)},
+        tables + er_tables, vec_size, rhs_chunk, 2 * w + 1)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmm", "ehyb_packed_fused_spmm", 9, 9)
+    fn = build.entry("ehyb_spmm", "ehyb_packed_fused_spmm", 11, 8)
     _raise_on(fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-                 packed_vals.data_ptr(), packed_cols.data_ptr(),
-                 col_starts.data_ptr(), col_rows.data_ptr(),
-                 er_p_vals.data_ptr(), er_p_cols.data_ptr(),
-                 er_p_rows.data_ptr(), p, vec_size, l, w, e, we, k, kc,
-                 threads, _stream(x)), "ehyb_packed_fused_spmm")
+                 *_ptrs(tables), *_ptrs(er_tables), p, vec_size, l, w,
+                 er_stream[2].shape[0], k, kc, stage, _stream(x)),
+              "ehyb_packed_fused_spmm")
     ehyb_packed_fused_spmm.launches += 1
     return y
 
@@ -193,14 +185,14 @@ def ehyb_ell_spmm(x_parts: torch.Tensor, ell_vals: torch.Tensor,
     if ell_cols.shape != ell_vals.shape:
         raise ValueError("inconsistent ELL tile shapes")
     k = x_parts.shape[-1]
-    x, kc, threads = _prepare(
+    x, kc, _ = _prepare(
         x_parts, (p, v, k), ell_vals, {"ell_cols": torch.uint16},
-        [("ell_vals", ell_vals), ("ell_cols", ell_cols)], v, 0, rhs_chunk)
+        [("ell_vals", ell_vals), ("ell_cols", ell_cols)], v, rhs_chunk)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmm", "ehyb_ell_spmm", 4, 6)
+    fn = build.entry("ehyb_spmm", "ehyb_ell_spmm", 4, 5)
     _raise_on(fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
                  ell_vals.data_ptr(), ell_cols.data_ptr(), p, v, w, k, kc,
-                 threads, _stream(x)), "ehyb_ell_spmm")
+                 _stream(x)), "ehyb_ell_spmm")
     ehyb_ell_spmm.launches += 1
     return y
 
@@ -223,17 +215,15 @@ def ehyb_ell_packed_spmm(x_parts: torch.Tensor, packed_vals: torch.Tensor,
         raise ValueError(f"x_parts has shape {tuple(x_parts.shape)}, "
                          f"expected ({p}, V, K)")
     v, k = x_parts.shape[1:]
-    x, kc, threads = _prepare(
-        x_parts, (p, v, k), packed_vals, _PACKED_DTYPES,
-        [("packed_vals", packed_vals), ("packed_cols", packed_cols),
-         ("col_starts", col_starts), ("col_rows", col_rows)], v, 0,
-        rhs_chunk)
+    tables = [("packed_vals", packed_vals), ("packed_cols", packed_cols),
+              ("col_starts", col_starts), ("col_rows", col_rows)]
+    x, kc, stage = _prepare(x_parts, (p, v, k), packed_vals, _PACKED_DTYPES,
+                            tables, v, rhs_chunk, 2 * w + 1)
     y = torch.empty_like(x)
     fn = build.entry("ehyb_spmm", "ehyb_ell_packed_spmm", 6, 7)
     _raise_on(fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-                 packed_vals.data_ptr(), packed_cols.data_ptr(),
-                 col_starts.data_ptr(), col_rows.data_ptr(), p, v, l, w, k,
-                 kc, threads, _stream(x)), "ehyb_ell_packed_spmm")
+                 *_ptrs(tables), p, v, l, w, k, kc, stage, _stream(x)),
+              "ehyb_ell_packed_spmm")
     ehyb_ell_packed_spmm.launches += 1
     return y
 

@@ -7,13 +7,14 @@
 space, one thread block per partition, and read the partition's ER rows
 from the compact ER stream (``EHYBDevice.er_s_*``: the live entries only,
 a row pointer and a local row per live ER row), not from the padded
-``er_p_*`` tiles, which the SpMM kernels and the plain paths read.
+``er_p_*`` tiles, which the unfused level and the plain paths read.
 ``ehyb_ell`` and ``ehyb_ell_packed`` replace ``ehyb_ell_pallas`` and
 ``ehyb_ell_packed_pallas``: the cached (sliced-ELL) part alone, the
 guarded apply's unfused level at one right-hand side; they are the fused
 kernels' bodies without the ER stage.  ``er`` replaces ``er_pallas``: the
 uncached ER rows as per-slot partial sums, which the caller scatter-adds
-by ``er_row_idx``.
+by ``er_row_idx``; it reads each row's live prefix only, its width from
+``er_col_rows``.
 
 What bounds them is device-memory bytes, and with one block a partition,
 the bytes each SM keeps in flight.  The packed kernel gives a thread to a
@@ -21,10 +22,11 @@ row of the staircase (coalesced along each column) with 8 independent
 loads in flight; the uniform kernels give a group of lanes (4 in #1, 8 in
 #4) to a row of the row-major tile and read it to the row's width, which
 they take from ``col_rows``; the ER stage gives 4 lanes to an ER row of
-the stream.  The group widths are fixed in the CUDA source, and each body
-picks its block size there.  Every sum runs in a fixed order (shuffle
-reductions, a plain add of each ER row into the block's tile, no atomics),
-so two launches give the same bits.  The CUDA source says more.
+the stream, and ``er`` 4 lanes to a row of the ER table.  The group widths
+are fixed in the CUDA source, and each body picks its block size there.
+Every sum runs in a fixed order (shuffle reductions, a plain add of each
+ER row into the block's tile, no atomics), so two launches give the same
+bits.  The CUDA source says more.
 
 For tensors on the CPU each wrapper runs its plain version
 (``kernels.ref``; the fused ones on the same compact stream); for CUDA
@@ -47,7 +49,7 @@ import torch
 
 from . import build
 from .ref import (ehyb_ell_packed_ref, ehyb_ell_ref, ehyb_fused_stream_ref,
-                  ehyb_packed_fused_stream_ref, er_ref)
+                  ehyb_packed_fused_stream_ref, er_live_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PACKED_DTYPES = {"packed_cols": torch.uint16, "col_starts": torch.int32,
@@ -319,32 +321,43 @@ def ehyb_ell_packed(x_parts: torch.Tensor, packed_vals: torch.Tensor,
 ehyb_ell_packed.launches = 0
 
 
-def er(x_new: torch.Tensor, er_vals: torch.Tensor,
-       er_cols: torch.Tensor) -> torch.Tensor:
+def er(x_new: torch.Tensor, er_vals: torch.Tensor, er_cols: torch.Tensor,
+       er_col_rows: torch.Tensor) -> torch.Tensor:
     """Uncached ER rows -> per-slot partial sums: (Rr,) for x_new (n_pad,),
     (Rr, R) for x_new (n_pad, R), in x's dtype.
 
     er_vals/er_cols (Rr, W) with int32 global columns (``EHYBDevice.er_*``);
-    the caller adds row e's partial into ``y_new[er_row_idx[e]]``."""
+    ``er_col_rows`` (W,) int32, the rows with more than k live entries
+    (``EHYBDevice.er_col_rows``): the kernel reads each row's live prefix
+    only, once for all R columns, and writes 0 for rows with none.  The
+    caller adds row e's partial into ``y_new[er_row_idx[e]]``.  With finite
+    x this equals the padded table's product (``ref.er_ref``); see
+    ``ref.er_live_ref`` for a non-finite ``x[0]``."""
     squeeze = x_new.dim() == 1
     x2 = x_new[:, None] if squeeze else x_new
+    if er_vals.dim() != 2 or er_cols.shape != er_vals.shape \
+            or er_col_rows.shape != (er_vals.shape[1],):
+        raise ValueError(f"er_vals and er_cols must be (Rr, W) alike and "
+                         f"er_col_rows (W,); got {tuple(er_vals.shape)}, "
+                         f"{tuple(er_cols.shape)} and "
+                         f"{tuple(er_col_rows.shape)}")
     if x_new.device.type == "cpu":
-        y = er_ref(x2, er_vals, er_cols)
+        y = er_live_ref(x2, er_vals, er_cols, er_col_rows)
         return y[:, 0] if squeeze else y
     if x2.dim() != 2:
         raise ValueError(f"x_new must be (n_pad,) or (n_pad, R), got "
                          f"{tuple(x_new.shape)}")
-    _check_tables(x2, er_vals, {"er_cols": torch.int32},
-                  [("er_vals", er_vals), ("er_cols", er_cols)])
-    if er_vals.dim() != 2 or er_cols.shape != er_vals.shape:
-        raise ValueError("er_vals and er_cols must be (Rr, W) alike")
+    tables = [("er_vals", er_vals), ("er_cols", er_cols),
+              ("er_col_rows", er_col_rows)]
+    _check_tables(x2, er_vals, {"er_cols": torch.int32,
+                                "er_col_rows": torch.int32}, tables)
     rr, w = er_vals.shape
     r = x2.shape[1]
     x2 = x2.contiguous()
     out = torch.empty((rr, r), dtype=x2.dtype, device=x2.device)
-    fn = build.entry("ehyb_spmv", "er", 4, 3)
+    fn = build.entry("ehyb_spmv", "er", 5, 3)
     err = fn(_DTYPE_CODE[x2.dtype], x2.data_ptr(), out.data_ptr(),
-             er_vals.data_ptr(), er_cols.data_ptr(), rr, w, r,
+             *_ptrs(tables), rr, w, r,
              torch.cuda.current_stream(x2.device).cuda_stream)
     _raise_on(err, "er")
     er.launches += 1

@@ -97,12 +97,12 @@ def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
     """Permuted-space EHYB SpMV/SpMM on uniform tiles: x_new (n_pad,) or
     (n_pad, K).
 
-    One column goes to the fused SpMV kernel, which reads the compact ER
-    stream (``m.er_s_*``) and the row widths (``m.col_rows``); K ≥ 2
-    columns go to the fused SpMM kernel, which reads the padded ``er_p_*``
-    tiles.  With ``use_er_kernel=False`` (the reference's unfused level),
-    and for an ER-free operator at K ≥ 2, the ELL-only kernel runs and the
-    plain per-partition path adds the ER part from ``er_p_*``."""
+    One column goes to the fused SpMV kernel and K ≥ 2 columns to the
+    fused SpMM kernel; both read the compact ER stream (``m.er_s_*``, the
+    live ER entries only).  With ``use_er_kernel=False`` (the reference's
+    unfused level), and for an ER-free operator at K ≥ 2, the ELL-only
+    kernel runs and the plain per-partition path adds the ER part from the
+    padded ``er_p_*`` tiles."""
     x2 = _as_2d(x_new)[0]
     if not use_er_kernel:
         return _unfused(m, x_new, _ell_uniform)
@@ -110,8 +110,8 @@ def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
         return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.col_rows,
                              m.er_stream(), has_er=m.has_er)
     if m.has_er:
-        return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols, m.er_p_vals,
-                                   m.er_p_cols, m.er_p_rows)
+        return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols,
+                                   m.er_stream())
     return _unfused(m, x2, _ell_uniform)
 
 
@@ -149,7 +149,7 @@ def ehyb_spmv_packed_permuted(m: EHYBPackedDevice, x_new: torch.Tensor, *,
     if m.has_er:
         return _km.ehyb_packed_fused_spmm(
             x2, m.packed_vals, m.packed_cols, m.col_starts, m.col_rows,
-            m.er_p_vals, m.er_p_cols, m.er_p_rows, vec_size=m.vec_size)
+            m.er_stream(), vec_size=m.vec_size)
     return _unfused(m, x2, _ell_packed)
 
 

@@ -9,7 +9,8 @@ packed-staircase and CG-step oracles the JAX package keeps inline.  The
 fused and ELL-only versions take any number of right-hand sides, so they
 are the plain versions of the SpMV and the SpMM kernels alike; the
 ``*_stream_ref`` forms read the ER part from the compact stream, as the
-K = 1 fused kernels do.
+fused kernels do, and :func:`er_live_ref` reads each ER row's live prefix,
+as the ER kernel does.
 """
 
 from __future__ import annotations
@@ -65,11 +66,11 @@ def er_stream_ref(x_new: torch.Tensor, er_s_part_ptr: torch.Tensor,
 def ehyb_fused_stream_ref(x_new: torch.Tensor, ell_vals: torch.Tensor,
                           ell_cols: torch.Tensor, er_stream: tuple,
                           has_er: bool = True) -> torch.Tensor:
-    """Fused EHYB SpMV with the ER part from the compact stream — the plain
-    version of the K = 1 fused kernel: the sliced-ELL part, plus
-    :func:`er_stream_ref` on ``er_stream`` (the five ``er_s_*`` tensors in
-    ``core.spmv.ER_STREAM`` order).  x_new (n_pad, R) -> y_new (n_pad, R)
-    in x's dtype."""
+    """Fused EHYB SpMV/SpMM with the ER part from the compact stream — the
+    plain version of the fused uniform-tile kernels at any R: the
+    sliced-ELL part, plus :func:`er_stream_ref` on ``er_stream`` (the five
+    ``er_s_*`` tensors in ``core.spmv.ER_STREAM`` order).  x_new (n_pad, R)
+    -> y_new (n_pad, R) in x's dtype."""
     p, v, _ = ell_vals.shape
     r = x_new.shape[1]
     y = _ehyb_ell_part(ell_vals, ell_cols, x_new.reshape(p, v, r))
@@ -99,6 +100,38 @@ def er_ref(x_new: torch.Tensor, er_vals: torch.Tensor,
     g = x_new.index_select(0, er_cols.reshape(-1).to(torch.int64))
     return torch.einsum("ew,ewr->er", er_vals.to(acc),
                         g.reshape(rr, w, -1).to(acc)).to(x_new.dtype)
+
+
+def er_widths(er_col_rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(n_rows,) int64 live prefix of each row of the global ER table: the
+    number of k with ``er_col_rows[k] > r`` (``er_col_rows`` non-increasing,
+    ``EHYBDevice.er_col_rows``)."""
+    r = torch.arange(n_rows, device=er_col_rows.device)
+    return (er_col_rows[None, :] > r[:, None]).sum(dim=1)
+
+
+def er_live_ref(x_new: torch.Tensor, er_vals: torch.Tensor,
+                er_cols: torch.Tensor,
+                er_col_rows: torch.Tensor) -> torch.Tensor:
+    """Uncached ER part on each row's live prefix — the plain version of
+    the ER kernel, which reads only the entries ``k < width(r)`` of row r
+    (:func:`er_widths`) and writes 0 for rows with none.
+
+    x_new (n_pad, R); er_vals/er_cols (Rr, W) with int32 global columns.
+    Returns (Rr, R) per-slot partial sums in x's dtype (accumulated in
+    fp32, or fp64).  With finite x it equals :func:`er_ref` on the padded
+    table (padded slots hold value 0 and column 0); with a non-finite
+    ``x[0]`` the padded read spreads it into every padded slot's product,
+    the live read does not."""
+    acc = _acc_dtype(x_new.dtype)
+    rr, w = er_cols.shape
+    live = torch.arange(w, device=er_cols.device)[None, :] < er_widths(
+        er_col_rows, rr)[:, None]                                # (Rr, W)
+    idx = torch.where(live, er_cols.to(torch.int64), 0)
+    g = x_new.index_select(0, idx.reshape(-1)).reshape(rr, w, -1).to(acc)
+    return torch.einsum("ew,ewr->er",
+                        torch.where(live, er_vals.to(acc), 0),
+                        torch.where(live[:, :, None], g, 0)).to(x_new.dtype)
 
 
 def unpack_staircase(packed_vals: torch.Tensor, packed_cols: torch.Tensor,

@@ -223,7 +223,8 @@ def test_spmv_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):                # the kernels take no fp64
         ops.ehyb_spmv_packed(op64.obj, x64)
     with pytest.raises(TypeError):
-        K.er(x_new.double(), op64.obj.er_vals, op64.obj.er_cols)
+        K.er(x_new.double(), op64.obj.er_vals, op64.obj.er_cols,
+             op64.obj.er_col_rows)
     with pytest.raises(TypeError):                # and the guard does not
         op64 @ torch.ones(m.n, device=cuda_device)  # serve it plainly
     assert op.plan.degraded == {}
@@ -277,11 +278,9 @@ def _spmm_cases(op, x_new, rhs_chunk=None):
         return [
             ("ehyb_fused_spmm", KM.ehyb_fused_spmm,
              lambda: KM.ehyb_fused_spmm(x_new, o.ell_vals, o.ell_cols,
-                                        o.er_p_vals, o.er_p_cols, o.er_p_rows,
-                                        rhs_chunk=rhs_chunk),
-             lambda: ref.ehyb_fused_ref(x_new, o.ell_vals, o.ell_cols,
-                                        o.er_p_vals, o.er_p_cols,
-                                        o.er_p_rows)),
+                                        o.er_stream(), rhs_chunk=rhs_chunk),
+             lambda: ref.ehyb_fused_stream_ref(x_new, o.ell_vals, o.ell_cols,
+                                               o.er_stream())),
             ("ehyb_ell_spmm", KM.ehyb_ell_spmm,
              lambda: KM.ehyb_ell_spmm(x_parts, o.ell_vals, o.ell_cols,
                                       rhs_chunk=rhs_chunk),
@@ -290,11 +289,10 @@ def _spmm_cases(op, x_new, rhs_chunk=None):
         ("ehyb_packed_fused_spmm", KM.ehyb_packed_fused_spmm,
          lambda: KM.ehyb_packed_fused_spmm(
              x_new, o.packed_vals, o.packed_cols, o.col_starts, o.col_rows,
-             o.er_p_vals, o.er_p_cols, o.er_p_rows, vec_size=o.vec_size,
-             rhs_chunk=rhs_chunk),
-         lambda: ref.ehyb_packed_fused_ref(
+             o.er_stream(), vec_size=o.vec_size, rhs_chunk=rhs_chunk),
+         lambda: ref.ehyb_packed_fused_stream_ref(
              x_new, o.packed_vals, o.packed_cols, o.col_starts, o.col_rows,
-             o.er_p_vals, o.er_p_cols, o.er_p_rows, o.vec_size)),
+             o.er_stream(), o.vec_size)),
         ("ehyb_ell_packed_spmm", KM.ehyb_ell_packed_spmm,
          lambda: KM.ehyb_ell_packed_spmm(x_parts, o.packed_vals,
                                          o.packed_cols, o.col_starts,
@@ -369,11 +367,11 @@ def test_spmm_kernels_reject_what_they_do_not_take(cuda_device):
              device=cuda_device)
     o = p.bind(m).obj
     x = torch.ones((o.n_pad, 4), device=cuda_device)
-    tables = (o.ell_vals, o.ell_cols, o.er_p_vals, o.er_p_cols, o.er_p_rows)
+    tables = (o.ell_vals, o.ell_cols, o.er_stream())
     o64 = p.bind(m, dtype=torch.float64).obj
     with pytest.raises(TypeError):               # fp64 tables
         KM.ehyb_fused_spmm(x.double(), o64.ell_vals, o64.ell_cols,
-                           o64.er_p_vals, o64.er_p_cols, o64.er_p_rows)
+                           o64.er_stream())
     with pytest.raises(TypeError):               # x not in the tables' dtype
         KM.ehyb_fused_spmm(x.bfloat16(), *tables)
     with pytest.raises(ValueError):              # not (n_pad, K)
@@ -413,8 +411,9 @@ def test_ell_and_er_kernels_match_plain(cuda_device, name, dtype):
                                   u.ell_cols)[..., 0]),
         (K.ehyb_ell_packed, lambda: K.ehyb_ell_packed(xp, *stair),
          lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
-        (K.er, lambda: K.er(x_new, o.er_vals, o.er_cols),
-         lambda: ref.er_ref(x_new[:, None], o.er_vals, o.er_cols)[:, 0]),
+        (K.er, lambda: K.er(x_new, o.er_vals, o.er_cols, o.er_col_rows),
+         lambda: ref.er_live_ref(x_new[:, None], o.er_vals, o.er_cols,
+                                 o.er_col_rows)[:, 0]),
     ]
     for wrapper, run, plain in cases:
         n0 = wrapper.launches
@@ -426,14 +425,87 @@ def test_ell_and_er_kernels_match_plain(cuda_device, name, dtype):
         assert _rel(y, y_ref) <= REL_TOL[dtype], (name, wrapper.__name__,
                                                    dtype)
     xr = torch.stack([x_new, -x_new, 2 * x_new, x_new], dim=1)
-    assert _rel(K.er(xr, o.er_vals, o.er_cols),
+    assert _rel(K.er(xr, o.er_vals, o.er_cols, o.er_col_rows),
                 ref.er_ref(xr, o.er_vals, o.er_cols)) <= REL_TOL[dtype]
     if dtype == torch.float32:
         y = K.ehyb_ell_packed(xp, *stair).reshape(-1).clone()
         y.index_add_(0, o.er_row_idx.long(), K.er(x_new, o.er_vals,
-                                                  o.er_cols))
+                                                  o.er_cols, o.er_col_rows))
         fused = op.apply(x_new, space="permuted")
         assert _rel(y, fused) <= 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", MATS)
+def test_er_kernel_reads_the_live_prefixes(cuda_device, name, dtype, r):
+    """#6 against its plain version (``ref.er_live_ref``) and the padded
+    table's (``ref.er_ref``, finite x) at R rhs columns, rows past the live
+    count 0, and two launches bit-identical."""
+    m = SUITE[name]()
+    o = plan(m, execution=ExecutionConfig(format="ehyb_packed",
+                                          partition_method="bfs"),
+             device=cuda_device).bind(m, dtype=dtype).obj
+    x = torch.as_tensor(np.random.default_rng(r).standard_normal(
+        (o.n_pad, r)), device=cuda_device).to(dtype)
+    n0 = K.er.launches
+    y = K.er(x, o.er_vals, o.er_cols, o.er_col_rows)
+    assert K.er.launches == n0 + 1
+    want = ref.er_live_ref(x, o.er_vals, o.er_cols, o.er_col_rows)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (o.er_vals.shape[0], r)
+    assert _rel(y, want) <= REL_TOL[dtype], (name, dtype, r)
+    assert _rel(y, ref.er_ref(x, o.er_vals, o.er_cols)) <= REL_TOL[dtype]
+    widths = ref.er_widths(o.er_col_rows, o.er_vals.shape[0])
+    assert bool((y[widths == 0] == 0).all())
+    assert torch.equal(y, K.er(x, o.er_vals, o.er_cols, o.er_col_rows))
+
+
+@pytest.mark.cuda
+def test_er_kernel_rejects_a_width_array_of_the_wrong_shape(cuda_device):
+    m = SUITE["powerlaw_4k"]()
+    o = plan(m, execution=ExecutionConfig(format="ehyb_packed",
+                                          partition_method="bfs"),
+             device=cuda_device).bind(m).obj
+    x = torch.ones(o.n_pad, device=cuda_device)
+    for bad in (o.er_col_rows[:-1], o.er_col_rows[None, :],
+                torch.zeros(o.er_vals.shape[1] + 1, dtype=torch.int32,
+                            device=cuda_device)):
+        with pytest.raises(ValueError, match="er_col_rows"):
+            K.er(x, o.er_vals, o.er_cols, bad)
+    with pytest.raises(TypeError):                 # int32 widths only
+        K.er(x, o.er_vals, o.er_cols, o.er_col_rows.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SUITE))
+def test_fused_spmm_kernels_on_the_stream(cuda_device, name, dtype, k):
+    """#7 and #8 against the stream plain versions on every SUITE matrix,
+    on plans sized for K and on the k = 1 plan, two launches bit-identical,
+    and the same bits at another chunk width (each column's sum keeps its
+    order whatever the chunks)."""
+    m = SUITE[name]()
+    x = torch.as_tensor(np.random.default_rng(k).standard_normal((m.n, k)),
+                        device=cuda_device)
+    for fmt in ("ehyb", "ehyb_packed"):
+        for plan_k in (k, 1):
+            op = plan(m, execution=ExecutionConfig(
+                format=fmt, partition_method="bfs", k=plan_k),
+                device=cuda_device).bind(m, dtype=dtype)
+            kname, wrapper, run, plain = _spmm_cases(op, op.to_space(x))[0]
+            n0 = wrapper.launches
+            y = run()
+            assert wrapper.launches == n0 + 1
+            y_ref = plain()
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and y.shape == y_ref.shape
+            assert _rel(y, y_ref) <= TOL[dtype], (name, kname, plan_k)
+            assert torch.equal(y, run()), (name, kname, plan_k)
+            chunked = _spmm_cases(op, op.to_space(x), rhs_chunk=3)[0][2]
+            assert torch.equal(y, chunked()), (name, kname, plan_k)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,7 @@
 """The compact ER stream (``repro_torch.core.ehyb.er_stream``, the
-containers' ``er_s_*``) and the plain K = 1 fused applies that read it.
+containers' ``er_s_*``) and the plain K = 1 fused applies that read it;
+``er_col_rows`` (the global ER table's live prefixes) and the plain
+version of the ER kernel, which reads only those prefixes.
 
 For every SUITE matrix under the ``natural`` and ``bfs`` partitions, the
 stream holds exactly the live slots of the padded ``er_p_*`` tiles, in
@@ -11,7 +13,9 @@ build (its ``fill_plan`` and ER grouping), independently of the port's
 ``repro.core.spmv.ehyb_spmv_permuted``; the packed wrapper's CPU path
 against ``ehyb_spmv_permuted`` (the packed Pallas kernel cannot run on the
 installed jax).  Tolerance: max|Δ| / max(max|y_ref|, 1) ≤ 1e-4 in fp32, as
-in ``tests/test_spmv_conformance.py``.
+in ``tests/test_spmv_conformance.py``.  ``er_col_rows`` is held against the
+live counts of the JAX build's pattern, the ER kernel's plain version
+against ``er_pallas`` in interpret mode and ``ref.er_ref``.
 """
 
 import jax.numpy as jnp
@@ -23,7 +27,7 @@ from repro.core import ehyb as jehyb
 from repro.core import matrices as jmat
 from repro.core.spmv import EHYBDevice as JEHYBDevice
 from repro.core.spmv import ehyb_spmv_permuted as jax_ehyb_spmv_permuted
-from repro.kernels.ehyb_spmv import ehyb_fused_pallas
+from repro.kernels.ehyb_spmv import ehyb_fused_pallas, er_pallas
 from repro_torch import convert
 from repro_torch.core import ehyb as tehyb
 from repro_torch.core import matrices as tmat
@@ -222,3 +226,124 @@ def test_converted_container_needs_a_matching_host():
     with pytest.raises(ValueError, match="groups its ER rows"):
         convert.device_container("EHYBDevice", cut, static, device="cpu",
                                  host=je)
+
+
+# ---------------------------------------------------------------------------
+# er_col_rows: the global ER table's live prefixes, from the pattern
+# ---------------------------------------------------------------------------
+
+def live_counts(je) -> np.ndarray:
+    """(Rr,) live entries of each row of the JAX build's global ER table,
+    from its pattern (``fill_plan["er_dst"]``)."""
+    return np.bincount(je.fill_plan["er_dst"] // je.er_width,
+                       minlength=je.er_rows)
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_er_col_rows_gives_the_live_counts(name, method):
+    """Row r's live count is the number of k with ``er_col_rows[k] > r``,
+    on the port's build and counted from the JAX build's pattern; the
+    array is non-increasing, (We,) and the same on both containers."""
+    _, te, je = builds(name, method)
+    d = EHYBDevice.from_ehyb(te, device="cpu")
+    ecr = d.er_col_rows
+    assert ecr.dtype == torch.int32 and ecr.shape == (te.er_width,)
+    assert bool((ecr.diff() <= 0).all())
+    np.testing.assert_array_equal(
+        ref.er_widths(ecr, te.er_rows).numpy(), live_counts(je))
+    pk = EHYBPackedDevice.from_packed(tehyb.pack_staircase(te),
+                                      device="cpu")
+    assert torch.equal(pk.er_col_rows, ecr)
+
+
+def test_er_col_rows_keeps_stored_zeros():
+    """Explicit zeros keep their entries: the same widths as the matrix
+    without them."""
+    _, te, je = builds("powerlaw_4k_zeros", "bfs")
+    _, te_nz, _ = builds("powerlaw_4k", "bfs")
+    d = EHYBDevice.from_ehyb(te, device="cpu")
+    assert int((d.er_s_vals == 0).sum()) > 0             # zeros stored
+    assert torch.equal(d.er_col_rows,
+                       EHYBDevice.from_ehyb(te_nz, device="cpu").er_col_rows)
+    np.testing.assert_array_equal(
+        ref.er_widths(d.er_col_rows, te.er_rows).numpy(), live_counts(je))
+
+
+@pytest.mark.parametrize("kind", ["EHYBDevice", "EHYBPackedDevice"])
+@pytest.mark.parametrize("name", ["powerlaw_4k", "circuit_4k"])
+def test_converted_container_carries_er_col_rows(name, kind):
+    _, te, je = builds(name, "bfs")
+    jd = JEHYBDevice.from_ehyb(je, jnp.float32)
+    if kind == "EHYBPackedDevice":
+        from repro.core.spmv import EHYBPackedDevice as JEHYBPackedDevice
+        jd = JEHYBPackedDevice.from_packed(jehyb.pack_staircase(je),
+                                           jnp.float32)
+    leaves, static = jax_leaves(jd)
+    got = convert.device_container(kind, leaves, static, device="cpu",
+                                   host=je)
+    want = EHYBDevice.from_ehyb(te, device="cpu").er_col_rows
+    assert got.er_col_rows.dtype == want.dtype
+    assert torch.equal(got.er_col_rows, want)
+    cut = dict(leaves, er_vals=leaves["er_vals"][:, :-1])
+    with pytest.raises(ValueError, match="ER table"):
+        convert.device_container(kind, cut, static, device="cpu", host=je)
+
+
+# ---------------------------------------------------------------------------
+# #6's plain version on the live prefixes, against er_pallas and er_ref
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r", [1, 4, 32])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["powerlaw_4k", "circuit_4k"])
+def test_er_live_prefix_matches_er_pallas(name, dt, r):
+    """``kernels.er`` on the CPU (``ref.er_live_ref``, the live prefixes
+    only) against ``er_pallas`` in interpret mode and ``ref.er_ref`` on the
+    padded table, on ER-heavy builds; the tolerance of
+    tests/test_torch_reliability.py (fp32 rtol 2e-5, atol 1e-5; bf16
+    max|Δ| / max|y| ≤ 1e-2)."""
+    _, te, je = builds(name, "bfs")
+    jd = JEHYBDevice.from_ehyb(je, getattr(jnp, dt))
+    d = convert.device_container("EHYBDevice", *jax_leaves(jd), device="cpu",
+                                 host=je)
+    x = np.random.default_rng(r).standard_normal((te.n_pad, r))
+    tdt = getattr(torch, dt)
+    xt = torch.as_tensor(x).to(tdt)
+    want = np.asarray(er_pallas(jnp.asarray(x, getattr(jnp, dt)),
+                                jd.er_vals, jd.er_cols,
+                                interpret=True).astype(jnp.float32))
+    got = K.er(xt, d.er_vals, d.er_cols, d.er_col_rows)
+    padded = ref.er_ref(xt, d.er_vals, d.er_cols)
+    assert got.shape == (te.er_rows, r) and got.dtype == tdt
+    if dt == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), padded.numpy(), rtol=2e-5,
+                                   atol=1e-5)
+    else:
+        scale = max(np.abs(want).max(), 1e-30)
+        assert np.abs(got.float().numpy() - want).max() / scale <= 1e-2
+        assert (got.float() - padded.float()).abs().max().item() / scale \
+            <= 1e-2
+    # rows past the live count (sublane padding) are 0
+    n_live = int(te.fill_plan["n_er_live"])
+    assert bool((got[n_live:] == 0).all())
+
+
+def test_er_live_prefix_ignores_padded_slots():
+    """A non-finite x[0] spreads through the padded table's product (its
+    padded slots hold column 0) but not through the live read."""
+    _, te, _ = builds("powerlaw_4k", "bfs")
+    d = EHYBDevice.from_ehyb(te, device="cpu")
+    x = torch.ones((te.n_pad, 1))
+    x[0] = float("nan")
+    cols = d.er_cols.long()
+    live = torch.arange(te.er_width)[None, :] < ref.er_widths(
+        d.er_col_rows, te.er_rows)[:, None]
+    reads_x0 = ((cols == 0) & live).any(dim=1)
+    got = K.er(x, d.er_vals, d.er_cols, d.er_col_rows)[:, 0]
+    assert bool(torch.isfinite(got[~reads_x0]).all())
+    padded = ref.er_ref(x, d.er_vals, d.er_cols)[:, 0]
+    assert bool(torch.isnan(padded[~reads_x0]).any())
+    with pytest.raises(ValueError, match="er_col_rows"):
+        K.er(x, d.er_vals, d.er_cols, d.er_col_rows[:-1])

@@ -142,7 +142,8 @@ def test_plain_ell_matches_pallas_interpret(v, w, r, dt, tol):
 def test_plain_er_matches_pallas_interpret(rows, w, r, dt):
     """``kernels.er`` (the plain version of #6 on the CPU) against
     ``er_pallas`` in interpret mode, the sweep of tests/test_kernels.py, and
-    (Rr,) for a 1-D x."""
+    (Rr,) for a 1-D x.  The random tables have no padding: their
+    ``er_col_rows`` marks every slot live."""
     rng = np.random.default_rng(rows + w + r)
     n_pad = 512
     x = rng.standard_normal((n_pad, r)).astype(np.float32)
@@ -155,14 +156,15 @@ def test_plain_er_matches_pallas_interpret(rows, w, r, dt):
     tdt = getattr(torch, dt)
     tx = torch.as_tensor(x).to(tdt)
     tv = torch.as_tensor(vals).to(tdt)
-    got = tk.er(tx, tv, torch.as_tensor(cols))
+    every = torch.full((w,), rows, dtype=torch.int32)
+    got = tk.er(tx, tv, torch.as_tensor(cols), every)
     assert got.shape == (rows, r) and got.dtype == tdt
     if dt == "float32":
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)
     else:
         assert _err(got.float(), want) <= 1e-2
     np.testing.assert_array_equal(
-        tk.er(tx[:, 0], tv, torch.as_tensor(cols)).float().numpy(),
+        tk.er(tx[:, 0], tv, torch.as_tensor(cols), every).float().numpy(),
         got[:, 0].float().numpy())
 
 

@@ -9,7 +9,8 @@ the reference's own bf16 SpMM cases fail on the installed jax.  The uniform
 SpMM Pallas kernels run in interpret mode; the packed ones cannot run on the
 installed jax (``pl.load`` is gone), so the packed plain versions are held
 against ``repro.core.spmv.ehyb_spmv_permuted`` and against the uniform
-plain versions on the unpacked tiles.  Inputs come from numpy with a seed.
+plain versions on the unpacked tiles.  The fused SpMM wrappers read the ER
+part from the compact stream (``er_s_*``), as their plain versions do.  Inputs come from numpy with a seed.
 """
 
 import dataclasses
@@ -141,8 +142,8 @@ def test_plain_spmm_matches_pallas_interpret(dt, rhs_chunk):
                                   jd.er_p_cols, jd.er_p_rows, interpret=True,
                                   rhs_chunk=rhs_chunk)
     n0 = KM.ehyb_fused_spmm.launches
-    got = KM.ehyb_fused_spmm(xt, td.ell_vals, td.ell_cols, td.er_p_vals,
-                             td.er_p_cols, td.er_p_rows, rhs_chunk=rhs_chunk)
+    got = KM.ehyb_fused_spmm(xt, td.ell_vals, td.ell_cols, td.er_stream(),
+                             rhs_chunk=rhs_chunk)
     assert KM.ehyb_fused_spmm.launches == n0        # CPU: no kernel launched
     assert got.dtype == tdt and got.shape == (jd.n_pad, 5)
     assert _err(got.double(), np.asarray(want, np.float64)) <= tol
@@ -179,14 +180,51 @@ def test_packed_plain_spmm_matches_uniform_and_jax(kind, dt):
     want = np.asarray(jax_ehyb_spmv_permuted(ju, jnp.asarray(x, jdt)),
                       np.float64)
     got = KM.ehyb_packed_fused_spmm(xt, jp.packed_vals, jp.packed_cols,
-                                    jp.col_starts, jp.col_rows, jp.er_p_vals,
-                                    jp.er_p_cols, jp.er_p_rows,
-                                    vec_size=jp.vec_size)
+                                    jp.col_starts, jp.col_rows,
+                                    jp.er_stream(), vec_size=jp.vec_size)
     assert got.dtype == tdt and got.shape == (e.n_pad, 5)
     assert _err(got.double(), want) <= tol
     torch.testing.assert_close(
-        got, KM.ehyb_fused_spmm(xt, tu.ell_vals, tu.ell_cols, tu.er_p_vals,
-                                tu.er_p_cols, tu.er_p_rows), rtol=0, atol=0)
+        got, KM.ehyb_fused_spmm(xt, tu.ell_vals, tu.ell_cols,
+                                tu.er_stream()), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [4, 32])
+@pytest.mark.parametrize("dt", sorted(TOL))
+@pytest.mark.parametrize("kind", ["stencil", "powerlaw"])
+def test_stream_plain_spmm_matches_pallas_and_jax(kind, dt, k):
+    """The plain versions of #7 and #8 (``ref.ehyb_fused_stream_ref`` and
+    ``ref.ehyb_packed_fused_stream_ref``, the ER part from the compact
+    stream), which the SpMM wrappers run on the CPU, against
+    ``ehyb_fused_spmm_pallas`` in interpret mode and the JAX
+    permuted-space apply on the same tables."""
+    jdt, tdt, tol = TOL[dt]
+    _, jm = _mats(kind)
+    e = jehyb.build_ehyb(jm, method="bfs")
+    ju = JEHYBDevice.from_ehyb(e, jdt)
+    tu = _port_container(ju, e)
+    tp = _port_container(JEHYBPackedDevice.from_packed(
+        jehyb.pack_staircase(e), jdt), e)
+    x = np.random.default_rng(k).standard_normal((e.n_pad, k))
+    xj, xt = jnp.asarray(x, jdt), torch.as_tensor(x).to(tdt)
+    pallas = np.asarray(ehyb_fused_spmm_pallas(
+        xj, ju.ell_vals, ju.ell_cols, ju.er_p_vals, ju.er_p_cols,
+        ju.er_p_rows, interpret=True), np.float64)
+    jax_apply = np.asarray(jax_ehyb_spmv_permuted(ju, xj), np.float64)
+    n0 = (KM.ehyb_fused_spmm.launches, KM.ehyb_packed_fused_spmm.launches)
+    got = {"uniform": KM.ehyb_fused_spmm(xt, tu.ell_vals, tu.ell_cols,
+                                         tu.er_stream()),
+           "packed": KM.ehyb_packed_fused_spmm(
+               xt, tp.packed_vals, tp.packed_cols, tp.col_starts,
+               tp.col_rows, tp.er_stream(), vec_size=tp.vec_size)}
+    assert (KM.ehyb_fused_spmm.launches,
+            KM.ehyb_packed_fused_spmm.launches) == n0   # CPU: plain only
+    torch.testing.assert_close(got["uniform"], ref.ehyb_fused_stream_ref(
+        xt, tu.ell_vals, tu.ell_cols, tu.er_stream()), rtol=0, atol=0)
+    for layout, y in got.items():
+        assert y.dtype == tdt and y.shape == (e.n_pad, k)
+        assert _err(y.double(), pallas) <= tol, layout
+        assert _err(y.double(), jax_apply) <= tol, layout
 
 
 def test_rhs_chunk_is_validated():
@@ -195,8 +233,8 @@ def test_rhs_chunk_is_validated():
     x = torch.zeros((o.n_pad, 4))
     for bad in (0, 33, 2.5):
         with pytest.raises(ValueError, match="rhs_chunk"):
-            KM.ehyb_fused_spmm(x, o.ell_vals, o.ell_cols, o.er_p_vals,
-                               o.er_p_cols, o.er_p_rows, rhs_chunk=bad)
+            KM.ehyb_fused_spmm(x, o.ell_vals, o.ell_cols, o.er_stream(),
+                               rhs_chunk=bad)
     # Kc: the request, cut to K and to what the block's shared memory holds
     assert KM.rhs_chunk_for(40, 1504, 4, None, 232448) == 16
     assert KM.rhs_chunk_for(5, 1504, 4, None, 232448) == 5

@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
-"""Lane-group widths and the row-width table of the EHYB SpMV kernels, on
-one NVIDIA Hopper card.
+"""Lane-group widths, the row-width table and the SpMM x-tile layout of the
+EHYB kernels, on one NVIDIA Hopper card.
 
-    python3 tools/ehyb_lane_sweep.py [--nx 64]
+    python3 tools/ehyb_lane_sweep.py [--nx 64] [--sweep spmv,spmm]
 
-The kernels in ``src/repro_torch/csrc/ehyb_spmv.cu`` fix their lane-group
-widths at compile time: ``kErLanes`` lanes an ER row (#1 ``ehyb_fused`` and
-#2 ``ehyb_packed_fused``) and ``row_lanes`` lanes a row of the uniform
-tiles (#1, and #4 ``ehyb_ell``).  This probe builds a copy of that source
-for each width G in (4, 8, 16, 32), with every group G lanes wide, and
-times #1, #2 and #4 through the port's own wrappers on
-``elasticity3d(nx)`` (the solver's k = 1 plan, fp32), each against its
-plain version.  With the library as it is in the source, it also times #1
-and #4 with a ``col_rows`` that makes every row W wide, so they read the
-tiles' padded tail: what the width table saves.
+The kernels fix these choices at compile time.  This probe builds a copy of
+a source for each value, one ``nvcc`` each, all started together, and times
+the kernels through the port's own wrappers on ``elasticity3d(nx)`` (fp32),
+each against its plain version:
+
+* ``spmv`` — ``src/repro_torch/csrc/ehyb_spmv.cu`` with every lane group G
+  wide, G in (4, 8, 16, 32): ``kErLanes`` (an ER row of #1 ``ehyb_fused``
+  and #2 ``ehyb_packed_fused``), ``row_lanes`` (a row of the uniform tiles
+  of #1 and #4 ``ehyb_ell``) and ``kErRowLanes`` (a row of the ER table of
+  #6 ``er``), and at G = 4 and 8 also with ``kErRowUnroll`` (#6's entries
+  in flight a lane) at 8 in place of 4; #1, #2, #4 and #6 (at R = 1 and
+  16) on the solver's k = 1 plan.  With the library as it is in the
+  source, it also times #1 and #4 with a ``col_rows`` that makes every row
+  W wide, so they read the tiles' padded tail: what the width table saves.
+* ``spmm`` — ``src/repro_torch/csrc/ehyb_spmm.cu`` at each ER group width
+  ``kErGroupLanes`` in (4, 8, 16, 32) (a live ER row's lanes: the chunk's
+  columns times the sub-groups its entries are split over) and each x-tile
+  layout ``kXRowMajor`` (false: [j][v], scalar loads; true: [v][j] with
+  16-byte loads and a swizzle), and at 16 lanes also with ``kEllUnroll``
+  (packed ELL entries in flight a thread) at 8 in place of 4; #7–#10 at
+  K = 16 on the k = 16 plan (fp32 and bf16) and #8/#10 at K = 16 on the
+  k = 1 plan (Kc = 4).
 
 Times as in ``chip_smoke.py``: CUDA events, the median of 20 launches, L2
 flushed before each.  One line per measurement; the card's name and power
@@ -22,6 +34,7 @@ limit first.  Needs a card and ``nvcc``; exits non-zero without them.
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,46 +42,184 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 WIDTHS = (4, 8, 16, 32)
-# the source's lane constants, and what each becomes in the G-wide copy
-SUBST = (("constexpr int kErLanes = 4;", "constexpr int kErLanes = {g};"),
-         ("return ell_only ? 8 : 4;", "return {g};"))
+# {source: {variant: ((the source's constant, what it becomes), ...)}}
+SPMV_SUBST = (("constexpr int kErLanes = 4;", "constexpr int kErLanes = {g};"),
+              ("return ell_only ? 8 : 4;", "return {g};"),
+              ("constexpr int kErRowLanes = 4;",
+               "constexpr int kErRowLanes = {g};"),
+              ("constexpr int kErRowUnroll = 4;",
+               "constexpr int kErRowUnroll = {u};"))
+SPMM_SUBST = (("constexpr int kEllUnroll = 4;",
+               "constexpr int kEllUnroll = {u};"),
+              ("constexpr int kErGroupLanes = 4;",
+               "constexpr int kErGroupLanes = {g};"),
+              ("constexpr bool kXRowMajor = true;",
+               "constexpr bool kXRowMajor = {row_major};"))
 
 
-def variant_sources(out: Path) -> dict:
-    """{G: path of a copy of csrc/ehyb_spmv.cu with every group G wide}."""
+def variant_sources(name: str, subst: tuple, variants: dict,
+                    out: Path) -> dict:
+    """{label: path of a copy of csrc/<name>.cu with ``subst`` formatted by
+    ``variants[label]`` (a dict of the placeholders' values)}."""
     from repro_torch.kernels import build
 
-    src = (build.CSRC / "ehyb_spmv.cu").read_text()
-    for old, _ in SUBST:
+    src = (build.CSRC / f"{name}.cu").read_text()
+    for old, _ in subst:
         if src.count(old) != 1:
-            raise RuntimeError(f"csrc/ehyb_spmv.cu no longer holds {old!r}")
+            raise RuntimeError(f"csrc/{name}.cu no longer holds {old!r}")
     out.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for g in WIDTHS:
+    for label, values in variants.items():
         text = src
-        for old, new in SUBST:
-            text = text.replace(old, new.format(g=g))
-        paths[g] = out / f"ehyb_spmv_g{g}.cu"
-        paths[g].write_text(text)
+        for old, new in subst:
+            text = text.replace(old, new.format(**values))
+        # nvcc reads commas and '=' in a file name as option syntax
+        paths[label] = out / (name + "_" + re.sub(r"\W+", "_", label)
+                              + ".cu")
+        paths[label].write_text(text)
     return paths
 
 
 def build_variants(sources: dict) -> dict:
-    """{G: loaded library}, one nvcc per copy, all started together."""
+    """{label: loaded library}, one nvcc per copy, all started together."""
     from repro_torch.kernels import build
 
     nvcc = build.find_nvcc()
-    procs = {g: (subprocess.Popen(
+    procs = {k: (subprocess.Popen(
         [nvcc, *build.NVCC_FLAGS, "-o", str(p.with_suffix(".so")), str(p)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), p)
-        for g, p in sources.items()}
+        for k, p in sources.items()}
     libs = {}
-    for g, (proc, p) in procs.items():
+    for k, (proc, p) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the G = {g} copy:\n{out}")
-        libs[g] = ctypes.CDLL(str(p.with_suffix(".so")))
+            raise RuntimeError(f"nvcc failed on the {k} copy:\n{out}")
+        libs[k] = ctypes.CDLL(str(p.with_suffix(".so")))
     return libs
+
+
+def use(name: str, lib) -> None:
+    """Point the wrappers at ``lib`` for csrc/<name>.cu."""
+    from repro_torch.kernels import build
+
+    build._LIBS[name] = lib
+    build.entry.cache_clear()       # the wrappers' typed entry points
+
+
+def measure(label: str, cases: dict, tol: float = 1e-4) -> None:
+    """Time each (kernel call, plain result) of ``cases`` after holding the
+    kernel against its plain version."""
+    import torch
+    from chip_smoke import log, rel_err, time_ms
+
+    for k, (run, want) in cases.items():
+        err = rel_err(run().double().cpu(), want.double().cpu())
+        if err > tol:
+            raise AssertionError(f"{label} {k}: {err} from the plain "
+                                 f"version")
+        log("lane-sweep", variant=label, kernel=k,
+            ms=time_ms(run, torch.device("cuda")), vs_plain=err)
+
+
+def sweep_spmv(m, dev) -> None:
+    import torch
+    from repro_torch.api import ExecutionConfig, plan
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ehyb_spmv as K
+
+    variants = {f"G={g}": {"g": g, "u": 4} for g in WIDTHS}
+    variants.update({f"G={g},er-unroll=8": {"g": g, "u": 8}
+                     for g in (4, 8)})
+    libs = build_variants(variant_sources(
+        "ehyb_spmv", SPMV_SUBST, variants, build.BUILD_DIR / "lane_sweep"))
+    default = build.load("ehyb_spmv")
+    cfg = dict(partition_method="bfs")
+    op = plan(m, execution=ExecutionConfig(format="ehyb_packed", **cfg),
+              device=dev).bind(m)
+    u = plan(m, execution=ExecutionConfig(format="ehyb", **cfg),
+             device=dev).bind(m).obj
+    o = op.obj
+    gen = torch.Generator().manual_seed(0)
+    x_new = op.to_space(torch.randn(m.n, generator=gen).to(dev))
+    x16 = op.to_space(torch.randn((m.n, 16), generator=gen).to(dev))
+    xp = x_new.reshape(o.n_parts, o.vec_size)
+    stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
+    er_t = (o.er_vals, o.er_cols, o.er_col_rows)
+    plain = {
+        "ehyb_fused": ref.ehyb_fused_stream_ref(
+            x_new[:, None], u.ell_vals, u.ell_cols, u.er_stream())[:, 0],
+        "ehyb_packed_fused": ref.ehyb_packed_fused_stream_ref(
+            x_new[:, None], *stair, o.er_stream(), o.vec_size)[:, 0],
+        "ehyb_ell": ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
+                                     u.ell_cols)[..., 0],
+        "er": ref.er_live_ref(x_new[:, None], *er_t)[:, 0],
+        "er_r16": ref.er_live_ref(x16, *er_t)}
+
+    def cases(col_rows_u, names):
+        calls = {
+            "ehyb_fused": lambda: K.ehyb_fused(
+                x_new, u.ell_vals, u.ell_cols, col_rows_u, u.er_stream()),
+            "ehyb_packed_fused": lambda: K.ehyb_packed_fused(
+                x_new, *stair, o.er_stream(), vec_size=o.vec_size),
+            "ehyb_ell": lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols,
+                                           col_rows_u),
+            "er": lambda: K.er(x_new, *er_t),
+            "er_r16": lambda: K.er(x16, *er_t)}
+        return {k: (calls[k], plain[k]) for k in names}
+
+    try:
+        for g, lib in libs.items():
+            use("ehyb_spmv", lib)
+            measure(g, cases(u.col_rows, plain))
+        use("ehyb_spmv", default)
+        measure("source", cases(u.col_rows, plain))
+        measure("source, every row W wide",
+                cases(torch.full_like(u.col_rows, u.vec_size),
+                      ("ehyb_fused", "ehyb_ell")))
+    finally:
+        use("ehyb_spmv", default)
+
+
+def sweep_spmm(m, dev) -> None:
+    import torch
+    from chip_smoke import spmm_cases
+    from repro_torch.api import ExecutionConfig, plan
+    from repro_torch.kernels import build
+
+    variants = {f"group{g}-{'vj' if rm else 'jv'}-unroll{u}":
+                {"g": g, "u": u, "row_major": "true" if rm else "false"}
+                for g in WIDTHS for rm in (False, True) for u in (4, 8)
+                if u == 4 or g == 16}
+    libs = build_variants(variant_sources(
+        "ehyb_spmm", SPMM_SUBST, variants, build.BUILD_DIR / "spmm_sweep"))
+    default = build.load("ehyb_spmm")
+    gen = torch.Generator().manual_seed(0)
+    xb = torch.randn((m.n, 16), generator=gen).to(dev)
+    sets = {}
+    for k_plan, dtypes in ((16, (torch.float32, torch.bfloat16)),
+                           (1, (torch.float32,))):
+        ex = dict(partition_method="bfs", k=k_plan)
+        pp = plan(m, execution=ExecutionConfig(format="ehyb_packed", **ex),
+                  device=dev)
+        pu = plan(m, execution=ExecutionConfig(format="ehyb", **ex),
+                  device=dev)
+        for dt in dtypes:
+            op = pp.bind(m, dtype=dt)
+            u = pu.bind(m, dtype=dt).obj if k_plan == 16 else None
+            x_new = op.to_space(xb.to(dt))
+            cs = spmm_cases(op.obj, u if u is not None else op.obj, x_new)
+            names = list(cs) if u is not None else [
+                "ehyb_packed_fused_spmm", "ehyb_ell_packed_spmm"]
+            label = f"k{k_plan}/{str(dt).split('.')[1]}"
+            sets[label] = {k: (cs[k][0], cs[k][1]()) for k in names}
+    try:
+        for v, lib in [*libs.items(), ("source", default)]:
+            use("ehyb_spmm", lib)
+            for label, cases in sets.items():
+                tol = 1e-2 if "bfloat16" in label else 1e-4
+                measure(f"{v} {label}", cases, tol)
+    finally:
+        use("ehyb_spmm", default)
 
 
 def main() -> int:
@@ -79,73 +230,20 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=64)
+    ap.add_argument("--sweep", default="spmv,spmm",
+                    help="comma-separated: spmv, spmm")
     args = ap.parse_args()
 
-    from chip_smoke import log, rel_err, time_ms
-    from repro_torch.api import ExecutionConfig, plan
     from repro_torch.core.matrices import elasticity3d
-    from repro_torch.kernels import build, ref
-    from repro_torch.kernels import ehyb_spmv as K
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    libs = build_variants(variant_sources(build.BUILD_DIR / "lane_sweep"))
-    default = build.load("ehyb_spmv")
     m = elasticity3d(args.nx)
-    cfg = dict(partition_method="bfs")
-    op = plan(m, execution=ExecutionConfig(format="ehyb_packed", **cfg),
-              device=dev).bind(m)
-    u = plan(m, execution=ExecutionConfig(format="ehyb", **cfg),
-             device=dev).bind(m).obj
-    o = op.obj
-    x_new = op.to_space(torch.randn(
-        m.n, generator=torch.Generator().manual_seed(0)).to(dev))
-    xp = x_new.reshape(o.n_parts, o.vec_size)
-    stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
-    plain = {
-        "ehyb_fused": ref.ehyb_fused_stream_ref(
-            x_new[:, None], u.ell_vals, u.ell_cols, u.er_stream())[:, 0],
-        "ehyb_packed_fused": ref.ehyb_packed_fused_stream_ref(
-            x_new[:, None], *stair, o.er_stream(), o.vec_size)[:, 0],
-        "ehyb_ell": ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
-                                     u.ell_cols)[..., 0]}
-
-    def calls(col_rows_u):
-        return {
-            "ehyb_fused": lambda: K.ehyb_fused(
-                x_new, u.ell_vals, u.ell_cols, col_rows_u, u.er_stream()),
-            "ehyb_packed_fused": lambda: K.ehyb_packed_fused(
-                x_new, *stair, o.er_stream(), vec_size=o.vec_size),
-            "ehyb_ell": lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols,
-                                           col_rows_u)}
-
-    def measure(label: str, col_rows_u, names) -> None:
-        cs = calls(col_rows_u)
-        for k in names:
-            err = rel_err(cs[k]().double().cpu(), plain[k].double().cpu())
-            if err > 1e-4:
-                raise AssertionError(f"{label} {k}: {err} from the plain "
-                                     f"version")
-            log("lane-sweep", variant=label, kernel=k,
-                ms=time_ms(cs[k], dev), vs_plain=err)
-
-    def use(lib) -> None:
-        build._LIBS["ehyb_spmv"] = lib
-        build.entry.cache_clear()       # the wrappers' typed entry points
-
-    try:
-        for g, lib in libs.items():
-            use(lib)
-            measure(f"G={g}", u.col_rows, plain)
-        use(default)
-        measure("source", u.col_rows, plain)
-        measure("source, every row W wide",
-                torch.full_like(u.col_rows, u.vec_size),
-                ("ehyb_fused", "ehyb_ell"))
-    finally:
-        use(default)
+    sweeps = {"spmv": sweep_spmv, "spmm": sweep_spmm}
+    for name in args.sweep.split(","):
+        sweeps[name](m, dev)
     return 0
 
 
