@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the EHYB SpMV framework (``repro``) for NVIDIA Hopper.
 
 Mirrors the JAX package's layout — ``core`` (host format build, device
-containers, plain applies, CG), ``kernels`` (hand-written CUDA and Triton
-kernels with their plain versions), ``autotune`` (format registry), ``api``
+containers, plain applies, CG), ``kernels`` (hand-written CUDA kernels with
+their plain versions), ``autotune`` (format registry), ``api``
 (``plan → bind → apply/solve``), ``reliability`` (guarded apply, solve
 policy, fault injection) — and is held against it module by module.  It
 imports ``torch`` and never ``jax`` or ``repro``.

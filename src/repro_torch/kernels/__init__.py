@@ -7,7 +7,9 @@ ehyb_spmv.py   — wrappers of the EHYB SpMV kernels (CUDA C++,
 ehyb_spmm.py   — wrappers of the EHYB SpMM kernels (CUDA C++,
                  ``csrc/ehyb_spmm.cu``): fused and ELL-only, uniform tiles
                  and packed staircase, K right-hand sides.
-solver_step.py — the fused CG step (Triton).
+solver_step.py — wrapper of the fused CG step (CUDA C++,
+                 ``csrc/solver_step.cu``): x', r', z' and both dots in one
+                 launch, the cross-block sum finished by the last block.
 ops.py         — container-level wrappers (original and permuted space),
                  the SpMV/SpMM routing, the unfused level
                  (``use_er_kernel=False``), ``ehyb_ell_only`` and the CUDA

@@ -116,8 +116,3 @@ def entry(lib: str, name: str, n_ptrs: int, n_ints: int):
     fn.restype = ctypes.c_int
     return fn
 
-
-def triton_cache_dir() -> None:
-    """Keep Triton's compile cache inside the build directory, not in the
-    user's home."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -1,5 +1,5 @@
-"""Fused CG step as a Triton kernel: the Krylov loop's vector updates in one
-pass.
+"""Wrapper of the fused CG-step kernel (``csrc/solver_step.cu``): the Krylov
+loop's vector updates and both dot products in one launch.
 
 Replaces ``repro.kernels.solver_step.fused_cg_update`` (``_cg_update_kernel``).
 One pass computes
@@ -7,85 +7,76 @@ One pass computes
     x' = x + alpha·p,   r' = r - alpha·ap,   z' = minv ⊙ r'
     rz = <r', z'>,      rr = <r', r'>
 
-What bounds it: device-memory bytes — it reads five vectors and writes three
-for ~10 flops per element.  Its design: each program streams one block of
-the five vectors once, writes the three updated blocks and its two partial
-dot products; a second single-program launch sums the partials in a fixed
-order.  The TPU kernel instead accumulates both dots into one output block
-that every grid step revisits, which is only well defined on the TPU's
-sequential grid; here no block touches another's data, there are no float
-atomics across blocks, and the result is deterministic.  ``alpha`` is read
-from a device tensor, so the solver never waits on the host for it.
+What bounds it: device-memory bytes — it reads five vectors and writes
+three for ~10 flops an element.  The TPU kernel accumulates both dots into
+one output block that every grid step revisits, which is well defined only
+on the TPU's sequential grid.  Here each block writes its pair of partial
+sums, and the last block to finish (counted by an atomic ticket) sums them
+in block order: one launch, no float atomics, the same bits on every launch
+and on every stream.  ``alpha`` is read from a device tensor, so the solver
+never waits on the host for it.  The CUDA source says more.
 
-Triton is imported, and the kernels are compiled, at the first launch — the
-CPU tests import this module on machines without Triton.  Tensors on the CPU
-take the plain version (``kernels.ref.cg_update_ref``).
+The grid is a function of n and the card's SM count only
+(:func:`launch_grid`, with the kernel's constants from :func:`geometry`),
+so the order of every sum is fixed.  Partials and dots come from the
+caching allocator; the ticket is one int32 a (device, stream), zeroed when
+it is made and reset by the kernel itself, so a call launches exactly one
+device kernel.
+
+For tensors on the CPU the wrapper runs the plain version
+(``kernels.ref.cg_update_ref``); for CUDA tensors it checks what the kernel
+takes, launches it on the current stream, raises on a launch error and adds
+one to its ``launches`` count.  It never falls back.
 """
+
+from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
+from . import build
 from .ref import cg_update_ref
 
-_BLOCK = 1024          # elements per program of the update pass
-_SUM_BLOCK = 1024      # partials summed per step of the second pass
-
-# ``triton.language``, bound by ``_kernels`` at the first launch; the kernel
-# bodies resolve it as a module global when Triton compiles them
-tl = None
-_JIT: dict = {}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TICKETS: dict = {}              # (device index, stream handle) -> int32 (1,)
 
 
-def _kernels():
-    """Import Triton and define the two kernels (once)."""
-    global tl
-    if _JIT:
-        return _JIT["update"], _JIT["sum"]
-    from .build import triton_cache_dir
-
-    triton_cache_dir()
-    import triton
-    import triton.language
-
-    tl = triton.language
-
-    @triton.jit
-    def cg_update(x_ptr, r_ptr, p_ptr, ap_ptr, minv_ptr, alpha_ptr, xo_ptr,
-                  ro_ptr, zo_ptr, part_ptr, n, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        alpha = tl.load(alpha_ptr)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        r = tl.load(r_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        p = tl.load(p_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        ap = tl.load(ap_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        minv = tl.load(minv_ptr + offs, mask=mask, other=0.0)
-        xn = x + alpha * p
-        rn = r - alpha * ap
-        zn = minv * rn
-        tl.store(xo_ptr + offs, xn.to(xo_ptr.dtype.element_ty), mask=mask)
-        tl.store(ro_ptr + offs, rn.to(ro_ptr.dtype.element_ty), mask=mask)
-        tl.store(zo_ptr + offs, zn.to(zo_ptr.dtype.element_ty), mask=mask)
-        tl.store(part_ptr + 2 * pid, tl.sum(rn * zn, axis=0))
-        tl.store(part_ptr + 2 * pid + 1, tl.sum(rn * rn, axis=0))
-
-    @triton.jit
-    def sum_partials(part_ptr, out_ptr, n_parts, BLOCK: tl.constexpr):
-        acc_rz = tl.zeros([BLOCK], dtype=tl.float32)
-        acc_rr = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, n_parts, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            mask = offs < n_parts
-            acc_rz += tl.load(part_ptr + 2 * offs, mask=mask, other=0.0)
-            acc_rr += tl.load(part_ptr + 2 * offs + 1, mask=mask, other=0.0)
-        tl.store(out_ptr, tl.sum(acc_rz, axis=0))
-        tl.store(out_ptr + 1, tl.sum(acc_rr, axis=0))
-
-    _JIT["update"], _JIT["sum"] = cg_update, sum_partials
-    return cg_update, sum_partials
+def launch_grid(n: int, sms: int, geometry: tuple[int, int, int]) -> int:
+    """Blocks of a launch on ``n`` elements on a card of ``sms`` SMs:
+    one a chunk of ``threads · elems`` elements, at most ``blocks_per_sm``
+    an SM, at least one.  ``geometry`` is (threads a block, elements a
+    thread per chunk, blocks an SM), the kernel's constants."""
+    threads, elems, blocks_per_sm = geometry
+    return max(1, min(-(-n // (threads * elems)), blocks_per_sm * sms))
 
 
-_VEC_DTYPES = (torch.float32, torch.bfloat16)
+@functools.cache
+def geometry(lib: ctypes.CDLL) -> tuple[int, int, int]:
+    """The kernel constants a library of ``csrc/solver_step.cu`` was built
+    with: (threads a block, elements a thread per chunk, blocks an SM)."""
+    out = (ctypes.c_int * 3)()
+    lib.cg_update_geometry(out)
+    return tuple(out)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The stream's ticket counter on ``device`` (made once, zeroed)."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
@@ -104,9 +95,10 @@ def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     for name, t in (("x", x), ("r", r), ("p", p), ("ap", ap)):
         if t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({n},) vector")
-        if t.dtype != x.dtype or t.dtype not in _VEC_DTYPES:
+        if t.dtype != x.dtype or t.dtype not in _DTYPE_CODE:
             raise TypeError(f"{name} is {t.dtype}; the CG-step kernel takes "
-                            f"x, r, p, ap of one dtype in {_VEC_DTYPES}")
+                            f"x, r, p, ap of one dtype in "
+                            f"{tuple(_DTYPE_CODE)}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if minv.shape != (n,) or minv.dtype != torch.float32 \
@@ -116,17 +108,26 @@ def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     if alpha.numel() != 1 or alpha.dtype != torch.float32 \
             or alpha.device != x.device:
         raise ValueError(f"alpha must be one float32 element on {x.device}")
-    update, sum_partials = _kernels()
-    grid = -(-n // _BLOCK)
+    if n >= 2 ** 31:
+        raise ValueError(f"n = {n} does not fit the kernel's int32 length")
+    dev = x.device
+    grid = launch_grid(n, _sm_count(dev.index),
+                       geometry(build.load("solver_step")))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     xo, ro, zo = torch.empty_like(x), torch.empty_like(r), torch.empty_like(r)
-    partials = torch.empty((grid, 2), dtype=torch.float32, device=x.device)
-    dots = torch.empty(2, dtype=torch.float32, device=x.device)
-    update[(grid,)](x, r, p, ap, minv, alpha.reshape(1), xo, ro, zo,
-                    partials, n, BLOCK=_BLOCK, num_warps=4)
-    sum_partials[(1,)](partials, dots, grid, BLOCK=_SUM_BLOCK, num_warps=4)
+    work = torch.empty(2 + 2 * grid, dtype=torch.float32, device=dev)
+    dots, partials = work[:2], work[2:]
+    fn = build.entry("solver_step", "cg_update", 12, 3)
+    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), r.data_ptr(), p.data_ptr(),
+             ap.data_ptr(), minv.data_ptr(), alpha.data_ptr(), xo.data_ptr(),
+             ro.data_ptr(), zo.data_ptr(), partials.data_ptr(),
+             dots.data_ptr(), _ticket(dev, stream).data_ptr(), n, grid,
+             int(_aligned(x, r, p, ap, minv, xo, ro, zo)), stream)
+    if err != 0:
+        raise RuntimeError(f"cg_update launch failed: cudaError_t {err}")
     fused_cg_update.launches += 1
     return xo, ro, zo, dots[0], dots[1]
 
 
-# one per call; each call runs two device kernels (update, sum_partials)
+# one per call; each call is one device kernel
 fused_cg_update.launches = 0

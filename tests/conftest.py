@@ -12,7 +12,7 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
     config.addinivalue_line(
-        "markers", "cuda: needs an NVIDIA Hopper card with nvcc and triton "
+        "markers", "cuda: needs an NVIDIA Hopper card with nvcc "
         "(repro_torch kernels); skips without one")
     if os.environ.get("REPRO_ERROR_DEPRECATIONS"):
         # CI "deprecations" job: escalate DeprecationWarnings ATTRIBUTED TO

@@ -230,24 +230,134 @@ def test_spmv_kernel_rejects_what_it_does_not_take(cuda_device):
     assert op.plan.degraded == {}
 
 
-@pytest.mark.cuda
-def test_cg_update_kernel_matches_plain(cuda_device):
-    rng = np.random.default_rng(3)
-    n = 100_003                       # not a multiple of the block
-    x, r, p, ap, minv = (torch.as_tensor(rng.standard_normal(n),
-                                         dtype=torch.float32,
-                                         device=cuda_device)
-                         for _ in range(5))
-    alpha = torch.tensor(0.37, device=cuda_device)
-    got = fused_cg_update(x, r, p, ap, minv, alpha)
-    want = ref.cg_update_ref(x, r, p, ap, minv, alpha)
-    torch.cuda.synchronize()
+def _cg_inputs(n, dtype, device, seed=3, offset=0):
+    """x, r, p, ap (dtype) and a positive fp32 minv of n elements, each a
+    view ``offset`` elements into its own buffer, and alpha."""
+    rng = np.random.default_rng(seed)
+
+    def vec(dt, positive=False):
+        v = (rng.uniform(0.5, 1.5, n + offset) if positive
+             else rng.standard_normal(n + offset))
+        return torch.as_tensor(v, dtype=dt, device=device)[offset:]
+
+    vecs = [vec(dtype) for _ in range(4)] + [vec(torch.float32, True)]
+    return vecs, torch.tensor(0.37, device=device)
+
+
+def _check_cg_step(got, want, dtype):
     for g, w in zip(got[:3], want[:3]):
-        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        assert g.dtype == w.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            assert _rel(g, w) <= 1e-2
     for g, w in zip(got[3:], want[3:]):
+        assert g.dtype == torch.float32 and g.shape == ()
         assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
-    again = fused_cg_update(x, r, p, ap, minv, alpha)
-    assert float(again[3]) == float(got[3])       # deterministic reduction
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 7, 1023, 100_003, 789_888])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cg_update_kernel_matches_plain(cuda_device, dtype, n, offset):
+    """Every length class (one element, a partial unit, less than a block,
+    a tail unit, the solve's n_pad) and both instances: offset 1 puts every
+    input's base pointer off 16 bytes, so the scalar-load instance runs."""
+    vecs, alpha = _cg_inputs(n, dtype, cuda_device, offset=offset)
+    assert all((v.data_ptr() % 16 == 0) == (offset == 0) for v in vecs)
+    got = fused_cg_update(*vecs, alpha)
+    want = ref.cg_update_ref(*vecs, alpha)
+    torch.cuda.synchronize()
+    _check_cg_step(got, want, dtype)
+    again = fused_cg_update(*vecs, alpha)
+    assert torch.equal(torch.stack(again[3:]), torch.stack(got[3:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cg_update_dots_bit_identical_across_launches_and_streams(
+        cuda_device, dtype):
+    """50 launches on fresh data, each held against the plain version (a
+    last block that read a stale partial would be off) and repeated on a
+    second stream while the first stream runs another launch: the same
+    bits every time."""
+    n = 789_888
+    side = torch.cuda.Stream(cuda_device)
+    for i in range(50):
+        vecs, alpha = _cg_inputs(n, dtype, cuda_device, seed=100 + i)
+        other, _ = _cg_inputs(n, dtype, cuda_device, seed=1000 + i)
+        torch.cuda.synchronize()
+        got = fused_cg_update(*vecs, alpha)
+        with torch.cuda.stream(side):
+            on_side = fused_cg_update(*vecs, alpha)
+        busy = fused_cg_update(*other, alpha)     # concurrent, own ticket
+        again = fused_cg_update(*vecs, alpha)
+        torch.cuda.synchronize()
+        dots = torch.stack(got[3:])
+        assert torch.equal(torch.stack(on_side[3:]), dots)
+        assert torch.equal(torch.stack(again[3:]), dots)
+        if i % 10 == 0:
+            _check_cg_step(got, ref.cg_update_ref(*vecs, alpha), dtype)
+            _check_cg_step(busy, ref.cg_update_ref(*other, alpha), dtype)
+        else:
+            want = ref.cg_update_ref(*vecs, alpha)
+            for g, w in zip(got[3:], want[3:]):
+                assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("name", ["x", "r", "p", "ap", "minv"])
+@pytest.mark.parametrize("n", [100_003, 789_888])
+def test_cg_update_nonfinite_reaches_the_outputs(cuda_device, n, name,
+                                                 where, value):
+    """A NaN or Inf in the first element (a 16-byte load) or the last (the
+    scalar tail at n = 100,003, a vector at 789,888) reaches what it feeds,
+    as in the plain version: r and ap make r' and so rr non-finite (the
+    solver's divergence guard reads rr), minv makes z' and rz non-finite,
+    x and p make that element of x' non-finite."""
+    vecs, alpha = _cg_inputs(n, torch.float32, cuda_device)
+    k = {"x": 0, "r": 1, "p": 2, "ap": 3, "minv": 4}[name]
+    i = 0 if where == "first" else n - 1
+    vecs[k][i] = value
+    got = fused_cg_update(*vecs, alpha)
+    want = ref.cg_update_ref(*vecs, alpha)
+    torch.cuda.synchronize()
+    if name in ("r", "ap"):
+        assert not torch.isfinite(got[4]) and not torch.isfinite(got[3])
+        assert not torch.isfinite(got[1][i])
+    elif name == "minv":
+        assert not torch.isfinite(got[3]) and torch.isfinite(got[4])
+        assert not torch.isfinite(got[2][i])
+    else:
+        assert not torch.isfinite(got[0][i])
+        assert torch.isfinite(got[3]) and torch.isfinite(got[4])
+    for g, w in zip(got, want):               # the same finiteness pattern
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+
+
+@pytest.mark.cuda
+def test_cg_update_is_one_device_kernel_a_call(cuda_device):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    vecs, alpha = _cg_inputs(789_888, torch.float32, cuda_device)
+    fused_cg_update(*vecs, alpha)          # build, ticket made
+    torch.cuda.synchronize()
+    n0 = fused_cg_update.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fused_cg_update(*vecs, alpha)
+        torch.cuda.synchronize()
+    assert fused_cg_update.launches == n0 + 5
+    device_events = {ev.key: ev.count for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and not ev.key.startswith("Activity Buffer")}
+    assert sum(device_events.values()) == 5, device_events
+    assert all("cg_update_kernel" in k for k in device_events), device_events
 
 
 @pytest.mark.cuda

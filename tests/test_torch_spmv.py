@@ -131,20 +131,56 @@ def test_packed_unpacks_to_the_uniform_tiles():
     np.testing.assert_array_equal(cols.numpy(), e.ell_cols.astype(np.int64))
 
 
+def _cg_step_pair(vecs, alpha, dtype):
+    """The JAX kernel (Pallas, interpret mode) and the port's plain version
+    on the same inputs: x, r, p, ap in ``dtype``, minv fp32."""
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jv = [jnp.asarray(v, jdt) for v in vecs[:4]] + [jnp.asarray(vecs[4])]
+    want = jax_cg_update(*jv, jnp.asarray(alpha), interpret=True)
+    tv = [torch.as_tensor(v).to(dtype) for v in vecs[:4]]
+    got = ref.cg_update_ref(*tv, torch.as_tensor(vecs[4]),
+                            torch.tensor(alpha))
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [1000, 4096 + 3])
-def test_cg_update_ref_matches_pallas_interpret(n):
+def test_cg_update_ref_matches_pallas_interpret(n, dtype):
     rng = np.random.default_rng(n)
     vecs = [rng.standard_normal(n).astype(np.float32) for _ in range(5)]
-    alpha = np.float32(0.37)
-    want = jax_cg_update(*(jnp.asarray(v) for v in vecs), jnp.asarray(alpha),
-                         interpret=True)
-    got = ref.cg_update_ref(*(torch.as_tensor(v) for v in vecs),
-                            torch.tensor(alpha))
+    got, want = _cg_step_pair(vecs, np.float32(0.37), dtype)
     for g, w in zip(got[:3], want[:3]):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+        assert g.dtype == dtype
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), rtol=1e-6,
                                    atol=1e-6)
+    # the dots sum the same fp32 terms in another order; minv of both signs
+    # makes rz cancel, and from bf16 inputs the order's error reaches 1.1e-6
+    # of |rz| at n = 4,099, so bf16 takes the card's 1e-5
+    dot_tol = 1e-6 if dtype == torch.float32 else 1e-5
     for g, w in zip(got[3:], want[3:]):
-        assert abs(float(g) - float(w)) <= 1e-6 * abs(float(w))
+        assert abs(float(g) - float(w)) <= dot_tol * abs(float(w))
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf])
+@pytest.mark.parametrize("name", ["r", "ap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cg_update_ref_nonfinite_tail_matches_pallas_interpret(dtype, name,
+                                                               value):
+    """A non-finite r or ap in the last element, inside the zero-padded
+    tail tile of the Pallas grid (n = 4,099): both give non-finite dots and
+    the same finiteness in every output."""
+    n = 4096 + 3
+    rng = np.random.default_rng(7)
+    vecs = [rng.standard_normal(n).astype(np.float32) for _ in range(5)]
+    vecs[{"r": 1, "ap": 3}[name]][-1] = value
+    got, want = _cg_step_pair(vecs, np.float32(0.37), dtype)
+    for g, w in zip(got[3:], want[3:]):
+        assert not np.isfinite(float(g)) and not np.isfinite(float(w))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(
+            torch.isfinite(g.float()).numpy(),
+            np.isfinite(np.asarray(w, np.float32)))
 
 
 def test_convert_keeps_bf16_bits_and_csr():

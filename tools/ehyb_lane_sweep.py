@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Lane-group widths, the row-width table and the SpMM x-tile layout of the
-EHYB kernels, on one NVIDIA Hopper card.
+EHYB kernels, and the launch shape of the CG step, on one NVIDIA Hopper
+card.
 
-    python3 tools/ehyb_lane_sweep.py [--nx 64] [--sweep spmv,spmm]
+    python3 tools/ehyb_lane_sweep.py [--nx 64] [--sweep spmv,spmm,cg]
 
 The kernels fix these choices at compile time.  This probe builds a copy of
 a source for each value, one ``nvcc`` each, all started together, and times
@@ -26,6 +27,16 @@ each against its plain version:
   (packed ELL entries in flight a thread) at 8 in place of 4; #7–#10 at
   K = 16 on the k = 16 plan (fp32 and bf16) and #8/#10 at K = 16 on the
   k = 1 plan (Kc = 4).
+* ``cg`` — ``src/repro_torch/csrc/solver_step.cu`` at each ``kThreads``
+  (threads a block) in (128, 256, 512), ``kUnits`` (8-element units a
+  thread per chunk) in (1, 2, 4) and ``kBlocksPerSm`` (the grid's cap) in
+  (2, 4, 8), and at the source's 256 · 2 · 4 two alternatives to its design
+  (``CG_ALTERNATIVES``); #3 ``fused_cg_update`` at ``--cg-n`` elements (default
+  789,888: elasticity3d(64)'s n_pad on an H100, 132 × 5,984) in fp32 and
+  bf16, on random vectors and a positive minv; then, at the source's
+  constants, at 1, 2, 4 and 8 times n, with L2 left dirty by the flush (as
+  every other time here) and clean, beside ``torch.add`` under the same
+  timer: the fixed cost of one launch and the streaming rate.
 
 Times as in ``chip_smoke.py``: CUDA events, the median of 20 launches, L2
 flushed before each.  One line per measurement; the card's name and power
@@ -55,6 +66,32 @@ SPMM_SUBST = (("constexpr int kEllUnroll = 4;",
                "constexpr int kErGroupLanes = {g};"),
               ("constexpr bool kXRowMajor = true;",
                "constexpr bool kXRowMajor = {row_major};"))
+
+CG_E0 = "e0[j] = c * kChunk + ((long long)j * kThreads + threadIdx.x) * V;"
+CG_TICKET = """    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> t(*ticket);
+    s_last = t.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+"""
+CG_SUBST = (("constexpr int kThreads = 256;", "constexpr int kThreads = {t};"),
+            ("constexpr int kUnits = 2;", "constexpr int kUnits = {u};"),
+            ("constexpr int kBlocksPerSm = 4;",
+             "constexpr int kBlocksPerSm = {b};"),
+            (CG_E0, "{e0}"), (CG_TICKET, "{ticket}"))
+# the two alternatives timed beside the source's design: a thread owning
+# kUnit contiguous elements, and a ticket behind full fences
+CG_ALTERNATIVES = {
+    "layout=thread-contiguous": {"e0": (
+        "e0[j] = c * kChunk + ((long long)(j / (kUnit / V)) * kThreads"
+        " + threadIdx.x) * kUnit + (j % (kUnit / V)) * V;")},
+    "ticket=threadfence+atomicAdd": {"ticket": """    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+"""}}
 
 
 def variant_sources(name: str, subst: tuple, variants: dict,
@@ -222,6 +259,77 @@ def sweep_spmm(m, dev) -> None:
         use("ehyb_spmm", default)
 
 
+def sweep_cg(n: int, dev) -> None:
+    import numpy as np
+    import torch
+    from chip_smoke import log, rel_err, time_ms
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import solver_step as S
+
+    same = {"e0": CG_E0, "ticket": CG_TICKET}
+    variants = {f"threads={t},elems={8 * u},blocks_per_sm={b}":
+                {"t": t, "u": u, "b": b, **same}
+                for t in (128, 256, 512) for u in (1, 2, 4) for b in (2, 4, 8)}
+    variants.update({k: {"t": 256, "u": 2, "b": 4, **same, **v}
+                     for k, v in CG_ALTERNATIVES.items()})
+    libs = build_variants(variant_sources(
+        "solver_step", CG_SUBST, variants, build.BUILD_DIR / "cg_sweep"))
+    default = build.load("solver_step")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    alpha = torch.tensor(0.41, device=dev)
+
+    def inputs(size, dt):
+        rng = np.random.default_rng(size)
+        vs = [torch.as_tensor(rng.standard_normal(size), dtype=dt,
+                              device=dev) for _ in range(4)]
+        return vs + [torch.as_tensor(rng.uniform(0.5, 1.5, size),
+                                     dtype=torch.float32, device=dev)]
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = {(label, n): inputs(n, dt) for label, dt in dtypes.items()}
+    cases = {k: (vs, ref.cg_update_ref(*vs, alpha))
+             for k, vs in cases.items()}
+
+    def run(v, label, size, vs, want, clean=False):
+        got = S.fused_cg_update(*vs, alpha)
+        vec_err = max(rel_err(g.double().cpu(), w.double().cpu())
+                      for g, w in zip(got[:3], want[:3]))
+        dot_err = max(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
+                      for g, w in zip(got[3:], want[3:]))
+        if vec_err > (1e-6 if label == "float32" else 1e-2) \
+                or dot_err > 1e-5:
+            raise AssertionError(f"{v} {label} n={size}: vectors {vec_err}, "
+                                 f"dots {dot_err} from the plain version")
+        log("cg-sweep", variant=v, dtype=label, n=size,
+            grid=S.launch_grid(size, sms, S.geometry(build.load(
+                "solver_step"))), clean_l2=clean,
+            ms=time_ms(lambda: S.fused_cg_update(*vs, alpha), dev,
+                       clean=clean),
+            vectors_rel=vec_err, dots_rel=dot_err)
+
+    try:
+        for v, lib in [*libs.items(), ("source", default)]:
+            use("solver_step", lib)
+            for (label, size), (vs, want) in cases.items():
+                run(v, label, size, vs, want)
+    finally:
+        use("solver_step", default)
+    # the source's constants: the fixed cost (n = 1), the streaming rate
+    # (the slope over 1, 2, 4 and 8 times n), both L2 states, and beside it
+    # torch.add (x + alpha·p: 12 B an element in fp32) under the same timer
+    for label, dt in dtypes.items():
+        for size in (1, n, 2 * n, 4 * n, 8 * n):
+            vs = inputs(size, dt)
+            want = ref.cg_update_ref(*vs, alpha)
+            out = torch.empty_like(vs[0])
+            for clean in (False, True):
+                run("source", label, size, vs, want, clean)
+                log("cg-yardstick", op="torch.add", dtype=label, n=size,
+                    clean_l2=clean, ms=time_ms(lambda: torch.add(
+                        vs[0], vs[2], alpha=0.41, out=out), dev,
+                        clean=clean))
+
+
 def main() -> int:
     import torch
 
@@ -230,8 +338,9 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nx", type=int, default=64)
-    ap.add_argument("--sweep", default="spmv,spmm",
-                    help="comma-separated: spmv, spmm")
+    ap.add_argument("--sweep", default="spmv,spmm,cg",
+                    help="comma-separated: spmv, spmm, cg")
+    ap.add_argument("--cg-n", type=int, default=789_888)
     args = ap.parse_args()
 
     from repro_torch.core.matrices import elasticity3d
@@ -240,10 +349,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    m = elasticity3d(args.nx)
-    sweeps = {"spmv": sweep_spmv, "spmm": sweep_spmm}
-    for name in args.sweep.split(","):
-        sweeps[name](m, dev)
+    names = args.sweep.split(",")
+    m = elasticity3d(args.nx) if {"spmv", "spmm"} & set(names) else None
+    sweeps = {"spmv": lambda: sweep_spmv(m, dev),
+              "spmm": lambda: sweep_spmm(m, dev),
+              "cg": lambda: sweep_cg(args.cg_n, dev)}
+    for name in names:
+        sweeps[name]()
     return 0
 
 
