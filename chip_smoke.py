@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three main paths, each driven with every kernel's launch count set to 0
+Five main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -20,7 +20,22 @@ just before it and read just after:
   kernels), the fused SpMV rebuilt from the ELL-only kernel and the
   standalone ER kernel, the guard's fallback chain under fault injection
   (``chaos``: the native level fails, every kernel level fails, NaN
-  output under a ``SolvePolicy``), and BiCGStab at full width.
+  output under a ``SolvePolicy``), and BiCGStab at full width;
+* the refill, on the solve's plan: ``op.update_values`` of ``D A D`` (D a
+  seeded positive diagonal: the same pattern, still SPD) in fp32 and bf16,
+  timed end to end beside its host part, its upload and its scatter into
+  the value tables on the card, then ``op2 @ x`` and the CG solve (against the plain path and a CPU solve of the
+  same system); it checks that no partition, build, packing or
+  grouping pass and no host refill ran and nothing was compiled or
+  loaded, that every structural tensor is the one bound before, and that
+  the refilled containers equal a fresh bind of ``D A D`` bit for bit;
+* the train step, on the pruned llama3_2_1b FFN down projection: three
+  SGD steps on the layer's bound values (forward, MSE loss, backward
+  through the transpose plan's packed SpMM, ``layer.update_values``) and
+  a fourth through ``torch.optim.SGD`` on ``layer.parameters()``, with
+  the gradients held against a float64 oracle, the loss falling on every
+  step and the forward after the optimizer's step against a float64
+  oracle of the stepped weights.
 
 Every apply goes through the plan's guard; outside the chaos phases the
 script fails on any downgrade (``plan.degraded`` of every plan it built,
@@ -44,7 +59,9 @@ the rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -57,6 +74,7 @@ SEED = 0
 K_RHS = 16                     # load cases applied to one stiffness matrix
 D_MODEL, D_FF = 2048, 8192     # llama3_2_1b (src/repro/configs/llama3_2_1b.py)
 TOKENS = 16
+WARM_REPS = 5                  # warm fused solves timed (median kept)
 SUITE_K = (4, 32)              # rhs widths of the SUITE sweep
 BANDWIDTH = 3.35e12            # H100 SXM data sheet, bytes/s
 FP32_PEAK = 67e12              # H100 SXM fp32 outside the tensor cores
@@ -85,6 +103,15 @@ def rel_err(y, y_ref) -> float:
     y = np.asarray(y, dtype=np.float64)
     y_ref = np.asarray(y_ref, dtype=np.float64)
     return float(np.abs(y - y_ref).max() / max(np.abs(y_ref).max(), 1.0))
+
+
+def rel_to_largest(y, y_ref) -> float:
+    """max|Δ| / max|y_ref|: for gradients, whose entries are far below 1."""
+    import numpy as np
+
+    y = np.asarray(y, dtype=np.float64)
+    y_ref = np.asarray(y_ref, dtype=np.float64)
+    return float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
 
 
 def check(ok: bool, what: str) -> None:
@@ -308,12 +335,14 @@ def run(dev, nx: int) -> list:
     import numpy as np
     import scipy.sparse as sp
 
-    from repro_torch.api import (ExecutionConfig, SolvePolicy, chaos, plan,
-                                 pruned_linear)
+    from repro_torch.api import (ExecutionConfig, PlanCache, SolvePolicy,
+                                 chaos, plan, pruned_linear)
+    from repro_torch.autotune.cost import matrix_key
+    from repro_torch.autotune.registry import get_format
     from repro_torch.core import counters
-    from repro_torch.core.ehyb import er_stream
-    from repro_torch.core.matrices import (SUITE, elasticity3d, from_coo,
-                                           unstructured)
+    from repro_torch.core.ehyb import build_ehyb, er_stream
+    from repro_torch.core.matrices import (SUITE, SparseCSR, elasticity3d,
+                                           from_coo, unstructured)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import ehyb_spmm as KM
     from repro_torch.kernels import ehyb_spmv as K
@@ -669,7 +698,8 @@ def run(dev, nx: int) -> list:
     tok_host = rng_w.standard_normal((TOKENS, D_FF))
     tok = torch.as_tensor(tok_host, dtype=torch.float32, device=dev)
     n0 = KM.ehyb_packed_fused_spmm.launches
-    y_tok = layer(tok)
+    with torch.no_grad():            # inference: no graph on the values
+        y_tok = layer(tok)
     torch.cuda.synchronize()
     layer_launches = KM.ehyb_packed_fused_spmm.launches - n0
     keep = int(w.size * 0.1)
@@ -688,7 +718,8 @@ def run(dev, nx: int) -> list:
     layer_kernel_ms = time_ms(lambda: KM.ehyb_packed_fused_spmm(
         tok_new_t, lo.packed_vals, lo.packed_cols, lo.col_starts,
         lo.col_rows, lo.er_stream(), vec_size=lo.vec_size), dev)
-    layer_ms = time_ms(lambda: layer(tok), dev)
+    with torch.no_grad():
+        layer_ms = time_ms(lambda: layer(tok), dev)
     dense_ms = time_ms(lambda: tok @ w_dense.T, dev)
     el = layer.ehyb
     log("pruned-layer", d_out=D_MODEL, d_in=D_FF, tokens=TOKENS,
@@ -708,7 +739,7 @@ def run(dev, nx: int) -> list:
           "the layer went through the packed SpMM kernel once")
     plans.append(layer.op.plan)
     healthy("pruned-layer")
-    del layer, w_dense, tok_new, tok_new_t
+    del w_dense, tok_new, tok_new_t
 
     # ---- 9. every SUITE matrix, fp32 and bf16, SpMV and SpMM kernels ------
     worst = {}
@@ -857,18 +888,27 @@ def run(dev, nx: int) -> list:
                      / np.linalg.norm(b_host.astype(np.float32)))
     res_plain = op_u.solve(b, precond="spai", tol=1e-6, fused_update=False)
     torch.cuda.synchronize()
-    # warm solves: preconditioner diagonals memoized
-    warm = {}
-    for label, o_, fused in (("fused", op, True), ("plain", op_u, False)):
-        t0 = time.perf_counter()
-        r_ = o_.solve(b, precond="spai", tol=1e-6, fused_update=fused)
-        torch.cuda.synchronize()
-        warm[label] = time.perf_counter() - t0
-        check(int(r_.iters) == int((res if fused else res_plain).iters),
-              "a warm solve repeats its iteration count")
+    # warm solves: preconditioner diagonals memoized; the fused one
+    # WARM_REPS times, its median read (one solve is a few ms of host
+    # loop, and single readings spread by tens of percent)
+    warm, warm_fused = {}, []
+    for label, o_, fused, reps in (("fused", op, True, WARM_REPS),
+                                   ("plain", op_u, False, 1)):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r_ = o_.solve(b, precond="spai", tol=1e-6, fused_update=fused)
+            torch.cuda.synchronize()
+            warm[label] = time.perf_counter() - t0
+            if fused:
+                warm_fused.append(warm[label])
+            check(int(r_.iters) == int((res if fused else res_plain).iters),
+                  "a warm solve repeats its iteration count")
+    warm["fused"] = statistics.median(warm_fused)
     log("solve", iters=int(res.iters), status=res.status,
         residual=float(res.residual), true_residual_f64=true_res,
-        first_wall_s=round(t_solve, 4), warm_wall_s=round(warm["fused"], 4),
+        first_wall_s=round(t_solve, 4), warm_wall_s=warm["fused"],
+        warm_wall_min_s=min(warm_fused), warm_wall_max_s=max(warm_fused),
+        warm_reps=len(warm_fused),
         plain_iters=int(res_plain.iters), plain_status=res_plain.status,
         plain_warm_wall_s=round(warm["plain"], 4))
     check(res.status == "converged" and res_plain.status == "converged",
@@ -1113,6 +1153,299 @@ def run(dev, nx: int) -> list:
           "BiCGStab converged on the non-symmetric matrix")
     healthy("reliability")
     del unf, y_fused, y_comp, y_reference, op_u16, x16_new
+
+    # ---- 11c. refill main path: D A D on the solve's plan ------------------
+    # the same pattern with new values, SPD still: D a seeded positive
+    # diagonal.  op.update_values uploads the per-nnz values and scatters
+    # them into new value tables on the card; the structure is shared, no
+    # structure pass or host refill runs and nothing is built or loaded
+    dvec = 1.0 + 0.25 * np.random.default_rng(SEED + 1).random(m.n)
+    row_of_m = np.repeat(np.arange(m.n), m.row_lengths())
+    m2 = SparseCSR(m.n, m.indptr, m.indices,
+                   m.data * dvec[row_of_m] * dvec[m.indices])
+    spec_p = get_format("ehyb_packed")
+    value_fields = ("packed_vals", "ell_vals", "er_vals", "er_p_vals",
+                    "er_s_vals")
+    # the chaos phases moved the chaos epoch: resolve the plan's guards
+    # (one probe each) before the counts start, so that a probe in the
+    # counts below would be one the refill caused
+    resolve_guards(op)
+    before_r = counters.snapshot()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op2 = op.update_values(m2)
+    torch.cuda.synchronize()
+    t_rebind = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op2_16 = op16.update_values(m2)
+    torch.cuda.synchronize()
+    t_rebind16 = time.perf_counter() - t0
+    op2_u = op_u.update_values(m2)
+    y2 = op2 @ x
+    torch.cuda.synchronize()
+    after_apply_r = {k: f.launches for k, f in kernels.items()}
+    t0 = time.perf_counter()
+    res2 = op2.solve(b, precond="spai", tol=1e-6)
+    torch.cuda.synchronize()
+    t_solve2 = time.perf_counter() - t0
+    res2_plain = op2_u.solve(b, precond="spai", tol=1e-6,
+                             fused_update=False)
+    torch.cuda.synchronize()
+    launches_rf = {k: f.launches for k, f in all_kernels.items()}
+    after_r = counters.snapshot()
+    work_r = {c: after_r.get(c, 0) - before_r.get(c, 0)
+              for c in ("partition", "build_ehyb", "pack_staircase",
+                        "group_er", "ehyb_refill", "kernels.nvcc",
+                        "kernels.load")}
+    # the same system on the CPU: the plain path, with the CPU plan's own
+    # partition (the reference's cache sizing); after the counts, since
+    # its plan partitions and builds
+    t0 = time.perf_counter()
+    res2_cpu = plan(m2, execution=ExecutionConfig(format="ehyb_packed",
+                                                  **cfg),
+                    device="cpu", cache=PlanCache()).bind(m2).solve(
+        b_host, precond="spai", tol=1e-6)
+    t_cpu2 = time.perf_counter() - t0
+    # the rebind's parts, again on the same values: the host part (the
+    # pattern check, the finiteness check and the values' key), the
+    # upload of the per-nnz values and the scatter on the card
+    t0 = time.perf_counter()
+    p_packed._validate_bind(p_packed._as_csr(m2).data)
+    matrix_key(m2, p_packed.key)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vals2 = torch.from_numpy(m2.data).to(device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = p_packed._scatter(vals2)
+    torch.cuda.synchronize()
+    t_scatter = time.perf_counter() - t0
+    del again, vals2
+    o2 = op2.obj
+    shared = {f.name: getattr(o2, f.name).data_ptr()
+              == getattr(o, f.name).data_ptr()
+              for f in dataclasses.fields(o2)
+              if isinstance(getattr(o2, f.name), torch.Tensor)}
+    shared16 = {f.name: getattr(op2_16.obj, f.name).data_ptr()
+                == getattr(o16, f.name).data_ptr()
+                for f in dataclasses.fields(o2)
+                if isinstance(getattr(o2, f.name), torch.Tensor)}
+    pos2 = torch.as_tensor(er_stream(e)["pos"], device=dev)
+    stream_ok = all(bool(torch.equal(
+        q.er_s_vals, q.er_p_vals.reshape(-1).index_select(0, pos2)))
+        for q in (o2, op2_16.obj))
+    a2_sp = sp.csr_matrix((m2.data, m2.indices, m2.indptr),
+                          shape=(m.n, m.n))
+    y2_sp = a2_sp @ x_host
+    x2_new = op2.to_space(x)
+    y2_plain = op2.from_space(ref.ehyb_packed_fused_stream_ref(
+        x2_new[:, None], o2.packed_vals, o2.packed_cols, o2.col_starts,
+        o2.col_rows, o2.er_stream(), o2.vec_size, o2.has_er)[:, 0])
+    err2 = {"vs_scipy_f64": rel_err(y2.cpu(), y2_sp),
+            "vs_plain": rel_err(y2.cpu(), y2_plain.cpu()),
+            "bf16_vs_scipy_f64": rel_err((op2_16 @ x).float().cpu(), y2_sp)}
+    x_sol2 = res2.x.double().cpu().numpy()
+    b32 = b_host.astype(np.float32).astype(np.float64)
+    tr2 = float(np.linalg.norm(b32 - a2_sp @ x_sol2) / np.linalg.norm(b32))
+    # one fresh bind of D A D on the same partition, to hold the refill to
+    t0 = time.perf_counter()
+    e_fresh = build_ehyb(m2, part=p_packed.partition)
+    fresh = {dt: spec_p.build(e_fresh, dt, dev)
+             for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t0
+    same_fresh = {f"{dn}_{f}": bool(torch.equal(getattr(q, f),
+                                                getattr(fresh[dt], f)))
+                  for dn, dt, q in (("f32", torch.float32, o2),
+                                    ("bf16", torch.bfloat16, op2_16.obj))
+                  for f in value_fields if hasattr(q, f)}
+    # the host refill (EHYB.refill of the cached build: what
+    # plan.host_build runs for new values; no bind runs it) at full size,
+    # held against the fresh build's host tables
+    t0 = time.perf_counter()
+    e2 = p_packed.host_build(m2)
+    t_host_refill = time.perf_counter() - t0
+    host_same = {
+        "ell_vals": np.array_equal(e2.ell_vals, e_fresh.ell_vals),
+        "er_vals": np.array_equal(e2.er_vals, e_fresh.er_vals),
+        "er_p_vals": np.array_equal(e2._er_grouped["er_p_vals"],
+                                    e_fresh._er_grouped["er_p_vals"]),
+        "packed_vals": np.array_equal(e2._packed.packed_vals,
+                                      e_fresh._packed.packed_vals)}
+    del fresh, e_fresh, e2
+    log("refill-main-path", launches=launches_rf, after_apply=after_apply_r,
+        structure_work=work_r)
+    log("refill", n=m.n, nnz=m.nnz, rebind_s=t_rebind,
+        rebind_bf16_s=t_rebind16, host_s=t_host, upload_s=t_upload,
+        scatter_s=t_scatter, bind_s=t_bind,
+        fresh_build_and_upload_s=t_fresh, host_refill_s=t_host_refill,
+        host_refill_bit_identical=all(host_same.values()),
+        shared_structure=all(v for k, v in shared.items()
+                             if k not in value_fields),
+        new_value_tensors=[k for k, v in shared.items() if not v],
+        bf16_shared_structure=all(v for k, v in shared16.items()
+                                  if k not in value_fields),
+        er_s_vals_gathered_at_pos=stream_ok,
+        fresh_bind_bit_identical=all(same_fresh.values()), **err2)
+    log("refill-solve", iters=int(res2.iters), status=res2.status,
+        true_residual_f64=tr2, wall_s=t_solve2,
+        plain_iters=int(res2_plain.iters), plain_status=res2_plain.status,
+        cpu_iters=int(res2_cpu.iters), cpu_status=res2_cpu.status,
+        cpu_plan_and_solve_s=t_cpu2, first_system_iters=int(res.iters))
+    check(all(v == 0 for v in work_r.values()),
+          f"a rebind runs no structure pass and no host refill, builds "
+          f"and loads nothing: {work_r}")
+    check(all(v for k, v in shared.items() if k not in value_fields)
+          and all(v for k, v in shared16.items() if k not in value_fields),
+          "every structural tensor is the same object after the refill")
+    check(sorted(k for k, v in shared.items() if not v)
+          == sorted(f for f in value_fields if hasattr(o2, f)),
+          "the four value tensors are new")
+    check(stream_ok, "er_s_vals is the new er_p_vals gathered at pos")
+    check(all(same_fresh.values()), f"the refill equals a fresh bind bit "
+          f"for bit: {same_fresh}")
+    check(all(host_same.values()), f"the host refill equals a fresh build "
+          f"bit for bit: {host_same}")
+    check(err2["vs_scipy_f64"] <= TOL["float32"]
+          and err2["vs_plain"] <= KERNEL_TOL["float32"]
+          and err2["bf16_vs_scipy_f64"] <= TOL["bfloat16"],
+          f"op2 @ x: {err2}")
+    check(after_apply_r == {"ehyb_fused": 0, "ehyb_packed_fused": 1,
+                            "fused_cg_update": 0},
+          "op2 @ x went through the packed kernel once")
+    check(launches_rf["ehyb_packed_fused"] > 1
+          and launches_rf["fused_cg_update"] > 0,
+          "the refilled solve went through #2 and #3")
+    check(res2.status == res2_plain.status == res2_cpu.status
+          == "converged" and tr2 <= 1e-5
+          and abs(int(res2.iters) - int(res2_plain.iters)) <= 1
+          and abs(int(res2.iters) - int(res2_cpu.iters)) <= 1,
+          "CG with SPAI converged on D A D, within one iteration of the "
+          "plain path on the card and of the CPU solve")
+    check(op2.plan is p_packed and p_packed.degraded == {},
+          "the refilled operator shares its plan, which runs native")
+    healthy("refill")
+    del op2, op2_16, op2_u, o2, y2, x2_new, y2_plain, a2_sp, m2
+
+    # ---- 11d. train main path: 4 SGD steps on the layer's bound values ------
+    # each step a forward, an MSE loss against a seeded target, a backward
+    # (values and input gradients; Aᵀ ḡ on the transpose plan, #8 at 16
+    # tokens) and layer.update_values of the stepped weights on the fixed
+    # mask; the fourth steps through torch.optim.SGD on layer.parameters()
+    # instead, and the next forward follows the stepped parameter (a
+    # scatter of its values on the card).  The step size 1/L, with
+    # L = 2 σ_max(X)² / (T·d_out) bounding the loss's curvature, makes
+    # every step a descent step.
+    target = torch.as_tensor(np.random.default_rng(SEED + 2).standard_normal(
+        (TOKENS, D_MODEL)), dtype=torch.float32, device=dev)
+    lr = TOKENS * D_MODEL / (2 * float(torch.linalg.matrix_norm(
+        tok.double(), ord=2)) ** 2)
+    c_l = layer.csr
+    rows_l = np.repeat(np.arange(c_l.n), c_l.row_lengths())
+    cols_l = c_l.indices.astype(np.int64)
+    train = {"loss": [], "forward_ms": [], "backward_ms": [],
+             "refill_ms": [], "grad_values_rel": [], "grad_x_rel": [],
+             "backward_spmm_launches": [], "forward_spmm_launches": []}
+    opt = torch.optim.SGD(layer.parameters(), lr=lr)
+    before_train = counters.snapshot()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    for step in range(4):
+        x_in = tok.clone().requires_grad_(True)
+        n0 = KM.ehyb_packed_fused_spmm.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_l = layer(x_in)
+        loss = ((y_l - target) ** 2).mean()
+        torch.cuda.synchronize()
+        train["forward_ms"].append((time.perf_counter() - t0) * 1e3)
+        n1 = KM.ehyb_packed_fused_spmm.launches
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        train["backward_ms"].append((time.perf_counter() - t0) * 1e3)
+        train["forward_spmm_launches"].append(n1 - n0)
+        train["backward_spmm_launches"].append(
+            KM.ehyb_packed_fused_spmm.launches - n1)
+        train["loss"].append(float(loss.detach()))
+        # float64 oracle of this step's backward: g = dL/dy from the step's
+        # own y, grad_x = g W, grad_values[k] = Σ_t g[t, row_k] x[t, col_k]
+        vals_now = layer.values.detach().double().cpu().numpy()
+        g = 2.0 * (y_l.detach().double().cpu().numpy()
+                   - target.double().cpu().numpy()) / (TOKENS * D_MODEL)
+        w_now = np.zeros((D_MODEL, D_FF))
+        w_now[rows_l, cols_l] = vals_now
+        gv_ref = np.einsum("tk,tk->k", g[:, rows_l], tok_host[:, cols_l])
+        train["grad_x_rel"].append(rel_to_largest(x_in.grad.cpu(),
+                                                  g @ w_now))
+        train["grad_values_rel"].append(
+            rel_to_largest(layer.values.grad.cpu(), gv_ref))
+        if step == 3:
+            t0 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            t_opt = (time.perf_counter() - t0) * 1e3
+            break
+        w_next = np.zeros((D_MODEL, D_FF))
+        w_next[rows_l, cols_l] = vals_now - lr * layer.values.grad.double() \
+            .cpu().numpy()
+        layer.values.grad = None
+        t0 = time.perf_counter()
+        layer.update_values(w_next)
+        torch.cuda.synchronize()
+        train["refill_ms"].append((time.perf_counter() - t0) * 1e3)
+    # the forward after the optimizer's step rebinds the layer's operator
+    # to the stepped parameter; held against float64 of those weights
+    op_before = layer.op
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_final = layer(tok)
+    torch.cuda.synchronize()
+    t_rebind_fwd = (time.perf_counter() - t0) * 1e3
+    train["loss"].append(float(((y_final - target) ** 2).mean()))
+    w_final = np.zeros((D_MODEL, D_FF))
+    w_final[rows_l, cols_l] = layer.values.detach().double().cpu().numpy()
+    err_opt = rel_err(y_final.cpu(), tok_host @ w_final.T)
+    launches_t = {k: f.launches for k, f in all_kernels.items()}
+    after_train = counters.snapshot()
+    work_t = {c: after_train.get(c, 0) - before_train.get(c, 0)
+              for c in ("partition", "build_ehyb", "pack_staircase",
+                        "group_er", "ehyb_refill", "kernels.nvcc",
+                        "kernels.load")}
+    tplan_l = layer.op.plan.transpose
+    log("train-main-path", launches=launches_t, structure_work=work_t,
+        lr=lr, transpose_is_own_plan=tplan_l is not layer.op.plan,
+        transpose_n_parts=tplan_l.n_parts,
+        transpose_vec_size=tplan_l.vec_size, optimizer_step_ms=t_opt,
+        rebind_forward_ms=t_rebind_fwd, after_optimizer_vs_f64=err_opt,
+        **train)
+    check(all(b < a for a, b in zip(train["loss"], train["loss"][1:])),
+          f"the loss falls on every step: {train['loss']}")
+    check(max(train["grad_values_rel"] + train["grad_x_rel"]) <= 1e-4,
+          "backward within 1e-4 of the float64 oracle")
+    check(train["forward_spmm_launches"] == [1, 1, 1, 1]
+          and train["backward_spmm_launches"] == [1, 1, 1, 1],
+          "each forward and each backward launched #8 once")
+    check(layer.op is not op_before and err_opt <= TOL["float32"],
+          f"the forward after torch.optim.SGD's step follows the stepped "
+          f"parameter: {err_opt} against float64")
+    check(tplan_l is not layer.op.plan, "the pruned pattern's transpose "
+          "is a plan of its own")
+    # the first backward builds the transpose plan once (a partition and a
+    # host build of Aᵀ's pattern); the refills and the optimizer's rebind
+    # are device scatters, with no host refill
+    check(work_t["partition"] <= 1 and work_t["build_ehyb"] <= 1
+          and work_t["ehyb_refill"] == 0 and work_t["kernels.nvcc"] == 0
+          and work_t["kernels.load"] == 0,
+          f"the train loop's structure work: {work_t}")
+    plans += [layer.op.plan, tplan_l]
+    healthy("train")
+    del layer, target, y_l, loss, x_in, w_now, w_next, w_final, y_final, \
+        op_before, opt
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)

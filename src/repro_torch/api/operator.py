@@ -5,11 +5,26 @@ The port of ``repro.api.operator``.  ``op @ x`` works in
 goes to the SpMM kernels); hot loops hoist the permutation with
 ``x̃ = op.to_space(x)`` / ``op.apply(x̃, space=Space.PERMUTED)`` /
 ``op.from_space(ỹ)``.  Every apply goes through the plan's guard
-(``reliability.guard``).  ``op.solve`` runs CG or BiCGStab in the permuted
-space exactly as the JAX package's ``solve_operator`` does: b, x0 and the
+(``reliability.guard``).  ``op.update_values`` binds new values on the
+same pattern (a refill, ``Plan.bind``); ``op.T`` is the operator of Aᵀ on
+the transpose plan.
+
+**Gradients.**  When grad mode is on and x or the bound values require
+grad (values bound from a tensor, ``plan.bind(tensor)``), an apply runs
+through :class:`_DiffApply`, the counterpart of the JAX package's
+``custom_vjp`` apply: the cotangent of the values is gathered per nonzero,
+``v̄ₖ = Σ_r ḡ[rowₖ, r]·x[colₖ, r]``, once for each value (so no copy of a
+value in another table counts it twice), and the cotangent of x is Aᵀ ḡ,
+applied by the transpose plan's operator bound at the accumulation dtype
+(at least fp32, never the stored one).  Otherwise the apply is the guard's
+alone and builds no graph; a solve never does.
+
+``op.solve`` runs CG or BiCGStab in the permuted space (``space="auto"``,
+as the JAX package's ``solve_operator`` does: b, x0 and the
 preconditioner diagonal are permuted once per solve, the matvec is the
-format's guarded permuted-space apply, and the result is carried back once.
-A :class:`~repro_torch.reliability.SolvePolicy` adds the escalation ladder
+format's guarded permuted-space apply, and the result is carried back
+once) or, with ``space="original"``, on the original-space apply.  A
+:class:`~repro_torch.reliability.SolvePolicy` adds the escalation ladder
 (warm restarts, cg → bicgstab, the reference CSR solve), and a
 non-converged result always warns or raises.
 """
@@ -44,6 +59,72 @@ def _as_space(space) -> Space:
     raise ValueError(f"unknown space {space!r}; use repro_torch.api.Space")
 
 
+class _DiffApply(torch.autograd.Function):
+    """``y = A x`` through ``plan``'s guarded apply of container ``obj``
+    (tables of ``dtype``), differentiable in the bound per-nnz ``values``
+    (None when they need no gradient) and in ``x`` (original space, or
+    permuted with ``permuted=True``).  y comes back in the wider of x's
+    and the tables' dtypes, so the cotangent keeps x's precision."""
+
+    @staticmethod
+    def forward(ctx, values, x, plan, obj, dtype, permuted):
+        guard = plan._raw_apply_permuted() if permuted else plan._raw_apply()
+        y = guard(obj, x.to(dtype))
+        ctx.save_for_backward(x)
+        ctx.plan, ctx.obj, ctx.permuted = plan, obj, permuted
+        ctx.values_dtype = None if values is None else values.dtype
+        return y.to(torch.promote_types(x.dtype, dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        plan, obj = ctx.plan, ctx.obj
+        acc = torch.promote_types(torch.promote_types(g.dtype, x.dtype),
+                                  torch.float32)
+        x2, squeeze = _as_2d(x)
+        g2 = _as_2d(g)[0]
+        if ctx.permuted:         # the product is the original one, permuted
+            x2 = _from_permuted(obj, x2, False)
+            g2 = _from_permuted(obj, g2, False)
+        grad_values = grad_x = None
+        if ctx.needs_input_grad[0]:
+            rows, cols = plan.coo_tensors()
+            grad_values = (g2.index_select(0, rows).to(acc)
+                           * x2.index_select(0, cols).to(acc)).sum(1).to(
+                               ctx.values_dtype)
+        if ctx.needs_input_grad[1]:
+            tplan = plan.transpose
+            t_vals = plan.values_of(obj).to(acc).index_select(
+                0, plan.transpose_order_tensor())
+            t_obj = tplan.bind(t_vals, dtype=acc, validate=False).obj
+            gx = tplan._raw_apply()(t_obj, g2.to(acc))
+            if ctx.permuted:
+                gx = _to_permuted(obj, gx)[0]
+            grad_x = (gx[:, 0] if squeeze else gx).to(x.dtype)
+        return grad_values, grad_x, None, None, None, None
+
+
+def apply_operator(plan: Plan, obj, dtype: torch.dtype, x,
+                   values: Optional[torch.Tensor] = None,
+                   permuted: bool = False) -> torch.Tensor:
+    """``A x`` of container ``obj`` bound on ``plan`` (tables of ``dtype``)
+    through the plan's guard, in the original space or, with
+    ``permuted=True``, the permuted one.  The apply computes on x cast to
+    ``dtype``; y comes back in the wider of x's dtype and ``dtype`` for a
+    floating-point tensor x, and in ``dtype`` for any other x — with grad
+    mode on or off.  With grad mode on and ``x`` or the bound per-nnz
+    ``values`` requiring grad it runs through :class:`_DiffApply`."""
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        x = x.to(plan.device)
+    else:
+        x = torch.as_tensor(x, device=plan.device).to(dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or (
+            values is not None and values.requires_grad)):
+        return _DiffApply.apply(values, x, plan, obj, dtype, permuted)
+    guard = plan._raw_apply_permuted() if permuted else plan._raw_apply()
+    return guard(obj, x.to(dtype)).to(torch.promote_types(x.dtype, dtype))
+
+
 @dataclasses.dataclass(eq=False)
 class LinearOperator:
     """A sparse matrix bound to its planned device format.  Construct with
@@ -52,7 +133,12 @@ class LinearOperator:
     plan: Plan
     obj: Any                 # the format's device container
     dtype: torch.dtype       # value dtype of the device tables
-    csr: SparseCSR           # host matrix (pattern + bound values)
+    # host matrix (pattern + bound values); made from the tables on first
+    # use when the values were bound from a tensor
+    _csr: Optional[SparseCSR] = dataclasses.field(default=None, repr=False)
+    # the (nnz,) tensor the values were bound from (autograd reaches it)
+    _values: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                        repr=False)
     _precond: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -75,6 +161,24 @@ class LinearOperator:
     def device(self) -> torch.device:
         return self.plan.device
 
+    @property
+    def values(self) -> torch.Tensor:
+        """The bound per-nnz values in CSR order, on the device: the tensor
+        they were bound from, else as the tables hold them
+        (``Plan.values_of``)."""
+        if self._values is not None:
+            return self._values
+        return self.plan.values_of(self.obj)
+
+    @property
+    def csr(self) -> SparseCSR:
+        """Host CSR of the bound matrix (pattern + values)."""
+        if self._csr is None:
+            p = self.plan.pattern
+            self._csr = SparseCSR(self.n, p.indptr, p.indices,
+                                  self.values.detach().double().cpu().numpy())
+        return self._csr
+
     # ---- apply -------------------------------------------------------------
 
     def _promote(self, x) -> torch.Tensor:
@@ -83,7 +187,8 @@ class LinearOperator:
         return torch.as_tensor(x, device=self.device).to(self.dtype)
 
     def __matmul__(self, x) -> torch.Tensor:
-        return self.plan._raw_apply()(self.obj, self._promote(x))
+        return apply_operator(self.plan, self.obj, self.dtype, x,
+                              self._values)
 
     def __call__(self, x) -> torch.Tensor:
         return self @ x
@@ -94,14 +199,15 @@ class LinearOperator:
         ``(n_pad[, R])`` vectors of the execution space."""
         if _as_space(space) is Space.ORIGINAL:
             return self @ x
-        return self.matvec_permuted(self._promote(x))
+        return self.matvec_permuted(x)
 
     @property
     def matvec_permuted(self):
         """``x_new -> y_new`` in the permuted space (the solver's matvec),
         through the plan's guard."""
-        guard = self.plan._raw_apply_permuted()
-        return lambda x_new: guard(self.obj, x_new)
+        return lambda x_new: apply_operator(self.plan, self.obj, self.dtype,
+                                            x_new, self._values,
+                                            permuted=True)
 
     # ---- spaces ------------------------------------------------------------
 
@@ -129,6 +235,29 @@ class LinearOperator:
         y2, squeeze = _as_2d(y)
         return _from_permuted(self.obj, y2, squeeze)
 
+    # ---- lifecycle ---------------------------------------------------------
+
+    def update_values(self, values) -> "LinearOperator":
+        """Same pattern, new values: ``plan.bind`` at this operator's dtype
+        — a refill of the value tables, no partitioning, no build, no
+        packing, the structural tensors shared.
+
+        Takes exactly one argument: the refill keeps the plan's format and
+        this operator's dtype, and an unknown keyword raises rather than
+        being dropped."""
+        return self.plan.bind(values, dtype=self.dtype)
+
+    def transpose(self) -> "LinearOperator":
+        """``Aᵀ`` bound on the transpose plan (a cache hit for a
+        structurally symmetric pattern), from the values on the device."""
+        t = self.plan.transpose_order_tensor()
+        return self.plan.transpose.bind(self.values.index_select(0, t),
+                                        dtype=self.dtype)
+
+    @property
+    def T(self) -> "LinearOperator":
+        return self.transpose()
+
     # ---- solving -----------------------------------------------------------
 
     def precond_inv_permuted(self, kind: str) -> Optional[np.ndarray]:
@@ -149,15 +278,17 @@ class LinearOperator:
 
     def solve(self, b, *, method: str = "cg", precond: str = "jacobi",
               x0=None, tol: float = 1e-6, max_iters: int = 500,
-              fused_update="auto", policy: Optional[SolvePolicy] = None,
+              space="auto", fused_update="auto",
+              policy: Optional[SolvePolicy] = None,
               raise_on_failure: bool = False,
               warn: bool = True) -> SolveResult:
         """Solve ``A x = b`` with this operator driving the Krylov loop in
-        the permuted space; ``x0`` warm starts it.  See
-        :func:`solve_operator`."""
+        ``space`` (``"auto"``: the permuted space); ``x0`` warm starts it.
+        See :func:`solve_operator`."""
         return solve_operator(self, b, method=method, precond=precond,
                               x0=x0, tol=tol, max_iters=max_iters,
-                              fused_update=fused_update, policy=policy,
+                              space=space, fused_update=fused_update,
+                              policy=policy,
                               raise_on_failure=raise_on_failure, warn=warn)
 
 
@@ -204,12 +335,17 @@ def _better(r_old: SolveResult, r_new: SolveResult) -> SolveResult:
 
 def solve_operator(op: LinearOperator, b, *, method: str = "cg",
                    precond: str = "jacobi", x0=None, tol: float = 1e-6,
-                   max_iters: int = 500, fused_update="auto",
+                   max_iters: int = 500, space="auto", fused_update="auto",
                    policy: Optional[SolvePolicy] = None,
                    raise_on_failure: bool = False,
                    warn: bool = True) -> SolveResult:
-    """Solve ``A x = b`` on a bound operator, in its permuted space.
+    """Solve ``A x = b`` on a bound operator (no autograd graph: b and x0
+    are detached and the matvec reads the tables alone).
 
+    ``space`` is where the Krylov loop runs: ``"permuted"`` (and
+    ``"auto"``, since every ported format has a permuted space) permutes
+    b, x0 and the preconditioner diagonal once and runs the permuted-space
+    apply; ``"original"`` runs the original-space apply on b as given.
     ``method`` is ``"cg"`` or ``"bicgstab"``.  ``fused_update="auto"``
     takes the fused CG-step kernel for CG on a CUDA device and the plain
     update otherwise; BiCGStab has no fused step (``fused_update=True``
@@ -241,15 +377,33 @@ def solve_operator(op: LinearOperator, b, *, method: str = "cg",
             f"fused vector-update path")
     if fused_update == "auto":
         fused_update = op.device.type == "cuda" and method == "cg"
-    b = op._promote(b)
+    if space in ("auto", None):
+        permuted = op.supports_permuted
+    else:
+        permuted = _as_space(space) is Space.PERMUTED
+    if permuted and not op.supports_permuted:
+        raise ValueError(f"format {op.format!r} has no permuted execution "
+                         f"space")
+    run_space = Space.PERMUTED if permuted else Space.ORIGINAL
+    b = op._promote(b).detach()
+    if x0 is not None:
+        x0 = torch.as_tensor(x0).detach()
     if b.dim() != 1:
         raise ValueError(f"solve() takes one right-hand side of shape "
                          f"({op.n},), got {tuple(b.shape)}")
     acc = torch.promote_types(b.dtype, torch.float32)
-    inv_t = _inv_tensor(op.precond_inv_permuted(precond), acc, op.device)
+    inv = op.precond_inv_permuted(precond) if permuted else \
+        precond_inv_diag(op.csr, precond)
+    inv_t = _inv_tensor(inv, acc, op.device)
     pre = None if inv_t is None else (lambda r: inv_t * r)
-    b_new = op.to_space(b)
-    mv = op.matvec_permuted
+    b_new = op.to_space(b, run_space)
+    # the guard on the tables alone: no input of the loop requires grad,
+    # so it builds no autograd graph whatever the bound values require
+    guard = op.plan._raw_apply_permuted() if permuted else \
+        op.plan._raw_apply()
+
+    def mv(x):
+        return guard(op.obj, x)
     kw_guard = {}
     if policy is not None:
         kw_guard = {"stag_window": policy.stagnation_window,
@@ -262,10 +416,11 @@ def solve_operator(op: LinearOperator, b, *, method: str = "cg",
             kw.update(fused_update=bool(fused_update), precond_inv=inv_t)
         elif policy is not None and policy.breakdown_tol is not None:
             kw["breakdown_tol"] = policy.breakdown_tol
-        x0_new = None if x0_orig is None else op.to_space(x0_orig)
+        x0_new = None if x0_orig is None else op.to_space(x0_orig,
+                                                          run_space)
         r = S.SOLVERS[method_](mv, b_new, pre, tol=tol, max_iters=max_iters,
                                x0=x0_new, **kw)
-        return r._replace(x=op.from_space(r.x))
+        return r._replace(x=op.from_space(r.x, run_space))
 
     r = _run(method, x0)
     stages: list = []

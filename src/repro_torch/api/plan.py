@@ -11,9 +11,20 @@ pattern and amortized across many SpMVs:
     r  = op.solve(b, precond="spai")
 
 A plan fixes the format, the device, the cache sizing and the partition;
-``bind`` builds the host EHYB tables for one set of values on that
-partition (memoized by a value-inclusive hash) and uploads them.  Plans are
+the first ``bind`` builds the host EHYB tables on that partition and
+uploads them.  Every later bind of the plan (``op.update_values``, another
+dtype) is a refill: the per-nnz values are uploaded once and scattered into
+new value tables on the device through a pattern-only index (the format's
+``refill`` hook), and every structural tensor is shared with the operators
+bound before.  A bind of the same values at the same dtype returns the
+container bound before while an operator still holds it.  Plans are
 memoized in a :class:`PlanCache` keyed by the pattern hash.
+
+``bind`` also takes a ``(nnz,)`` tensor of values, scattered in the same
+way with no host round trip, and an apply of the operator carries
+gradients back to that tensor (``api.operator``).  :attr:`Plan.transpose`
+is the plan of the transposed pattern, from the same cache, so a
+structurally symmetric pattern is its own transpose.
 
 Every apply of a bound operator goes through the plan's guard
 (``reliability.guard``): ``_raw_apply()``/``_raw_apply_permuted()`` hand
@@ -30,7 +41,8 @@ with the card's own shared memory and SM count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import weakref
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +51,8 @@ from ..autotune.cost import matrix_key, pattern_hash
 from ..autotune.registry import get_format, shared_packed
 from ..core.cache import BoundedCache
 from ..core.ehyb import EHYB, build_ehyb
-from ..core.matrices import SparseCSR
-from ..core.spmv import EHYBPackedDevice, value_index
+from ..core.matrices import SparseCSR, from_coo
+from ..core.spmv import structure_of, value_index, value_scatter_index
 from ..core.partition import (Partition, choose_vec_size,
                               choose_vec_size_cuda, get_strategy,
                               make_partition)
@@ -86,11 +98,13 @@ def partition_sizing(n: int, device: torch.device,
 class PlanCache:
     """Bounded LRU of :class:`Plan` objects keyed by (pattern hash,
     execution token, device), plus the pattern-only partitions and the host
-    EHYB builds the plans of one pattern share."""
+    EHYB builds the plans of one pattern share (the last build of each
+    pattern and partition)."""
 
     def __init__(self, maxsize: int = 32):
         self._plans = BoundedCache(maxsize=maxsize)
         self._parts = BoundedCache(maxsize=maxsize)
+        # (pattern, partition) -> (value key, the last host build)
         self._host = BoundedCache(maxsize=maxsize)
 
     def plan_for(self, pattern: SparseCSR, execution: ExecutionConfig,
@@ -112,13 +126,24 @@ class PlanCache:
                 pattern, method=method, n_parts=n_parts, vec_size=vec_size)
         return part
 
-    def host_ehyb(self, m: SparseCSR, key: str, part: Partition) -> EHYB:
-        """Host EHYB build of ``m`` on ``part``, memoized by a
-        value-inclusive hash (rebinding the same values builds nothing)."""
-        hk = (matrix_key(m, key), part.method, part.n_parts, part.vec_size)
-        e = self._host.get(hk)
-        if e is None:
-            e = self._host[hk] = build_ehyb(m, part=part)
+    def host_ehyb(self, m: SparseCSR, key: str, part: Partition,
+                  value_key: Optional[str] = None) -> EHYB:
+        """Host EHYB build of ``m`` (pattern hash ``key``; ``value_key``,
+        its :func:`matrix_key`, when the caller has it) on ``part``.
+
+        Two levels, one build kept a pattern: the same values as the last
+        build of the pattern on ``part`` return it as it is; new values
+        refill it (``EHYB.refill``: no partitioning, no build, no packing)
+        and take its place.  The pattern level is keyed by the partition
+        too, since a partition depends on the device and on ``k``."""
+        pk = (key, part.method, part.n_parts, part.vec_size)
+        vk = value_key or matrix_key(m, key)
+        hit = self._host.get(pk)
+        if hit is not None and hit[0] == vk:
+            return hit[1]
+        e = hit[1].refill(m.data) if hit is not None else \
+            build_ehyb(m, part=part)
+        self._host[pk] = (vk, e)
         return e
 
 
@@ -173,6 +198,16 @@ class Plan:
     _coo: Optional[Tuple[np.ndarray, np.ndarray]] = None
     _coo_t: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     _value_idx: Optional[torch.Tensor] = None
+    # the first bind's container with its value tables dropped
+    # (``structure_of``): what every later bind scatters its values into
+    _structure: Any = None
+    # dtype -> (weak reference to the container last bound from host
+    # values at that dtype, matrix_key of those values)
+    _last: dict = dataclasses.field(default_factory=dict)
+    _scatter_idx: Optional[dict] = None    # value_scatter_index, on device
+    _t_order: Optional[np.ndarray] = None
+    _t_order_t: Optional[torch.Tensor] = None
+    _transpose: Optional["Plan"] = None
 
     @classmethod
     def _create(cls, pattern: SparseCSR, key: str,
@@ -203,8 +238,12 @@ class Plan:
     def _as_csr(self, values) -> SparseCSR:
         """Normalize bind input to a SparseCSR on this plan's pattern."""
         if isinstance(values, SparseCSR):
-            if values.n != self.n or values.nnz != self.nnz or \
-                    pattern_hash(values) != self.key:
+            p = self.pattern
+            if values.n != self.n or values.nnz != self.nnz or not (
+                    (values.indptr is p.indptr
+                     or np.array_equal(values.indptr, p.indptr))
+                    and (values.indices is p.indices
+                         or np.array_equal(values.indices, p.indices))):
                 raise ValueError(
                     "bind() needs values on this plan's sparsity pattern; "
                     "call repro_torch.api.plan() for a new pattern")
@@ -217,11 +256,15 @@ class Plan:
         return SparseCSR(self.n, self.pattern.indptr, self.pattern.indices,
                          data)
 
-    def _validate_bind(self, data: np.ndarray) -> None:
-        """Reject non-finite values and out-of-range column indices at the
-        boundary: both corrupt every downstream apply silently (an index
-        past the end makes a kernel read out of bounds)."""
-        bad = int((~np.isfinite(data)).sum())
+    def _validate_bind(self, data) -> None:
+        """Reject non-finite values (a numpy array or a tensor) and
+        out-of-range column indices at the boundary: both corrupt every
+        downstream apply silently (an index past the end makes a kernel
+        read out of bounds)."""
+        if isinstance(data, torch.Tensor):
+            bad = int((~torch.isfinite(data.detach())).sum())
+        else:
+            bad = int((~np.isfinite(data)).sum())
         if bad:
             raise ValueError(f"bind() got {bad} non-finite value(s)")
         if self._indices_ok is None:
@@ -240,20 +283,84 @@ class Plan:
     def bind(self, values, *, dtype=None, validate: bool = True):
         """Bind entry values to the planned structure -> LinearOperator.
 
-        ``values`` is a :class:`SparseCSR` on this plan's pattern or a
-        ``(nnz,)`` per-nnz array in CSR order; ``dtype`` is the table dtype
-        (default: the plan's, else float32)."""
+        ``values`` is a :class:`SparseCSR` on this plan's pattern, a
+        ``(nnz,)`` per-nnz array in CSR order, or a ``(nnz,)`` tensor;
+        ``dtype`` is the table dtype (default: the plan's, else float32).
+        The first bind of the plan builds the host tables (built once per
+        pattern and partition) and uploads them; every later one scatters
+        the values into new tables on the plan's device, sharing the
+        structure (:meth:`_scatter`).  Gradients of the applies of an
+        operator bound from a tensor reach that tensor.  ``validate``
+        rejects non-finite values."""
         from .operator import LinearOperator
 
         dtype = dtype or self.execution.dtype or torch.float32
+        if isinstance(values, torch.Tensor):
+            return self._bind_tensor(values, dtype, validate)
         csr = self._as_csr(values)
         if validate:
             self._validate_bind(csr.data)
-        e = self.cache.host_ehyb(csr, self.key, self.partition)
-        if self._layout is None:
-            self._layout = e
+        mk = matrix_key(csr, self.key)
+        slot = self._last.get(dtype)
+        obj = slot[0]() if slot is not None and slot[1] == mk else None
+        if obj is None:
+            if self._structure is None:
+                obj = self._first_bind(csr, dtype, mk)
+            else:
+                # converted as the first bind's upload converts its tables
+                # (host float64 to ``dtype``), so both give the same bits
+                obj = self._scatter(torch.from_numpy(
+                    np.ascontiguousarray(csr.data)).to(device=self.device,
+                                                       dtype=dtype))
+            self._last[dtype] = (weakref.ref(obj), mk)
+        return LinearOperator(plan=self, obj=obj, dtype=dtype, _csr=csr)
+
+    def _first_bind(self, csr: SparseCSR, dtype, mk: Optional[str] = None):
+        """The container of ``csr``'s values at ``dtype`` built from the
+        host build and uploaded; keeps its structure for later binds."""
+        e = self.cache.host_ehyb(csr, self.key, self.partition, mk)
+        self._layout = e
         obj = get_format(self.format).build(e, dtype, self.device)
-        return LinearOperator(plan=self, obj=obj, dtype=dtype, csr=csr)
+        self._structure = structure_of(obj)
+        return obj
+
+    def _scatter(self, vals: torch.Tensor):
+        """A container of the per-nnz values ``vals`` (CSR order, on the
+        plan's device, in the table dtype): the format's ``refill`` hook
+        scatters them into new value tables through the pattern-only
+        :func:`~repro_torch.core.spmv.value_scatter_index`, every
+        structural tensor the plan's own."""
+        if self._structure is None:
+            self._first_bind(self.pattern, vals.dtype)
+        if self._scatter_idx is None:
+            self._scatter_idx = {
+                k: (tuple(torch.from_numpy(a).to(self.device) for a in v)
+                    if isinstance(v, tuple)
+                    else torch.from_numpy(v).to(self.device))
+                for k, v in value_scatter_index(*self._host_layout()).items()}
+        return get_format(self.format).refill(self._structure, vals,
+                                              self._scatter_idx)
+
+    def _bind_tensor(self, values: torch.Tensor, dtype, validate: bool):
+        """:meth:`bind` of a ``(nnz,)`` tensor: a scatter into new value
+        tables on the plan's device (:meth:`_scatter`).  The operator keeps
+        ``values`` (moved to the device, still in its autograd graph) for
+        the gradients of its applies."""
+        from .operator import LinearOperator
+
+        if tuple(values.shape) != (self.nnz,):
+            raise ValueError(f"bind() takes a ({self.nnz},) per-nnz value "
+                             f"tensor (CSR order); got shape "
+                             f"{tuple(values.shape)}")
+        if not values.is_floating_point():
+            raise TypeError(f"bind() takes floating-point values, got "
+                            f"{values.dtype}")
+        values = values.to(self.device)
+        if validate:
+            self._validate_bind(values)
+        obj = self._scatter(values.detach().to(dtype))
+        return LinearOperator(plan=self, obj=obj, dtype=dtype,
+                              _values=values)
 
     # ---- guarded applies ---------------------------------------------------
 
@@ -289,12 +396,48 @@ class Plan:
             self._coo = (rows, self.pattern.indices.astype(np.int64))
         return self._coo
 
+    def transpose_order(self) -> np.ndarray:
+        """``t_order`` with ``Aᵀ.data == A.data[t_order]`` in CSR order
+        (host int64; a lexsort of the pattern, memoized)."""
+        if self._t_order is None:
+            rows, cols = self.coo()
+            self._t_order = np.lexsort((rows, cols))
+        return self._t_order
+
+    def transpose_order_tensor(self) -> torch.Tensor:
+        """:meth:`transpose_order` on the plan's device (memoized)."""
+        if self._t_order_t is None:
+            self._t_order_t = torch.from_numpy(self.transpose_order()).to(
+                self.device)
+        return self._t_order_t
+
+    @property
+    def transpose(self) -> "Plan":
+        """The plan of the transposed pattern, with this plan's execution
+        and device, from the same cache: a structurally symmetric pattern
+        (the FEM norm) is a cache hit and returns this plan."""
+        if self._transpose is None:
+            rows, cols = self.coo()
+            t = self.transpose_order()
+            tp = from_coo(self.n, cols[t], rows[t].astype(np.int32),
+                          self.pattern.data[t], sum_duplicates=False)
+            self._transpose = self.cache.plan_for(tp, self.execution,
+                                                  self.device)
+        return self._transpose
+
     def coo_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`coo` as int64 tensors on the plan's device (memoized)."""
         if self._coo_t is None:
             self._coo_t = tuple(torch.from_numpy(a).to(self.device)
                                 for a in self.coo())
         return self._coo_t
+
+    def _host_layout(self):
+        """(a host build of the pattern, its packed staircase for the
+        ``ehyb_packed`` format else None): the pattern-only scatters that
+        the device-side value maps replay."""
+        e = self._layout or self.host_build(self.pattern)
+        return e, shared_packed(e) if self.format == "ehyb_packed" else None
 
     def values_of(self, obj) -> torch.Tensor:
         """The per-nnz values in CSR order, read on the device from the
@@ -306,11 +449,8 @@ class Plan:
         (``core.spmv.value_index``), which depend on the pattern alone, so
         they hold for every bind of the plan."""
         if self._value_idx is None:
-            e = self._layout or self.host_build(self.pattern)
-            pk = shared_packed(e) if isinstance(obj, EHYBPackedDevice) \
-                else None
-            self._value_idx = torch.from_numpy(value_index(e, pk)).to(
-                self.device)
+            self._value_idx = torch.from_numpy(
+                value_index(*self._host_layout())).to(self.device)
         flat = torch.cat([t.reshape(-1) for t in obj.value_tables()])
         return flat.index_select(0, self._value_idx)
 

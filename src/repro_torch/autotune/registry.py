@@ -2,10 +2,12 @@
 
 The subset of ``repro.autotune.registry`` the port needs.  A
 :class:`FormatSpec` bundles how to build a format's device container from
-the shared host EHYB build, its original- and permuted-space applies, what
-runs them (``kernel``: ``"cuda"`` for hand-written kernels, ``"plain"``
-for plain PyTorch) and the guarded apply's unfused level
-(``fallback``/``fallback_permuted``, None when the format has none).  As in
+the shared host EHYB build, how to fill its value tables with new values
+on the same pattern (``refill``, a scatter on the device), its original-
+and permuted-space applies, what runs them (``kernel``: ``"cuda"`` for
+hand-written kernels, ``"plain"`` for plain PyTorch) and the guarded
+apply's unfused level (``fallback``/``fallback_permuted``, None when the
+format has none).  As in
 the JAX package, the registered apply of ``ehyb`` is the plain path
 (``core.spmv``; its chain is native → reference) and the apply of
 ``ehyb_packed`` is the packed-staircase kernel (``kernels.ops``), with
@@ -20,7 +22,7 @@ from typing import Callable, Dict, Optional
 
 from ..core.ehyb import EHYB, pack_staircase
 from ..core.spmv import (EHYBDevice, EHYBPackedDevice, ehyb_spmv,
-                         ehyb_spmv_permuted)
+                         ehyb_spmv_permuted, scatter_values)
 from ..kernels.ops import ehyb_spmv_packed, ehyb_spmv_packed_permuted
 
 
@@ -31,6 +33,11 @@ class FormatSpec:
     apply: Callable      # (obj, x) -> y, original space
     permuted: Callable   # (obj, x_new) -> y_new, permuted space
     kernel: str = "plain"              # "cuda": the applies launch kernels
+    # (structure, vals, index) -> obj: the per-nnz values ``vals`` (CSR
+    # order, on the device, in the table dtype) scattered into new value
+    # tables through the plan's pattern-only ``index``, every structural
+    # tensor shared with ``structure`` (``core.spmv.scatter_values``)
+    refill: Optional[Callable] = None
     fallback: Optional[Callable] = None            # unfused level, original
     fallback_permuted: Optional[Callable] = None   # unfused level, permuted
     description: str = ""
@@ -81,10 +88,12 @@ def _packed_unfused_permuted(d, x_new):
 
 register_format(FormatSpec(
     "ehyb", _build_ehyb, ehyb_spmv, ehyb_spmv_permuted,
+    refill=scatter_values,
     description="EHYB uniform tiles, uint16 local cols; plain PyTorch "
                 "apply"))
 register_format(FormatSpec(
     "ehyb_packed", _build_ehyb_packed, ehyb_spmv_packed,
-    ehyb_spmv_packed_permuted, kernel="cuda", fallback=_packed_unfused,
+    ehyb_spmv_packed_permuted, kernel="cuda", refill=scatter_values,
+    fallback=_packed_unfused,
     fallback_permuted=_packed_unfused_permuted,
     description="EHYB packed staircase; fused CUDA kernel on the card"))

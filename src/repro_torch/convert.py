@@ -129,6 +129,6 @@ def sparse_linear(kind: str, leaves: dict, static: dict, *, csr, d_in: int,
         device=device)
     e = p.host_build(m)
     obj = device_container(kind, leaves, static, device, host=e)
-    op = LinearOperator(plan=p, obj=obj, dtype=obj.er_p_vals.dtype, csr=m)
+    op = LinearOperator(plan=p, obj=obj, dtype=obj.er_p_vals.dtype, _csr=m)
     return (cls or SparseLinear)(d_in=d_in, d_out=d_out, op=op,
                                  density=density, csr=m, ehyb=e)

@@ -155,6 +155,65 @@ class EHYB:
         return {"ell": ell, "x_cache": x_cache, "er": er, "y": y,
                 "perm": perm, "total": ell + x_cache + er + y + perm}
 
+    def refill(self, new_data: np.ndarray) -> "EHYB":
+        """Same sparsity pattern, new values: replay the build's scatters.
+
+        Returns a new :class:`EHYB` sharing every structural array (columns,
+        permutations, widths, the fill plan) with ``self``; only the value
+        tables are rewritten, by one vectorized numpy scatter each — no
+        partitioning, reordering or sorting.  The views memoized on
+        ``self`` (the ER grouping, the compact ER stream, the packed
+        staircase) come along refilled (:func:`carry_views`), so that no
+        later step redoes their pass.
+
+        ``new_data`` is the CSR ``data`` stream of a matrix with the
+        *identical* pattern; callers key on ``pattern_hash`` to guarantee
+        that."""
+        if self.fill_plan is None:
+            raise ValueError("this EHYB carries no fill plan; rebuild "
+                             "instead")
+        new_data = np.asarray(new_data)
+        if new_data.shape != (self.nnz,):
+            raise ValueError(f"value buffer has {new_data.shape} entries; "
+                             f"pattern holds {self.nnz}")
+        bump("ehyb_refill")
+        t0 = time.perf_counter()
+        plan = self.fill_plan
+        ell = np.zeros(self.n_pad * self.ell_width, dtype=np.float64)
+        ell[plan["ell_dst"]] = new_data[plan["ell_src"]]
+        ell = ell.reshape(self.n_parts, self.vec_size, self.ell_width)
+        er = np.zeros(self.er_rows * self.er_width, dtype=np.float64)
+        er[plan["er_dst"]] = new_data[plan["er_src"]]
+        er = er.reshape(self.er_rows, self.er_width)
+        new = dataclasses.replace(self, ell_vals=ell, er_vals=er,
+                                  preprocess_seconds={})
+        carry_views(self, new)
+        dt = time.perf_counter() - t0
+        # structure passes cost exactly zero on a refill
+        new.preprocess_seconds = {"partition": 0.0, "metadata": 0.0,
+                                  "reorder": 0.0, "refill": dt, "total": dt}
+        return new
+
+
+def carry_views(old: EHYB, new: EHYB) -> None:
+    """Give ``new`` (a build of ``old``'s pattern with other values, as
+    :meth:`EHYB.refill` makes) each view memoized on ``old`` that it lacks,
+    with ``new``'s values: the ER grouping, its tiles refilled through the
+    recorded ``own``/``slot``/``src``; the compact ER stream, pattern-only,
+    the same object; the packed staircase, through ``PackedEHYB.refill``.
+    No view's structure pass runs again."""
+    g = getattr(old, "_er_grouped", None)
+    if g is not None and getattr(new, "_er_grouped", None) is None:
+        gp = np.zeros_like(g["er_p_vals"])
+        gp[g["own"], g["slot"]] = new.er_vals[g["src"]]
+        new._er_grouped = {**g, "er_p_vals": gp}
+    s = getattr(old, "_er_stream", None)
+    if s is not None and getattr(new, "_er_stream", None) is None:
+        new._er_stream = s
+    pk = getattr(old, "_packed", None)
+    if pk is not None and getattr(new, "_packed", None) is None:
+        new._packed = pk.refill(new)
+
 
 def build_ehyb(m: SparseCSR, part: Optional[Partition] = None,
                method: str = "bfs", dtype_bytes: int = 4,
@@ -445,6 +504,17 @@ class PackedEHYB:
     col_starts: np.ndarray            # (P, W+1) int32 — column k offset
     col_rows: np.ndarray              # (P, W) int32 — active rows R_k
     pack_plan: Optional[dict] = None  # (pi, vi, ki) -> (pi, dest) scatter
+
+    def refill(self, base: EHYB) -> "PackedEHYB":
+        """Re-pack from ``base`` (a value-refilled EHYB on the same pattern)
+        by replaying the recorded scatter — no width recomputation."""
+        if self.pack_plan is None:
+            raise ValueError("this PackedEHYB carries no pack plan")
+        p = self.pack_plan
+        packed_vals = np.zeros_like(self.packed_vals)
+        packed_vals[p["pi"], p["dest"]] = base.ell_vals[p["pi"], p["vi"],
+                                                        p["ki"]]
+        return dataclasses.replace(self, base=base, packed_vals=packed_vals)
 
     def bytes_moved(self, val_bytes: int = 4, col_bytes: int = 2,
                     space: str = "permuted", fused_er: bool = True,

@@ -13,10 +13,19 @@ padding rows — the padding holds no entries and its x-slices are never
 read.
 
 :class:`SparseLinear` is an ``nn.Module`` whose ``forward`` is the
-reference's ``__call__``.  It holds no parameters: the weights live in the
-operator's device tables (value training through a VJP and the refill of
-``update_values`` are later slices).  ``EHYBLinear`` is the layer pinned to
-the uniform EHYB format.
+reference's ``__call__``.  Its one parameter, ``values``, holds the
+weights (one per kept entry, in the CSR order of the square pattern), and
+it decides the output: the apply reads the operator's device tables, and
+a forward first rebinds the operator whenever the parameter changed since
+it was bound — an optimizer step, ``load_state_dict``, an in-place edit or
+a new ``Parameter`` — by a scatter of the values into new tables on the
+device (``plan.bind`` of a tensor: no partitioning, no build, no packing,
+no host work).  An edit through ``values.data`` bypasses the version
+counter that this reads and is not seen.  The backward of ``forward``
+(``api.operator``'s differentiable apply) gives ``values.grad`` and the
+input's gradient.  ``update_values`` re-samples a dense weight on the
+fixed mask, refills the tables and writes the parameter in place.
+``EHYBLinear`` is the layer pinned to the uniform EHYB format.
 """
 
 from __future__ import annotations
@@ -27,7 +36,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..autotune.registry import get_format
 from .ehyb import EHYB
 from .matrices import SparseCSR, from_coo
 
@@ -50,7 +58,8 @@ def prune_to_csr(w: np.ndarray, density: float) -> SparseCSR:
 
 
 class SparseLinear(nn.Module):
-    """y = W_pruned x over the last axis of x, W bound as ``op``."""
+    """y = W_pruned x over the last axis of x, W bound as ``op``; the bound
+    weights are the parameter ``values`` (see the module docstring)."""
 
     def __init__(self, d_in: int, d_out: int, op, density: float,
                  csr: Optional[SparseCSR] = None,
@@ -60,19 +69,50 @@ class SparseLinear(nn.Module):
         self.d_out = d_out
         self.op = op
         self.density = density
-        self.csr = csr          # host pattern (bytes accounting)
-        self.ehyb = ehyb        # host EHYB build of the bound values
+        self.csr = csr          # host mask, values of the last host bind
+        self.ehyb = ehyb        # host EHYB build (layout, bytes accounting)
+        self.values = nn.Parameter(op.values.detach().clone())
+        self._bound = self._stamp()   # the parameter as ``op`` holds it
+
+    def _stamp(self) -> tuple:
+        v = self.values
+        return (id(v), v._version, v.data_ptr())
+
+    def _sync(self) -> None:
+        """Rebind ``op`` to the parameter when it changed since ``op`` was
+        bound (see the module docstring): a device scatter into new value
+        tables on the same structure."""
+        stamp = self._stamp()
+        if stamp != self._bound:
+            self.op = self.op.plan.bind(self.values.detach().clone(),
+                                        dtype=self.op.dtype)
+            self._bound = stamp
 
     def extra_repr(self) -> str:
         return (f"d_in={self.d_in}, d_out={self.d_out}, "
                 f"density={self.density}, format={self.op.format!r}")
 
     def update_values(self, w: np.ndarray) -> "SparseLinear":
-        raise NotImplementedError(
-            "update_values refills the operator's value tables on the fixed "
-            "pruning mask; the refill path (EHYB.refill, "
-            "LinearOperator.update_values) is not ported yet (ROADMAP "
-            "Queue 1 item 1)")
+        """Same pruning mask, new weights, in place: the dense ``(d_out,
+        d_in)`` matrix ``w`` re-sampled at the kept positions, bound by a
+        refill of the operator's value tables (``op.update_values``: no
+        partitioning, no build, no packing; the structure shared) and
+        written into ``values``.  A stored weight that becomes zero keeps
+        its slot.  Returns the layer."""
+        w = np.asarray(w)
+        if w.shape != (self.d_out, self.d_in):
+            raise ValueError(f"weights {w.shape} != "
+                             f"({self.d_out}, {self.d_in})")
+        m = self.op.plan.pattern
+        rows = np.repeat(np.arange(m.n), m.row_lengths())
+        csr = SparseCSR(m.n, m.indptr, m.indices,
+                        np.asarray(w, np.float64)[rows, m.indices])
+        self.op = self.op.update_values(csr)
+        self.csr = csr
+        with torch.no_grad():
+            self.values.copy_(self.op.values)
+        self._bound = self._stamp()
+        return self
 
     # ---- permuted-space threading -----------------------------------------
     # A single application permutes activations in and outputs out anyway,
@@ -110,19 +150,28 @@ class SparseLinear(nn.Module):
         ``space="permuted"`` treats x as (..., n_pad) permuted activations
         and returns (..., n_pad) permuted outputs (no gathers — for chained
         applications between ``to_permuted``/``from_permuted``)."""
+        self._sync()
         return self.apply_with(self.op.obj, x, space)
 
     def apply_with(self, obj, x, space: str = "original") -> torch.Tensor:
         """``forward`` with an explicit device container ``obj`` of the
-        operator's format (the same structure, other values)."""
-        spec = get_format(self.op.format)
-        x = self.op._promote(x)
+        operator's format (the same structure, other values), through the
+        plan's guard, as given (``forward`` passes the operator's, rebound
+        to ``values`` first).  Gradients reach x and, when ``obj`` is the
+        layer's own, ``values``."""
+        from ..api.operator import apply_operator
+
+        op = self.op
+        values = self.values if obj is op.obj else None
+        if not isinstance(x, torch.Tensor):
+            x = op._promote(x)
         lead = x.shape[:-1]
-        if space == "permuted":
-            xt = x.reshape(-1, self.op.n_pad).T
-            return spec.permuted(obj, xt).T.reshape(*lead, self.op.n_pad)
-        xt = self._embed(x.reshape(-1, self.d_in).T)     # (n, T)
-        yt = spec.apply(obj, xt)                         # (n, T)
+        permuted = space == "permuted"
+        xt = x.reshape(-1, op.n_pad).T if permuted else \
+            self._embed(x.reshape(-1, self.d_in).T)           # (n, T)
+        yt = apply_operator(op.plan, obj, op.dtype, xt, values, permuted)
+        if permuted:
+            return yt.T.reshape(*lead, op.n_pad)
         return yt[: self.d_out].T.reshape(*lead, self.d_out)
 
     def bytes_vs_dense(self, val_bytes: int = 4) -> dict:

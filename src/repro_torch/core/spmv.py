@@ -231,6 +231,65 @@ class EHYBPackedDevice:
         return self.packed_vals, self.er_p_vals
 
 
+def value_fields(obj) -> tuple[str, ...]:
+    """The names of a container's four value tensors: the ELL tiles or the
+    staircase, ``er_vals``, the grouped tiles ``er_p_vals`` and the compact
+    stream's ``er_s_vals`` (every other tensor field is structure)."""
+    main = "packed_vals" if isinstance(obj, EHYBPackedDevice) else \
+        "ell_vals"
+    return (main, "er_vals", "er_p_vals", "er_s_vals")
+
+
+def structure_of(obj):
+    """``obj`` with each value tensor replaced by a placeholder of its
+    shape, dtype and device that holds one element (a zero expanded to the
+    shape): the structure a plan keeps to scatter later binds into
+    (:func:`scatter_values`), holding no value table alive."""
+    return dataclasses.replace(obj, **{
+        f: getattr(obj, f).new_zeros(()).expand(getattr(obj, f).shape)
+        for f in value_fields(obj)})
+
+
+def value_scatter_index(e: EHYB, pk: Optional[PackedEHYB] = None) -> dict:
+    """Where each nonzero's value goes in every value table of the
+    container built from ``e`` (the staircase ``pk`` of ``e`` or, when
+    None, the uniform tiles): {table: (dst, src)} flat positions in the
+    table and CSR positions in the value stream, for ``main`` (the ELL
+    tiles or staircase), ``er_p_vals`` and ``er_vals``, plus ``pos``, the
+    compact stream's positions in the grouped tiles.  From the pattern
+    alone, so it holds for every bind of it (see :func:`value_index`)."""
+    idx = value_index(e, pk)
+    n_main = e.n_parts * pk.packed_len if pk is not None else \
+        e.n_pad * e.ell_width
+    in_main = idx < n_main
+    src_main, src_er = np.flatnonzero(in_main), np.flatnonzero(~in_main)
+    fp = e.fill_plan
+    return {"main": (idx[src_main], src_main),
+            "er_p_vals": (idx[src_er] - n_main, src_er),
+            "er_vals": (fp["er_dst"], fp["er_src"]),
+            "pos": er_stream(e)["pos"]}
+
+
+def scatter_values(obj, vals: torch.Tensor, index: dict):
+    """``obj`` with its four value tables filled from the per-nnz values
+    ``vals`` (CSR order, on the container's device, in the table dtype)
+    through :func:`value_scatter_index`'s ``index`` (as tensors on that
+    device); the structural tensors are shared.  Only the value tables'
+    shapes are read from ``obj``, so it may be :func:`structure_of` a
+    container."""
+    main = value_fields(obj)[0]
+    new = {}
+    for name, key in ((main, "main"), ("er_p_vals", "er_p_vals"),
+                      ("er_vals", "er_vals")):
+        dst, src = index[key]
+        flat = vals.new_zeros(getattr(obj, name).numel())
+        flat[dst] = vals[src]
+        new[name] = flat.view(getattr(obj, name).shape)
+    new["er_s_vals"] = new["er_p_vals"].reshape(-1).index_select(
+        0, index["pos"])
+    return dataclasses.replace(obj, **new)
+
+
 def value_index(e: EHYB, pk: Optional[PackedEHYB] = None) -> np.ndarray:
     """Where each nonzero's value lives in a bound container: (nnz,) int64
     positions, in CSR order, into the concatenation of the flattened

@@ -9,7 +9,9 @@ one is loaded as it is.  Beside each library lies ``nvcc``'s output, with
 all at once, so the build takes as long as the slowest file.
 
 Nothing here runs at import, so the module imports where there is no CUDA
-toolkit (the CPU tests import every module of the package).
+toolkit (the CPU tests import every module of the package).  Each ``nvcc``
+started and each library loaded adds one to the ``kernels.nvcc`` and
+``kernels.load`` counters (``core.counters``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+from ..core.counters import bump
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,6 +70,7 @@ def _start(name: str):
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    bump("kernels.nvcc")
     return (proc, tmp), lib
 
 
@@ -103,6 +108,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(_finish(name, _start(name))))
+        bump("kernels.load")
     return lib
 
 

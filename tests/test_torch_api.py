@@ -10,6 +10,7 @@ and 6 iterations).  Inputs come from numpy with a seed.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import api as japi
 from repro.core import matrices as jmat
@@ -118,3 +119,68 @@ def test_cg_guards_match_jax(case):
     assert int(r.iters) == int(rj.iters)
     np.testing.assert_allclose(r.x.numpy(), np.asarray(rj.x), rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# op.solve(space=...): mirrors tests/test_permuted_space.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", ["ehyb", "ehyb_packed"])
+@pytest.mark.parametrize("method", ["cg", "bicgstab"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "spai"])
+def test_solve_space_equivalence(fmt, method, pc):
+    """The same trajectory in both spaces: iterates agree to fp tolerance
+    and iteration counts within one (summation order is the only
+    difference)."""
+    from repro_torch.core.matrices import poisson3d
+
+    m = poisson3d(6)
+    b = np.random.default_rng(0).standard_normal(m.n)
+    op = tapi.plan(m, execution=tapi.ExecutionConfig(
+        format=fmt, partition_method="bfs"), device="cpu").bind(m)
+    kw = dict(method=method, precond=pc, tol=1e-6, max_iters=400)
+    r_orig = op.solve(b, space="original", **kw)
+    r_perm = op.solve(b, space=tapi.Space.PERMUTED, **kw)
+    assert r_orig.status == r_perm.status == "converged"
+    assert abs(int(r_orig.iters) - int(r_perm.iters)) <= 1
+    x1, x2 = r_orig.x.double().numpy(), r_perm.x.double().numpy()
+    assert np.abs(x1 - x2).max() / max(np.abs(x1).max(), 1e-30) < 1e-3
+
+
+@pytest.mark.parametrize("mat", ["poisson", "unstruct"])
+def test_solve_auto_space_is_permuted(mat):
+    """``space="auto"`` (the default) runs the permuted space and solves
+    the system; the JAX package's auto solve takes as many iterations."""
+    from repro_torch.core.matrices import poisson3d, unstructured
+
+    if mat == "poisson":
+        tm, jm, method = poisson3d(6), jmat.poisson3d(6), "cg"
+    else:
+        tm, jm = unstructured(512, 10, seed=9), jmat.unstructured(512, 10,
+                                                                 seed=9)
+        method = "bicgstab"
+    b = np.random.default_rng(1).standard_normal(tm.n)
+    op = port_op(tm, "ehyb")
+    kw = dict(method=method, precond="jacobi", tol=1e-5, max_iters=1500)
+    r = op.solve(b, **kw)
+    assert r.status == "converged"
+    r_perm = op.solve(b, space="permuted", **kw)
+    assert int(r.iters) == int(r_perm.iters)
+    assert torch.equal(r.x, r_perm.x)
+    ax = tm.spmv(r.x.double().numpy())
+    assert np.linalg.norm(ax - b) / np.linalg.norm(b) < 1e-3
+    rj = jax_op(jm).solve(jnp.asarray(b, jnp.float32), **kw)
+    assert abs(int(r.iters) - int(rj.iters)) <= 1
+
+
+def test_solve_rejects_an_unknown_space():
+    """Every ported format has a permuted space (the JAX package rejects
+    ``space="permuted"`` for its flat formats, which the port does not
+    carry yet); an unknown space raises."""
+    from repro_torch.core.matrices import poisson3d
+
+    m = poisson3d(5)
+    op = port_op(m, "ehyb_packed")
+    assert op.supports_permuted
+    with pytest.raises(ValueError, match="space"):
+        op.solve(np.ones(m.n), space="diagonal")

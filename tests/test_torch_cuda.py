@@ -702,3 +702,218 @@ def test_bicgstab_on_the_card_matches_the_cpu_port(cuda_device):
     x, x_cpu = r.x.double().cpu().numpy(), r_cpu.x.double().numpy()
     assert np.abs(x - x_cpu).max() <= 1e-4 * np.abs(x_cpu).max()
     assert np.linalg.norm(m.spmv(x) - b) / np.linalg.norm(b) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the value path on the card: refill, device bind, backward
+# ---------------------------------------------------------------------------
+
+REFILL_MATS = ["poisson3d_16", "elasticity_8", "powerlaw_4k", "circuit_4k"]
+VALUE_FIELDS = ("packed_vals", "ell_vals", "er_vals", "er_p_vals",
+                "er_s_vals")
+
+
+def _new_values(m, seed=7):
+    data = np.random.default_rng(seed).standard_normal(m.nnz)
+    data[::5] = 0.0                     # stored zeros keep their slots
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["ehyb", "ehyb_packed"])
+@pytest.mark.parametrize("name", REFILL_MATS)
+def test_refill_on_the_card_matches_a_fresh_bind(cuda_device, name, fmt,
+                                                 dtype):
+    """Every value field of a refilled container bit-identical to a fresh
+    bind of the new values (``er_s_vals``, which the fused kernels read,
+    included), every other field the same tensor (``data_ptr``), and the
+    fused kernel on the refilled container against its plain version."""
+    import dataclasses
+
+    from repro_torch.core.matrices import SparseCSR
+
+    m = SUITE[name]()
+    m2 = SparseCSR(m.n, m.indptr, m.indices, _new_values(m))
+    ex = ExecutionConfig(format=fmt, partition_method="bfs")
+    op1 = plan(m, execution=ex, device=cuda_device,
+               cache=PlanCache()).bind(m, dtype=dtype)
+    before = counters.snapshot()
+    op2 = op1.update_values(m2)
+    after = counters.snapshot()
+    for c in ("partition", "build_ehyb", "pack_staircase", "group_er"):
+        assert after.get(c, 0) == before.get(c, 0), c
+    fresh = plan(m, execution=ex, device=cuda_device,
+                 cache=PlanCache()).bind(m2, dtype=dtype)
+    for f in dataclasses.fields(op2.obj):
+        a, b = getattr(op2.obj, f.name), getattr(fresh.obj, f.name)
+        if not isinstance(a, torch.Tensor):
+            assert a == b, f.name
+            continue
+        assert a.device.type == "cuda" and torch.equal(a, b), f.name
+        old = getattr(op1.obj, f.name)
+        if f.name in VALUE_FIELDS:
+            assert a.data_ptr() != old.data_ptr(), f.name
+        else:
+            assert a.data_ptr() == old.data_ptr(), f.name
+    o = op2.obj
+    x_new = op2.to_space(np.random.default_rng(0).standard_normal(m.n))
+    y = op2.apply(x_new, space="permuted")
+    if fmt == "ehyb_packed":
+        y_ref = ref.ehyb_packed_fused_stream_ref(
+            x_new[:, None], o.packed_vals, o.packed_cols, o.col_starts,
+            o.col_rows, o.er_stream(), o.vec_size, o.has_er)[:, 0]
+    else:
+        y_ref = ref.ehyb_fused_stream_ref(
+            x_new[:, None], o.ell_vals, o.ell_cols, o.er_stream(),
+            o.has_er)[:, 0]
+    torch.cuda.synchronize()
+    assert _rel(y, y_ref) <= TOL[dtype]
+    x = np.random.default_rng(1).standard_normal(m.n)
+    got = (op2 @ x).double().cpu().numpy()
+    tol = 1e-4 if dtype == torch.float32 else 1e-1
+    assert np.abs(got - m2.spmv(x)).max() <= tol * max(
+        np.abs(m2.spmv(x)).max(), 1.0)
+    assert op2.plan.degraded == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["elasticity_8", "powerlaw_4k"])
+def test_device_bind_equals_host_bind_on_the_card(cuda_device, name):
+    """``plan.bind(tensor)`` scatters on the card into the same tables as
+    the host bind of the same values."""
+    import dataclasses
+
+    m = SUITE[name]()
+    data = _new_values(m, seed=3)
+    p = plan(m, execution=ExecutionConfig(format="ehyb_packed",
+                                          partition_method="bfs"),
+             device=cuda_device, cache=PlanCache())
+    op1 = p.bind(m)
+    opt = p.bind(torch.as_tensor(data, device=cuda_device))
+    oph = p.bind(data)
+    for f in dataclasses.fields(opt.obj):
+        a = getattr(opt.obj, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, getattr(oph.obj, f.name)), f.name
+            if f.name not in VALUE_FIELDS:
+                assert a.data_ptr() == getattr(op1.obj, f.name).data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("name", ["poisson3d_16", "powerlaw_4k"])
+def test_backward_launches_the_kernels(cuda_device, name, k):
+    """The backward's Aᵀ ḡ runs on the transpose plan's operator through #2
+    (K = 1) or #8 (K ≥ 2), one launch; the gradients agree with the CPU
+    port's plain path on the same inputs."""
+    m = SUITE[name]()
+    rng = np.random.default_rng(k)
+    shape = (m.n,) if k == 1 else (m.n, k)
+    x, v = rng.standard_normal(shape), rng.standard_normal(shape)
+    ex = ExecutionConfig(format="ehyb_packed", partition_method="bfs", k=k)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = plan(m, execution=ex, device=dev, cache=PlanCache())
+        vals = torch.tensor(m.data, dtype=torch.float32, device=dev,
+                            requires_grad=True)
+        xt = torch.tensor(x, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+        vt = torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+        def step():
+            vals.grad = xt.grad = None
+            (p.bind(vals) @ xt * vt).sum().backward()
+
+        step()                          # resolves the transpose's guards
+        if dev.type == "cuda":
+            kern = K.ehyb_packed_fused if k == 1 else \
+                KM.ehyb_packed_fused_spmm
+            n0 = kern.launches
+            step()
+            torch.cuda.synchronize()
+            assert kern.launches == n0 + 2      # the forward and Aᵀ ḡ
+            assert p.degraded == {} and p.transpose.degraded == {}
+            assert (p.transpose is p) == (name == "poisson3d_16")
+        grads[dev.type] = (xt.grad.double().cpu(), vals.grad.double().cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fp64_cotangent_raises_on_the_card(cuda_device):
+    """The transpose is bound at the cotangent's fp64 and the kernels take
+    no fp64: the backward raises rather than rounding the cotangent."""
+    m = SUITE["poisson3d_16"]()
+    op = plan(m, execution=ExecutionConfig(format="ehyb_packed",
+                                           partition_method="bfs"),
+              device=cuda_device, cache=PlanCache()).bind(m)
+    x = torch.randn(m.n, dtype=torch.float64, device=cuda_device,
+                    requires_grad=True)
+    y = op @ x
+    assert y.dtype == torch.float64
+    with pytest.raises(TypeError):
+        y.sum().backward()
+
+
+@pytest.mark.cuda
+def test_update_values_rejects_nan_on_the_card(cuda_device):
+    m = SUITE["elasticity_8"]()
+    op = plan(m, execution=ExecutionConfig(format="ehyb_packed",
+                                           partition_method="bfs"),
+              device=cuda_device, cache=PlanCache()).bind(m)
+    bad = m.data.copy()
+    bad[-1] = np.nan
+    with pytest.raises(ValueError, match="non-finite"):
+        op.update_values(bad)
+    with pytest.raises(ValueError, match="non-finite"):
+        op.update_values(torch.as_tensor(bad, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("foreach", [False, True])
+def test_layer_follows_its_parameter_on_the_card(cuda_device, foreach):
+    """One ``torch.optim.SGD`` step on the card (for-loop and foreach
+    updates) and a ``load_state_dict``: the next forward launches #8 on
+    tables rebound to the stepped parameter, with no structure pass, and
+    equals a fresh bind of the same values."""
+    from repro_torch.api import pruned_linear
+    from repro_torch.core.matrices import SparseCSR
+    from repro_torch.core.sparse_linear import SparseLinear
+
+    rng = np.random.default_rng(11)
+    w = rng.normal(0.0, 0.02, (256, 1024))
+    x = torch.as_tensor(rng.standard_normal((16, 1024)), dtype=torch.float32,
+                        device=cuda_device)
+    layer = pruned_linear(w, 0.1, format="ehyb_packed",
+                          partition_method="bfs", k=16, device=cuda_device)
+    opt = torch.optim.SGD(layer.parameters(), lr=0.5, foreach=foreach)
+    y0 = layer(x)
+    (y0 ** 2).mean().backward()
+    opt.step()
+    before = counters.snapshot()
+    n0 = KM.ehyb_packed_fused_spmm.launches
+    with torch.no_grad():
+        y1 = layer(x)
+    torch.cuda.synchronize()
+    assert KM.ehyb_packed_fused_spmm.launches == n0 + 1
+    after = counters.snapshot()
+    for c in ("partition", "build_ehyb", "pack_staircase", "group_er",
+              "ehyb_refill", "kernels.nvcc"):
+        assert after.get(c, 0) == before.get(c, 0), c
+    c = layer.csr
+    m = SparseCSR(c.n, c.indptr, c.indices,
+                  layer.values.detach().double().cpu().numpy())
+    fresh = SparseLinear(
+        d_in=1024, d_out=256, density=0.1, csr=m,
+        op=plan(m, execution=layer.op.plan.execution, device=cuda_device,
+                cache=PlanCache()).bind(m))
+    with torch.no_grad():
+        assert torch.equal(y1, fresh(x))
+    assert not torch.equal(y1, y0.detach())
+    other = pruned_linear(-w, 0.1, format="ehyb_packed",
+                          partition_method="bfs", k=16, device=cuda_device)
+    other.load_state_dict(layer.state_dict())
+    with torch.no_grad():
+        assert torch.equal(other(x), y1)
+    assert layer.op.plan.degraded == {} and other.op.plan.degraded == {}

@@ -96,9 +96,10 @@ def test_plan_cache_shares_partition_and_host_build():
     p2.bind(m.data * 1.0)          # same values: no second build
     snap = counters.snapshot()
     assert snap.get("partition", 0) == 0 and snap["build_ehyb"] == 1
-    p2.bind(m.data * 2.0)          # new values: a build on the same partition
+    p2.bind(m.data * 2.0)          # new values: scattered into p2's tables
     snap = counters.snapshot()
-    assert snap.get("partition", 0) == 0 and snap["build_ehyb"] == 2
+    assert snap.get("partition", 0) == 0 and snap["build_ehyb"] == 1
+    assert snap.get("ehyb_refill", 0) == 0
 
 
 def test_spaces_round_trip_and_dtypes():

@@ -396,7 +396,7 @@ def test_pruned_linear_matches_jax(shape, fmt):
                                k=6, device="cpu")
     assert isinstance(layer, SparseLinear) and isinstance(layer,
                                                           torch.nn.Module)
-    y = layer(x)
+    y = layer(x).detach()        # the layer's values require grad
     assert y.shape == (2, 3, shape[0]) and y.dtype == torch.float32
     assert _err(y.numpy(), want) < 5e-5
     assert _err(y.numpy(), oracle) < 5e-5
@@ -437,7 +437,7 @@ def test_converted_layer_matches_jax(fmt, dt):
         convert.sparse_linear(
             *_leaves(jl.op.obj), csr=jl.csr, d_in=jl.d_in, d_out=jl.d_out,
             density=jl.density, partition_method="natural", device="cpu")
-    y = layer(x)
+    y = layer(x).detach()
     assert y.dtype == tdt and y.shape == (2, 3, 64)
     dense = jax_prune_to_csr(w, 0.2).to_dense()[:64, :256]
     assert _err(y.double().numpy(), x @ dense.T) < tol
@@ -452,8 +452,12 @@ def test_layer_limits():
     w, x = _layer_inputs(32, 48)
     layer = EHYBLinear.from_dense(w, 0.3, device="cpu")
     assert type(layer) is EHYBLinear and layer.op.format == "ehyb"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        layer.update_values(w)
+    # update_values refills the layer's tables on its mask, in place
+    y, perm = layer(x), layer.op.obj.perm
+    layer3 = layer.update_values(3.0 * w)
+    assert layer3 is layer and type(layer3) is EHYBLinear
+    assert layer3.op.obj.perm is perm
+    torch.testing.assert_close(layer3(x), 3.0 * y, rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tapi.pruned_linear(w, 0.3, format="ehyb", partition_method="bfs",
                            mesh=object(), device="cpu")
