@@ -15,6 +15,9 @@ just before it and read just after:
   (``ExecutionConfig(k=16)``), then ``op @ X`` on 16 load cases,
   ``op.apply(X̃, space="permuted")``, the uniform-tile wrapper, the
   unfused ``use_er_kernel=False`` level on both layouts, K = 32 and bf16;
+  then every SpMM kernel at K = 16 and 32 on this plan and on the
+  solve's (bit-identical over two launches) and a NaN in X̃[0] through
+  #7 and #9, which must reach only the rows whose CSR product reads it;
 * the reliability path, on the solve's plan: the unfused level at one
   right-hand side on both layouts (fp32 and bf16, the ELL-only SpMV
   kernels), the fused SpMV rebuilt from the ELL-only kernel and the
@@ -205,17 +208,19 @@ def spmm_cases(o, u, x_new) -> dict:
     return {
         "ehyb_fused_spmm": (
             lambda: KM.ehyb_fused_spmm(x_new, u.ell_vals, u.ell_cols,
-                                       u.er_stream()),
+                                       u.col_rows, u.er_stream()),
             lambda: ref.ehyb_fused_stream_ref(x_new, u.ell_vals, u.ell_cols,
-                                              u.er_stream())),
+                                              u.col_rows, u.er_stream())),
         "ehyb_packed_fused_spmm": (
             lambda: KM.ehyb_packed_fused_spmm(x_new, *stair, o.er_stream(),
                                               vec_size=o.vec_size),
             lambda: ref.ehyb_packed_fused_stream_ref(
                 x_new, *stair, o.er_stream(), o.vec_size)),
         "ehyb_ell_spmm": (
-            lambda: KM.ehyb_ell_spmm(xp, u.ell_vals, u.ell_cols),
-            lambda: ref.ehyb_ell_ref(xp, u.ell_vals, u.ell_cols)),
+            lambda: KM.ehyb_ell_spmm(xp, u.ell_vals, u.ell_cols,
+                                     u.col_rows),
+            lambda: ref.ehyb_ell_ref(xp, u.ell_vals, u.ell_cols,
+                                     u.col_rows)),
         "ehyb_ell_packed_spmm": (
             lambda: KM.ehyb_ell_packed_spmm(xp, *stair),
             lambda: ref.ehyb_ell_packed_ref(xp, *stair)),
@@ -237,7 +242,7 @@ def rel_cases(o, u, x_new) -> dict:
         "ehyb_ell": (
             lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols, u.col_rows),
             lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
-                                     u.ell_cols)[..., 0]),
+                                     u.ell_cols, u.col_rows)[..., 0]),
         "ehyb_ell_packed": (
             lambda: K.ehyb_ell_packed(xp, *stair),
             lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
@@ -622,15 +627,14 @@ def run(dev, nx: int) -> list:
     spmm_b16 = check_cases(spmm_cases(o16, opb16_u.obj, xb16_new),
                           KERNEL_TOL["bfloat16"], "batched k=16 plan bf16")
     xb32_new = opb.to_space(xb32)
-    spmm_b32 = check_cases({"ehyb_packed_fused_spmm": spmm_cases(
-        ob, ub, xb32_new)["ehyb_packed_fused_spmm"]}, KERNEL_TOL["float32"],
-        "batched K=32")
+    spmm_b32 = check_cases(spmm_cases(ob, ub, xb32_new),
+                           KERNEL_TOL["float32"], "batched K=32")
     log("batched", shape=tuple(yb.shape), **checks_b,
         vs_16_spmv_columns=err_cols, permuted_equals_original=same,
         bf16_vs_scipy_f64=err_b16, bf16_vs_plain=err_b16_plain,
         **{f"{k}_vs_plain": v[0] for k, v in spmm_b.items()},
         **{f"{k}_bf16_vs_plain": v[0] for k, v in spmm_b16.items()},
-        k32_packed_vs_plain=spmm_b32["ehyb_packed_fused_spmm"][0])
+        **{f"{k}_k32_vs_plain": v[0] for k, v in spmm_b32.items()})
     check(yb.shape == (m.n, K_RHS) and bool(torch.isfinite(yb).all()),
           "finite Y of 16 columns")
     check(all(v <= SPMM_TOL["float32"] for v in checks_b.values()),
@@ -639,14 +643,48 @@ def run(dev, nx: int) -> list:
     check(same, "op.apply(permuted) is op @ X")
     check(err_b16 <= SPMM_TOL["bfloat16"], "bf16 op @ X within 5e-2")
     check(err_b16_plain <= KERNEL_TOL["bfloat16"], "bf16 kernel vs plain")
-    # 4b on the batched plan: two launches of #7 and #8 give the same bits
-    cases_b = spmm_cases(ob, ub, xb_new)
-    same_bits_b = {k: bool(torch.equal(cases_b[k][0](), cases_b[k][0]()))
-                   for k in ("ehyb_fused_spmm", "ehyb_packed_fused_spmm")}
+    # 4b on the batched plan: two launches of each SpMM kernel give the
+    # same bits, at K = 16 and K = 32
+    same_bits_b = {}
+    for kk, xk in ((K_RHS, xb_new), (2 * K_RHS, xb32_new)):
+        for k, (kern, _) in spmm_cases(ob, ub, xk).items():
+            same_bits_b[f"{k}_k{kk}"] = bool(torch.equal(kern(), kern()))
     log("determinism-batched", bit_identical=same_bits_b)
     check(all(same_bits_b.values()), "two SpMM launches give the same bits")
     healthy("batched")
-    del yb32, xb32, xb32_new, cols, opb16, opb16_u, o16, xb16_new
+
+    # ---- 5c. #7 and #9 read only live entries: a NaN in x_new[0] -----------
+    # reaches the rows whose CSR product reads it (in-partition ones for
+    # the ELL-only #9) and no other; a padded read (value 0, column 0)
+    # would reach every row of partition 0 with a padded slot too
+    inv_b = ub.inv_perm.cpu().numpy()
+    col0 = int(np.flatnonzero(inv_b == 0)[0])
+    reads = np.zeros(ub.n_pad, dtype=bool)
+    reads[inv_b[np.repeat(np.arange(m.n), m.row_lengths())[
+        m.indices == col0]]] = True
+    ell_reads = reads.copy()
+    ell_reads[ub.vec_size:] = False
+    xnan = xb_new.clone()
+    xnan[0] = float("nan")
+    y_nan = {
+        "ehyb_fused_spmm": (KM.ehyb_fused_spmm(
+            xnan, ub.ell_vals, ub.ell_cols, ub.col_rows, ub.er_stream()),
+            reads),
+        "ehyb_ell_spmm": (KM.ehyb_ell_spmm(
+            xnan.reshape(ub.n_parts, ub.vec_size, K_RHS), ub.ell_vals,
+            ub.ell_cols, ub.col_rows).reshape(ub.n_pad, K_RHS), ell_reads)}
+    widths0 = (torch.arange(ub.vec_size, device=dev)[:, None]
+               < ub.col_rows[0][None, :]).sum(dim=1)
+    padded0 = int((widths0 < ub.col_rows.shape[1]).sum())
+    live_ok = {}
+    for k, (yk, want) in y_nan.items():
+        bad = ~np.isfinite(yk.float().cpu().numpy())
+        live_ok[k] = bool(bad[want].all() and not bad[~want].any())
+        log("live-read", kernel=k, csr_rows_reading_x0=int(want.sum()),
+            nonfinite_rows=int(bad.any(axis=1).sum()),
+            partition0_rows_with_padded_slots=padded0, live_only=live_ok[k])
+    check(all(live_ok.values()), "#7 and #9 read only live entries")
+    del y_nan, xnan
 
     # ---- 6. K = 16 on the solver's k = 1 plan (chunked re-sweep) -----------
     kc1 = KM.rhs_chunk_for(K_RHS, o.vec_size, 4, None,
@@ -655,11 +693,23 @@ def run(dev, nx: int) -> list:
     x1_new = op.to_space(xb)
     spmm_1 = check_cases(spmm_cases(o, u, x1_new), KERNEL_TOL["float32"],
                         "k=1 plan at K=16")
+    x1_32 = op.to_space(xb32)
+    spmm_1_32 = check_cases(spmm_cases(o, u, x1_32), KERNEL_TOL["float32"],
+                            "k=1 plan at K=32")
+    same_bits_1 = {f"{k}_k{kk}": bool(torch.equal(kern(), kern()))
+                   for kk, xk in ((K_RHS, x1_new), (2 * K_RHS, x1_32))
+                   for k, (kern, _) in spmm_cases(o, u, xk).items()
+                   if k in ("ehyb_fused_spmm", "ehyb_ell_spmm")}
     err_1 = rel_err(y1.cpu(), ab_sp)
     log("k1-plan-batched", n_parts=o.n_parts, vec_size=o.vec_size,
         rhs_chunk=kc1, passes_over_A=-(-K_RHS // kc1), vs_scipy_f64=err_1,
-        **{f"{k}_vs_plain": v[0] for k, v in spmm_1.items()})
+        **{f"{k}_vs_plain": v[0] for k, v in spmm_1.items()},
+        **{f"{k}_k32_vs_plain": v[0] for k, v in spmm_1_32.items()},
+        bit_identical=same_bits_1)
     check(err_1 <= SPMM_TOL["float32"], "k=1 plan op @ X within 1e-4")
+    check(all(same_bits_1.values()), "two launches of #7 and #9 on the k=1 "
+          "plan give the same bits")
+    del yb32, xb32, xb32_new, x1_32, cols, opb16, opb16_u, o16, xb16_new
     healthy("k1-plan-batched")
 
     # ---- 7. an ER-free operator at full row count: A's diagonal ------------
@@ -767,7 +817,7 @@ def run(dev, nx: int) -> list:
                 "uniform": rel_err(
                     y_qu.float().cpu(),
                     ref.ehyb_fused_stream_ref(
-                        xn[:, None], qu.ell_vals, qu.ell_cols,
+                        xn[:, None], qu.ell_vals, qu.ell_cols, qu.col_rows,
                         qu.er_stream(), qu.has_er)[:, 0].float().cpu()),
                 # the padded tiles' plain apply: the same product
                 "uniform_vs_tiles": rel_err(
@@ -1462,8 +1512,8 @@ def run(dev, nx: int) -> list:
         "ehyb_fused": (
             time_ms(lambda: ops.ehyb_spmv_fused_permuted(u, x_new), dev),
             time_ms(lambda: ref.ehyb_fused_stream_ref(
-                x_new2, u.ell_vals, u.ell_cols, u.er_stream(), u.has_er),
-                dev),
+                x_new2, u.ell_vals, u.ell_cols, u.col_rows, u.er_stream(),
+                u.has_er), dev),
             lib_ms, bound, bound_by),
     }
     t["fused_cg_update"] = cg_t["float32"]

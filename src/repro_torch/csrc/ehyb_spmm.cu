@@ -26,13 +26,19 @@
 //     exceeds KC, the width of the per-thread register accumulator (a
 //     template parameter: 4, 8, 16 or 32).  A plan sized for the batch
 //     (ExecutionConfig.k) reads A once; on a plan sized for fewer columns
-//     A is read once per chunk;
+//     A is read once per chunk.  The uniform ELL-only kernel holds no
+//     output tile (it writes each row's sums straight to y), so at the same
+//     Kc its block holds half the shared memory: on the k = 16 plan (V =
+//     1,504, Kc = 16, fp32) 96 KB against 192.5 KB, the rest left to L1
+//     (two blocks an SM would fit it, at 512 threads: min_blocks);
 //   * per chunk the x tile is staged into shared memory once, so every
 //     in-partition x read hits shared memory.  The output tile is stored
-//     column by column, [j][v], so thread i's stores of row i fall on
-//     neighbouring banks.  The x tile is stored row by row, [v][j]
-//     (kXRowMajor), where Kc fills whole 16-byte chunks of a KC-wide row
-//     (Kc = 4, 8, 16 or 32 in fp32; 8, 16 or 32 in bf16): an entry's Kc
+//     column by column, [j][v], so the packed kernels' thread i's stores
+//     of row i fall on neighbouring banks (a uniform lane group's lanes
+//     store columns of one row: one bank when V is a multiple of 32).
+//     The x tile is stored row by row, [v][j] (kXRowMajor), where Kc
+//     fills whole 16-byte chunks of a KC-wide row (Kc = 4, 8, 16 or 32
+//     in fp32; 8, 16 or 32 in bf16): an entry's Kc
 //     values are then Kc * size / 16 16-byte loads, not Kc scalar ones,
 //     and each row's chunks are swizzled by the row (chunk q of row v at
 //     q ^ (v mod chunks)), so the random rows of a warp's entries spread
@@ -40,12 +46,27 @@
 //     scalar loads.  On elasticity3d(64) at K = 16 the row-major tile took
 //     #10 from 0.472 to 0.387 ms and #9 from 1.16 to 0.751 ms
 //     (tools/ehyb_lane_sweep.py, H100 80GB HBM3, 700 W);
-//   * ELL stage: thread per row.  The packed kernel takes row i's width
-//     once, by a binary search over col_rows (non-increasing; in shared
-//     memory beside the tiles when it fits), and reads column k's entry at
+//   * row widths: every kernel takes row i's width by a binary search over
+//     col_rows (non-increasing; in shared memory beside the tiles when it
+//     fits) and reads no slot at or past it, so a padded slot (value 0,
+//     column 0) is never read: neither its bytes nor a non-finite x[0];
+//   * ELL stage, packed: a thread per row reads column k's entry at
 //     col_starts[p][k] + i (coalesced across a warp), kEllUnroll entries
-//     in flight a thread and no data-dependent exit; the uniform kernel
-//     reads its row of the (V, W) tile, strided;
+//     in flight a thread and no data-dependent exit;
+//   * ELL stage, uniform: a group of kUniformLanes (G) lanes per row of
+//     the row-major (V, W) tile.  Lane l reads entries l, l + G, ... below
+//     the row's width, kUniformUnroll (value, column) pairs in flight, so
+//     a warp reads 32 / G rows a load, each as one contiguous run of G
+//     values and G columns (a thread a row would read 32 rows W entries
+//     apart: 32 sectors a load, most of each waiting in L1, which the
+//     tiles leave ~30 KB of).  Each lane sums its entries
+//     into its KC-wide register accumulator with the x tile's 16-byte
+//     loads; the group then reduce-scatters its KC partials by shuffles in
+//     a fixed order (KC/2 + KC/4 + ... a lane, not KC log2 G), and lane l
+//     writes the sums of columns [l KC/G, (l + 1) KC/G) (of column l / (G
+//     / KC) when KC < G): into the output tile (fused kernel) or straight
+//     to y (ELL-only kernel).  On elasticity3d(64) at K = 16 the live
+//     entries are 46.0M of the tile's 64.3M slots;
 //   * ER stage (HAS_ER): the compact ER stream (EHYBDevice.er_s_*), the
 //     partition's live ER entries only, rows longest first.  A group of
 //     er_group(KC) lanes takes one live row: lane (s, j) holds column
@@ -64,9 +85,19 @@
 //     launches give the same bits;
 //   * the tile is written out once per chunk, in X's dtype;
 //   * the CUDA source picks each block's size: whole warps enough for a
-//     thread a row and a lane group an ER row, at most max_threads(KC,
-//     PACKED): 1,024 for the packed kernels (512 at Kc > 16), 512 for the
-//     uniform ones, as before.
+//     thread (packed) or kUniformLanes lanes (uniform) a row and a lane
+//     group an ER row, at most max_threads(KC, PACKED): 1,024 (512 at
+//     Kc > 16);
+//   * the uniform kernels' constants are tools/ehyb_lane_sweep.py --sweep
+//     spmm's pick on elasticity3d(64) at K = 16 (H100 80GB HBM3, 700 W):
+//     4 lanes a row, 4 entries in flight a lane, 1,024 threads.  On the
+//     k = 16 plan (fp32) #9 took 0.307 ms with 4 lanes against 0.342 (2),
+//     0.381 (8), 0.445 (16) and 0.417 with a thread a row read to its
+//     width, and #7 0.736 against 0.763, 0.803, 0.862 and 0.909; 512
+//     threads with two blocks an SM gave #9 0.304 but #7 1.131 (its tiles
+//     hold the SM alone), and on the k = 1 plan (132 blocks, one an SM)
+//     #9 1.068 against 0.858; 8 entries in flight gave #9 0.313 and #7
+//     0.754 (on the k = 1 plan, Kc = 4, #9 0.745 against 0.858).
 // Accumulation is fp32 for fp32 and bf16 tables.
 
 #include <cuda_bf16.h>
@@ -93,13 +124,33 @@ constexpr int kEllUnroll = 4;      // packed ELL entries in flight a thread
 constexpr int kErUnroll = 4;       // ER entries in flight a lane
 constexpr int kErGroupLanes = 4;   // lanes of an ER row group at least
 constexpr bool kXRowMajor = true;  // x tile [v][j] (true) or [j][v]
+constexpr int kUniformLanes = 4;       // lanes of a row of the uniform tile
+constexpr int kUniformUnroll = 4;      // its entries in flight a lane
+constexpr int kUniformThreads = 1024;  // uniform kernels' block, at most
 
 // Threads of a block at most.  32 accumulators a thread need more than the
-// 64 registers a 1,024-thread block leaves; the uniform kernels' threads
-// read their rows strided and lean on L1 (what shared memory leaves of it),
-// which more rows in flight would thrash.
+// 64 registers a 1,024-thread block leaves.
 __host__ __device__ constexpr int max_threads(int KC, bool packed) {
-  return KC >= 32 || !packed ? 512 : 1024;
+  return KC >= 32 ? 512 : packed ? 1024 : kUniformThreads;
+}
+// Blocks an SM is to hold at least: two of the uniform ELL-only kernel at
+// Kc <= 16 and at most 512 threads (no output tile, so two x tiles fit the
+// SM's shared memory; registers are capped to let them), else one.  Stated
+// even at one, it lets ptxas spend the registers the thread cap leaves (64
+// at 1,024 threads, where the cap alone left #8 and #10 at 46 and 49): at
+// K = 16 on elasticity3d(64) the cap alone took #8 and #10 0.815 and 0.388
+// ms against 0.699 and 0.295 (tools/ehyb_lane_sweep.py, variant
+// launch-bounds-threads-only; H100 80GB HBM3, 700 W).
+__host__ __device__ constexpr int min_blocks(int KC, bool packed,
+                                             bool has_er) {
+  return !packed && !has_er && KC <= 16 && max_threads(KC, packed) <= 512
+             ? 2
+             : 1;
+}
+// Lanes a row of the ELL stage: a thread a row of the staircase,
+// kUniformLanes a row of the uniform tile.
+__host__ __device__ constexpr int row_lanes(bool packed) {
+  return packed ? 1 : kUniformLanes;
 }
 // ER sub-groups a row (entries split S ways) and lanes of a row's group.
 __host__ __device__ constexpr int er_split(int KC) {
@@ -125,7 +176,7 @@ struct SpmmArgs {
   const void* vals;       // uniform (P, V, W) | packed (P, L)
   const uint16_t* cols;   // same shape, local columns
   const int* col_starts;  // packed only: (P, W + 1)
-  const int* col_rows;    // packed only: (P, W), non-increasing along W
+  const int* col_rows;    // (P, W), non-increasing along W
   const int* er_part_ptr; // the compact ER stream (HAS_ER), as ErStream
   const int* er_row_ptr;
   const int* er_rows;
@@ -271,30 +322,139 @@ __device__ __forceinline__ void er_stage(float* ys, const T* __restrict__ x,
   }
 }
 
+// One lane's share of a row of the uniform (V, W) tile: entries lane,
+// lane + G, ... below w, kUniformUnroll (value, column) pairs in flight.
+template <typename T, int KC, bool VEC, int G>
+__device__ __forceinline__ void uniform_row(float (&acc)[KC],
+                                            const T* __restrict__ vr,
+                                            const uint16_t* __restrict__ cl,
+                                            const T* xs, int w, int lane,
+                                            int kc, int V) {
+  constexpr int U = kUniformUnroll;
+  int k = lane;
+  for (; k + (U - 1) * G < w; k += U * G) {
+    T v[U];
+    uint16_t c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = vr[k + u * G];
+      c[u] = cl[k + u * G];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      fma_x<T, KC, VEC>(acc, to_f(v[u]), xs, c[u], kc, V);
+  }
+  for (; k < w; k += G) fma_x<T, KC, VEC>(acc, to_f(vr[k]), xs, cl[k], kc, V);
+}
+
+// Reduce-scatter of a lane group's N partials over the lane masks M, M/2,
+// ..., 1 (M = G/2; groups are aligned runs of G lanes of a warp).  At each
+// mask a lane keeps the half of its values that its bit selects (the upper
+// half when set) and adds its partner's copy of that half; once one value
+// is left the remaining masks sum it.  Afterwards a[0..max(N/G, 1)) of lane
+// l hold the group's sums of columns l * N/G + t (N >= G), or of column
+// l / (G/N) (N < G).  Each sum's order is fixed.  Every lane of the warp
+// must call it.
+template <int KC, int N, int M>
+__device__ __forceinline__ void reduce_scatter(float (&a)[KC], int lane) {
+  if constexpr (M >= 1) {
+    if constexpr (N > 1) {
+      const bool up = (lane & M) != 0;
+#pragma unroll
+      for (int t = 0; t < N / 2; ++t) {
+        const float send = up ? a[t] : a[t + N / 2];
+        const float keep = up ? a[t + N / 2] : a[t];
+        a[t] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+      }
+      reduce_scatter<KC, N / 2, M / 2>(a, lane);
+    } else {
+      a[0] += __shfl_xor_sync(0xffffffffu, a[0], M);
+      reduce_scatter<KC, 1, M / 2>(a, lane);
+    }
+  }
+}
+
+// The uniform tile's ELL stage: kUniformLanes lanes a row, each row read to
+// its width; the row's kc sums go to the output tile ys ([j][v]) when TILE,
+// else straight to y (row-major (n_pad, K), columns c0 ...).
+template <typename T, int KC, bool TILE, bool VEC>
+__device__ __forceinline__ void uniform_rows(const SpmmArgs& a, const T* xs,
+                                             float* ys, const int* cr, int p,
+                                             int c0, int kc) {
+  constexpr int G = kUniformLanes;
+  constexpr int NV = KC >= G ? KC / G : 1;      // sums a lane writes
+  constexpr int SPREAD = KC >= G ? 1 : G / KC;  // lanes holding each sum
+  const int V = a.V, W = a.W;
+  const int lane = threadIdx.x % G, grp = threadIdx.x / G;
+  const int ngrp = blockDim.x / G;
+  const int c = lane / SPREAD * NV;
+  const size_t row0 = (size_t)p * V;
+  const T* vals = static_cast<const T*>(a.vals);
+  T* y = static_cast<T*>(a.y);
+  for (int i0 = 0; i0 < V; i0 += ngrp) {  // uniform trip count
+    const int i = i0 + grp;
+    float acc[KC];
+#pragma unroll
+    for (int j = 0; j < KC; ++j) acc[j] = 0.f;
+    if (i < V) {
+      const size_t r = (row0 + i) * W;
+      uniform_row<T, KC, VEC, G>(acc, vals + r, a.cols + r, xs,
+                                 row_width(cr, W, i), lane, kc, V);
+    }
+    reduce_scatter<KC, KC, G / 2>(acc, lane);
+    if (i < V && lane % SPREAD == 0) {
+#pragma unroll
+      for (int t = 0; t < NV; ++t) {
+        if (c + t < kc) {
+          if constexpr (TILE)
+            ys[(c + t) * V + i] = acc[t];
+          else
+            y[(row0 + i) * a.K + c0 + c + t] = from_f<T>(acc[t]);
+        }
+      }
+    }
+  }
+}
+
+// Shared memory of a block: the fp32 (V, Kc) output tile unless the kernel
+// writes its rows straight to y (the uniform ELL-only kernel), the (V, Kc)
+// x tile in the table dtype, then (when staged) the int row metadata:
+// col_rows [W], and col_starts [W + 1] for the staircase.
+__host__ __device__ constexpr bool has_tile(bool packed, bool has_er) {
+  return packed || has_er;
+}
+template <typename T, bool PACKED, bool HAS_ER>
+__host__ __device__ constexpr size_t tiles_bytes(int V, int Kc) {
+  return (size_t)V * Kc *
+         ((has_tile(PACKED, HAS_ER) ? sizeof(float) : 0) + sizeof(T));
+}
+__host__ __device__ constexpr int meta_ints(bool packed, int W) {
+  return packed ? 2 * W + 1 : W;
+}
+
 template <typename T, int KC, bool PACKED, bool HAS_ER, bool VEC>
-__global__ void __launch_bounds__(max_threads(KC, PACKED))
+__global__ void __launch_bounds__(max_threads(KC, PACKED),
+                                  min_blocks(KC, PACKED, HAS_ER))
     ehyb_spmm_kernel(SpmmArgs a) {
+  constexpr bool TILE = has_tile(PACKED, HAS_ER);
   extern __shared__ __align__(16) unsigned char smem[];
   const int V = a.V, K = a.K, W = a.W;
   float* ys = reinterpret_cast<float*>(smem);
-  T* xs = reinterpret_cast<T*>(smem + (size_t)V * a.Kc * sizeof(float));
-  int* meta = reinterpret_cast<int*>(smem + (size_t)V * a.Kc *
-                                                (sizeof(float) + sizeof(T)));
+  T* xs = reinterpret_cast<T*>(
+      smem + (TILE ? (size_t)V * a.Kc * sizeof(float) : 0));
+  int* meta = reinterpret_cast<int*>(
+      smem + tiles_bytes<T, PACKED, HAS_ER>(V, a.Kc));
   const T* x = static_cast<const T*>(a.x);
   T* y = static_cast<T*>(a.y);
   const int p = blockIdx.x;
   const size_t row0 = (size_t)p * V;
-  const int* cr = nullptr;
-  const int* cs = nullptr;
-  if constexpr (PACKED) {
-    cr = a.col_rows + (size_t)p * W;
-    cs = a.col_starts + (size_t)p * (W + 1);
-    if (a.stage) {
-      for (int t = threadIdx.x; t < 2 * W + 1; t += blockDim.x)
-        meta[t] = t < W ? cr[t] : cs[t - W];
-      cr = meta;
-      cs = meta + W;
-    }
+  const int* cr = a.col_rows + (size_t)p * W;
+  const int* cs = PACKED ? a.col_starts + (size_t)p * (W + 1) : nullptr;
+  if (a.stage) {
+    for (int t = threadIdx.x; t < meta_ints(PACKED, W); t += blockDim.x)
+      meta[t] = t < W ? cr[t] : cs[t - W];
+    cr = meta;
+    if constexpr (PACKED) cs = meta + W;
   }
   const ErStream<T> er{a.er_part_ptr, a.er_row_ptr, a.er_rows, a.er_cols,
                        static_cast<const T*>(a.er_vals)};
@@ -309,25 +469,21 @@ __global__ void __launch_bounds__(max_threads(KC, PACKED))
     }
     __syncthreads();
 
-    for (int i = threadIdx.x; i < V; i += blockDim.x) {
-      float acc[KC];
+    if constexpr (PACKED) {
+      for (int i = threadIdx.x; i < V; i += blockDim.x) {
+        float acc[KC];
 #pragma unroll
-      for (int j = 0; j < KC; ++j) acc[j] = 0.f;
-      if constexpr (PACKED) {
+        for (int j = 0; j < KC; ++j) acc[j] = 0.f;
         packed_row<T, KC, VEC>(acc, static_cast<const T*>(a.vals) +
                                         (size_t)p * a.L,
                                a.cols + (size_t)p * a.L, cs, xs, i,
                                row_width(cr, W, i), kc, V);
-      } else {
-        const size_t r = (row0 + i) * W;
-        const T* vr = static_cast<const T*>(a.vals) + r;
-        const uint16_t* cl = a.cols + r;
-        for (int k = 0; k < W; ++k)
-          fma_x<T, KC, VEC>(acc, to_f(vr[k]), xs, cl[k], kc, V);
-      }
 #pragma unroll
-      for (int j = 0; j < KC; ++j)
-        if (j < kc) ys[j * V + i] = acc[j];
+        for (int j = 0; j < KC; ++j)
+          if (j < kc) ys[j * V + i] = acc[j];
+      }
+    } else {
+      uniform_rows<T, KC, TILE, VEC>(a, xs, ys, cr, p, c0, kc);
     }
     __syncthreads();
 
@@ -336,20 +492,22 @@ __global__ void __launch_bounds__(max_threads(KC, PACKED))
       __syncthreads();
     }
 
-    for (int t = threadIdx.x; t < V * kc; t += blockDim.x) {
-      const int v = t / kc, j = t - v * kc;
-      y[(row0 + v) * K + c0 + j] = from_f<T>(ys[j * V + v]);
+    if constexpr (TILE) {
+      for (int t = threadIdx.x; t < V * kc; t += blockDim.x) {
+        const int v = t / kc, j = t - v * kc;
+        y[(row0 + v) * K + c0 + j] = from_f<T>(ys[j * V + v]);
+      }
+      __syncthreads();  // the next chunk reuses xs and ys
     }
-    __syncthreads();  // the next chunk reuses xs and ys
   }
 }
 
-// Threads of a block: whole warps enough for a thread a row and a lane
-// group an ER row (n_er_rows bounds a partition's live ER rows), at most
-// max_threads(KC, PACKED).
+// Threads of a block: whole warps enough for row_lanes(PACKED) lanes a row
+// and a lane group an ER row (n_er_rows bounds a partition's live ER rows),
+// at most max_threads(KC, PACKED).
 template <int KC, bool PACKED, bool HAS_ER>
 int block_threads(int V, int n_er_rows) {
-  long work = V;
+  long work = (long)V * row_lanes(PACKED);
   if (HAS_ER && (long)n_er_rows * er_group(KC) > work)
     work = (long)n_er_rows * er_group(KC);
   if (work > max_threads(KC, PACKED)) work = max_threads(KC, PACKED);
@@ -359,8 +517,8 @@ int block_threads(int V, int n_er_rows) {
 template <typename T, int KC, bool PACKED, bool HAS_ER, bool VEC>
 int launch_kc(const SpmmArgs& a, int P, cudaStream_t stream) {
   auto kernel = ehyb_spmm_kernel<T, KC, PACKED, HAS_ER, VEC>;
-  const size_t smem = (size_t)a.V * a.Kc * (sizeof(float) + sizeof(T)) +
-                      (PACKED && a.stage ? (size_t)(2 * a.W + 1) * 4 : 0);
+  const size_t smem = tiles_bytes<T, PACKED, HAS_ER>(a.V, a.Kc) +
+                      (a.stage ? (size_t)meta_ints(PACKED, a.W) * 4 : 0);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -404,22 +562,25 @@ int launch(int dtype, const SpmmArgs& a, int P, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Kc: rhs columns per chunk (1..32).
-// The ER stream as EHYBDevice.er_s_* (part_ptr, row_ptr, rows, cols, vals),
-// n_er_rows its live ER rows; stage = 1 puts col_rows and col_starts in
-// shared memory beside the tiles.  Returns a cudaError_t (0 = launched).
+// col_rows (P, W) int32, non-increasing along W: row i's width is the
+// number of k with col_rows[p][k] > i.  The ER stream as EHYBDevice.er_s_*
+// (part_ptr, row_ptr, rows, cols, vals), n_er_rows its live ER rows;
+// stage = 1 puts col_rows (and col_starts) in shared memory beside the
+// tiles.  Returns a cudaError_t (0 = launched).
 extern "C" int ehyb_fused_spmm(int dtype, const void* x, void* y,
                                const void* ell_vals, const void* ell_cols,
-                               const void* er_part_ptr,
+                               const void* col_rows, const void* er_part_ptr,
                                const void* er_row_ptr, const void* er_rows,
                                const void* er_cols, const void* er_vals,
                                int P, int V, int W, int n_er_rows, int K,
-                               int Kc, void* stream) {
+                               int Kc, int stage, void* stream) {
   SpmmArgs a{x, y, ell_vals, static_cast<const uint16_t*>(ell_cols), nullptr,
-             nullptr, static_cast<const int*>(er_part_ptr),
+             static_cast<const int*>(col_rows),
+             static_cast<const int*>(er_part_ptr),
              static_cast<const int*>(er_row_ptr),
              static_cast<const int*>(er_rows),
              static_cast<const int*>(er_cols), er_vals, V, W, 0, K, Kc,
-             n_er_rows, 0};
+             n_er_rows, stage};
   return launch<false, true>(dtype, a, P, stream);
 }
 
@@ -441,12 +602,13 @@ extern "C" int ehyb_packed_fused_spmm(
 }
 
 extern "C" int ehyb_ell_spmm(int dtype, const void* x_parts, void* y_parts,
-                             const void* ell_vals, const void* ell_cols, int P,
-                             int V, int W, int K, int Kc, void* stream) {
+                             const void* ell_vals, const void* ell_cols,
+                             const void* col_rows, int P, int V, int W, int K,
+                             int Kc, int stage, void* stream) {
   SpmmArgs a{x_parts, y_parts, ell_vals,
-             static_cast<const uint16_t*>(ell_cols), nullptr, nullptr,
-             nullptr, nullptr, nullptr, nullptr, nullptr, V, W, 0, K, Kc, 0,
-             0};
+             static_cast<const uint16_t*>(ell_cols), nullptr,
+             static_cast<const int*>(col_rows), nullptr, nullptr, nullptr,
+             nullptr, nullptr, V, W, 0, K, Kc, 0, stage};
   return launch<false, false>(dtype, a, P, stream);
 }
 

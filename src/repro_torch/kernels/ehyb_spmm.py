@@ -15,14 +15,19 @@ Each replaces one Pallas kernel of ``repro.kernels.ehyb_spmm``:
 
 The fused kernels read each partition's ER rows from the compact ER stream
 (``EHYBDevice.er_s_*``: the live entries only), as the fused SpMV kernels
-do, never the padded ``er_p_*`` tiles.  The packed kernels take each row's
-width from ``col_rows``; the CUDA source picks each block's size.
+do, never the padded ``er_p_*`` tiles.  Every kernel takes each row's width
+from ``col_rows`` (P, W) and reads the row to that width only: the packed
+ones a thread a row down the staircase's columns, the uniform ones a group
+of lanes a row of the row-major tile.  The CUDA source picks each block's
+size.
 
 One thread block per partition sweeps the K columns in chunks of Kc:
 ``rhs_chunk`` (None = :data:`SPMM_RHS_CHUNK`, as in the reference), cut to
 what the partition's (V, Kc) x tile and fp32 output tile leave of the
 block's shared memory, and to :data:`MAX_RHS_CHUNK`, the widest register
-accumulator the kernels are built with.  The chunk width changes the
+accumulator the kernels are built with.  The uniform ELL-only kernel keeps
+no output tile (it writes each row's sums straight to y) and so holds less
+shared memory, at the same Kc.  The chunk width changes the
 number of passes over A, never the result: each column's sum runs in the
 same order whatever the chunks, and two launches give the same bits.
 
@@ -40,8 +45,9 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .ehyb_spmv import (_DTYPE_CODE, _check_tables, _ptrs, _raise_on,
-                        _smem_optin, _stream_dtypes, _stream_tables)
+from .ehyb_spmv import (_DTYPE_CODE, _check_tables, _check_uniform, _ptrs,
+                        _raise_on, _smem_optin, _stream_dtypes,
+                        _stream_tables)
 from .ref import (ehyb_ell_packed_ref, ehyb_ell_ref, ehyb_fused_stream_ref,
                   ehyb_packed_fused_stream_ref)
 
@@ -72,18 +78,20 @@ def rhs_chunk_for(k: int, v: int, itemsize: int, rhs_chunk, smem: int) -> int:
 
 
 def _prepare(x: torch.Tensor, shape: tuple, vals: torch.Tensor, dtypes: dict,
-             tables: list, v: int, rhs_chunk, n_meta: int = 0):
+             tables: list, v: int, rhs_chunk, n_meta: int, tile: bool = True):
     """Check a CUDA launch; returns (contiguous x, Kc, stage): ``stage`` = 1
-    when the ``n_meta`` int32 of row metadata (the staircase's ``col_rows``
-    and ``col_starts``) fit in shared memory beside the tiles."""
+    when the ``n_meta`` int32 of row metadata (``col_rows``, and
+    ``col_starts`` for the staircase) fit in shared memory beside the
+    tiles the kernel holds — the (V, Kc) x tile, and the fp32 output tile
+    unless ``tile`` is False."""
     if tuple(x.shape) != shape or shape[-1] < 1:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                          f"{shape[:-1] + ('K',)} with K ≥ 1")
     _check_tables(x, vals, dtypes, tables)
     smem = _smem_optin(x.device.index)
     kc = rhs_chunk_for(shape[-1], v, x.element_size(), rhs_chunk, smem)
-    stage = int(v * kc * (x.element_size() + 4) + 4 * n_meta <= smem)
-    return x.contiguous(), kc, stage
+    held = v * kc * (x.element_size() + (4 if tile else 0))
+    return x.contiguous(), kc, int(held + 4 * n_meta <= smem)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -104,32 +112,34 @@ def _check_packed(packed_vals, packed_cols, col_starts, col_rows):
 
 
 def ehyb_fused_spmm(x_new: torch.Tensor, ell_vals: torch.Tensor,
-                    ell_cols: torch.Tensor, er_stream: tuple, *,
-                    rhs_chunk=None) -> torch.Tensor:
+                    ell_cols: torch.Tensor, col_rows: torch.Tensor,
+                    er_stream: tuple, *, rhs_chunk=None) -> torch.Tensor:
     """Fused uniform-tile EHYB SpMM, permuted space: y_new (n_pad, K).
 
     x_new (n_pad, K); ell_vals/ell_cols (P, V, W) with uint16 local
-    columns; ``er_stream`` the compact ER stream, the five
-    ``EHYBDevice.er_s_*`` tensors in ``core.spmv.ER_STREAM`` order (the
-    live ER entries only)."""
+    columns; ``col_rows`` (P, W) int32 rows per ELL column
+    (``EHYBDevice.col_rows``, non-increasing along W), from which the
+    kernel takes each row's width and so reads no padded slot;
+    ``er_stream`` the compact ER stream, the five ``EHYBDevice.er_s_*``
+    tensors in ``core.spmv.ER_STREAM`` order (the live ER entries only)."""
     _requested_chunk(rhs_chunk)
+    p, v, w = _check_uniform(ell_vals, ell_cols, col_rows)
     if x_new.device.type == "cpu":
-        return ehyb_fused_stream_ref(x_new, ell_vals, ell_cols, er_stream)
-    p, v, w = ell_vals.shape
-    if ell_cols.shape != ell_vals.shape:
-        raise ValueError("inconsistent ELL tile shapes")
+        return ehyb_fused_stream_ref(x_new, ell_vals, ell_cols, col_rows,
+                                     er_stream)
     er_tables = _stream_tables(er_stream, p, ell_vals)
     k = x_new.shape[-1]
-    tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols)]
-    x, kc, _ = _prepare(
+    tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols),
+              ("col_rows", col_rows)]
+    x, kc, stage = _prepare(
         x_new, (p * v, k), ell_vals,
         {"ell_cols": torch.uint16, **_stream_dtypes(ell_vals)},
-        tables + er_tables, v, rhs_chunk)
+        tables + er_tables, v, rhs_chunk, w)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmm", "ehyb_fused_spmm", 9, 6)
+    fn = build.entry("ehyb_spmm", "ehyb_fused_spmm", 10, 7)
     _raise_on(fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
                  *_ptrs(tables), *_ptrs(er_tables), p, v, w,
-                 er_stream[2].shape[0], k, kc, _stream(x)),
+                 er_stream[2].shape[0], k, kc, stage, _stream(x)),
               "ehyb_fused_spmm")
     ehyb_fused_spmm.launches += 1
     return y
@@ -175,24 +185,25 @@ ehyb_packed_fused_spmm.launches = 0
 
 
 def ehyb_ell_spmm(x_parts: torch.Tensor, ell_vals: torch.Tensor,
-                  ell_cols: torch.Tensor, *, rhs_chunk=None) -> torch.Tensor:
+                  ell_cols: torch.Tensor, col_rows: torch.Tensor, *,
+                  rhs_chunk=None) -> torch.Tensor:
     """Cached (sliced-ELL) part alone, uniform tiles: x_parts (P, V, K) ->
-    y_parts (P, V, K)."""
+    y_parts (P, V, K); ``col_rows`` as in :func:`ehyb_fused_spmm`."""
     _requested_chunk(rhs_chunk)
+    p, v, w = _check_uniform(ell_vals, ell_cols, col_rows)
     if x_parts.device.type == "cpu":
-        return ehyb_ell_ref(x_parts, ell_vals, ell_cols)
-    p, v, w = ell_vals.shape
-    if ell_cols.shape != ell_vals.shape:
-        raise ValueError("inconsistent ELL tile shapes")
+        return ehyb_ell_ref(x_parts, ell_vals, ell_cols, col_rows)
     k = x_parts.shape[-1]
-    x, kc, _ = _prepare(
-        x_parts, (p, v, k), ell_vals, {"ell_cols": torch.uint16},
-        [("ell_vals", ell_vals), ("ell_cols", ell_cols)], v, rhs_chunk)
+    tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols),
+              ("col_rows", col_rows)]
+    x, kc, stage = _prepare(x_parts, (p, v, k), ell_vals,
+                            {"ell_cols": torch.uint16}, tables, v, rhs_chunk,
+                            w, tile=False)
     y = torch.empty_like(x)
-    fn = build.entry("ehyb_spmm", "ehyb_ell_spmm", 4, 5)
+    fn = build.entry("ehyb_spmm", "ehyb_ell_spmm", 5, 6)
     _raise_on(fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-                 ell_vals.data_ptr(), ell_cols.data_ptr(), p, v, w, k, kc,
-                 _stream(x)), "ehyb_ell_spmm")
+                 *_ptrs(tables), p, v, w, k, kc, stage, _stream(x)),
+              "ehyb_ell_spmm")
     ehyb_ell_spmm.launches += 1
     return y
 

@@ -147,6 +147,24 @@ def _ptrs(tables: list) -> list:
     return [t.data_ptr() for _, t in tables]
 
 
+def _check_uniform(ell_vals: torch.Tensor, ell_cols: torch.Tensor,
+                   col_rows: torch.Tensor) -> tuple:
+    """The uniform tiles' shapes and ``col_rows``' dtype, checked on every
+    device (the plain versions read each row to its width as well); returns
+    (P, V, W)."""
+    if ell_vals.dim() != 3 or ell_cols.shape != ell_vals.shape:
+        raise ValueError(f"ell_vals and ell_cols must be (P, V, W) alike; "
+                         f"got {tuple(ell_vals.shape)} and "
+                         f"{tuple(ell_cols.shape)}")
+    p, v, w = ell_vals.shape
+    if col_rows.shape != (p, w):
+        raise ValueError(f"col_rows has shape {tuple(col_rows.shape)}, "
+                         f"expected ({p}, {w})")
+    if col_rows.dtype != torch.int32:
+        raise TypeError(f"col_rows must be torch.int32, got {col_rows.dtype}")
+    return p, v, w
+
+
 def ehyb_fused(x_new: torch.Tensor, ell_vals: torch.Tensor,
                ell_cols: torch.Tensor, col_rows: torch.Tensor,
                er_stream: tuple, has_er: bool = True) -> torch.Tensor:
@@ -158,20 +176,19 @@ def ehyb_fused(x_new: torch.Tensor, ell_vals: torch.Tensor,
     and so skips the tile's padded tail; ``er_stream`` the compact ER
     stream, the five ``EHYBDevice.er_s_*`` tensors in
     ``core.spmv.ER_STREAM`` order."""
+    p, v, w = _check_uniform(ell_vals, ell_cols, col_rows)
     if x_new.device.type == "cpu":
         squeeze = x_new.dim() == 1
         y = ehyb_fused_stream_ref(x_new[:, None] if squeeze else x_new,
-                                  ell_vals, ell_cols, er_stream, has_er)
+                                  ell_vals, ell_cols, col_rows, er_stream,
+                                  has_er)
         return y[:, 0] if squeeze else y
-    p, v, w = ell_vals.shape
     er_tables = _stream_tables(er_stream, p, ell_vals)
     tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols),
               ("col_rows", col_rows)]
     x = _check(x_new, ell_vals, p * v,
-               {"ell_cols": torch.uint16, "col_rows": torch.int32,
-                **_stream_dtypes(ell_vals)}, tables + er_tables)
-    if ell_cols.shape != ell_vals.shape or col_rows.shape != (p, w):
-        raise ValueError("inconsistent EHYB tile shapes")
+               {"ell_cols": torch.uint16, **_stream_dtypes(ell_vals)},
+               tables + er_tables)
     stage = _smem_and_stage(x.device, v, x.element_size(), 4, w)
     y = torch.empty_like(x)
     fn = build.entry("ehyb_spmv", "ehyb_fused", 10, 6)
@@ -259,16 +276,14 @@ def ehyb_ell(x_parts: torch.Tensor, ell_vals: torch.Tensor,
 
     ell_vals/ell_cols (P, V, W) with uint16 local columns; ``col_rows`` as
     in :func:`ehyb_fused`."""
+    p, v, w = _check_uniform(ell_vals, ell_cols, col_rows)
     if x_parts.device.type == "cpu":
-        return _cpu_parts(ehyb_ell_ref, x_parts, ell_vals, ell_cols)
-    p, v, w = ell_vals.shape
+        return _cpu_parts(ehyb_ell_ref, x_parts, ell_vals, ell_cols,
+                          col_rows)
     x = _one_rhs_parts(x_parts, p, v)
     tables = [("ell_vals", ell_vals), ("ell_cols", ell_cols),
               ("col_rows", col_rows)]
-    _check_tables(x, ell_vals, {"ell_cols": torch.uint16,
-                                "col_rows": torch.int32}, tables)
-    if ell_cols.shape != ell_vals.shape or col_rows.shape != (p, w):
-        raise ValueError("inconsistent EHYB tile shapes")
+    _check_tables(x, ell_vals, {"ell_cols": torch.uint16}, tables)
     x = x.contiguous()
     stage = _smem_and_stage(x.device, v, x.element_size(), 0, w)
     y = torch.empty_like(x)

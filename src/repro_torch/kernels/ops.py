@@ -80,7 +80,7 @@ def _ell_uniform(m: EHYBDevice, x_parts: torch.Tensor) -> torch.Tensor:
     """ELL-only kernel on uniform tiles: SpMV for one column, else SpMM."""
     if x_parts.shape[2] < _SPMM_MIN_RHS:
         return _k.ehyb_ell(x_parts, m.ell_vals, m.ell_cols, m.col_rows)
-    return _km.ehyb_ell_spmm(x_parts, m.ell_vals, m.ell_cols)
+    return _km.ehyb_ell_spmm(x_parts, m.ell_vals, m.ell_cols, m.col_rows)
 
 
 def _ell_packed(m: EHYBPackedDevice, x_parts: torch.Tensor) -> torch.Tensor:
@@ -98,8 +98,9 @@ def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
     (n_pad, K).
 
     One column goes to the fused SpMV kernel and K ≥ 2 columns to the
-    fused SpMM kernel; both read the compact ER stream (``m.er_s_*``, the
-    live ER entries only).  With ``use_er_kernel=False`` (the reference's
+    fused SpMM kernel; both read each row of the tiles to its width from
+    ``m.col_rows`` and the compact ER stream (``m.er_s_*``, the live ER
+    entries only).  With ``use_er_kernel=False`` (the reference's
     unfused level), and for an ER-free operator at K ≥ 2, the ELL-only
     kernel runs and the plain per-partition path adds the ER part from the
     padded ``er_p_*`` tiles."""
@@ -110,7 +111,7 @@ def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
         return _k.ehyb_fused(x_new, m.ell_vals, m.ell_cols, m.col_rows,
                              m.er_stream(), has_er=m.has_er)
     if m.has_er:
-        return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols,
+        return _km.ehyb_fused_spmm(x2, m.ell_vals, m.ell_cols, m.col_rows,
                                    m.er_stream())
     return _unfused(m, x2, _ell_uniform)
 

@@ -9,8 +9,9 @@ packed-staircase and CG-step oracles the JAX package keeps inline.  The
 fused and ELL-only versions take any number of right-hand sides, so they
 are the plain versions of the SpMV and the SpMM kernels alike; the
 ``*_stream_ref`` forms read the ER part from the compact stream, as the
-fused kernels do, and :func:`er_live_ref` reads each ER row's live prefix,
-as the ER kernel does.
+fused kernels do; :func:`ehyb_ell_ref` and :func:`ehyb_fused_stream_ref`
+read each row of the uniform tiles to its live width (``col_rows``), and
+:func:`er_live_ref` each ER row's live prefix, as the kernels do.
 """
 
 from __future__ import annotations
@@ -63,28 +64,59 @@ def er_stream_ref(x_new: torch.Tensor, er_s_part_ptr: torch.Tensor,
     return y.index_add_(0, entry_row, contrib)
 
 
+def ell_live_part(ell_vals: torch.Tensor, ell_cols: torch.Tensor,
+                  col_rows: torch.Tensor,
+                  x_parts: torch.Tensor) -> torch.Tensor:
+    """Cached part on each row's live prefix: slot (p, v, k) of the (P, V,
+    W) tiles is read only when ``v < col_rows[p, k]`` (``col_rows``
+    non-increasing along W, so the live slots of row v are its first
+    width(v) — the number of k with ``col_rows[p, k] > v``).
+
+    x_parts (P, V, R) -> (P, V, R) in the accumulation dtype (fp32, or
+    fp64).  With finite x it equals the padded tiles' product (padded slots
+    hold value 0 and column 0); with a non-finite ``x_parts[p, 0]`` the
+    padded read spreads it into every row of partition p that has a padded
+    slot, the live read only into the rows that hold column 0."""
+    p, v, w = ell_cols.shape
+    r = x_parts.shape[2]
+    acc = _acc_dtype(x_parts.dtype)
+    live = torch.arange(v, device=col_rows.device)[None, :, None] \
+        < col_rows[:, None, :]                                  # (P, V, W)
+    idx = torch.where(live, ell_cols.to(torch.int64), 0)
+    g = torch.gather(x_parts, 1, idx.reshape(p, v * w, 1).expand(
+        p, v * w, r)).reshape(p, v, w, r).to(acc)
+    return torch.einsum("pvw,pvwr->pvr",
+                        torch.where(live, ell_vals.to(acc), 0),
+                        torch.where(live[..., None], g, 0))
+
+
 def ehyb_fused_stream_ref(x_new: torch.Tensor, ell_vals: torch.Tensor,
-                          ell_cols: torch.Tensor, er_stream: tuple,
+                          ell_cols: torch.Tensor, col_rows: torch.Tensor,
+                          er_stream: tuple,
                           has_er: bool = True) -> torch.Tensor:
     """Fused EHYB SpMV/SpMM with the ER part from the compact stream — the
     plain version of the fused uniform-tile kernels at any R: the
-    sliced-ELL part, plus :func:`er_stream_ref` on ``er_stream`` (the five
-    ``er_s_*`` tensors in ``core.spmv.ER_STREAM`` order).  x_new (n_pad, R)
-    -> y_new (n_pad, R) in x's dtype."""
+    sliced-ELL part on each row's live prefix (:func:`ell_live_part`, rows
+    per column from ``col_rows`` (P, W)), plus :func:`er_stream_ref` on
+    ``er_stream`` (the five ``er_s_*`` tensors in ``core.spmv.ER_STREAM``
+    order).  x_new (n_pad, R) -> y_new (n_pad, R) in x's dtype."""
     p, v, _ = ell_vals.shape
     r = x_new.shape[1]
-    y = _ehyb_ell_part(ell_vals, ell_cols, x_new.reshape(p, v, r))
+    y = ell_live_part(ell_vals, ell_cols, col_rows, x_new.reshape(p, v, r))
     if has_er:
         y = y + er_stream_ref(x_new, *er_stream, v).reshape(p, v, r)
     return y.reshape(-1, r).to(x_new.dtype)
 
 
 def ehyb_ell_ref(x_parts: torch.Tensor, ell_vals: torch.Tensor,
-                 ell_cols: torch.Tensor) -> torch.Tensor:
-    """Cached (sliced-ELL) part alone: x_parts (P, V, K) -> y_parts
-    (P, V, K) in x's dtype (accumulated in fp32, or fp64) — the oracle of
-    the ELL-only SpMM kernel."""
-    return _ehyb_ell_part(ell_vals, ell_cols, x_parts).to(x_parts.dtype)
+                 ell_cols: torch.Tensor,
+                 col_rows: torch.Tensor) -> torch.Tensor:
+    """Cached (sliced-ELL) part alone, each row read to its live width
+    (:func:`ell_live_part`): x_parts (P, V, K) -> y_parts (P, V, K) in x's
+    dtype (accumulated in fp32, or fp64) — the oracle of the ELL-only
+    kernels."""
+    return ell_live_part(ell_vals, ell_cols, col_rows,
+                         x_parts).to(x_parts.dtype)
 
 
 def er_ref(x_new: torch.Tensor, er_vals: torch.Tensor,
@@ -177,7 +209,8 @@ def ehyb_packed_fused_stream_ref(x_new: torch.Tensor,
     staircase unpacked to uniform tiles, then the same sums."""
     vals, cols = unpack_staircase(packed_vals, packed_cols, col_starts,
                                   col_rows, vec_size)
-    return ehyb_fused_stream_ref(x_new, vals, cols, er_stream, has_er)
+    return ehyb_fused_stream_ref(x_new, vals, cols, col_rows, er_stream,
+                                 has_er)
 
 
 def ehyb_ell_packed_ref(x_parts: torch.Tensor, packed_vals: torch.Tensor,
@@ -187,7 +220,7 @@ def ehyb_ell_packed_ref(x_parts: torch.Tensor, packed_vals: torch.Tensor,
     y_parts (P, V, K) — the staircase unpacked, then :func:`ehyb_ell_ref`."""
     vals, cols = unpack_staircase(packed_vals, packed_cols, col_starts,
                                   col_rows, x_parts.shape[1])
-    return ehyb_ell_ref(x_parts, vals, cols)
+    return ehyb_ell_ref(x_parts, vals, cols, col_rows)
 
 
 def cg_update_ref(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,

@@ -18,7 +18,7 @@ import torch
 from repro_torch.api import (ExecutionConfig, PlanCache, ReliabilityWarning,
                              SolvePolicy, chaos, plan)
 from repro_torch.core import counters
-from repro_torch.core.matrices import SUITE
+from repro_torch.core.matrices import SUITE, from_coo
 from repro_torch.kernels import ehyb_spmm as KM
 from repro_torch.kernels import ehyb_spmv as K
 from repro_torch.kernels import ops, ref
@@ -69,8 +69,8 @@ def test_spmv_kernels_match_plain(cuda_device, name, dtype):
                              o.er_stream(), o.has_er)
             assert K.ehyb_fused.launches == n0 + 1
             y_ref = ref.ehyb_fused_stream_ref(
-                x_new[:, None], o.ell_vals, o.ell_cols, o.er_stream(),
-                o.has_er)[:, 0]
+                x_new[:, None], o.ell_vals, o.ell_cols, o.col_rows,
+                o.er_stream(), o.has_er)[:, 0]
             # the padded tiles' plain version computes the same product
             y_tiles = ref.ehyb_fused_ref(
                 x_new[:, None], o.ell_vals, o.ell_cols, o.er_p_vals,
@@ -112,8 +112,8 @@ def _spmv_launches(m, dtype, device):
             lambda: K.ehyb_fused(x_new, u.ell_vals, u.ell_cols, u.col_rows,
                                  u.er_stream(), u.has_er),
             lambda: ref.ehyb_fused_stream_ref(
-                x_new[:, None], u.ell_vals, u.ell_cols, u.er_stream(),
-                u.has_er)[:, 0]),
+                x_new[:, None], u.ell_vals, u.ell_cols, u.col_rows,
+                u.er_stream(), u.has_er)[:, 0]),
         "ehyb_packed_fused": (
             K.ehyb_packed_fused,
             lambda: K.ehyb_packed_fused(x_new, *stair, o.er_stream(),
@@ -126,7 +126,7 @@ def _spmv_launches(m, dtype, device):
             K.ehyb_ell,
             lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols, u.col_rows),
             lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
-                                     u.ell_cols)[..., 0]),
+                                     u.ell_cols, u.col_rows)[..., 0]),
         "ehyb_ell_packed": (
             K.ehyb_ell_packed, lambda: K.ehyb_ell_packed(xp, *stair),
             lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
@@ -187,7 +187,8 @@ def test_ell_kernels_with_row_widths_match_plain(cuda_device, name, dtype):
         torch.cuda.synchronize()
         assert _rel(y, plain()) <= REL_TOL[dtype], (name, kname, dtype)
     xp = torch.randn((u.n_parts, u.vec_size), device=cuda_device).to(dtype)
-    want = ref.ehyb_ell_ref(xp[..., None], u.ell_vals, u.ell_cols)[..., 0]
+    want = ref.ehyb_ell_ref(xp[..., None], u.ell_vals, u.ell_cols,
+                            u.col_rows)[..., 0]
     for col_rows in (u.col_rows, torch.full_like(u.col_rows, u.vec_size)):
         y = K.ehyb_ell(xp, u.ell_vals, u.ell_cols, col_rows)
         torch.cuda.synchronize()
@@ -388,13 +389,15 @@ def _spmm_cases(op, x_new, rhs_chunk=None):
         return [
             ("ehyb_fused_spmm", KM.ehyb_fused_spmm,
              lambda: KM.ehyb_fused_spmm(x_new, o.ell_vals, o.ell_cols,
-                                        o.er_stream(), rhs_chunk=rhs_chunk),
+                                        o.col_rows, o.er_stream(),
+                                        rhs_chunk=rhs_chunk),
              lambda: ref.ehyb_fused_stream_ref(x_new, o.ell_vals, o.ell_cols,
-                                               o.er_stream())),
+                                               o.col_rows, o.er_stream())),
             ("ehyb_ell_spmm", KM.ehyb_ell_spmm,
              lambda: KM.ehyb_ell_spmm(x_parts, o.ell_vals, o.ell_cols,
-                                      rhs_chunk=rhs_chunk),
-             lambda: ref.ehyb_ell_ref(x_parts, o.ell_vals, o.ell_cols))]
+                                      o.col_rows, rhs_chunk=rhs_chunk),
+             lambda: ref.ehyb_ell_ref(x_parts, o.ell_vals, o.ell_cols,
+                                      o.col_rows))]
     return [
         ("ehyb_packed_fused_spmm", KM.ehyb_packed_fused_spmm,
          lambda: KM.ehyb_packed_fused_spmm(
@@ -477,20 +480,96 @@ def test_spmm_kernels_reject_what_they_do_not_take(cuda_device):
              device=cuda_device)
     o = p.bind(m).obj
     x = torch.ones((o.n_pad, 4), device=cuda_device)
-    tables = (o.ell_vals, o.ell_cols, o.er_stream())
+    tables = (o.ell_vals, o.ell_cols, o.col_rows, o.er_stream())
     o64 = p.bind(m, dtype=torch.float64).obj
     with pytest.raises(TypeError):               # fp64 tables
         KM.ehyb_fused_spmm(x.double(), o64.ell_vals, o64.ell_cols,
-                           o64.er_stream())
+                           o64.col_rows, o64.er_stream())
     with pytest.raises(TypeError):               # x not in the tables' dtype
         KM.ehyb_fused_spmm(x.bfloat16(), *tables)
     with pytest.raises(ValueError):              # not (n_pad, K)
         KM.ehyb_fused_spmm(x[:-1], *tables)
     with pytest.raises(ValueError):              # ELL-only takes (P, V, K)
-        KM.ehyb_ell_spmm(x, o.ell_vals, o.ell_cols)
+        KM.ehyb_ell_spmm(x, o.ell_vals, o.ell_cols, o.col_rows)
     with pytest.raises(TypeError):               # uint16 local columns only
         KM.ehyb_ell_spmm(x.reshape(o.n_parts, o.vec_size, 4), o.ell_vals,
-                         o.ell_cols.to(torch.int32))
+                         o.ell_cols.to(torch.int32), o.col_rows)
+
+
+def _uniform_matrix(name):
+    """``powerlaw_4k`` (ragged widths, ER rows) or its diagonal (ER-free)."""
+    m = SUITE["powerlaw_4k"]()
+    if name == "powerlaw_4k":
+        return m
+    rows = np.repeat(np.arange(m.n), m.row_lengths())
+    on = rows == m.indices
+    return from_coo(m.n, rows[on], m.indices[on], m.data[on])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 16, 17, 32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["powerlaw_4k", "powerlaw_4k_diagonal"])
+def test_uniform_spmm_kernels_match_live_plain(cuda_device, name, dtype, k):
+    """#7 and #9 (lane groups, each row read to its width from
+    ``col_rows``) against their live-prefix plain versions, on the plan
+    sized for K and on the one sized for one column (chunked), and
+    bit-identical over two launches."""
+    m = _uniform_matrix(name)
+    x = torch.as_tensor(np.random.default_rng(k).standard_normal((m.n, k)),
+                        device=cuda_device)
+    for k_plan in (k, 1):
+        op = plan(m, execution=ExecutionConfig(
+            format="ehyb", partition_method="bfs", k=k_plan),
+            device=cuda_device).bind(m, dtype=dtype)
+        assert op.obj.has_er == (name == "powerlaw_4k")
+        for kname, wrapper, run, plain in _spmm_cases(op, op.to_space(x)):
+            n0 = wrapper.launches
+            y, y2 = run(), run()
+            assert wrapper.launches == n0 + 2
+            y_ref = plain()
+            torch.cuda.synchronize()
+            assert y.dtype == dtype and y.shape == y_ref.shape
+            assert _rel(y, y_ref) <= TOL[dtype], (name, kname, k, k_plan)
+            assert torch.equal(y, y2), (name, kname, k, k_plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_uniform_kernels_read_only_live_entries(cuda_device, k):
+    """A NaN in x_new[0] reaches, through #7 and #9 (#1 and #4 at one
+    column), every row whose CSR product reads it and no other row: no
+    kernel reads a padded slot (value 0, column 0)."""
+    m = SUITE["powerlaw_4k"]()
+    op = plan(m, execution=ExecutionConfig(
+        format="ehyb", partition_method="bfs", k=k),
+        device=cuda_device).bind(m)
+    o = op.obj
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (o.n_pad, k)), dtype=torch.float32, device=cuda_device)
+    x[0] = float("nan")
+    inv = o.inv_perm.cpu().numpy()
+    col = int(np.flatnonzero(inv == 0)[0])
+    reads = np.zeros(o.n_pad, dtype=bool)
+    reads[inv[np.repeat(np.arange(m.n), m.row_lengths())[
+        m.indices == col]]] = True
+    xp = x.reshape(o.n_parts, o.vec_size, k)
+    tiles = (o.ell_vals, o.ell_cols, o.col_rows)
+    if k == 1:
+        fused = K.ehyb_fused(x[:, 0], *tiles, o.er_stream())[:, None]
+        ell = K.ehyb_ell(xp[..., 0], *tiles)[..., None]
+    else:
+        fused = KM.ehyb_fused_spmm(x, *tiles, o.er_stream())
+        ell = KM.ehyb_ell_spmm(xp, *tiles)
+    ell_reads = reads.copy()
+    ell_reads[o.vec_size:] = False      # x_new[0] is partition 0's
+    torch.cuda.synchronize()
+    for what, y, want in (("fused", fused, reads),
+                          ("ell", ell.reshape(o.n_pad, k), ell_reads)):
+        assert want.any() and not want.all()
+        nan = torch.isnan(y).cpu().numpy()
+        assert nan[want].all(), what
+        assert np.isfinite(y.cpu().numpy()[~want]).all(), what
 
 
 @pytest.mark.cuda
@@ -518,7 +597,7 @@ def test_ell_and_er_kernels_match_plain(cuda_device, name, dtype):
         (K.ehyb_ell, lambda: K.ehyb_ell(xp, u.ell_vals, u.ell_cols,
                                         u.col_rows),
          lambda: ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
-                                  u.ell_cols)[..., 0]),
+                                  u.ell_cols, u.col_rows)[..., 0]),
         (K.ehyb_ell_packed, lambda: K.ehyb_ell_packed(xp, *stair),
          lambda: ref.ehyb_ell_packed_ref(xp[..., None], *stair)[..., 0]),
         (K.er, lambda: K.er(x_new, o.er_vals, o.er_cols, o.er_col_rows),
@@ -765,8 +844,8 @@ def test_refill_on_the_card_matches_a_fresh_bind(cuda_device, name, fmt,
             o.col_rows, o.er_stream(), o.vec_size, o.has_er)[:, 0]
     else:
         y_ref = ref.ehyb_fused_stream_ref(
-            x_new[:, None], o.ell_vals, o.ell_cols, o.er_stream(),
-            o.has_er)[:, 0]
+            x_new[:, None], o.ell_vals, o.ell_cols, o.col_rows,
+            o.er_stream(), o.has_er)[:, 0]
     torch.cuda.synchronize()
     assert _rel(y, y_ref) <= TOL[dtype]
     x = np.random.default_rng(1).standard_normal(m.n)

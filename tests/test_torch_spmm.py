@@ -142,8 +142,8 @@ def test_plain_spmm_matches_pallas_interpret(dt, rhs_chunk):
                                   jd.er_p_cols, jd.er_p_rows, interpret=True,
                                   rhs_chunk=rhs_chunk)
     n0 = KM.ehyb_fused_spmm.launches
-    got = KM.ehyb_fused_spmm(xt, td.ell_vals, td.ell_cols, td.er_stream(),
-                             rhs_chunk=rhs_chunk)
+    got = KM.ehyb_fused_spmm(xt, td.ell_vals, td.ell_cols, td.col_rows,
+                             td.er_stream(), rhs_chunk=rhs_chunk)
     assert KM.ehyb_fused_spmm.launches == n0        # CPU: no kernel launched
     assert got.dtype == tdt and got.shape == (jd.n_pad, 5)
     assert _err(got.double(), np.asarray(want, np.float64)) <= tol
@@ -152,7 +152,7 @@ def test_plain_spmm_matches_pallas_interpret(dt, rhs_chunk):
                                 jd.ell_cols, interpret=True,
                                 rhs_chunk=rhs_chunk)
     got = KM.ehyb_ell_spmm(torch.as_tensor(xp).to(tdt), td.ell_vals,
-                           td.ell_cols, rhs_chunk=rhs_chunk)
+                           td.ell_cols, td.col_rows, rhs_chunk=rhs_chunk)
     assert got.dtype == tdt and got.shape == xp.shape
     assert _err(got.double(), np.asarray(want, np.float64)) <= tol
 
@@ -174,7 +174,8 @@ def test_packed_plain_spmm_matches_uniform_and_jax(kind, dt):
     got = KM.ehyb_ell_packed_spmm(xp, jp.packed_vals, jp.packed_cols,
                                   jp.col_starts, jp.col_rows, rhs_chunk=3)
     torch.testing.assert_close(got, ref.ehyb_ell_ref(xp, tu.ell_vals,
-                                                     tu.ell_cols),
+                                                     tu.ell_cols,
+                                                     tu.col_rows),
                                rtol=0, atol=0)
     # fused: against the JAX permuted-space apply on the same build
     want = np.asarray(jax_ehyb_spmv_permuted(ju, jnp.asarray(x, jdt)),
@@ -185,7 +186,7 @@ def test_packed_plain_spmm_matches_uniform_and_jax(kind, dt):
     assert got.dtype == tdt and got.shape == (e.n_pad, 5)
     assert _err(got.double(), want) <= tol
     torch.testing.assert_close(
-        got, KM.ehyb_fused_spmm(xt, tu.ell_vals, tu.ell_cols,
+        got, KM.ehyb_fused_spmm(xt, tu.ell_vals, tu.ell_cols, tu.col_rows,
                                 tu.er_stream()), rtol=0, atol=0)
 
 
@@ -213,14 +214,15 @@ def test_stream_plain_spmm_matches_pallas_and_jax(kind, dt, k):
     jax_apply = np.asarray(jax_ehyb_spmv_permuted(ju, xj), np.float64)
     n0 = (KM.ehyb_fused_spmm.launches, KM.ehyb_packed_fused_spmm.launches)
     got = {"uniform": KM.ehyb_fused_spmm(xt, tu.ell_vals, tu.ell_cols,
-                                         tu.er_stream()),
+                                         tu.col_rows, tu.er_stream()),
            "packed": KM.ehyb_packed_fused_spmm(
                xt, tp.packed_vals, tp.packed_cols, tp.col_starts,
                tp.col_rows, tp.er_stream(), vec_size=tp.vec_size)}
     assert (KM.ehyb_fused_spmm.launches,
             KM.ehyb_packed_fused_spmm.launches) == n0   # CPU: plain only
     torch.testing.assert_close(got["uniform"], ref.ehyb_fused_stream_ref(
-        xt, tu.ell_vals, tu.ell_cols, tu.er_stream()), rtol=0, atol=0)
+        xt, tu.ell_vals, tu.ell_cols, tu.col_rows, tu.er_stream()), rtol=0,
+        atol=0)
     for layout, y in got.items():
         assert y.dtype == tdt and y.shape == (e.n_pad, k)
         assert _err(y.double(), pallas) <= tol, layout
@@ -233,8 +235,8 @@ def test_rhs_chunk_is_validated():
     x = torch.zeros((o.n_pad, 4))
     for bad in (0, 33, 2.5):
         with pytest.raises(ValueError, match="rhs_chunk"):
-            KM.ehyb_fused_spmm(x, o.ell_vals, o.ell_cols, o.er_stream(),
-                               rhs_chunk=bad)
+            KM.ehyb_fused_spmm(x, o.ell_vals, o.ell_cols, o.col_rows,
+                               o.er_stream(), rhs_chunk=bad)
     # Kc: the request, cut to K and to what the block's shared memory holds
     assert KM.rhs_chunk_for(40, 1504, 4, None, 232448) == 16
     assert KM.rhs_chunk_for(5, 1504, 4, None, 232448) == 5

@@ -25,8 +25,15 @@ each against its plain version:
   layout ``kXRowMajor`` (false: [j][v], scalar loads; true: [v][j] with
   16-byte loads and a swizzle), and at 16 lanes also with ``kEllUnroll``
   (packed ELL entries in flight a thread) at 8 in place of 4; #7–#10 at
-  K = 16 on the k = 16 plan (fp32 and bf16) and #8/#10 at K = 16 on the
-  k = 1 plan (Kc = 4).
+  K = 16 on the k = 16 plan (fp32 and bf16) and on the k = 1 plan (Kc =
+  4).  Then, with the rest as in the source, the uniform kernels' lane
+  group ``kUniformLanes`` in (1, 2, 4, 8, 16) (a row of the tile; 1 is a
+  thread a row, read to its width), thread cap
+  ``kUniformThreads`` in (512, 1024) and ``kUniformUnroll`` (entries in
+  flight a lane) in (4, 8): #7 and #9 on both plans.  Last, #7–#10 with
+  the kernel's launch bounds stating the thread cap alone, without the
+  blocks an SM (``min_blocks``, 1 but for a 512-thread uniform ELL-only
+  block): what that argument does to ptxas's register budget.
 * ``cg`` — ``src/repro_torch/csrc/solver_step.cu`` at each ``kThreads``
   (threads a block) in (128, 256, 512), ``kUnits`` (8-element units a
   thread per chunk) in (1, 2, 4) and ``kBlocksPerSm`` (the grid's cap) in
@@ -60,12 +67,26 @@ SPMV_SUBST = (("constexpr int kErLanes = 4;", "constexpr int kErLanes = {g};"),
                "constexpr int kErRowLanes = {g};"),
               ("constexpr int kErRowUnroll = 4;",
                "constexpr int kErRowUnroll = {u};"))
+LAUNCH_BOUNDS = ("__launch_bounds__(max_threads(KC, PACKED),\n"
+                 "                                  min_blocks(KC, PACKED, HAS_ER))")
 SPMM_SUBST = (("constexpr int kEllUnroll = 4;",
                "constexpr int kEllUnroll = {u};"),
               ("constexpr int kErGroupLanes = 4;",
                "constexpr int kErGroupLanes = {g};"),
               ("constexpr bool kXRowMajor = true;",
-               "constexpr bool kXRowMajor = {row_major};"))
+               "constexpr bool kXRowMajor = {row_major};"),
+              ("constexpr int kUniformLanes = 4;",
+               "constexpr int kUniformLanes = {lanes};"),
+              ("constexpr int kUniformUnroll = 4;",
+               "constexpr int kUniformUnroll = {uunroll};"),
+              ("constexpr int kUniformThreads = 1024;",
+               "constexpr int kUniformThreads = {threads};"),
+              (LAUNCH_BOUNDS, "{launch_bounds}"))
+# the uniform kernels' constants and the launch bounds as the source has
+# them
+SPMM_SOURCE = {"lanes": 4, "uunroll": 4, "threads": 1024,
+               "launch_bounds": LAUNCH_BOUNDS}
+UNIFORM = ("ehyb_fused_spmm", "ehyb_ell_spmm")
 
 CG_E0 = "e0[j] = c * kChunk + ((long long)j * kThreads + threadIdx.x) * V;"
 CG_TICKET = """    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> t(*ticket);
@@ -184,11 +205,12 @@ def sweep_spmv(m, dev) -> None:
     er_t = (o.er_vals, o.er_cols, o.er_col_rows)
     plain = {
         "ehyb_fused": ref.ehyb_fused_stream_ref(
-            x_new[:, None], u.ell_vals, u.ell_cols, u.er_stream())[:, 0],
+            x_new[:, None], u.ell_vals, u.ell_cols, u.col_rows,
+            u.er_stream())[:, 0],
         "ehyb_packed_fused": ref.ehyb_packed_fused_stream_ref(
             x_new[:, None], *stair, o.er_stream(), o.vec_size)[:, 0],
         "ehyb_ell": ref.ehyb_ell_ref(xp[..., None], u.ell_vals,
-                                     u.ell_cols)[..., 0],
+                                     u.ell_cols, u.col_rows)[..., 0],
         "er": ref.er_live_ref(x_new[:, None], *er_t)[:, 0],
         "er_r16": ref.er_live_ref(x16, *er_t)}
 
@@ -224,9 +246,18 @@ def sweep_spmm(m, dev) -> None:
     from repro_torch.kernels import build
 
     variants = {f"group{g}-{'vj' if rm else 'jv'}-unroll{u}":
-                {"g": g, "u": u, "row_major": "true" if rm else "false"}
+                {"g": g, "u": u, "row_major": "true" if rm else "false",
+                 **SPMM_SOURCE}
                 for g in WIDTHS for rm in (False, True) for u in (4, 8)
                 if u == 4 or g == 16}
+    variants.update({
+        f"uniform-lanes{g}-threads{t}-unroll{u}":
+        {"g": 4, "u": 4, "row_major": "true", **SPMM_SOURCE, "lanes": g,
+         "threads": t, "uunroll": u}
+        for g in (1, 2, 4, 8, 16) for t in (512, 1024) for u in (4, 8)})
+    variants["launch-bounds-threads-only"] = {
+        "g": 4, "u": 4, "row_major": "true", **SPMM_SOURCE,
+        "launch_bounds": "__launch_bounds__(max_threads(KC, PACKED))"}
     libs = build_variants(variant_sources(
         "ehyb_spmm", SPMM_SUBST, variants, build.BUILD_DIR / "spmm_sweep"))
     default = build.load("ehyb_spmm")
@@ -242,18 +273,19 @@ def sweep_spmm(m, dev) -> None:
                   device=dev)
         for dt in dtypes:
             op = pp.bind(m, dtype=dt)
-            u = pu.bind(m, dtype=dt).obj if k_plan == 16 else None
+            u = pu.bind(m, dtype=dt).obj
             x_new = op.to_space(xb.to(dt))
-            cs = spmm_cases(op.obj, u if u is not None else op.obj, x_new)
-            names = list(cs) if u is not None else [
-                "ehyb_packed_fused_spmm", "ehyb_ell_packed_spmm"]
+            cs = spmm_cases(op.obj, u, x_new)
             label = f"k{k_plan}/{str(dt).split('.')[1]}"
-            sets[label] = {k: (cs[k][0], cs[k][1]()) for k in names}
+            sets[label] = {k: (run, plain()) for k, (run, plain)
+                           in cs.items()}
     try:
         for v, lib in [*libs.items(), ("source", default)]:
             use("ehyb_spmm", lib)
             for label, cases in sets.items():
                 tol = 1e-2 if "bfloat16" in label else 1e-4
+                if v.startswith("uniform-"):
+                    cases = {k: c for k, c in cases.items() if k in UNIFORM}
                 measure(f"{v} {label}", cases, tol)
     finally:
         use("ehyb_spmm", default)
