@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five main paths, each driven with every kernel's launch count set to 0
+Six main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -38,7 +38,19 @@ just before it and read just after:
   a fourth through ``torch.optim.SGD`` on ``layer.parameters()``, with
   the gradients held against a float64 oracle, the loss falling on every
   step and the forward after the optimizer's step against a float64
-  oracle of the stepped weights.
+  oracle of the stepped weights;
+* the default plan, right after the build: ``plan(m)`` with the default
+  ``ExecutionConfig`` (every partition strategy priced at the card's
+  geometry, every format ranked by modeled bytes, the pinned plan's bfs
+  partition shared), then ``op @ x`` and ``op.solve(b, precond="spai")``;
+  the measured pass (``mode="measure"``: the top candidates timed with
+  CUDA events) at k = 1 and at k = 16 with the ``rhs_chunk`` sweep; the
+  formats ``csr``, ``ell``, ``hyb`` and ``ehyb_bucketed`` pinned at full
+  size (K = 1 and 16 against scipy, ``update_values`` of D A D
+  bit-identical to a fresh bind), ``dense`` on the 8,192-row
+  ``unstruct_8k``; and ``pruned_linear`` with its defaults on the
+  llama3_2_1b down projection.  The winner must have the least modeled
+  bytes, its solve must converge and its kernel launch.
 
 Every apply goes through the plan's guard; outside the chaos phases the
 script fails on any downgrade (``plan.degraded`` of every plan it built,
@@ -315,6 +327,231 @@ def check_healthy(plans: list, chaos_downgrades: int, phase: str) -> None:
           f"{phase}: guard.downgrade {n} outside the chaos phases")
 
 
+def default_plan_phase(dev, m, plans: list, all_kernels: dict,
+                       healthy) -> None:
+    """The sixth main path (see the module docstring) on ``m``: the default
+    plan, the measured pass, the four plain formats pinned at full size,
+    ``dense`` on ``unstruct_8k`` and the pruned layer with its defaults.
+    Every plan it makes joins ``plans``; raises on a failed check."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.api import ExecutionConfig, plan, pruned_linear
+    from repro_torch.autotune.registry import get_format
+    from repro_torch.core import counters
+    from repro_torch.core.matrices import SUITE, SparseCSR
+    from repro_torch.kernels import ref
+
+    t_phase = time.perf_counter()
+    failed0 = counters.COUNTERS.get("tune.candidate_failed", 0)
+    a_sp = sp.csr_matrix((m.data, m.indices, m.indptr), shape=(m.n, m.n))
+    rng = np.random.default_rng(SEED + 3)
+    x_host = rng.standard_normal(m.n)
+    b_host = rng.standard_normal(m.n)
+    X_host = rng.standard_normal((m.n, K_RHS))
+    x = torch.as_tensor(x_host, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(b_host, dtype=torch.float32, device=dev)
+    X = torch.as_tensor(X_host, dtype=torch.float32, device=dev)
+    y_sp, Y_sp = a_sp @ x_host, a_sp @ X_host
+
+    # -- the default plan: counts from 0, then op @ x and op.solve --------
+    for fn in all_kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    p = plan(m, device=dev)
+    t_plan = time.perf_counter() - t0
+    pt, tu = p.partition_tuning, p.tuning
+    for s in sorted(pt.modeled_bytes):
+        log("default-plan-strategy", strategy=s,
+            partition_s=round(pt.seconds[s], 3),
+            modeled_bytes=pt.modeled_bytes[s],
+            in_part_fraction=round(pt.in_part_fraction[s], 4))
+    ranked = sorted(tu.modeled_bytes.items(), key=lambda kv: (kv[1], kv[0]))
+    log("default-plan-formats", **dict(ranked))
+    log("default-plan", strategy=p.partition_strategy, format=p.format,
+        n_parts=p.n_parts, vec_size=p.vec_size, plan_s=round(t_plan, 3))
+    check(p.format == ranked[0][0], "the default plan picks the format of "
+          "least modeled bytes (every format is eligible on a card)")
+    t0 = time.perf_counter()
+    op = p.bind(m)
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t0
+    y = op @ x
+    torch.cuda.synchronize()
+    after_apply = {k: f.launches for k, f in all_kernels.items()}
+    t0 = time.perf_counter()
+    res = op.solve(b, precond="spai", tol=1e-6)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in all_kernels.items() if f.launches}
+    err = rel_err(y.cpu(), y_sp)
+    b32 = b_host.astype(np.float32).astype(np.float64)
+    true_res = float(np.linalg.norm(b32 - a_sp @ res.x.double().cpu().numpy())
+                     / np.linalg.norm(b32))
+    log("default-plan-path", bind_s=round(t_bind, 3), vs_scipy_f64=err,
+        status=res.status, iters=int(res.iters), true_residual=true_res,
+        solve_s=round(t_solve, 4), launches=launches, degraded=p.degraded)
+    check(err <= 1e-4, f"default plan op @ x vs scipy: {err}")
+    check(res.status == "converged" and true_res <= 1e-5,
+          f"default plan solve: {res.status}, true residual {true_res}")
+    check(launches.get("fused_cg_update", 0) > 0,
+          "the default plan's solve went through the CG-step kernel")
+    if get_format(p.format).kernel == "cuda":
+        check(after_apply["ehyb_packed_fused"] > 0
+              and launches["ehyb_packed_fused"] > after_apply[
+                  "ehyb_packed_fused"],
+              "op @ x and the solve went through the winner's kernel")
+    check(p.degraded == {}, f"default plan degraded: {p.degraded}")
+    # the byte model's partition against the pinned bfs plan of the build
+    # phase (a cache hit), the same applies on the card
+    ob = plan(m, execution=ExecutionConfig(format=p.format,
+                                           partition_method="bfs"),
+              device=dev).bind(m)
+    vs_bfs = {}
+    for name, o_ in (("default", op), ("bfs", ob)):
+        for k_, v_ in (("k1", x), ("k16", X)):
+            vn = o_.to_space(v_)
+            vs_bfs[f"{name}_{k_}_ms"] = time_ms(
+                lambda o_=o_, vn=vn: o_.apply(vn, space="permuted"), dev)
+    log("default-plan-vs-bfs", format=p.format, **vs_bfs)
+    plans.append(p)
+    del op, ob, y, res
+
+    # -- the measured pass: k = 1, then k = 16 with the rhs_chunk sweep ----
+    t0 = time.perf_counter()
+    pm = plan(m, execution=ExecutionConfig(mode="measure"), device=dev)
+    t_m = time.perf_counter() - t0
+    meas = pm.tuning.measured_s
+    log("measured-plan", k=1, format=pm.format, seconds=round(t_m, 3),
+        **{f"{f}_ms": s * 1e3 for f, s in meas.items()})
+    check(pm.format == min(sorted(meas), key=meas.get),
+          "the measured pass picks its fastest candidate")
+    t0 = time.perf_counter()
+    pk = plan(m, execution=ExecutionConfig(mode="measure", k=K_RHS),
+              device=dev)
+    t_k = time.perf_counter() - t0
+    sweep = {dict(tok)["rhs_chunk"] if pk.format == "ehyb_packed" else
+             str(tok): s * 1e3 for tok, s in (pk.tuning.sweep_s or {}).items()}
+    for s_, b_ in sorted(pk.partition_tuning.modeled_bytes.items()):
+        log("measured-plan-strategy", k=K_RHS, strategy=s_,
+            partition_s=round(pk.partition_tuning.seconds[s_], 3),
+            modeled_bytes=b_,
+            in_part_fraction=round(pk.partition_tuning.in_part_fraction[s_],
+                                   4))
+    log("measured-plan", k=K_RHS, format=pk.format,
+        strategy=pk.partition_strategy, n_parts=pk.n_parts,
+        vec_size=pk.vec_size, seconds=round(t_k, 3),
+        tuned=pk.tuned.to_dict(), sweep_ms=sweep,
+        **{f"{f}_ms": s * 1e3 for f, s in pk.tuning.measured_s.items()})
+    opk = pk.bind(m)
+    err_k = rel_err((opk @ X).cpu(), Y_sp)
+    check(err_k <= SPMM_TOL["float32"], f"measured k=16 plan: {err_k}")
+    if pk.format == "ehyb_packed":
+        o = opk.obj
+        check(o.rhs_chunk == pk.tuned.rhs_chunk and len(sweep) == 3,
+              "the swept rhs_chunk reaches the packed container")
+        X_new = opk.to_space(X)
+        n0 = all_kernels["ehyb_packed_fused_spmm"].launches
+        Y_new = opk.apply(X_new, space="permuted")
+        torch.cuda.synchronize()
+        check(all_kernels["ehyb_packed_fused_spmm"].launches == n0 + 1,
+              "op @ X under the tuned chunk went through #8")
+        Y_plain = ref.ehyb_packed_fused_stream_ref(
+            X_new, o.packed_vals, o.packed_cols, o.col_starts, o.col_rows,
+            o.er_stream(), o.vec_size, o.has_er)
+        err_p = rel_err(Y_new.cpu(), Y_plain.cpu())
+        log("measured-plan-tuned-chunk", rhs_chunk=o.rhs_chunk,
+            vs_plain=err_p, vs_scipy_f64=err_k)
+        check(err_p <= KERNEL_TOL["float32"],
+              f"#8 under the tuned chunk vs its plain version: {err_p}")
+        del X_new, Y_new, Y_plain
+    plans += [pm, pk]
+    del opk
+
+    # -- the plain formats pinned: K = 1 and 16, the refill ----------------
+    dvec = 1.0 + 0.25 * np.random.default_rng(SEED + 3).random(m.n)
+    rows = np.repeat(np.arange(m.n), m.row_lengths())
+    m2 = SparseCSR(m.n, m.indptr, m.indices,
+                   m.data * dvec[rows] * dvec[m.indices])
+    dense_m = SUITE["unstruct_8k"]()
+    cases = [(f, m, x, X, y_sp, Y_sp, m2)
+             for f in ("csr", "ell", "hyb", "ehyb_bucketed")]
+    rng_d = np.random.default_rng(SEED + 4)
+    xd, Xd = rng_d.standard_normal(dense_m.n), \
+        rng_d.standard_normal((dense_m.n, K_RHS))
+    dense_sp = sp.csr_matrix((dense_m.data, dense_m.indices, dense_m.indptr),
+                             shape=(dense_m.n, dense_m.n))
+    cases.append(("dense", dense_m,
+                  torch.as_tensor(xd, dtype=torch.float32, device=dev),
+                  torch.as_tensor(Xd, dtype=torch.float32, device=dev),
+                  dense_sp @ xd, dense_sp @ Xd,
+                  SparseCSR(dense_m.n, dense_m.indptr, dense_m.indices,
+                            2.0 * dense_m.data)))
+    for fmt, mf, xf, Xf, yf, Yf, mf2 in cases:
+        ex = ExecutionConfig(format=fmt, partition_method="bfs")
+        t0 = time.perf_counter()
+        pf = plan(mf, execution=ex, device=dev)
+        of = pf.bind(mf)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        e1 = rel_err((of @ xf).cpu(), yf)
+        e16 = rel_err((of @ Xf).cpu(), Yf)
+        ms1 = time_ms(lambda: of @ xf, dev, reps=5, warmup=1)
+        t0 = time.perf_counter()
+        of2 = of.update_values(mf2)
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t0
+        fresh = plan(mf, execution=dataclasses.replace(
+            ex, dtype=torch.float32), device=dev).bind(mf2)
+        same = all(torch.equal(a, c) for a, c in zip(
+            of2.obj.value_tables(), fresh.obj.value_tables()))
+        shared = all(getattr(of2.obj, f.name) is getattr(of.obj, f.name)
+                     for f in dataclasses.fields(of.obj)
+                     if f.name not in type(of.obj).VALUE_FIELDS
+                     and isinstance(getattr(of.obj, f.name),
+                                    (torch.Tensor, tuple)))
+        log("pinned-format", format=fmt, n=mf.n, bind_s=round(t_b, 3),
+            rebind_s=round(t_r, 3), vs_scipy_f64_k1=e1,
+            vs_scipy_f64_k16=e16, apply_ms=ms1, rebind_bit_identical=same,
+            shared_structure=shared)
+        check(e1 <= 1e-4 and e16 <= SPMM_TOL["float32"],
+              f"{fmt}: op @ x {e1}, op @ X {e16} vs scipy")
+        check(same and shared, f"{fmt}: the rebind equals a fresh bind and "
+              f"shares the structure")
+        plans += [pf, fresh.plan]
+        del of, of2, fresh
+
+    # -- the pruned layer with its defaults --------------------------------
+    w = np.random.default_rng(SEED).normal(0.0, 0.02, (D_MODEL, D_FF))
+    t0 = time.perf_counter()
+    layer = pruned_linear(w, 0.1, device=dev)
+    t_layer = time.perf_counter() - t0
+    tok_host = rng.standard_normal((TOKENS, D_FF))
+    with torch.no_grad():
+        y_tok = layer(torch.as_tensor(tok_host, dtype=torch.float32,
+                                      device=dev))
+    keep = int(w.size * 0.1)
+    thresh = np.partition(np.abs(w).ravel(), -keep)[-keep]
+    w_pruned = np.where(np.abs(w) >= thresh, w, 0.0)
+    err_l = rel_err(y_tok.cpu(), tok_host @ w_pruned.T)
+    lt = layer.op.tuning
+    log("pruned-default", format=layer.op.format,
+        strategy=layer.op.plan.partition_strategy, setup_s=round(t_layer, 3),
+        vs_f64=err_l, **{f"bytes_{f}": v for f, v in sorted(
+            lt.modeled_bytes.items(), key=lambda kv: kv[1])})
+    check(y_tok.shape == (TOKENS, D_MODEL) and err_l <= 1e-4,
+          f"pruned layer with its defaults: {err_l}")
+    plans.append(layer.op.plan)
+    del layer
+
+    failed = counters.COUNTERS.get("tune.candidate_failed", 0) - failed0
+    check(failed == 0, f"tune.candidate_failed {failed}")
+    healthy("default-plan")
+    torch.cuda.empty_cache()
+    log("default-plan-phase", seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     import torch
 
@@ -427,6 +664,9 @@ def run(dev, nx: int) -> list:
         nnz_in=e.nnz_in, in_part_fraction=round(e.in_part_fraction, 4),
         er_rows=er_live, ell_width=e.ell_width, er_width=e.er_width,
         modeled_bytes_per_spmv=modeled["total"])
+
+    # ---- 2b. the default plan: partition and format autotuned --------------
+    default_plan_phase(dev, m, plans, all_kernels, healthy)
 
     rng = np.random.default_rng(SEED)
     x = torch.as_tensor(rng.standard_normal(m.n), dtype=torch.float32,
@@ -1303,7 +1543,8 @@ def run(dev, nx: int) -> list:
     # one fresh bind of D A D on the same partition, to hold the refill to
     t0 = time.perf_counter()
     e_fresh = build_ehyb(m2, part=p_packed.partition)
-    fresh = {dt: spec_p.build(e_fresh, dt, dev)
+    fresh = {dt: spec_p.build(m2, {"ehyb": e_fresh,
+                                   "tuned": p_packed.tuned}, dt, dev)
              for dt in (torch.float32, torch.bfloat16)}
     torch.cuda.synchronize()
     t_fresh = time.perf_counter() - t0

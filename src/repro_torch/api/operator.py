@@ -19,11 +19,12 @@ applied by the transpose plan's operator bound at the accumulation dtype
 (at least fp32, never the stored one).  Otherwise the apply is the guard's
 alone and builds no graph; a solve never does.
 
-``op.solve`` runs CG or BiCGStab in the permuted space (``space="auto"``,
-as the JAX package's ``solve_operator`` does: b, x0 and the
-preconditioner diagonal are permuted once per solve, the matvec is the
-format's guarded permuted-space apply, and the result is carried back
-once) or, with ``space="original"``, on the original-space apply.  A
+``op.solve`` runs CG or BiCGStab in the permuted space (``space="auto"``
+for the EHYB family, as the JAX package's ``solve_operator`` does: b, x0
+and the preconditioner diagonal are permuted once per solve, the matvec is
+the format's guarded permuted-space apply, and the result is carried back
+once) or on the original-space apply (``space="original"``, and
+``"auto"`` for a format without a permuted space).  A
 :class:`~repro_torch.reliability.SolvePolicy` adds the escalation ladder
 (warm restarts, cg → bicgstab, the reference CSR solve), and a
 non-converged result always warns or raises.
@@ -44,7 +45,7 @@ from ..core import solver as S
 from ..core.counters import bump
 from ..core.matrices import SparseCSR
 from ..core.solver import SolveResult, precond_inv_diag
-from ..core.spmv import _as_2d, _from_permuted, _to_permuted, coo_spmv
+from ..core.spmv import _as_2d, _from_permuted, _to_permuted, coo_product
 from ..reliability.policy import (ReliabilityWarning, SolveFailure,
                                   SolveFailureWarning, SolvePolicy)
 from .config import Space
@@ -162,6 +163,12 @@ class LinearOperator:
         return self.plan.device
 
     @property
+    def tuning(self):
+        """The plan's format-autotuning result (None for a pinned
+        format)."""
+        return self.plan.tuning
+
+    @property
     def values(self) -> torch.Tensor:
         """The bound per-nnz values in CSR order, on the device: the tensor
         they were bound from, else as the tables hold them
@@ -217,6 +224,9 @@ class LinearOperator:
 
     @property
     def n_pad(self) -> int:
+        if not self.supports_permuted:
+            raise ValueError(f"format {self.format!r} has no permuted "
+                             f"execution space")
         return self.obj.n_pad
 
     def to_space(self, x, space: Space = Space.PERMUTED) -> torch.Tensor:
@@ -311,7 +321,7 @@ def _reference_solve(op: LinearOperator, b: torch.Tensor, *, method: str,
     vals = op.plan.values_of(op.obj).to(b.dtype)
 
     def mv(x):
-        return coo_spmv(rows, cols, vals, x[:, None], a.n)[:, 0]
+        return coo_product(rows, cols, vals, x[:, None], a.n)[:, 0]
 
     acc = torch.promote_types(b.dtype, torch.float32)
     inv = _inv_tensor(precond_inv_diag(a, precond), acc, op.device)
@@ -343,9 +353,11 @@ def solve_operator(op: LinearOperator, b, *, method: str = "cg",
     are detached and the matvec reads the tables alone).
 
     ``space`` is where the Krylov loop runs: ``"permuted"`` (and
-    ``"auto"``, since every ported format has a permuted space) permutes
-    b, x0 and the preconditioner diagonal once and runs the permuted-space
-    apply; ``"original"`` runs the original-space apply on b as given.
+    ``"auto"`` for a format that has a permuted space, the EHYB family)
+    permutes b, x0 and the preconditioner diagonal once and runs the
+    permuted-space apply; ``"original"`` (and ``"auto"`` for ``csr``,
+    ``ell``, ``hyb`` and ``dense``) runs the original-space apply on b as
+    given.
     ``method`` is ``"cg"`` or ``"bicgstab"``.  ``fused_update="auto"``
     takes the fused CG-step kernel for CG on a CUDA device and the plain
     update otherwise; BiCGStab has no fused step (``fused_update=True``

@@ -1,22 +1,29 @@
 """Operator API: the pattern-only :class:`Plan` and its cache.
 
-The port of ``repro.api.plan`` for this slice.  The paper's economic
-argument (§3, §4.3) is that EHYB preprocessing is paid once per sparsity
-pattern and amortized across many SpMVs:
+The port of ``repro.api.plan`` (without the mesh and the persistent store).
+The paper's economic argument (§3, §4.3) is that EHYB preprocessing is paid
+once per sparsity pattern and amortized across many SpMVs:
 
-    p  = plan(A, execution=ExecutionConfig(format="ehyb_packed",
-                                           partition_method="bfs"))
+    p  = plan(A)                  # pattern-only: partition strategy and
+                                  # format autotuned, cache sizing
     op = p.bind(A)                # values -> LinearOperator (device tables)
     y  = op @ x                   # apply
     r  = op.solve(b, precond="spai")
 
-A plan fixes the format, the device, the cache sizing and the partition;
-the first ``bind`` builds the host EHYB tables on that partition and
-uploads them.  Every later bind of the plan (``op.update_values``, another
-dtype) is a refill: the per-nnz values are uploaded once and scattered into
-new value tables on the device through a pattern-only index (the format's
-``refill`` hook), and every structural tensor is shared with the operators
-bound before.  A bind of the same values at the same dtype returns the
+A plan fixes the format, the device, the cache sizing and the partition.
+With the default :class:`ExecutionConfig` (``format="auto"``,
+``partition_method=None``) it decides them as the reference does: every
+partition strategy priced at the plan's geometry (``autotune_partition``),
+then every format ranked by modeled bytes (``autotune``), and keeps both
+tables (:attr:`Plan.partition_tuning`, :attr:`Plan.tuning`) and the
+resolved tunable parameters (:attr:`Plan.tuned`).  The first ``bind`` of
+an EHYB-family plan builds the host EHYB tables on the partition and
+uploads them; the first bind of any other format builds its structure and
+scatters the values into it, as every rebind does.  Every later bind of
+the plan (``op.update_values``, another dtype) is a refill: the per-nnz
+values are uploaded once and scattered into new value tables on the
+device through a pattern-only index (the format's ``refill`` hook), and
+every structural tensor is shared with the operators bound before.  A bind of the same values at the same dtype returns the
 container bound before while an operator still holds it.  Plans are
 memoized in a :class:`PlanCache` keyed by the pattern hash.
 
@@ -48,11 +55,11 @@ import numpy as np
 import torch
 
 from ..autotune.cost import matrix_key, pattern_hash
-from ..autotune.registry import get_format, shared_packed
+from ..autotune.registry import available_formats, get_format, on_device
 from ..core.cache import BoundedCache
 from ..core.ehyb import EHYB, build_ehyb
 from ..core.matrices import SparseCSR, from_coo
-from ..core.spmv import structure_of, value_index, value_scatter_index
+from ..core.spmv import _values, structure_of
 from ..core.partition import (Partition, choose_vec_size,
                               choose_vec_size_cuda, get_strategy,
                               make_partition)
@@ -97,15 +104,18 @@ def partition_sizing(n: int, device: torch.device,
 
 class PlanCache:
     """Bounded LRU of :class:`Plan` objects keyed by (pattern hash,
-    execution token, device), plus the pattern-only partitions and the host
-    EHYB builds the plans of one pattern share (the last build of each
-    pattern and partition)."""
+    execution token, device), plus the pattern-only partitions (and the
+    partition-strategy decisions priced on them) and the host EHYB builds
+    the plans of one pattern share (the last build of each pattern and
+    partition)."""
 
     def __init__(self, maxsize: int = 32):
         self._plans = BoundedCache(maxsize=maxsize)
         self._parts = BoundedCache(maxsize=maxsize)
         # (pattern, partition) -> (value key, the last host build)
         self._host = BoundedCache(maxsize=maxsize)
+        # autotune_partition's decisions, beside the partitions they priced
+        self.partition_tunings = BoundedCache(maxsize=maxsize)
 
     def plan_for(self, pattern: SparseCSR, execution: ExecutionConfig,
                  device: torch.device) -> "Plan":
@@ -125,6 +135,21 @@ class PlanCache:
             part = self._parts[pk] = make_partition(
                 pattern, method=method, n_parts=n_parts, vec_size=vec_size)
         return part
+
+    def clear(self) -> None:
+        self._plans.clear()
+        self._parts.clear()
+        self._host.clear()
+        self.partition_tunings.clear()
+
+    def stats(self) -> dict:
+        """Plan, partition and host-build counts, plus the tuner's decision
+        memo (``tune``; its ``disk`` is None: no persistent store)."""
+        from ..autotune.tuner import tune_cache_info
+
+        return {"plans": len(self._plans), "partitions": len(self._parts),
+                "partition_tunings": len(self.partition_tunings),
+                "host_builds": len(self._host), "tune": tune_cache_info()}
 
     def host_ehyb(self, m: SparseCSR, key: str, part: Partition,
                   value_key: Optional[str] = None) -> EHYB:
@@ -155,27 +180,28 @@ def plan(pattern: SparseCSR, *, execution: Optional[ExecutionConfig] = None,
     """Plan the operator lifecycle for a sparsity pattern on ``device``.
 
     ``pattern`` is a :class:`SparseCSR`; only its ``indptr``/``indices``
-    determine the plan.  ``device`` defaults to ``cuda`` and raises without
-    a Hopper card; pass ``device="cpu"`` for the plain CPU paths.
+    determine the plan (its values seed the autotuner's measured mode and
+    the host build the family's byte models read).  ``device`` defaults to
+    ``cuda`` and raises without a Hopper card; pass ``device="cpu"`` for
+    the plain CPU paths.
     """
     if not isinstance(pattern, SparseCSR):
         raise TypeError(f"plan() takes a SparseCSR pattern, "
                         f"got {type(pattern).__name__}")
     execution = execution or ExecutionConfig()
-    if execution.format == "auto":
+    if execution.workload == "dist":
         raise NotImplementedError(
-            "format='auto' needs the format autotuner, which is not ported "
-            "yet (ROADMAP Queue 1 item 5); pin format='ehyb_packed' or "
-            "'ehyb'")
-    if execution.partition_method is None:
-        raise NotImplementedError(
-            "partition_method=None autotunes the partition strategy, which "
-            "is not ported yet (ROADMAP Queue 1 item 5); pin one, e.g. "
-            "partition_method='bfs'")
-    get_format(execution.format)
-    get_strategy(execution.partition_method)
+            "workload='dist' prices a sharded operator; the distributed "
+            "path is not ported yet (ROADMAP Queue 1 item 8)")
+    if execution.format != "auto":
+        get_format(execution.format)
+    for f in execution.candidates or ():
+        get_format(f)
+    if execution.partition_method is not None:
+        get_strategy(execution.partition_method)
     device = resolve_device(device)
-    return (cache or PLAN_CACHE).plan_for(pattern, execution, device)
+    return (PLAN_CACHE if cache is None else cache).plan_for(
+        pattern, execution, device)
 
 
 @dataclasses.dataclass(eq=False)
@@ -186,15 +212,23 @@ class Plan:
     key: str                        # sparsity-pattern hash
     n: int
     nnz: int
-    format: str
+    format: str                     # the chosen format
+    context: str                    # the cost-model context it ranked for
     execution: ExecutionConfig
     device: torch.device
-    partition: Partition
+    # the partition the EHYB family builds on (None when no EHYB-family
+    # format was possible and none was pinned)
+    partition: Optional[Partition]
     pattern: SparseCSR
     cache: PlanCache
+    tuning: Any = None              # TuneResult of format="auto", else None
+    partition_tuning: Any = None    # PartitionTuneResult, else None
+    tuned: Any = None               # resolved TunedParams (never None)
+    # what the format's hooks read: the host EHYB build (EHYB family) and
+    # the tuned parameters
+    _shared: dict = dataclasses.field(default_factory=dict)
     _indices_ok: Optional[bool] = None    # bind-time index check, memoized
     _guards: dict = dataclasses.field(default_factory=dict)  # kind -> guard
-    _layout: Optional[EHYB] = None   # a host build (pattern-only scatters)
     _coo: Optional[Tuple[np.ndarray, np.ndarray]] = None
     _coo_t: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     _value_idx: Optional[torch.Tensor] = None
@@ -213,25 +247,71 @@ class Plan:
     def _create(cls, pattern: SparseCSR, key: str,
                 execution: ExecutionConfig, device: torch.device,
                 cache: PlanCache) -> "Plan":
-        n_parts, vec_size = partition_sizing(pattern.n, device, execution.k)
-        part = cache.partition(pattern, key, execution.partition_method,
-                               n_parts, vec_size)
-        return cls(key=key, n=pattern.n, nnz=pattern.nnz,
-                   format=execution.format, execution=execution,
-                   device=device, partition=part, pattern=pattern,
-                   cache=cache)
+        """The reference's ``Plan._create`` without the mesh and the store:
+        resolve the context, autotune the partition strategy when none is
+        pinned and an EHYB-family format may be chosen, autotune the format
+        when it is ``"auto"``, and resolve the tuned parameters (pin >
+        measured sweep > defaults)."""
+        from ..autotune.tuner import autotune, autotune_partition
+        from ..tuning.params import TunedParams, resolve
+
+        context = "spmv" if execution.workload == "auto" else \
+            execution.workload
+        fmt = execution.format
+        dtype = execution.dtype or torch.float32
+        # the EHYB family builds on the partition; the reference asks its
+        # ``shard`` hook, which only the family has
+        family = (any(get_format(f).partitioned for f in
+                      execution.candidates or available_formats())
+                  if fmt == "auto" else get_format(fmt).partitioned)
+        geometry = partition_sizing(pattern.n, device, execution.k)
+        ptuning = part = None
+        if execution.partition_method is not None:
+            part = cache.partition(pattern, key, execution.partition_method,
+                                   *geometry)
+        elif family:
+            ptuning = autotune_partition(
+                pattern, context=context,
+                val_bytes=torch.empty((), dtype=dtype).element_size(),
+                geometry=geometry, cache=cache)
+            part = ptuning.partition
+        tuned = execution.tuned
+        shared: dict = {}
+        tuning = None
+        if fmt == "auto":
+            if family and part is not None:
+                # the family's byte models read a host build on the
+                # partition (the pattern's values; a bind of the same
+                # values reuses it)
+                shared["ehyb"] = cache.host_ehyb(pattern, key, part)
+            tuning = autotune(pattern, dtype, mode=execution.mode,
+                              candidates=execution.candidates,
+                              shared=shared, context=context,
+                              k=execution.k, tuned=tuned, device=device)
+            fmt = tuning.format
+            if tuned is None and tuning.tuned is not None:
+                tuned = TunedParams.from_dict(tuning.tuned)
+            if not get_format(fmt).partitioned:
+                shared.pop("ehyb", None)
+        tuned = resolve(tuned)
+        shared["tuned"] = tuned
+        return cls(key=key, n=pattern.n, nnz=pattern.nnz, format=fmt,
+                   context=context, execution=execution, device=device,
+                   partition=part, pattern=pattern, cache=cache,
+                   tuning=tuning, partition_tuning=ptuning, tuned=tuned,
+                   _shared=shared)
 
     @property
-    def partition_strategy(self) -> str:
-        return self.partition.method
+    def partition_strategy(self) -> Optional[str]:
+        return None if self.partition is None else self.partition.method
 
     @property
-    def n_parts(self) -> int:
-        return self.partition.n_parts
+    def n_parts(self) -> Optional[int]:
+        return None if self.partition is None else self.partition.n_parts
 
     @property
-    def vec_size(self) -> int:
-        return self.partition.vec_size
+    def vec_size(self) -> Optional[int]:
+        return None if self.partition is None else self.partition.vec_size
 
     # ---- binding -----------------------------------------------------------
 
@@ -277,6 +357,9 @@ class Plan:
 
     def host_build(self, values) -> EHYB:
         """The host EHYB build of ``values`` on this plan's partition."""
+        if self.partition is None:
+            raise ValueError(f"this {self.format!r} plan has no partition "
+                             f"to build a host EHYB on")
         return self.cache.host_ehyb(self._as_csr(values), self.key,
                                     self.partition)
 
@@ -316,30 +399,36 @@ class Plan:
         return LinearOperator(plan=self, obj=obj, dtype=dtype, _csr=csr)
 
     def _first_bind(self, csr: SparseCSR, dtype, mk: Optional[str] = None):
-        """The container of ``csr``'s values at ``dtype`` built from the
-        host build and uploaded; keeps its structure for later binds."""
-        e = self.cache.host_ehyb(csr, self.key, self.partition, mk)
-        self._layout = e
-        obj = get_format(self.format).build(e, dtype, self.device)
-        self._structure = structure_of(obj)
-        return obj
+        """The container of ``csr``'s values at ``dtype``; keeps its
+        structure for later binds.  The EHYB family's is built from the
+        host build of ``csr`` on the partition and uploaded; every other
+        format's structure is built from the pattern and the values
+        scattered into it (:meth:`_scatter`), as at every rebind.  A
+        format without a partition builds no host EHYB."""
+        spec = get_format(self.format)
+        if spec.partitioned:
+            self._shared["ehyb"] = self.cache.host_ehyb(
+                csr, self.key, self.partition, mk)
+        if spec.structure is None:
+            obj = spec.build(csr, self._shared, dtype, self.device)
+            self._structure = structure_of(obj)
+            return obj
+        self._structure = spec.structure(csr, self._shared, dtype,
+                                         self.device)
+        return self._scatter(_values(csr, dtype, self.device))
 
     def _scatter(self, vals: torch.Tensor):
         """A container of the per-nnz values ``vals`` (CSR order, on the
         plan's device, in the table dtype): the format's ``refill`` hook
-        scatters them into new value tables through the pattern-only
-        :func:`~repro_torch.core.spmv.value_scatter_index`, every
-        structural tensor the plan's own."""
+        scatters them into new value tables through its pattern-only
+        ``index``, every structural tensor the plan's own."""
         if self._structure is None:
             self._first_bind(self.pattern, vals.dtype)
+        spec = get_format(self.format)
         if self._scatter_idx is None:
-            self._scatter_idx = {
-                k: (tuple(torch.from_numpy(a).to(self.device) for a in v)
-                    if isinstance(v, tuple)
-                    else torch.from_numpy(v).to(self.device))
-                for k, v in value_scatter_index(*self._host_layout()).items()}
-        return get_format(self.format).refill(self._structure, vals,
-                                              self._scatter_idx)
+            self._scatter_idx = on_device(
+                spec.index(self.pattern, self._index_shared()), self.device)
+        return spec.refill(self._structure, vals, self._scatter_idx)
 
     def _bind_tensor(self, values: torch.Tensor, dtype, validate: bool):
         """:meth:`bind` of a ``(nnz,)`` tensor: a scatter into new value
@@ -432,12 +521,15 @@ class Plan:
                                 for a in self.coo())
         return self._coo_t
 
-    def _host_layout(self):
-        """(a host build of the pattern, its packed staircase for the
-        ``ehyb_packed`` format else None): the pattern-only scatters that
-        the device-side value maps replay."""
-        e = self._layout or self.host_build(self.pattern)
-        return e, shared_packed(e) if self.format == "ehyb_packed" else None
+    def _index_shared(self) -> dict:
+        """What the format's ``index`` and ``value_index`` hooks read: the
+        plan's shared dict, with a host build of the pattern for the EHYB
+        family (the indices are pattern-only, so any build on the
+        partition serves)."""
+        if get_format(self.format).partitioned and \
+                "ehyb" not in self._shared:
+            self._shared["ehyb"] = self.host_build(self.pattern)
+        return self._shared
 
     def values_of(self, obj) -> torch.Tensor:
         """The per-nnz values in CSR order, read on the device from the
@@ -445,13 +537,17 @@ class Plan:
         tables its apply reads), in the container's value dtype.
 
         The port's counterpart of the JAX package's probed value maps: the
-        positions come from the host build's own scatters
-        (``core.spmv.value_index``), which depend on the pattern alone, so
-        they hold for every bind of the plan."""
+        positions come from the format's own pattern-only scatter index
+        (``FormatSpec.value_index``), so they hold for every bind of the
+        plan.  A duplicate entry the format sums into another (the dense
+        format's) reads a zero, so a product over the values counts each
+        table entry once."""
         if self._value_idx is None:
             self._value_idx = torch.from_numpy(
-                value_index(*self._host_layout())).to(self.device)
-        flat = torch.cat([t.reshape(-1) for t in obj.value_tables()])
+                get_format(self.format).value_index(
+                    self.pattern, self._index_shared(), obj)).to(self.device)
+        flat = torch.cat([t.reshape(-1) for t in obj.value_tables()]
+                         + [obj.value_tables()[0].new_zeros(1)])
         return flat.index_select(0, self._value_idx)
 
     def __repr__(self):

@@ -1,10 +1,14 @@
 """Carry state across from the JAX package into the port.
 
-The JAX package's device containers (``repro.core.spmv.EHYBDevice`` and
-``EHYBPackedDevice``) are pytrees of arrays; their leaves, as a dict of
-numpy arrays (``{field: np.asarray(getattr(obj, field))}``), plus the static
-fields (``n``, ``n_pad``, ``n_parts``, ``vec_size``, ``has_er``) become the
-port's container of the same name on a given device — so both packages can
+The JAX package's device containers (``repro.core.spmv.COODevice``,
+``ELLDevice``, ``HYBDevice``, ``EHYBDevice``, ``EHYBBucketsDevice``,
+``EHYBPackedDevice``, and the dense format's bare array as
+``"DenseDevice"``) are pytrees of arrays; their leaves, as a dict of numpy
+arrays (``{field: np.asarray(getattr(obj, field))}``; the bucketed
+container's per-bucket tuples as sequences of arrays), plus the static
+fields (``n``, and for the EHYB family ``n_pad``, ``n_parts``,
+``vec_size``, ``has_er``, the bucketed ``widths``) become the port's
+container of the same name on a given device — so both packages can
 compute on identical tables.  :func:`sparse_linear` carries a pruned layer
 (``repro.core.sparse_linear.SparseLinear``) across the same way.  As
 everywhere in the port, the device defaults to ``cuda`` and raises without
@@ -24,12 +28,20 @@ import torch
 
 from .api.plan import resolve_device
 from .core.matrices import SparseCSR
-from .core.spmv import (ER_STREAM, EHYBDevice, EHYBPackedDevice,
-                        column_rows, er_column_rows, er_stream_tensors)
+from .core.spmv import (ER_STREAM, COODevice, DenseDevice,
+                        EHYBBucketsDevice, EHYBDevice, EHYBPackedDevice,
+                        ELLDevice, HYBDevice, column_rows, er_column_rows,
+                        er_stream_tensors)
 from .reliability.policy import SolvePolicy
 
-_CONTAINERS = {"EHYBDevice": EHYBDevice, "EHYBPackedDevice": EHYBPackedDevice}
-_FORMATS = {"EHYBDevice": "ehyb", "EHYBPackedDevice": "ehyb_packed"}
+_CONTAINERS = {"COODevice": COODevice, "ELLDevice": ELLDevice,
+               "HYBDevice": HYBDevice, "EHYBDevice": EHYBDevice,
+               "EHYBBucketsDevice": EHYBBucketsDevice,
+               "EHYBPackedDevice": EHYBPackedDevice,
+               "DenseDevice": DenseDevice}
+_FORMATS = {"COODevice": "csr", "ELLDevice": "ell", "HYBDevice": "hyb",
+            "EHYBDevice": "ehyb", "EHYBBucketsDevice": "ehyb_bucketed",
+            "EHYBPackedDevice": "ehyb_packed", "DenseDevice": "dense"}
 _STATIC = ("n", "n_pad", "n_parts", "vec_size", "has_er")
 _INDEX_FIELDS = ("perm", "inv_perm")   # int64 in the port (JAX keeps int32)
 # the port's own fields of each container, laid out from the pattern (the
@@ -49,21 +61,54 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _plain_container(cls, leaves: dict, static: dict, device):
+    """A container of the formats without the compact ER stream, field by
+    field (the bucketed one's per-bucket tuples: int64 partition ids,
+    columns as they are, the value tiles flattened into one table)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in static:
+            kw[f.name] = static[f.name]
+        elif f.name == "part_ids":
+            kw[f.name] = tuple(tensor_from_numpy(p, device).to(torch.int64)
+                               for p in leaves[f.name])
+        elif f.name == "cols" and cls is EHYBBucketsDevice:
+            kw[f.name] = tuple(tensor_from_numpy(c, device)
+                               for c in leaves[f.name])
+        elif f.name == "vals" and cls is EHYBBucketsDevice:
+            kw[f.name] = torch.cat([tensor_from_numpy(v, device).reshape(-1)
+                                    for v in leaves[f.name]])
+        else:
+            t = tensor_from_numpy(leaves[f.name], device)
+            kw[f.name] = t.to(torch.int64) if f.name in _INDEX_FIELDS else t
+    if "has_er" in kw:
+        kw["has_er"] = bool(kw["has_er"])
+    if "widths" in kw:
+        kw["widths"] = tuple(int(w) for w in kw["widths"])
+    return cls(**kw)
+
+
 def device_container(kind: str, leaves: dict, static: dict, device=None, *,
                      host=None):
-    """The port's ``kind`` container (``"EHYBDevice"`` or
-    ``"EHYBPackedDevice"``) on ``device`` (default ``cuda``) from the JAX
+    """The port's ``kind`` container (a key of ``_CONTAINERS``: the JAX
+    container's class name, ``"DenseDevice"`` for the dense format's
+    array as ``{"vals": a}``) on ``device`` (default ``cuda``) from the JAX
     container's leaves and static fields; leaves the port does not carry
     are ignored.
 
-    ``host`` is required: the host EHYB build the leaves came from (the JAX
-    package's or the port's).  The port's own fields — the compact ER
-    stream ``er_s_*``, ``er_col_rows`` and the uniform container's
-    ``col_rows`` — are laid out from its pattern, which the leaves do not
-    hold.  Raises ``ValueError`` without ``host``, or when ``host`` lays
-    the matrix out otherwise than the leaves (another permutation, another
-    ER table or another ER grouping)."""
+    For ``"EHYBDevice"`` and ``"EHYBPackedDevice"``, ``host`` is required:
+    the host EHYB build the leaves came from (the JAX package's or the
+    port's).  The port's own fields — the compact ER stream ``er_s_*``,
+    ``er_col_rows`` and the uniform container's ``col_rows`` — are laid out
+    from its pattern, which the leaves do not hold.  Raises ``ValueError``
+    without ``host``, or when ``host`` lays the matrix out otherwise than
+    the leaves (another permutation, another ER table or another ER
+    grouping).  The packed container's tuned ``rhs_chunk`` is
+    ``static.get("rhs_chunk")``."""
     device = resolve_device(device)
+    cls = _CONTAINERS[kind]
+    if cls not in _LAID_OUT:
+        return _plain_container(cls, leaves, static, device)
     if host is None:
         raise ValueError("device_container needs host=, the host EHYB build "
                          "the leaves came from: the compact ER stream and "
@@ -76,10 +121,12 @@ def device_container(kind: str, leaves: dict, static: dict, device=None, *,
         raise ValueError(f"the ER table is {np.shape(leaves['er_vals'])}; "
                          f"host= lays it out as "
                          f"{(host.er_rows, host.er_width)}")
-    cls = _CONTAINERS[kind]
     kw = {k: static[k] for k in _STATIC}
     for f in dataclasses.fields(cls):
         if f.name in _STATIC or f.name in _LAID_OUT[cls]:
+            continue
+        if f.name == "rhs_chunk":
+            kw[f.name] = static.get("rhs_chunk")
             continue
         t = tensor_from_numpy(leaves[f.name], device)
         kw[f.name] = t.to(torch.int64) if f.name in _INDEX_FIELDS else t
@@ -127,8 +174,9 @@ def sparse_linear(kind: str, leaves: dict, static: dict, *, csr, d_in: int,
     p = plan(m, execution=ExecutionConfig(
         format=_FORMATS[kind], partition_method=partition_method, k=k),
         device=device)
-    e = p.host_build(m)
+    e = p.host_build(m) if _CONTAINERS[kind] in _LAID_OUT else None
     obj = device_container(kind, leaves, static, device, host=e)
-    op = LinearOperator(plan=p, obj=obj, dtype=obj.er_p_vals.dtype, _csr=m)
+    op = LinearOperator(plan=p, obj=obj, dtype=obj.value_tables()[0].dtype,
+                        _csr=m)
     return (cls or SparseLinear)(d_in=d_in, d_out=d_out, op=op,
                                  density=density, csr=m, ehyb=e)

@@ -163,7 +163,7 @@ class EHYB:
         tables are rewritten, by one vectorized numpy scatter each — no
         partitioning, reordering or sorting.  The views memoized on
         ``self`` (the ER grouping, the compact ER stream, the packed
-        staircase) come along refilled (:func:`carry_views`), so that no
+        staircase, the width buckets) come along refilled (:func:`carry_views`), so that no
         later step redoes their pass.
 
         ``new_data`` is the CSR ``data`` stream of a matrix with the
@@ -200,7 +200,9 @@ def carry_views(old: EHYB, new: EHYB) -> None:
     :meth:`EHYB.refill` makes) each view memoized on ``old`` that it lacks,
     with ``new``'s values: the ER grouping, its tiles refilled through the
     recorded ``own``/``slot``/``src``; the compact ER stream, pattern-only,
-    the same object; the packed staircase, through ``PackedEHYB.refill``.
+    the same object; the packed staircase, through ``PackedEHYB.refill``;
+    the width buckets at each bucket count (``_buckets`` for the default
+    count, ``_buckets_nb`` for others), through ``EHYBBuckets.refill``.
     No view's structure pass runs again."""
     g = getattr(old, "_er_grouped", None)
     if g is not None and getattr(new, "_er_grouped", None) is None:
@@ -213,6 +215,12 @@ def carry_views(old: EHYB, new: EHYB) -> None:
     pk = getattr(old, "_packed", None)
     if pk is not None and getattr(new, "_packed", None) is None:
         new._packed = pk.refill(new)
+    b = getattr(old, "_buckets", None)
+    if b is not None and getattr(new, "_buckets", None) is None:
+        new._buckets = b.refill(new)
+    nb = getattr(old, "_buckets_nb", None)
+    if nb is not None and getattr(new, "_buckets_nb", None) is None:
+        new._buckets_nb = {count: bb.refill(new) for count, bb in nb.items()}
 
 
 def build_ehyb(m: SparseCSR, part: Optional[Partition] = None,
@@ -564,3 +572,65 @@ def pack_staircase(e: EHYB) -> PackedEHYB:
                       packed_cols=packed_cols, col_starts=col_starts,
                       col_rows=col_rows,
                       pack_plan={"pi": pi, "dest": dest, "vi": vi, "ki": ki})
+
+
+# ---------------------------------------------------------------------------
+# width-bucketed variant (beyond-paper §Perf optimization)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class EHYBBuckets:
+    """Partitions grouped into width buckets — one uniform tile per bucket.
+
+    The baseline format pads every partition tile to the *global* max width
+    W; on matrices with variable partition density this wastes HBM bytes.
+    Grouping partitions into a few width classes, one uniform tile each,
+    removes most of that padding (the JAX package's ``EHYBBuckets``; the
+    same arrays, bit for bit)."""
+
+    base: EHYB
+    part_ids: list        # list[np.ndarray (B,) int32]
+    vals: list            # list[np.ndarray (B, V, Wb)]
+    cols: list            # list[np.ndarray (B, V, Wb) uint16]
+    widths: list          # list[int]
+
+    def refill(self, base: EHYB) -> "EHYBBuckets":
+        """The buckets of ``base`` (a value-refilled EHYB on the same
+        pattern): each bucket's tiles re-sliced from ``base.ell_vals``, the
+        grouping and columns shared."""
+        return EHYBBuckets(
+            base=base, part_ids=self.part_ids,
+            vals=[np.ascontiguousarray(base.ell_vals[ch, :, : v.shape[2]])
+                  for ch, v in zip(self.part_ids, self.vals)],
+            cols=self.cols, widths=self.widths)
+
+    def bytes_moved(self, val_bytes: int = 4, col_bytes: int = 2,
+                    space: str = "permuted", fused_er: bool = True,
+                    k: int = 1) -> dict:
+        ell = sum(v.size * (val_bytes + col_bytes) for v in self.vals)
+        base = self.base.bytes_moved(val_bytes, col_bytes, space=space,
+                                     fused_er=fused_er, k=k)
+        return {**base, "ell": ell,
+                "total": ell + base["x_cache"] + base["er"] + base["y"]
+                + base["perm"]}
+
+
+def build_buckets(e: EHYB, n_buckets: int = 4, lane: int = 8) -> EHYBBuckets:
+    """Group partitions by width into ≤ n_buckets classes (equal-count split,
+    widths lane-aligned)."""
+    bump("build_buckets")
+    order = np.argsort(e.part_widths, kind="stable")
+    chunks = np.array_split(order, n_buckets)
+    part_ids, vals, cols, widths = [], [], [], []
+    for ch in chunks:
+        if len(ch) == 0:
+            continue
+        wb = int(e.part_widths[ch].max())
+        wb = max(lane, -(-wb // lane) * lane)
+        wb = min(wb, e.ell_width)
+        part_ids.append(ch.astype(np.int32))
+        vals.append(np.ascontiguousarray(e.ell_vals[ch, :, :wb]))
+        cols.append(np.ascontiguousarray(e.ell_cols[ch, :, :wb]))
+        widths.append(wb)
+    return EHYBBuckets(base=e, part_ids=part_ids, vals=vals, cols=cols,
+                       widths=widths)

@@ -308,15 +308,20 @@ def mincut_partition(m: SparseCSR, n_parts: int, vec_size: int,
     under a capacity band, then recurses until every leaf maps to one
     partition.  A final k-way FM-lite polish (``_refine``) smooths leaf
     boundaries.
+
+    Each vertex set on the stack carries its induced entries (those whose
+    row and column both lie in the set), so a bisection reads its own
+    entries only and the recursion costs O(nnz log n_parts), not
+    O(nnz · n_parts); the pins, and so the partition, are the same.
     """
     n = m.n
     rows = np.repeat(np.arange(n, dtype=np.int64), m.row_lengths())
     cols = m.indices.astype(np.int64)
     degree = m.row_lengths()
     part_vec = np.full(n, -1, dtype=np.int32)
-    stack = [(np.arange(n, dtype=np.int64), 0, n_parts)]
+    stack = [(np.arange(n, dtype=np.int64), 0, n_parts, rows, cols)]
     while stack:
-        verts, lo, pc = stack.pop()
+        verts, lo, pc, vrows, vcols = stack.pop()
         if pc == 1 or len(verts) == 0:
             part_vec[verts] = lo
             continue
@@ -327,10 +332,15 @@ def mincut_partition(m: SparseCSR, n_parts: int, vec_size: int,
         lo0 = max(0, ns - p2 * vec_size)
         hi0 = min(p1 * vec_size, ns)
         target = min(max(int(round(ns * p1 / pc)), lo0), hi0)
-        side = _bisect(m, verts, rows, cols, degree, target, lo0, hi0,
+        side = _bisect(m, verts, vrows, vcols, degree, target, lo0, hi0,
                        fm_passes)
-        stack.append((verts[side == 0], lo, p1))
-        stack.append((verts[side == 1], lo + p1, p2))
+        where = np.empty(n, dtype=np.int8)
+        where[verts] = side
+        s_r, s_c = where[vrows], where[vcols]
+        for half, first, count in ((0, lo, p1), (1, lo + p1, p2)):
+            keep = (s_r == half) & (s_c == half)
+            stack.append((verts[side == half], first, count, vrows[keep],
+                          vcols[keep]))
     part_vec = _refine(m, part_vec, n_parts, vec_size, refine_passes)
     return _build_partition(n, n_parts, vec_size, part_vec)
 
@@ -370,7 +380,8 @@ def _bfs_order(m: SparseCSR, verts: np.ndarray, degree: np.ndarray,
 def _bisect(m: SparseCSR, verts: np.ndarray, rows: np.ndarray,
             cols: np.ndarray, degree: np.ndarray, target: int, lo0: int,
             hi0: int, fm_passes: int) -> np.ndarray:
-    """One capacity-banded bisection of ``verts``; returns side ∈ {0,1}.
+    """One capacity-banded bisection of ``verts``, whose induced entries
+    are ``rows``/``cols``; returns side ∈ {0,1}.
 
     Seed split: BFS-locality order cut at ``target``.  Refinement: FM-style
     passes on column-net connectivity−1 gains, vectorized — each pass
@@ -390,10 +401,14 @@ def _bisect(m: SparseCSR, verts: np.ndarray, rows: np.ndarray,
     side[local[order[:target]]] = 0
     size0 = int(target)
     # column-net pins: in-subgraph entries (row reads column) + owner pins
-    sel = in_set[rows] & in_set[cols]
-    key = np.concatenate([local[rows[sel]] * ns + local[cols[sel]],
+    key = np.concatenate([local[rows] * ns + local[cols],
                           np.arange(ns) * ns + np.arange(ns)])
-    key = np.unique(key)
+    # np.unique(key), in O(len) for the usual input: the entries are in CSR
+    # order (rows ascending, columns ascending within a row) and ``local``
+    # keeps the vertex order, so both parts are sorted runs, which the
+    # stable sort (timsort) merges in one pass
+    key.sort(kind="stable")
+    key = key[np.concatenate([[True], key[1:] != key[:-1]])]
     pin_v = key // ns
     pin_net = key % ns
 

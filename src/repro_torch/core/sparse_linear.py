@@ -2,10 +2,11 @@
 apply.
 
 The port of ``repro.core.sparse_linear``.  A magnitude-pruned weight matrix
-is planned and bound in an EHYB format and applied with the batched (SpMM)
-path: the *columns* of W (= input features) are partitioned, and each
-partition's slice of the activations plays the role of the paper's cached
-input vector.  A forward over T tokens is one apply of T right-hand sides.
+is planned and bound (in the autotuned format by default) and applied
+with the batched (SpMM) path.  In an EHYB format the *columns* of W (=
+input features) are partitioned, and each partition's slice of the
+activations plays the role of the paper's cached input vector.  A forward
+over T tokens is one apply of T right-hand sides.
 
 The formats are square (row and column vertices share the partition), so a
 rectangular weight is embedded in a max(d_in, d_out) square with empty
@@ -40,9 +41,14 @@ from .ehyb import EHYB
 from .matrices import SparseCSR, from_coo
 
 
-def _host_ehyb_of(op) -> EHYB:
-    """The host EHYB build behind a bound operator (memoized in its plan's
-    cache, so asking again builds nothing)."""
+def _host_ehyb_of(op) -> Optional[EHYB]:
+    """The host EHYB build behind a bound operator of the EHYB family
+    (memoized in its plan's cache, so asking again builds nothing); None
+    for the other formats, which build none."""
+    from ..autotune.registry import get_format
+
+    if not get_format(op.format).partitioned:
+        return None
     return op.plan.host_build(op.csr)
 
 
@@ -70,7 +76,7 @@ class SparseLinear(nn.Module):
         self.op = op
         self.density = density
         self.csr = csr          # host mask, values of the last host bind
-        self.ehyb = ehyb        # host EHYB build (layout, bytes accounting)
+        self.ehyb = ehyb        # host EHYB build (EHYB family), else None
         self.values = nn.Parameter(op.values.detach().clone())
         self._bound = self._stamp()   # the parameter as ``op`` holds it
 
@@ -167,6 +173,8 @@ class SparseLinear(nn.Module):
             x = op._promote(x)
         lead = x.shape[:-1]
         permuted = space == "permuted"
+        if permuted and not self.supports_permuted:
+            raise ValueError(f"format {op.format!r} has no permuted space")
         xt = x.reshape(-1, op.n_pad).T if permuted else \
             self._embed(x.reshape(-1, self.d_in).T)           # (n, T)
         yt = apply_operator(op.plan, obj, op.dtype, xt, values, permuted)
@@ -176,10 +184,16 @@ class SparseLinear(nn.Module):
 
     def bytes_vs_dense(self, val_bytes: int = 4) -> dict:
         """Modeled bytes of one original-space apply (boundary permutes
-        paid, ER fused) against the dense weight's."""
+        paid, ER fused) against the dense weight's: the host EHYB build's
+        accounting, or the format's byte model when it builds none."""
+        from ..autotune.cost import estimate_bytes
+
         dense = self.d_in * self.d_out * val_bytes
-        sparse = self.ehyb.bytes_moved(val_bytes, space="original",
-                                       fused_er=True)["total"]
+        if self.ehyb is not None:
+            sparse = self.ehyb.bytes_moved(val_bytes, space="original",
+                                           fused_er=True)["total"]
+        else:
+            sparse = estimate_bytes(self.csr, self.op.format, val_bytes)
         return {"dense": dense, "format": self.op.format,
                 "sparse": sparse, "ehyb": sparse, "ratio": sparse / dense}
 

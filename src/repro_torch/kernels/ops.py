@@ -86,10 +86,12 @@ def _ell_uniform(m: EHYBDevice, x_parts: torch.Tensor) -> torch.Tensor:
 def _ell_packed(m: EHYBPackedDevice, x_parts: torch.Tensor) -> torch.Tensor:
     """ELL-only kernel on the packed staircase, routed as
     :func:`_ell_uniform`."""
-    ell = _k.ehyb_ell_packed if x_parts.shape[2] < _SPMM_MIN_RHS else \
-        _km.ehyb_ell_packed_spmm
-    return ell(x_parts, m.packed_vals, m.packed_cols, m.col_starts,
-               m.col_rows)
+    if x_parts.shape[2] < _SPMM_MIN_RHS:
+        return _k.ehyb_ell_packed(x_parts, m.packed_vals, m.packed_cols,
+                                  m.col_starts, m.col_rows)
+    return _km.ehyb_ell_packed_spmm(x_parts, m.packed_vals, m.packed_cols,
+                                    m.col_starts, m.col_rows,
+                                    rhs_chunk=m.rhs_chunk)
 
 
 def ehyb_spmv_fused_permuted(m: EHYBDevice, x_new: torch.Tensor, *,
@@ -139,7 +141,9 @@ def ehyb_ell_only(m: EHYBDevice, x: torch.Tensor) -> torch.Tensor:
 def ehyb_spmv_packed_permuted(m: EHYBPackedDevice, x_new: torch.Tensor, *,
                               use_er_kernel: bool = True) -> torch.Tensor:
     """Permuted-space EHYB SpMV/SpMM on the packed staircase, routed as
-    :func:`ehyb_spmv_fused_permuted`: x_new (n_pad,) or (n_pad, K)."""
+    :func:`ehyb_spmv_fused_permuted`: x_new (n_pad,) or (n_pad, K).  The
+    SpMM kernels sweep K in chunks of the container's tuned ``rhs_chunk``
+    (None: their default)."""
     x2 = _as_2d(x_new)[0]
     if not use_er_kernel:
         return _unfused(m, x_new, _ell_packed)
@@ -150,7 +154,7 @@ def ehyb_spmv_packed_permuted(m: EHYBPackedDevice, x_new: torch.Tensor, *,
     if m.has_er:
         return _km.ehyb_packed_fused_spmm(
             x2, m.packed_vals, m.packed_cols, m.col_starts, m.col_rows,
-            m.er_stream(), vec_size=m.vec_size)
+            m.er_stream(), vec_size=m.vec_size, rhs_chunk=m.rhs_chunk)
     return _unfused(m, x2, _ell_packed)
 
 

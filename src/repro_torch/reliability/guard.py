@@ -9,9 +9,10 @@ epoch, which level of the format's fallback chain runs:
     fused kernel  ->  unfused (ELL-only kernel + plain ER part)  ->  reference
 
 * the **native** level is the format's registered apply (the fused packed
-  kernel for ``ehyb_packed``; the plain path for ``ehyb``);
+  kernel for ``ehyb_packed``; the plain path for every other format);
 * the **unfused** level is the format's ``fallback`` hook when it has one
-  (``use_er_kernel=False`` for ``ehyb_packed``);
+  (``use_er_kernel=False`` for ``ehyb_packed``; the other six formats go
+  native -> reference, as in the JAX package);
 * the **reference** level is format-independent: a gather and
   ``index_add_`` over the plan's COO pattern with the values recovered from
   the container (``Plan.values_of``), plain PyTorch on the plan's own
@@ -45,7 +46,7 @@ import warnings
 import torch
 
 from ..core.counters import bump
-from ..core.spmv import _as_2d, _from_permuted, _to_permuted, coo_spmv
+from ..core.spmv import _as_2d, _from_permuted, _to_permuted, coo_product
 # the functions, not the module: the package re-exports the chaos() context
 # manager under the submodule's name
 from .chaos import ChaosFault
@@ -74,9 +75,10 @@ def reference_apply(plan, kind: str = "apply"):
         x2, squeeze = _as_2d(x)
         if kind == "permuted":
             xo = _from_permuted(obj, x2, False)
-            y, _ = _to_permuted(obj, coo_spmv(rows, cols, vals, xo, plan.n))
+            y, _ = _to_permuted(obj, coo_product(rows, cols, vals, xo,
+                                                 plan.n))
         else:
-            y = coo_spmv(rows, cols, vals, x2, plan.n)
+            y = coo_product(rows, cols, vals, x2, plan.n)
         return y[:, 0] if squeeze else y
 
     return ref

@@ -996,3 +996,118 @@ def test_layer_follows_its_parameter_on_the_card(cuda_device, foreach):
     with torch.no_grad():
         assert torch.equal(other(x), y1)
     assert layer.op.plan.degraded == {} and other.op.plan.degraded == {}
+
+
+# ---------------------------------------------------------------------------
+# the default plan on the card: autotuned partition and format, the
+# measured pass with CUDA events, the five plain formats
+# ---------------------------------------------------------------------------
+
+def _oracle(m, x):
+    return m.to_dense() @ x
+
+
+@pytest.mark.cuda
+def test_default_plan_picks_least_bytes_and_launches_its_kernel(
+        cuda_device):
+    from repro_torch.api.plan import partition_sizing
+    from repro_torch.autotune import get_format
+
+    m = SUITE["elasticity_8"]()
+    p = plan(m, device=cuda_device, cache=PlanCache())
+    table = p.tuning.modeled_bytes
+    assert p.format == min(sorted(table), key=table.get)  # all eligible
+    assert (p.n_parts, p.vec_size) == partition_sizing(m.n, cuda_device)
+    assert p.partition.method == p.partition_tuning.strategy
+    op = p.bind(m)
+    x = np.random.default_rng(0).standard_normal(m.n)
+    n0 = K.ehyb_packed_fused.launches
+    y = (op @ torch.as_tensor(x, dtype=torch.float32,
+                              device=cuda_device)).cpu()
+    assert _rel(y, torch.as_tensor(_oracle(m, x))) <= 1e-4
+    if get_format(p.format).kernel == "cuda":
+        assert K.ehyb_packed_fused.launches > n0
+    b = m.spmv(np.ones(m.n))
+    r = op.solve(torch.as_tensor(b, dtype=torch.float32,
+                                 device=cuda_device), precond="spai",
+                 tol=1e-6)
+    assert r.status == "converged"
+    assert p.degraded == {}
+
+
+@pytest.mark.cuda
+def test_measured_pass_times_with_cuda_events(cuda_device):
+    from repro_torch.autotune import tuner
+
+    m = SUITE["elasticity_8"]()
+    before = counters.snapshot().get("tune.measured", 0)
+    p = plan(m, execution=ExecutionConfig(mode="measure"),
+             device=cuda_device, cache=PlanCache())
+    meas = p.tuning.measured_s
+    assert meas and all(t > 0 for t in meas.values())
+    assert p.format == min(sorted(meas), key=meas.get)
+    assert counters.snapshot()["tune.measured"] >= before + len(meas)
+    pk = plan(m, execution=ExecutionConfig(mode="measure", k=16),
+              device=cuda_device, cache=PlanCache())
+    op = pk.bind(m)
+    if pk.format == "ehyb_packed":
+        assert len(pk.tuning.sweep_s) == 3
+        assert op.obj.rhs_chunk == pk.tuned.rhs_chunk
+    X = np.random.default_rng(1).standard_normal((m.n, 16))
+    Y = (op @ torch.as_tensor(X, dtype=torch.float32,
+                              device=cuda_device)).cpu()
+    assert _rel(Y, torch.as_tensor(_oracle(m, X))) <= 1e-4
+    t = tuner._time_spmv(lambda o, v: v * 2.0, None,
+                         torch.ones(8, device=cuda_device), repeats=1)
+    assert t > 0
+
+
+@pytest.mark.cuda
+def test_tuner_raises_an_organic_kernel_failure_on_the_card(cuda_device,
+                                                            monkeypatch):
+    """On a card plan only an injected fault skips a measured candidate;
+    an organic build or launch failure is raised, so it never hides behind
+    a plain format."""
+    import dataclasses
+
+    from repro_torch.autotune import autotune, registry
+
+    def broken(*a, **kw):
+        raise OSError("nvcc failed")
+    monkeypatch.setitem(registry.FORMATS, "ehyb_packed", dataclasses.replace(
+        registry.get_format("ehyb_packed"), build=broken))
+    m = SUITE["elasticity_8"]()
+    kw = dict(mode="measure", candidates=("ehyb_packed", "csr"),
+              use_cache=False, device=cuda_device)
+    with pytest.raises(OSError, match="nvcc failed"):
+        autotune(m, **kw)
+    monkeypatch.undo()
+    before = counters.snapshot().get("tune.candidate_failed", 0)
+    with chaos(kernel_failure=("tune:ehyb_packed",)) as cfg:
+        with pytest.warns(ReliabilityWarning, match="ehyb_packed"):
+            r = autotune(m, **kw)
+    assert cfg.injected["kernel:tune:ehyb_packed"] == 1
+    assert r.format == "csr" and "ehyb_packed" not in r.measured_s
+    assert counters.snapshot()["tune.candidate_failed"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["csr", "ell", "hyb", "ehyb_bucketed",
+                                 "dense"])
+def test_plain_formats_on_the_card(cuda_device, fmt):
+    m = SUITE["unstruct_4k"]()
+    ex = ExecutionConfig(format=fmt, partition_method="bfs")
+    op = plan(m, execution=ex, device=cuda_device,
+              cache=PlanCache()).bind(m)
+    for k in (1, 16):
+        x = np.random.default_rng(k).standard_normal((m.n, k))
+        y = (op @ torch.as_tensor(x, dtype=torch.float32,
+                                  device=cuda_device)).cpu()
+        assert _rel(y, torch.as_tensor(_oracle(m, x))) <= 1e-4
+    m2 = type(m)(m.n, m.indptr, m.indices, 2.0 * m.data)
+    op2 = op.update_values(m2)
+    fresh = plan(m, execution=ex, device=cuda_device,
+                 cache=PlanCache()).bind(m2)
+    for a, b in zip(op2.obj.value_tables(), fresh.obj.value_tables()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert op.plan.degraded == {}

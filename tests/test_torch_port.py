@@ -47,15 +47,23 @@ def test_converters_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 
 def test_unported_planning_choices_raise():
+    """The default plan (format and partition autotuned) and every format
+    plan; what is not ported (the ``dist`` workload) raises, as do
+    unknown names."""
     m = poisson3d(6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan(m, device="cpu")                        # format="auto"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan(m, execution=ExecutionConfig(format="ehyb"), device="cpu")
-    with pytest.raises(KeyError):
-        plan(m, execution=ExecutionConfig(format="csr",
+    p = plan(m, device="cpu")                        # format="auto"
+    assert p.tuning is not None and p.format == p.tuning.format
+    assert p.partition_tuning is not None
+    p = plan(m, execution=ExecutionConfig(format="ehyb"), device="cpu")
+    assert p.partition_strategy == p.partition_tuning.strategy
+    p = plan(m, execution=ExecutionConfig(format="csr",
                                           partition_method="bfs"),
              device="cpu")
+    assert p.format == "csr" and p.partition_strategy == "bfs"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        plan(m, execution=ExecutionConfig(workload="dist"), device="cpu")
+    with pytest.raises(KeyError):
+        plan(m, execution=ExecutionConfig(format="coo"), device="cpu")
     with pytest.raises(ValueError):
         plan(m, execution=PINNED, device="meta")
     op = plan(m, execution=PINNED, device="cpu").bind(m)

@@ -424,7 +424,7 @@ class TestGuardedApply:
                             dataclasses.replace(
                                 spec, apply=broken("native"),
                                 fallback=broken("unfused")))
-        monkeypatch.setattr(guard, "coo_spmv", broken("reference"))
+        monkeypatch.setattr(guard, "coo_product", broken("reference"))
         m = poisson3d(6)
         op = _plan(m).bind(m)
         with chaos(slow_apply_s=0.0):      # arm the probe on a CPU plan

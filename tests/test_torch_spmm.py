@@ -460,13 +460,16 @@ def test_layer_limits():
     assert layer3 is layer and type(layer3) is EHYBLinear
     assert layer3.op.obj.perm is perm
     torch.testing.assert_close(layer3(x), 3.0 * y, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tapi.pruned_linear(w, 0.3, format="ehyb", partition_method="bfs",
                            mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.pruned_linear(w, 0.3, partition_method="bfs", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.pruned_linear(w, 0.3, format="ehyb", device="cpu")
+    # the format and the partition strategy autotuned, as in the reference
+    auto = tapi.pruned_linear(w, 0.3, partition_method="bfs", device="cpu")
+    assert auto.op.format == auto.op.tuning.format
+    tuned_part = tapi.pruned_linear(w, 0.3, format="ehyb", device="cpu")
+    assert tuned_part.op.plan.partition_tuning is not None
+    for lay in (auto, tuned_part):
+        torch.testing.assert_close(lay(x), y, rtol=1e-4, atol=1e-4)
     # transposed activations reach the apply as a strided view
     xt = torch.as_tensor(x[0].T.copy(), dtype=torch.float32).T
     assert not xt.is_contiguous()
