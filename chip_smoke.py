@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six main paths, each driven with every kernel's launch count set to 0
+Seven main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -50,7 +50,26 @@ just before it and read just after:
   bit-identical to a fresh bind), ``dense`` on the 8,192-row
   ``unstruct_8k``; and ``pruned_linear`` with its defaults on the
   llama3_2_1b down projection.  The winner must have the least modeled
-  bytes, its solve must converge and its kernel launch.
+  bytes, its solve must converge and its kernel launch.  A tune store in a
+  fresh directory (``tuning.set_store``) is active from here through 2d,
+  so the cold plans save their decisions;
+* the warm start (2c): the default plan and the ``mode="measure"`` plans
+  at k = 1 and k = 16 planned again from that store on a fresh
+  ``PlanCache`` (as a new process has), which must be three store hits
+  with zero partitioning passes and zero tuner measurements, the cold
+  plans' ``identity()``, bit-identical partitions and the tuned
+  ``rhs_chunk``; then the warm default plan's bind, ``op @ x`` and solve
+  (the cold plan's iterations) and the warm k = 16 plan's ``op @ X``
+  (#2, #3, #8).
+
+Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
+on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
+bytes per (matrix, format), each term's effective GB/s, each format's
+intercept, the fit's agreement numbers) and ``elasticity3d(64)`` planned
+under it with the store off; and the full verifier (5d):
+``bind(validate="full")`` on the k = 1, k = 16 and default plans, seeded
+corruptions of the k = 1 container named by their rules, and a corrupt
+structure refused by ``bind(validate="full")`` before any launch.
 
 Every apply goes through the plan's guard; outside the chaos phases the
 script fails on any downgrade (``plan.degraded`` of every plan it built,
@@ -76,9 +95,11 @@ no result.
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -328,15 +349,19 @@ def check_healthy(plans: list, chaos_downgrades: int, phase: str) -> None:
 
 
 def default_plan_phase(dev, m, plans: list, all_kernels: dict,
-                       healthy) -> None:
+                       healthy) -> dict:
     """The sixth main path (see the module docstring) on ``m``: the default
-    plan, the measured pass, the four plain formats pinned at full size,
-    ``dense`` on ``unstruct_8k`` and the pruned layer with its defaults.
-    Every plan it makes joins ``plans``; raises on a failed check."""
+    plan, the measured pass, the four plain formats pinned at full size
+    (each verified, ``analysis.verify``), ``dense`` on ``unstruct_8k`` and
+    the pruned layer with its defaults.  Every plan it makes joins
+    ``plans``; raises on a failed check.  Returns the three cold plans the
+    store phase plans again, ``{name: (execution, plan, seconds)}``, and
+    the default plan's solve iterations under ``"iters"``."""
     import numpy as np
     import scipy.sparse as sp
     import torch
 
+    from repro_torch.analysis import verify
     from repro_torch.api import ExecutionConfig, plan, pruned_linear
     from repro_torch.autotune.registry import get_format
     from repro_torch.core import counters
@@ -416,6 +441,7 @@ def default_plan_phase(dev, m, plans: list, all_kernels: dict,
                 lambda o_=o_, vn=vn: o_.apply(vn, space="permuted"), dev)
     log("default-plan-vs-bfs", format=p.format, **vs_bfs)
     plans.append(p)
+    cold = {"default": (ExecutionConfig(), p, t_plan), "iters": int(res.iters)}
     del op, ob, y, res
 
     # -- the measured pass: k = 1, then k = 16 with the rhs_chunk sweep ----
@@ -467,6 +493,8 @@ def default_plan_phase(dev, m, plans: list, all_kernels: dict,
               f"#8 under the tuned chunk vs its plain version: {err_p}")
         del X_new, Y_new, Y_plain
     plans += [pm, pk]
+    cold["measure-k1"] = (ExecutionConfig(mode="measure"), pm, t_m)
+    cold["measure-k16"] = (ExecutionConfig(mode="measure", k=K_RHS), pk, t_k)
     del opk
 
     # -- the plain formats pinned: K = 1 and 16, the refill ----------------
@@ -511,14 +539,19 @@ def default_plan_phase(dev, m, plans: list, all_kernels: dict,
                      if f.name not in type(of.obj).VALUE_FIELDS
                      and isinstance(getattr(of.obj, f.name),
                                     (torch.Tensor, tuple)))
+        t0 = time.perf_counter()
+        findings = verify(of2)
+        t_v = time.perf_counter() - t0
         log("pinned-format", format=fmt, n=mf.n, bind_s=round(t_b, 3),
             rebind_s=round(t_r, 3), vs_scipy_f64_k1=e1,
             vs_scipy_f64_k16=e16, apply_ms=ms1, rebind_bit_identical=same,
-            shared_structure=shared)
+            shared_structure=shared, verify_s=round(t_v, 3),
+            findings=len(findings))
         check(e1 <= 1e-4 and e16 <= SPMM_TOL["float32"],
               f"{fmt}: op @ x {e1}, op @ X {e16} vs scipy")
         check(same and shared, f"{fmt}: the rebind equals a fresh bind and "
               f"shares the structure")
+        check(findings == [], f"{fmt}: verify found {findings[:3]}")
         plans += [pf, fresh.plan]
         del of, of2, fresh
 
@@ -550,7 +583,259 @@ def default_plan_phase(dev, m, plans: list, all_kernels: dict,
     healthy("default-plan")
     torch.cuda.empty_cache()
     log("default-plan-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return cold
 
+
+def store_phase(dev, m, cold: dict, plans: list, all_kernels: dict,
+                healthy):
+    """The seventh main path: the three cold plans of phase 2b planned
+    again from the tune store they saved into — on a fresh ``PlanCache``
+    (empty partition, partition-decision and host-build memos, as in a new
+    process; the script's ``PLAN_CACHE`` stays for the later phases) with
+    the tuner memo cleared — then ``op @ x`` and the CG + SPAI solve on
+    the warm default plan and ``op @ X`` on the warm k = 16 plan with its
+    stored ``rhs_chunk``, counts from 0.  Returns the warm default plan."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.api import PlanCache, plan
+    from repro_torch.autotune import tuner
+    from repro_torch.autotune.registry import get_format
+    from repro_torch.core import counters
+
+    t_phase = time.perf_counter()
+    cache = PlanCache()
+    tuner.clear_cache()
+    warm = {}
+    c0 = counters.snapshot()
+    for name in ("default", "measure-k1", "measure-k16"):
+        ex, cp, t_cold = cold[name]
+        t0 = time.perf_counter()
+        wp = plan(m, execution=ex, device=dev, cache=cache)
+        t_warm = time.perf_counter() - t0
+        warm[name] = wp
+        same_part = all(np.array_equal(getattr(wp.partition, f),
+                                       getattr(cp.partition, f))
+                        for f in ("part_vec", "perm", "inv_perm"))
+        log("store-warm-plan", plan=name, cold_s=round(t_cold, 3),
+            warm_s=round(t_warm, 3), format=wp.format,
+            strategy=wp.partition_strategy, tuned=wp.tuned.to_dict(),
+            identity_equal=wp.identity() == cp.identity(),
+            partition_bit_identical=same_part)
+        check(wp.identity() == cp.identity() and same_part
+              and (wp.n_parts, wp.vec_size) == (cp.n_parts, cp.vec_size),
+              f"{name}: the warm plan equals the cold one")
+        check(wp.tuning is None and wp.partition_tuning is None,
+              f"{name}: served by the store, not tuned")
+    c1 = counters.snapshot()
+    delta = {k: c1.get(k, 0) - c0.get(k, 0)
+             for k in ("tune_store.hit", "tune_store.miss", "partition",
+                       "tune.measured", "build_ehyb")}
+    log("store-warm-counters", **delta)
+    check(delta["tune_store.hit"] == 3 and delta["tune_store.miss"] == 0
+          and delta["partition"] == 0 and delta["tune.measured"] == 0
+          and delta["build_ehyb"] == 0,
+          f"the warm plans were served by the store alone: {delta}")
+    wd, wk = warm["default"], warm["measure-k16"]
+    check(wk.tuned.rhs_chunk == cold["measure-k16"][1].tuned.rhs_chunk,
+          "the k = 16 plan keeps its tuned rhs_chunk")
+
+    # -- counts from 0, then the warm default plan's bind, op @ x and
+    #    solve, and the warm k = 16 plan's op @ X -----------------------------
+    a_sp = sp.csr_matrix((m.data, m.indices, m.indptr), shape=(m.n, m.n))
+    rng = np.random.default_rng(SEED + 5)
+    x_host, b_host = rng.standard_normal(m.n), rng.standard_normal(m.n)
+    X_host = rng.standard_normal((m.n, K_RHS))
+    x = torch.as_tensor(x_host, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(b_host, dtype=torch.float32, device=dev)
+    X = torch.as_tensor(X_host, dtype=torch.float32, device=dev)
+    for fn in all_kernels.values():
+        fn.launches = 0
+    b0 = counters.snapshot()
+    t0 = time.perf_counter()
+    op = wd.bind(m)
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t0
+    y = op @ x
+    res = op.solve(b, precond="spai", tol=1e-6)
+    t0 = time.perf_counter()
+    op16 = wk.bind(m)
+    torch.cuda.synchronize()
+    t_bind16 = time.perf_counter() - t0
+    Y = op16 @ X
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in all_kernels.items() if f.launches}
+    b1 = counters.snapshot()
+    err = rel_err(y.cpu(), a_sp @ x_host)
+    err16 = rel_err(Y.cpu(), a_sp @ X_host)
+    b32 = b_host.astype(np.float32).astype(np.float64)
+    true_res = float(np.linalg.norm(b32 - a_sp @ res.x.double().cpu().numpy())
+                     / np.linalg.norm(b32))
+    log("store-warm-path", bind_s=round(t_bind, 3),
+        bind_k16_s=round(t_bind16, 3), vs_scipy_f64=err,
+        vs_scipy_f64_k16=err16, status=res.status, iters=int(res.iters),
+        cold_iters=cold["iters"], true_residual=true_res,
+        rhs_chunk=getattr(op16.obj, "rhs_chunk", None), launches=launches,
+        partition=b1.get("partition", 0) - b0.get("partition", 0))
+    check(err <= 1e-4 and err16 <= SPMM_TOL["float32"],
+          f"warm plans vs scipy: {err}, {err16}")
+    check(res.status == "converged" and true_res <= 1e-5
+          and int(res.iters) == cold["iters"],
+          f"warm solve: {res.status}, {int(res.iters)} iterations against "
+          f"the cold plan's {cold['iters']}")
+    check(b1.get("partition", 0) == b0.get("partition", 0),
+          "the warm binds built on the stored partitions")
+    check(launches.get("fused_cg_update", 0) > 0,
+          "the warm solve went through the CG-step kernel (#3)")
+    if get_format(wd.format).kernel == "cuda":
+        check(launches.get("ehyb_packed_fused", 0) > 0,
+              "op @ x and the solve went through #2")
+    if wk.format == "ehyb_packed":
+        check(op16.obj.rhs_chunk == wk.tuned.rhs_chunk
+              and launches.get("ehyb_packed_fused_spmm", 0) > 0,
+              "op @ X went through #8 with the stored rhs_chunk")
+    plans += [wd, warm["measure-k1"], wk]
+    del op, op16, y, Y, res, cache
+    healthy("store-warm")
+    torch.cuda.empty_cache()
+    log("store-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return wd
+
+
+def calibration_phase(dev, m, plans: list, healthy) -> None:
+    """``tuning.calibrate()`` on ``DEFAULT_SUITE`` on the card, persisted
+    into the active store; then ``m`` planned with every default (the
+    dtype spelled out, so the cache answers with a new plan that shares
+    phase 2b's partition decisions and host build) under the fitted model
+    with the store switched off — a store hit would replace the tuner, and
+    the calibration would decide nothing."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch import tuning
+    from repro_torch.api import ExecutionConfig, plan
+
+    t_phase = time.perf_counter()
+    store = tuning.get_store()
+    out = tuning.calibrate(device=dev)
+    t_cal = time.perf_counter() - t_phase
+    for s in out["samples"]:
+        log("calibration-sample", matrix=s["matrix"], format=s["format"],
+            measured_ms=s["measured_s"] * 1e3,
+            modeled_bytes=s["modeled_bytes"])
+    model = out["model"]
+    ev = out["evaluation"]
+    log("calibration-terms", **{
+        f"{t}_GBps": (1.0 / c / 1e9 if c > 0 else "inf")
+        for t, c in model["coef"].items()})
+    log("calibration-intercepts",
+        **{f"{f}_us": b * 1e6 for f, b in model["intercept"].items()})
+    log("calibration", backend=model["backend"], seconds=round(t_cal, 3),
+        n_samples=model["n_samples"], r2=model["stats"]["r2"],
+        ratio_geomean=ev["ratio_geomean"], ratio_min=ev["ratio_min"],
+        ratio_max=ev["ratio_max"], contested=ev["contested"],
+        agree_raw=ev["agree_raw"], agree_calibrated=ev["agree_calibrated"],
+        persisted=out["persisted"])
+    for row in ev["matrices"]:
+        log("calibration-winners", matrix=row["matrix"],
+            measured=row["measured_winner"], raw=row["raw_winner"],
+            calibrated=row["calibrated_winner"])
+    check(out["persisted"] and store.load_calibration(model["backend"])
+          is not None, "the calibration is persisted in the store")
+    check(model["backend"] == tuning.backend_key(dev)
+          and "ehyb_packed" in {s["format"] for s in out["samples"]},
+          "the calibration measured the card's kernel format")
+
+    tuning.set_store(None)
+    try:
+        t0 = time.perf_counter()
+        pc = plan(m, execution=ExecutionConfig(dtype=torch.float32),
+                  device=dev)
+        t_plan = time.perf_counter() - t0
+        cal = pc.tuning.calibrated_s
+        log("calibrated-plan", format=pc.format,
+            strategy=pc.partition_strategy, plan_s=round(t_plan, 3),
+            **{f"{f}_ms": s * 1e3 for f, s in sorted(
+                cal.items(), key=lambda kv: kv[1])})
+        check(cal is not None and pc.format == min(sorted(cal),
+                                                   key=cal.get),
+              "the calibrated plan picks the least predicted seconds")
+        rng = np.random.default_rng(SEED + 6)
+        x_host = rng.standard_normal(m.n)
+        op = pc.bind(m)
+        y = op @ torch.as_tensor(x_host, dtype=torch.float32, device=dev)
+        a_sp = sp.csr_matrix((m.data, m.indices, m.indptr),
+                             shape=(m.n, m.n))
+        err = rel_err(y.cpu(), a_sp @ x_host)
+        log("calibrated-plan-path", vs_scipy_f64=err)
+        check(err <= 1e-4, f"calibrated plan op @ x vs scipy: {err}")
+        plans.append(pc)
+        del op, y
+    finally:
+        tuning.set_store(store)
+        tuning.set_model(None)
+    healthy("calibration")
+    torch.cuda.empty_cache()
+    log("calibration-phase", seconds=round(time.perf_counter() - t_phase, 3))
+
+
+def verify_phase(m, main_plans: dict, op, all_kernels: dict) -> None:
+    """``bind(validate="full")`` on the main plans (each also holds its
+    tables to its host build's pattern); seeded corruptions of clones of
+    the k = 1 container, named by their rules; the plan's structure
+    corrupted the first way (what every rebind scatters into) refused by
+    ``bind(validate="full")`` before any launch."""
+    import torch
+
+    from repro_torch.analysis import verify
+
+    t_phase = time.perf_counter()
+    for name, p in main_plans.items():
+        t0 = time.perf_counter()
+        opv = p.bind(m, validate="full")
+        torch.cuda.synchronize()
+        log("verify-full", plan=name, format=p.format,
+            seconds=round(time.perf_counter() - t0, 3))
+        del opv
+    o = op.obj
+    bad = {}
+    for field, idx, value, rule in (
+            ("packed_cols", (0, 0), o.vec_size, "index-bound.ell-local"),
+            ("er_s_cols", 0, o.n_pad, "index-bound.er-global")):
+        t = getattr(o, field).clone()
+        t[idx] = value
+        bad[field] = t
+        t0 = time.perf_counter()
+        rules = sorted({f.rule for f in verify(
+            dataclasses.replace(o, **{field: t}))})
+        log("verify-seeded", field=field, value=value, rules=rules,
+            seconds=round(time.perf_counter() - t0, 3))
+        check(rule in rules, f"{field} = {value} named {rules}, not {rule}")
+    bad_plan = dataclasses.replace(
+        op.plan, _structure=dataclasses.replace(
+            op.plan._structure, packed_cols=bad["packed_cols"]),
+        _last={}, _guards={})
+    before = {k: f.launches for k, f in all_kernels.items()}
+    t0 = time.perf_counter()
+    try:
+        bad_plan.bind(m, validate="full")
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    after = {k: f.launches for k, f in all_kernels.items()}
+    log("verify-refused", field="packed_cols",
+        raised="index-bound.ell-local" in raised,
+        launches_moved=after != before,
+        seconds=round(time.perf_counter() - t0, 3))
+    check("index-bound.ell-local" in raised and after == before,
+          "bind(validate='full') refuses the corrupt structure before any "
+          "launch")
+    del bad, bad_plan
+    torch.cuda.empty_cache()
+    log("verify-phase", seconds=round(time.perf_counter() - t_phase, 3))
 
 def main() -> int:
     import torch
@@ -577,6 +862,7 @@ def run(dev, nx: int) -> list:
     import numpy as np
     import scipy.sparse as sp
 
+    from repro_torch import tuning
     from repro_torch.api import (ExecutionConfig, PlanCache, SolvePolicy,
                                  chaos, plan, pruned_linear)
     from repro_torch.autotune.cost import matrix_key
@@ -665,8 +951,21 @@ def run(dev, nx: int) -> list:
         er_rows=er_live, ell_width=e.ell_width, er_width=e.er_width,
         modeled_bytes_per_spmv=modeled["total"])
 
-    # ---- 2b. the default plan: partition and format autotuned --------------
-    default_plan_phase(dev, m, plans, all_kernels, healthy)
+    # ---- 2b. the default plan: partition and format autotuned, its cold
+    # decisions saved into a tune store in a fresh directory ----------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    store_dir = Path(tempfile.mkdtemp(prefix="tune_store_",
+                                      dir=ROOT / "build"))
+    tuning.set_store(store_dir)
+    cold = default_plan_phase(dev, m, plans, all_kernels, healthy)
+
+    # ---- 2c. the same plans served by the store (a main path) --------------
+    warm_default = store_phase(dev, m, cold, plans, all_kernels, healthy)
+
+    # ---- 2d. a calibration fitted on the card, and the plan it ranks -------
+    calibration_phase(dev, m, plans, healthy)
+    tuning.set_store(None)
+    shutil.rmtree(store_dir)
 
     rng = np.random.default_rng(SEED)
     x = torch.as_tensor(rng.standard_normal(m.n), dtype=torch.float32,
@@ -925,6 +1224,11 @@ def run(dev, nx: int) -> list:
             partition0_rows_with_padded_slots=padded0, live_only=live_ok[k])
     check(all(live_ok.values()), "#7 and #9 read only live entries")
     del y_nan, xnan
+
+    # ---- 5d. the full verifier on the main plans; seeded corruptions -------
+    verify_phase(m, {"k1": p_packed, "k16": pb, "default": warm_default},
+                 op, all_kernels)
+    del warm_default
 
     # ---- 6. K = 16 on the solver's k = 1 plan (chunked re-sweep) -----------
     kc1 = KM.rhs_chunk_for(K_RHS, o.vec_size, 4, None,

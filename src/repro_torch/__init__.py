@@ -4,9 +4,10 @@ Mirrors the JAX package's layout — ``core`` (host format build, device
 containers, plain applies, CG), ``kernels`` (hand-written CUDA kernels with
 their plain versions), ``autotune`` (the formats' registry, the bytes-moved
 cost model, the format and partition-strategy tuner), ``tuning`` (tunable
-kernel parameters), ``api`` (``plan → bind → apply/solve``),
-``reliability`` (guarded apply, solve policy, fault injection) — and is
-held against it module by module.  It imports ``torch`` and never ``jax``
+kernel parameters, the calibrated cost model and the persistent tune
+store), ``analysis`` (the format-invariant verifier and the lints),
+``api`` (``plan → bind → apply/solve``), ``reliability`` (guarded apply,
+solve policy, fault injection) — and is held against it module by module.  It imports ``torch`` and never ``jax``
 or ``repro``.
 
     from repro_torch.api import ExecutionConfig, SolvePolicy, plan
@@ -21,6 +22,8 @@ or ``repro``.
 
 from .reliability import (ReliabilityWarning, SolveFailure,
                           SolveFailureWarning, SolvePolicy, chaos)
+
+__version__ = "0.1.0"
 
 __all__ = ["ReliabilityWarning", "SolveFailure", "SolveFailureWarning",
            "SolvePolicy", "chaos"]

@@ -1,0 +1,194 @@
+"""Dispatch lint (static analysis pass 2 of 3) — the counterpart of the
+reference's jaxpr sanitizer (``repro.analysis.jaxpr_lint``).
+
+Eager PyTorch has no program to walk, so the port runs every registered
+apply instead — original and permuted space, K = 1 and K = 4, fp32, bf16
+and fp64, on a small probe matrix on the CPU (where every format runs its
+plain path, the oracle of the card's kernels) — under a
+``TorchDispatchMode`` that records each aten op with the dtypes and
+devices of its tensors, and checks the record:
+
+  dtype-downcast    an op with a float64 input gives a narrower float
+                    output (precision loss the caller never asked for)
+                    — error
+  bf16-accum        an ``mm``/``sum``/``index_add``/``scatter_add``
+                    (or a relative: ``bmm``, ``addmm``, ``mv``, ``dot``,
+                    ``scatter_reduce``) over bf16 operands has a bf16
+                    result (the §4 mixed-precision discipline: bf16 in,
+                    fp32 accumulate) — warning, ratcheted
+  host-callback     a host sync inside an apply: ``_local_scalar_dense``
+                    (``.item()``, ``int(t)``, a tensor in an ``if``) or a
+                    copy of a tensor from another device to the CPU — each
+                    stalls the card's queue — error
+  trace-failure     the apply raised — error
+
+Two of the reference's rules are dropped: ``collective-axis`` checks the
+sharded program's collectives and comes with ``dist/``; ``oversized-const``
+checks constants closed into a traced program, and eager torch closes over
+none (container tables arrive as arguments by construction).
+
+``run_dispatch_lint()`` sweeps every registered format;
+``python -m repro_torch.analysis`` gates it against the port's baseline.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Optional
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from .findings import Finding
+
+__all__ = ["lint_ops", "record_ops", "run_dispatch_lint",
+           "registered_paths"]
+
+_FLOAT_WIDTH = {torch.float16: 2, torch.bfloat16: 2, torch.float32: 4,
+                torch.float64: 8}
+# accumulating ops: a bf16 result means the sum was carried in bf16
+_ACCUM_OPS = {"mm", "bmm", "addmm", "addmv", "mv", "dot", "baddbmm",
+              "sum", "index_add", "index_add_", "scatter_add",
+              "scatter_add_", "scatter_reduce", "scatter_reduce_"}
+_SYNC_OPS = {"_local_scalar_dense"}
+_COPY_OPS = {"_to_copy", "copy_", "_copy_from"}
+
+
+class _Op:
+    """One recorded aten op: its name and its tensors' (dtype, device)."""
+
+    __slots__ = ("name", "ins", "outs")
+
+    def __init__(self, name: str, ins: list, outs: list):
+        self.name, self.ins, self.outs = name, ins, outs
+
+
+def _tensors(tree) -> list:
+    out = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.append((v.dtype, v.device))
+        elif isinstance(v, (list, tuple)):
+            for u in v:
+                walk(u)
+        elif isinstance(v, dict):
+            for u in v.values():
+                walk(u)
+    walk(tree)
+    return out
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops: List[_Op] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops.append(_Op(func.overloadpacket.__name__,
+                            _tensors((args, kwargs)), _tensors(out)))
+        return out
+
+
+def record_ops(fn, *args) -> List[_Op]:
+    """Run ``fn(*args)`` and return the aten ops it dispatched."""
+    rec = _Recorder()
+    with rec:
+        fn(*args)
+    return rec.ops
+
+
+def lint_ops(ops: Iterable[_Op], site: str) -> List[Finding]:
+    """Lint one recorded op sequence (as returned by :func:`record_ops`)."""
+    out: List[Finding] = []
+    for op in ops:
+        in_f = [dt for dt, _ in op.ins if dt.is_floating_point]
+        out_f = [dt for dt, _ in op.outs if dt.is_floating_point]
+        if op.name in _SYNC_OPS:
+            out.append(Finding(
+                "error", site, "host-callback",
+                f"aten.{op.name} inside an apply path — a host sync that "
+                f"stalls the card's queue each call"))
+        elif op.name in _COPY_OPS and any(d.type != "cpu"
+                                          for _, d in op.ins) and \
+                any(d.type == "cpu" for _, d in op.outs):
+            out.append(Finding(
+                "error", site, "host-callback",
+                f"aten.{op.name} copies a device tensor to the CPU inside "
+                f"an apply path — a host round trip each call"))
+        if torch.float64 in in_f and any(
+                _FLOAT_WIDTH.get(dt, 8) < 8 for dt in out_f):
+            narrow = sorted({str(dt).removeprefix("torch.") for dt in out_f
+                             if _FLOAT_WIDTH.get(dt, 8) < 8})
+            out.append(Finding(
+                "error", site, "dtype-downcast",
+                f"aten.{op.name}: float64 input narrowed to "
+                f"{', '.join(narrow)}"))
+        if op.name in _ACCUM_OPS and torch.bfloat16 in in_f and \
+                torch.bfloat16 in out_f:
+            out.append(Finding(
+                "warning", site, "bf16-accum",
+                f"aten.{op.name} over bf16 operands accumulates in bf16; "
+                f"promote the accumulator to fp32 (bf16 carries ~8 "
+                f"significand bits)"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sweep every registered apply path
+# ---------------------------------------------------------------------------
+
+def _probe_matrix(n: int = 64, density: float = 0.12, seed: int = 0):
+    """The reference's probe matrix (``jaxpr_lint._probe_matrix``)."""
+    from ..core.matrices import from_coo
+
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((n, n)) < density) * rng.random((n, n))
+    np.fill_diagonal(dense, 1.0)
+    rows, cols = np.nonzero(dense)
+    return from_coo(n, rows, cols, dense[rows, cols])
+
+
+def registered_paths(formats: Optional[List[str]] = None,
+                     dtypes=(torch.float32, torch.bfloat16, torch.float64),
+                     ks=(1, 4)):
+    """Yield ``(site, thunk)`` pairs; each thunk runs one apply of a
+    registered format on the probe matrix on the CPU."""
+    from ..autotune.registry import available_formats, build_format, \
+        get_format
+
+    m = _probe_matrix()
+    rng = np.random.default_rng(1)
+    for fmt in (formats or available_formats()):
+        spec = get_format(fmt)
+        for dt in dtypes:
+            dt_name = str(dt).removeprefix("torch.")
+            obj = build_format(fmt, m, dt, {}, device="cpu")
+            for k in ks:
+                shape = (m.n,) if k == 1 else (m.n, k)
+                x = torch.as_tensor(rng.standard_normal(shape), dtype=dt)
+                yield (f"{fmt}:apply:{dt_name}:k{k}",
+                       lambda a=spec.apply, o=obj, x=x: a(o, x))
+                if spec.permuted is not None:
+                    shape = (obj.n_pad,) if k == 1 else (obj.n_pad, k)
+                    xp = torch.as_tensor(rng.standard_normal(shape),
+                                         dtype=dt)
+                    yield (f"{fmt}:permuted:{dt_name}:k{k}",
+                           lambda a=spec.permuted, o=obj, x=xp: a(o, x))
+
+
+def run_dispatch_lint(formats: Optional[List[str]] = None) -> List[Finding]:
+    """Run + lint every registered apply path."""
+    out: List[Finding] = []
+    for site, thunk in registered_paths(formats):
+        try:
+            ops = record_ops(thunk)
+        except Exception as e:  # noqa: BLE001 — any failure to run is
+            # itself the reportable defect; the finding carries the cause
+            out.append(Finding("error", site, "trace-failure",
+                               f"{type(e).__name__}: {e}"))
+            continue
+        out += lint_ops(ops, site)
+    return out

@@ -1,6 +1,6 @@
 """Operator API: the pattern-only :class:`Plan` and its cache.
 
-The port of ``repro.api.plan`` (without the mesh and the persistent store).
+The port of ``repro.api.plan`` (without the mesh).
 The paper's economic argument (§3, §4.3) is that EHYB preprocessing is paid
 once per sparsity pattern and amortized across many SpMVs:
 
@@ -16,7 +16,12 @@ With the default :class:`ExecutionConfig` (``format="auto"``,
 partition strategy priced at the plan's geometry (``autotune_partition``),
 then every format ranked by modeled bytes (``autotune``), and keeps both
 tables (:attr:`Plan.partition_tuning`, :attr:`Plan.tuning`) and the
-resolved tunable parameters (:attr:`Plan.tuned`).  The first ``bind`` of
+resolved tunable parameters (:attr:`Plan.tuned`).  With a persistent tune
+store active (``tuning.store``: ``REPRO_TORCH_TUNE_CACHE`` or
+``tuning.set_store``), a stored decision for the pattern replaces both
+tuning passes — format, partition strategy with its arrays, and tuned
+parameters — and a plan that tuned its format saves its decision: the
+order is pin > store > measured sweep > defaults.  The first ``bind`` of
 an EHYB-family plan builds the host EHYB tables on the partition and
 uploads them; the first bind of any other format builds its structure and
 scatters the values into it, as every rebind does.  Every later bind of
@@ -128,13 +133,72 @@ class PlanCache:
         return p
 
     def partition(self, pattern: SparseCSR, key: str, method: str,
-                  n_parts: int, vec_size: int) -> Partition:
+                  n_parts: int, vec_size: int,
+                  seed: Optional[Partition] = None) -> Partition:
+        """The ``method`` partition of ``pattern`` (pattern hash ``key``) at
+        ``(n_parts, vec_size)``, memoized; ``seed`` (a stored partition of
+        that method and geometry) fills a miss without partitioning."""
         pk = (key, method, n_parts, vec_size)
         part = self._parts.get(pk)
         if part is None:
-            part = self._parts[pk] = make_partition(
-                pattern, method=method, n_parts=n_parts, vec_size=vec_size)
+            part = self._parts[pk] = seed if seed is not None else \
+                make_partition(pattern, method=method, n_parts=n_parts,
+                               vec_size=vec_size)
         return part
+
+    # ---- the persistent tune store (tuning.store) --------------------------
+
+    @staticmethod
+    def store():
+        """The active on-disk tune store, or None (in-memory only)."""
+        from ..tuning.store import get_store
+
+        return get_store()
+
+    def load(self, key: str, context: str, *, device: torch.device,
+             dtype=None, k: int = 1, mode: str = "model",
+             geometry: Optional[tuple] = None):
+        """Stored ``(TuneEntry, Partition)`` for a pattern hash and plan
+        configuration on ``device``, or ``(None, None)``: corruption (a
+        partition of another ``geometry`` included) is quarantined, stale
+        versions are evicted, and the store's counters record the
+        outcome."""
+        from ..tuning.store import backend_key, dtype_name
+
+        st = self.store()
+        if st is None:
+            return None, None
+        res = st.load(key, backend_key(device),
+                      dtype_name(dtype or torch.float32), context, k, 1,
+                      mode, geometry)
+        return (None, None) if res is None else res
+
+    def save(self, plan: "Plan") -> bool:
+        """Persist a plan's decisions (format, partition strategy and
+        arrays, tuned parameters) into the active store.  No-op without a
+        store; refused while fault injection is active."""
+        from ..tuning.store import TuneEntry, backend_key, dtype_name
+
+        st = self.store()
+        if st is None:
+            return False
+        ex = plan.execution
+        entry = TuneEntry(
+            pattern=plan.key, backend=backend_key(plan.device),
+            dtype=dtype_name(ex.dtype or torch.float32),
+            context=plan.context, k=ex.k, n_dev=1, format=plan.format,
+            partition_method=plan.partition_strategy,
+            tuned=plan.tuned.to_dict(), mode=ex.mode,
+            meta={"n": plan.n, "nnz": plan.nnz})
+        return st.save(entry, plan.partition)
+
+    def evict(self, pattern: Optional[str] = None) -> int:
+        """Evict persisted entries (all, or one pattern hash) from the
+        active store; returns the number of entries removed."""
+        st = self.store()
+        return 0 if st is None else st.evict(pattern)
+
+    # ---- bookkeeping -------------------------------------------------------
 
     def clear(self) -> None:
         self._plans.clear()
@@ -143,8 +207,10 @@ class PlanCache:
         self.partition_tunings.clear()
 
     def stats(self) -> dict:
-        """Plan, partition and host-build counts, plus the tuner's decision
-        memo (``tune``; its ``disk`` is None: no persistent store)."""
+        """Plan, partition and host-build counts, plus the tune layer: the
+        tuner's decision memo and, under ``tune["disk"]``, the active
+        persistent store's entries and hit/miss/stale/quarantine counters
+        (None without a store)."""
         from ..autotune.tuner import tune_cache_info
 
         return {"plans": len(self._plans), "partitions": len(self._parts),
@@ -247,11 +313,21 @@ class Plan:
     def _create(cls, pattern: SparseCSR, key: str,
                 execution: ExecutionConfig, device: torch.device,
                 cache: PlanCache) -> "Plan":
-        """The reference's ``Plan._create`` without the mesh and the store:
-        resolve the context, autotune the partition strategy when none is
-        pinned and an EHYB-family format may be chosen, autotune the format
-        when it is ``"auto"``, and resolve the tuned parameters (pin >
-        measured sweep > defaults)."""
+        """The reference's ``Plan._create`` without the mesh: resolve the
+        context, consult the persistent store, autotune the partition
+        strategy when none is pinned or stored and an EHYB-family format
+        may be chosen, autotune the format when it is ``"auto"`` and not
+        stored, and resolve the tuned parameters (pin > store > measured
+        sweep > defaults).
+
+        A stored entry for (pattern, backend, dtype, context, k, mode)
+        warm-starts the decisions: its partition strategy and arrays (which
+        seed the partition memo, so the host build partitions nothing) and
+        its tuned parameters unless pinned, and, for ``format="auto"``, its
+        format in place of the tuner (an entry whose format the candidates
+        rule out is ignored).  A plan that tuned its format saves its
+        decisions; a pinned format is not a decision to persist, since a
+        later ``"auto"`` plan of the pattern would take it."""
         from ..autotune.tuner import autotune, autotune_partition
         from ..tuning.params import TunedParams, resolve
 
@@ -265,10 +341,21 @@ class Plan:
                       execution.candidates or available_formats())
                   if fmt == "auto" else get_format(fmt).partitioned)
         geometry = partition_sizing(pattern.n, device, execution.k)
+        entry, stored = cache.load(key, context, device=device, dtype=dtype,
+                                   k=execution.k, mode=execution.mode,
+                                   geometry=geometry)
+        if entry is not None and fmt == "auto" and entry.format not in (
+                execution.candidates or available_formats()):
+            entry = stored = None
+        method = execution.partition_method
+        if method is None and entry is not None:
+            method = entry.partition_method
+        if stored is not None and stored.method != method:
+            stored = None                   # a pin chose another strategy
         ptuning = part = None
-        if execution.partition_method is not None:
-            part = cache.partition(pattern, key, execution.partition_method,
-                                   *geometry)
+        if method is not None:
+            part = cache.partition(pattern, key, method, *geometry,
+                                   seed=stored)
         elif family:
             ptuning = autotune_partition(
                 pattern, context=context,
@@ -276,9 +363,13 @@ class Plan:
                 geometry=geometry, cache=cache)
             part = ptuning.partition
         tuned = execution.tuned
+        if tuned is None and entry is not None:
+            tuned = entry.tuned_params()
         shared: dict = {}
         tuning = None
-        if fmt == "auto":
+        if fmt == "auto" and entry is not None:
+            fmt = entry.format              # the full warm start: no tuner
+        elif fmt == "auto":
             if family and part is not None:
                 # the family's byte models read a host build on the
                 # partition (the pattern's values; a bind of the same
@@ -295,11 +386,22 @@ class Plan:
                 shared.pop("ehyb", None)
         tuned = resolve(tuned)
         shared["tuned"] = tuned
-        return cls(key=key, n=pattern.n, nnz=pattern.nnz, format=fmt,
-                   context=context, execution=execution, device=device,
-                   partition=part, pattern=pattern, cache=cache,
-                   tuning=tuning, partition_tuning=ptuning, tuned=tuned,
-                   _shared=shared)
+        p = cls(key=key, n=pattern.n, nnz=pattern.nnz, format=fmt,
+                context=context, execution=execution, device=device,
+                partition=part, pattern=pattern, cache=cache,
+                tuning=tuning, partition_tuning=ptuning, tuned=tuned,
+                _shared=shared)
+        if tuning is not None:
+            cache.save(p)                   # no-op without an active store
+        return p
+
+    def identity(self) -> tuple:
+        """The plan's decisions: pattern hash, format, context, partition
+        strategy, execution token and tuned-parameter token.  A plan served
+        from the store equals here the cold plan that saved it."""
+        return (self.key, self.format, self.context,
+                self.partition_strategy, self.execution.token(),
+                self.tuned.token())
 
     @property
     def partition_strategy(self) -> Optional[str]:
@@ -363,7 +465,7 @@ class Plan:
         return self.cache.host_ehyb(self._as_csr(values), self.key,
                                     self.partition)
 
-    def bind(self, values, *, dtype=None, validate: bool = True):
+    def bind(self, values, *, dtype=None, validate=True):
         """Bind entry values to the planned structure -> LinearOperator.
 
         ``values`` is a :class:`SparseCSR` on this plan's pattern, a
@@ -373,8 +475,17 @@ class Plan:
         pattern and partition) and uploads them; every later one scatters
         the values into new tables on the plan's device, sharing the
         structure (:meth:`_scatter`).  Gradients of the applies of an
-        operator bound from a tensor reach that tensor.  ``validate``
-        rejects non-finite values."""
+        operator bound from a tensor reach that tensor.
+
+        ``validate=True`` (default) rejects non-finite values and
+        out-of-range pattern columns; ``False`` skips both;
+        ``validate="full"`` also runs the format's complete verifier
+        (``repro_torch.analysis.verify``: index bounds of every table the
+        kernels index with, permutation bijection, staircase and padding
+        discipline, the fill plan and the compact ER stream against the
+        pattern) on the bound container, on its device, and raises on any
+        error finding before the operator is returned, so no kernel ever
+        launches on a corrupt container."""
         from .operator import LinearOperator
 
         dtype = dtype or self.execution.dtype or torch.float32
@@ -395,8 +506,22 @@ class Plan:
                 obj = self._scatter(torch.from_numpy(
                     np.ascontiguousarray(csr.data)).to(device=self.device,
                                                        dtype=dtype))
-            self._last[dtype] = (weakref.ref(obj), mk)
-        return LinearOperator(plan=self, obj=obj, dtype=dtype, _csr=csr)
+        op = LinearOperator(plan=self, obj=obj, dtype=dtype, _csr=csr)
+        if validate == "full":
+            self._verify_full(op)
+        self._last[dtype] = (weakref.ref(obj), mk)
+        return op
+
+    def _verify_full(self, op) -> None:
+        """Raise on any error finding of the full verifier on ``op``."""
+        from ..analysis import errors, verify
+
+        bad = errors(verify(op))
+        if bad:
+            detail = "; ".join(str(f) for f in bad[:4])
+            raise ValueError(
+                f"bind(validate='full'): {len(bad)} invariant violation(s) "
+                f"in the bound {self.format!r} container: {detail}")
 
     def _first_bind(self, csr: SparseCSR, dtype, mk: Optional[str] = None):
         """The container of ``csr``'s values at ``dtype``; keeps its
@@ -430,7 +555,7 @@ class Plan:
                 spec.index(self.pattern, self._index_shared()), self.device)
         return spec.refill(self._structure, vals, self._scatter_idx)
 
-    def _bind_tensor(self, values: torch.Tensor, dtype, validate: bool):
+    def _bind_tensor(self, values: torch.Tensor, dtype, validate):
         """:meth:`bind` of a ``(nnz,)`` tensor: a scatter into new value
         tables on the plan's device (:meth:`_scatter`).  The operator keeps
         ``values`` (moved to the device, still in its autograd graph) for
@@ -448,8 +573,10 @@ class Plan:
         if validate:
             self._validate_bind(values)
         obj = self._scatter(values.detach().to(dtype))
-        return LinearOperator(plan=self, obj=obj, dtype=dtype,
-                              _values=values)
+        op = LinearOperator(plan=self, obj=obj, dtype=dtype, _values=values)
+        if validate == "full":
+            self._verify_full(op)
+        return op
 
     # ---- guarded applies ---------------------------------------------------
 

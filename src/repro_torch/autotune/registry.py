@@ -28,7 +28,12 @@ the framework needs to treat a format as a candidate:
   (``ehyb_packed`` only: ``use_er_kernel=False``);
 * ``partitioned`` — built on the plan's partition (the EHYB family).  The
   reference tells the family by its ``shard`` hook; the port has no
-  ``dist/`` yet and names it.
+  ``dist/`` yet and names it;
+* ``invariants`` — ``(obj, host=None) -> list[Finding]``: the format's
+  structural invariants on a built container, on its device
+  (``analysis.invariants``; ``host`` is the host EHYB build an EHYB-family
+  container was bound from), what ``analysis.verify`` and
+  ``Plan.bind(validate="full")`` run.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ class FormatSpec:
     terms: Optional[Callable] = None      # per-term split of ``model``
     fallback: Optional[Callable] = None            # unfused level, original
     fallback_permuted: Optional[Callable] = None   # unfused level, permuted
+    invariants: Optional[Callable] = None  # (obj, host=None) -> findings
     description: str = ""
 
 
@@ -361,6 +367,17 @@ def _terms_ehyb_packed(m, stats, vb, shared, context="spmv", k=1):
         vb, layout="packed", space=_ehyb_space(context), fused_er=True, k=k))
 
 
+def _invariants_hook(name: str) -> Callable:
+    """Default ``invariants`` hook: the built-in checkers of
+    ``analysis.invariants`` (imported when it runs, so the registry does
+    not import the analysis package)."""
+    def run(obj, host=None):
+        from ..analysis.invariants import format_invariants
+
+        return format_invariants(name, obj, host)
+    return run
+
+
 def _scatter_format(name, hooks, model, terms, apply, description,
                     **kw) -> FormatSpec:
     """A format whose value tables are filled through its scatter at every
@@ -369,6 +386,7 @@ def _scatter_format(name, hooks, model, terms, apply, description,
     return FormatSpec(name, _scatter_build(structure, index), model, apply,
                       index, fill_values, _positions(index),
                       structure=structure, terms=terms,
+                      invariants=_invariants_hook(name),
                       description=description, **kw)
 
 
@@ -385,6 +403,7 @@ register_format(FormatSpec(
     "ehyb", _build_ehyb, _model_ehyb, ehyb_spmv, _ehyb_index,
     scatter_values, _ehyb_positions, permuted=ehyb_spmv_permuted,
     partitioned=True, terms=_terms_ehyb,
+    invariants=_invariants_hook("ehyb"),
     description="EHYB uniform tiles, uint16 local cols; plain PyTorch "
                 "apply"))
 register_format(_scatter_format(
@@ -398,6 +417,7 @@ register_format(FormatSpec(
     permuted=ehyb_spmv_packed_permuted, kernel="cuda", partitioned=True,
     terms=_terms_ehyb_packed, fallback=_packed_unfused,
     fallback_permuted=_packed_unfused_permuted,
+    invariants=_invariants_hook("ehyb_packed"),
     description="EHYB packed staircase; fused CUDA kernel on the card"))
 register_format(_scatter_format(
     "dense", _from_csr(DenseDevice), _model_dense, _terms_dense,

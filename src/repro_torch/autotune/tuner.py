@@ -4,17 +4,22 @@ The port of ``repro.autotune.tuner``.  ``autotune(A)`` is OSKI's tuning
 loop:
 
 1. **cost-model pass** — rank every registered format by modeled bytes
-   (``cost.rank_formats``; one shared host EHYB build serves the family);
+   (``cost.rank_formats``; one shared host EHYB build serves the family),
+   or, when a calibration model is active for the plan's backend
+   (:func:`repro_torch.tuning.calibration.get_model`), by its predicted
+   seconds (``TuneResult.calibrated_s``);
 2. **measured pass** (``mode="measure"``) — build the ``top_k``
    model-ranked eligible candidates on the plan's device and time their
    applies (CUDA events on a card, ``perf_counter`` on the CPU), picking
    the fastest, then sweep the winner's tunable parameters
    (:func:`repro_torch.tuning.sweep_grid`);
 3. **cache** — the decision is memoized under (pattern hash, dtype, mode,
-   candidate set, context, k, tuned pin, sweep, device type, and the
-   partition the family's models priced): re-tuning the same pattern is a
-   dict lookup.  (The reference's key has no partition, so a pattern
-   planned on two partitions shares one decision there.)
+   candidate set, context, k, tuned pin, sweep, device type, the
+   partition the family's models priced and the calibration model's
+   fingerprint): re-tuning the same pattern is a dict lookup.  (The
+   reference's key has no partition, so a pattern planned on two
+   partitions shares one decision there.)  The persistent store
+   (``tuning.store``) sits above this memo, in ``api.plan``.
 
 Eligibility follows the plan's device: a CPU plan never selects a format
 whose applies launch CUDA kernels (``kernel="cuda"``), as the reference
@@ -61,8 +66,8 @@ class TuneResult:
     modeled_bytes: Dict[str, int]     # per-candidate modeled bytes
     measured_s: Optional[Dict[str, float]]  # per-timed-candidate seconds
     context: str = "spmv"             # workload the model ranked for
-    # calibrated predicted seconds: None (the calibration model is not
-    # ported; the ranking is on modeled bytes)
+    # per-candidate calibrated predicted seconds when a calibration model
+    # ranked the candidates, else None (ranked on modeled bytes)
     calibrated_s: Optional[Dict[str, float]] = None
     # winning tunable-parameter assignment (TunedParams payload) from the
     # measured sweep, or None when no sweep ran for the winner
@@ -98,11 +103,14 @@ def clear_cache() -> None:
 
 
 def tune_cache_info() -> dict:
-    """In-memory tune-cache contents; ``disk`` is None (the persistent store
-    is not ported)."""
+    """In-memory tune-cache contents, and under ``disk`` the active
+    persistent store's entries and counters (None without a store)."""
+    from ..tuning.store import get_store
+
+    st = get_store()
     return {"entries": len(_CACHE),
             "keys": sorted(k[0] for k in _CACHE.keys()),
-            "disk": None}
+            "disk": None if st is None else st.stats()}
 
 
 def _run(fn, inner: int, cuda: bool) -> float:
@@ -183,10 +191,16 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     build; ``sweep_params`` (default: under ``mode="measure"`` with no pin)
     sweeps the winner's grid and records the fastest assignment in
     ``TuneResult.tuned``.  ``device`` (default ``cuda``) is the plan's: it
-    decides which formats are eligible and where the measured pass runs.
+    decides which formats are eligible, where the measured pass runs and
+    which backend's calibration model (if any) ranks the candidates in
+    predicted seconds; the model's fingerprint joins the cache key, so
+    installing or refreshing a calibration never serves stale decisions.
     """
     from ..api.plan import resolve_device
+    from ..tuning import calibration
     from ..tuning.params import TunedParams, sweep_grid
+    from ..tuning.store import backend_key
+    from .cost import estimate_terms, matrix_stats
     from .registry import available_formats, get_format
 
     if mode not in ("model", "measure"):
@@ -201,11 +215,13 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     cand = tuple(candidates or available_formats())
     key = pattern_hash(m)
     shared = {} if shared is None else shared
+    cal = calibration.get_model(backend_key(device))
     sweep = ((mode == "measure" and tuned is None)
              if sweep_params is None else bool(sweep_params))
     cache_key = (key, str(dtype), mode, cand, context, k,
                  None if tuned is None else tuned.token(), sweep,
-                 device.type, _partition_key(shared))
+                 device.type, _partition_key(shared),
+                 None if cal is None else cal.fingerprint())
     # a ranking decided under fault injection must not outlive it
     use_cache = use_cache and _chaos_active() is None
     if use_cache and cache_key in _CACHE:
@@ -213,8 +229,15 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
 
     if tuned is not None:
         shared["tuned"] = tuned
-    ranked = rank_formats(m, _val_bytes(dtype), cand, shared, context, k)
+    val_bytes = _val_bytes(dtype)
+    ranked = rank_formats(m, val_bytes, cand, shared, context, k)
     modeled = dict(ranked)
+    calibrated = None
+    if cal is not None:
+        stats = matrix_stats(m)
+        calibrated = {f: cal.predict(estimate_terms(
+            m, f, val_bytes, shared, stats, context, k), f) for f in cand}
+        ranked = sorted(calibrated.items(), key=lambda kv: (kv[1], kv[0]))
     on_cpu = device.type == "cpu"
     eligible = [f for f, _ in ranked
                 if not (on_cpu and get_format(f).kernel == "cuda")]
@@ -272,7 +295,7 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
 
     result = TuneResult(format=winner, key=key, mode=mode,
                         modeled_bytes=modeled, measured_s=measured,
-                        context=context,
+                        context=context, calibrated_s=calibrated,
                         tuned=None if best is None else best.to_dict(),
                         sweep_s=sweep_s)
     if use_cache:

@@ -1111,3 +1111,102 @@ def test_plain_formats_on_the_card(cuda_device, fmt):
     for a, b in zip(op2.obj.value_tables(), fresh.obj.value_tables()):
         assert a.device.type == "cuda" and torch.equal(a, b)
     assert op.plan.degraded == {}
+
+
+# ---------------------------------------------------------------------------
+# the tune store, the calibration and the verifier on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card_store(tmp_path):
+    """A fresh tune store, no calibration model; both restored after."""
+    from repro_torch import tuning
+
+    st = tuning.set_store(tmp_path / "store")
+    tuning.set_model(None)
+    yield st
+    tuning.clear_store()
+    tuning.clear_model()
+
+
+@pytest.mark.cuda
+def test_store_round_trip_under_the_cards_backend_key(cuda_device,
+                                                      card_store):
+    from repro_torch import tuning
+    from repro_torch.api.plan import partition_sizing
+
+    m = SUITE["elasticity_8"]()
+    cold = plan(m, device=cuda_device, cache=PlanCache())
+    key = tuning.backend_key(cuda_device)
+    assert key.startswith("cuda-") and " " not in key
+    assert any(key in e for e in card_store.entries())
+    entry, part = card_store.load(
+        cold.key, key, "float32", "spmv",
+        geometry=partition_sizing(m.n, cuda_device, 1))
+    assert entry.format == cold.format
+    np.testing.assert_array_equal(part.perm, cold.partition.perm)
+    assert card_store.load(cold.key, "cpu", "float32", "spmv") is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16])
+def test_warm_plan_on_the_card_partitions_nothing(cuda_device, card_store,
+                                                  k):
+    from repro_torch.autotune import clear_cache
+
+    m = SUITE["poisson27_12"]()
+    ex = ExecutionConfig(mode="measure", k=k)
+    cold = plan(m, execution=ex, device=cuda_device, cache=PlanCache())
+    clear_cache()
+    before = counters.snapshot()
+    warm = plan(m, execution=ex, device=cuda_device, cache=PlanCache())
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (m.n, k)), dtype=torch.float32, device=cuda_device)
+    y = (warm.bind(m) @ x).cpu()
+    after = counters.snapshot()
+    assert warm.identity() == cold.identity()
+    for c in ("partition", "tune.measured"):
+        assert after.get(c, 0) == before.get(c, 0), c
+    assert after["tune_store.hit"] == before.get("tune_store.hit", 0) + 1
+    assert _rel(y, torch.as_tensor(_oracle(m, x.cpu().double().numpy()))) \
+        <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["csr", "ell", "hyb", "ehyb",
+                                 "ehyb_bucketed", "ehyb_packed", "dense"])
+def test_verify_clean_on_card_containers(cuda_device, fmt):
+    from repro_torch.analysis import verify
+
+    m = SUITE["powerlaw_4k"]()
+    p = plan(m, execution=ExecutionConfig(format=fmt,
+                                          partition_method="bfs"),
+             device=cuda_device, cache=PlanCache())
+    op = p.bind(m, validate="full")
+    assert op.obj.value_tables()[0].device.type == "cuda"
+    assert verify(op) == []
+    if fmt == "ehyb_packed":
+        bad = op.obj.packed_cols.clone()
+        bad[0, 0] = op.obj.vec_size
+        import dataclasses
+
+        rules = {f.rule for f in verify(dataclasses.replace(
+            op.obj, packed_cols=bad))}
+        assert "index-bound.ell-local" in rules
+
+
+@pytest.mark.cuda
+def test_calibrate_on_the_card(cuda_device, card_store):
+    from repro_torch import tuning
+
+    out = tuning.calibrate(["poisson3d_16", "powerlaw_4k"],
+                           device=cuda_device)
+    formats = {s["format"] for s in out["samples"]}
+    assert "ehyb_packed" in formats and len(out["samples"]) == 14
+    assert out["persisted"]
+    assert out["model"]["backend"] == tuning.backend_key(cuda_device)
+    assert all(s["measured_s"] > 0 for s in out["samples"])
+    r = plan(SUITE["poisson3d_16"](), device=cuda_device,
+             cache=PlanCache()).tuning
+    assert r.calibrated_s is not None and r.format == min(
+        sorted(r.calibrated_s), key=r.calibrated_s.get)

@@ -163,8 +163,14 @@ def test_port_imports_neither_jax_nor_repro():
         "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
         "k.startswith('repro.'))\n"
         "n = sum(k.startswith('repro_torch.') for k in sys.modules)\n"
-        "print(n, bad)\n"
-        "assert not bad, bad\n")
+        "need = ['repro_torch.tuning.store', 'repro_torch.tuning.calibration',"
+        " 'repro_torch.tuning.__main__', 'repro_torch.analysis.invariants',"
+        " 'repro_torch.analysis.dispatch_lint',"
+        " 'repro_torch.analysis.source_lint',"
+        " 'repro_torch.analysis.__main__']\n"
+        "print(n, bad, [k for k in need if k not in sys.modules])\n"
+        "assert not bad, bad\n"
+        "assert all(k in sys.modules for k in need)\n")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
