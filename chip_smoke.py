@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven main paths, each driven with every kernel's launch count set to 0
+Eight main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -60,7 +60,20 @@ just before it and read just after:
   plans' ``identity()``, bit-identical partitions and the tuned
   ``rhs_chunk``; then the warm default plan's bind, ``op @ x`` and solve
   (the cold plan's iterations) and the warm k = 16 plan's ``op @ X``
-  (#2, #3, #8).
+  (#2, #3, #8);
+* the distributed path (11e): a one-rank NCCL group (an in-memory store)
+  and ``init_device_mesh("cuda", (1,), mesh_dim_names=("data",))``;
+  ``plan(m, mesh=)`` on the solve plan's partition and host build, then
+  ``op @ x``, ``op @ X`` (K = 16), ``op.solve(b, precond="spai")`` with its
+  dots all-reduced over the group and ``update_values`` of ``D A D`` —
+  only #4, #9 and #6 may launch — against the local plan, scipy, a fresh
+  sharded bind and the local solve, ``bind(validate="full")`` and
+  ``verify_plan`` clean; then every rank's shard of ``elasticity3d(64)`` at
+  4 ranks and of ``powerlaw_8k`` at 8 (which must push partial sums) in
+  one process with the exchange replayed by indexing, against scipy and
+  the shards' plain stages, with the halo words against the all-gather's;
+  and the sharded apply and warm solve timed beside #2, #8 and the local
+  fused solve.
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -779,6 +792,243 @@ def calibration_phase(dev, m, plans: list, healthy) -> None:
     healthy("calibration")
     torch.cuda.empty_cache()
     log("calibration-phase", seconds=round(time.perf_counter() - t_phase, 3))
+
+
+def dist_phase(dev, m, smi: str, op, data: dict, plans: list,
+               all_kernels: dict, healthy) -> dict:
+    """The eighth main path (11e): the distributed path on a one-rank NCCL
+    group (an in-memory store) and ``init_device_mesh("cuda", (1,),
+    mesh_dim_names=("data",))``.  ``plan(m, mesh=)`` on the k = 1 plan's
+    partition and host build, then, counts from 0: ``op @ x``, ``op @ X``
+    (K = 16), ``op.solve(b, precond="spai")`` with its dots
+    ``all_reduce``-d over the group and ``update_values`` of D A D with an
+    apply — through #4, #9 and #6, against the local plan, scipy, a fresh
+    sharded bind and the local solve.  Then every rank's shard of
+    ``elasticity3d(64)`` at 4 ranks and of ``powerlaw_8k`` at 8 (which must
+    push partial sums) applied in this process with the exchange replayed
+    by indexing, against scipy and the same shards' plain stages; and the
+    sharded apply and warm solve timed beside the local #2, #8 and fused
+    solve.  ``data`` holds the main path's vectors: ``x``, ``x_host``,
+    ``xb``, ``xb_host``, ``b``, ``b_host``, ``a_sp``, ``res``.  Returns the
+    main path's launches of #4, #9 and #6."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis import verify_plan
+    from repro_torch.api import ExecutionConfig, plan
+    from repro_torch.core import counters
+    from repro_torch.core.ehyb import build_ehyb
+    from repro_torch.core.matrices import SUITE, SparseCSR
+    from repro_torch.dist import build_halo_plan
+    from repro_torch.dist.operator import (_build_sharded_operator,
+                                           _ell_kernel, _shards_from_ehyb,
+                                           local_apply_plain, replay_apply,
+                                           shard_of, sharded_apply_permuted)
+    from repro_torch.kernels import ehyb_spmv as K
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    x, x_host, xb, xb_host = (data[k] for k in ("x", "x_host", "xb",
+                                                "xb_host"))
+    b, b_host, a_sp, res = (data[k] for k in ("b", "b_host", "a_sp", "res"))
+    path = ("ehyb_ell", "ehyb_ell_spmm", "er")
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        cfg = ExecutionConfig(format="ehyb_packed", partition_method="bfs")
+        t0 = time.perf_counter()
+        pd = plan(m, mesh=mesh, execution=cfg)
+        t_plan = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opd = pd.bind(m)
+        torch.cuda.synchronize()
+        t_bind = time.perf_counter() - t0
+        plans.append(pd)
+        e = op.plan.host_build(m)
+        check(pd.is_sharded and pd.context == "solver"
+              and pd.partition is op.plan.partition
+              and pd.host_build(m) is e,
+              "the mesh plan shares the k = 1 plan's partition and build")
+        hp = opd.halo_plan
+        check(hp.n_dev == 1 and hp.halo_words == 0 and not hp.needs_comm,
+              "a one-rank plan exchanges nothing")
+        dvec = 1.0 + 0.25 * np.random.default_rng(SEED + 1).random(m.n)
+        row_of_m = np.repeat(np.arange(m.n), m.row_lengths())
+        m2 = SparseCSR(m.n, m.indptr, m.indices,
+                       m.data * dvec[row_of_m] * dvec[m.indices])
+        # -- the main path: counts from 0 ------------------------------------
+        torch.cuda.synchronize()
+        before = counters.snapshot()
+        for fn in all_kernels.values():
+            fn.launches = 0
+        yd = opd @ x
+        yd16 = opd @ xb
+        t0 = time.perf_counter()
+        rd = opd.solve(b, precond="spai", tol=1e-6)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opd2 = opd.update_values(m2)
+        torch.cuda.synchronize()
+        t_refill = time.perf_counter() - t0
+        yd2 = opd2 @ x
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in all_kernels.items()}
+        after = counters.snapshot()
+        work = {c: after.get(c, 0) - before.get(c, 0)
+                for c in ("partition", "build_ehyb", "build_halo_plan",
+                          "group_er", "pack_staircase", "kernels.nvcc")}
+        log("dist-main-path", launches=launches, structure_work=work,
+            plan_s=round(t_plan, 3), bind_s=round(t_bind, 3),
+            refill_s=round(t_refill, 3), first_solve_s=round(t_solve, 4))
+        check(all(launches[k] == 0 for k in launches if k not in path),
+              "the sharded path launches only #4, #9 and #6")
+        check(launches["ehyb_ell"] >= int(rd.iters) + 2
+              and launches["ehyb_ell_spmm"] >= 1
+              and launches["er"] >= int(rd.iters) + 3,
+              f"the sharded path went through #4, #9 and #6: {launches}")
+        check(all(v == 0 for v in work.values()),
+              f"the sharded refill runs no structure pass: {work}")
+        # -- against the local plan, scipy, the local solve, a fresh bind ----
+        y_sp = a_sp @ x_host
+        y16_sp = a_sp @ xb_host
+        errs = {"k1_vs_local": rel_err(yd.cpu(), (op @ x).cpu()),
+                "k1_vs_scipy_f64": rel_err(yd.cpu(), y_sp),
+                "k16_vs_local": rel_err(yd16.cpu(), (op @ xb).cpu()),
+                "k16_vs_scipy_f64": rel_err(yd16.cpu(), y16_sp)}
+        x_sol = rd.x.double().cpu().numpy()
+        b32 = b_host.astype(np.float32).astype(np.float64)
+        true_res = float(np.linalg.norm(b32 - a_sp @ x_sol)
+                         / np.linalg.norm(b32))
+        t0 = time.perf_counter()
+        e_fresh = build_ehyb(m2, part=pd.partition)
+        fresh = _build_sharded_operator(e_fresh, mesh, "data",
+                                        dtype=torch.float32)
+        t_fresh = time.perf_counter() - t0
+        errs["refill_vs_fresh"] = rel_err(yd2.cpu(), fresh(x).cpu())
+        shared = all(getattr(opd2.obj, f) is getattr(opd.obj, f)
+                     for f in ("ell_cols", "col_rows", "fer_cols",
+                               "fer_col_rows", "fer_rows", "perm"))
+        del fresh, e_fresh
+        t0 = time.perf_counter()
+        pd.bind(m, validate="full")
+        t_full = time.perf_counter() - t0
+        plan_findings = verify_plan(pd)
+        log("dist-checks", **errs, solve_iters=int(rd.iters),
+            solve_status=rd.status, true_residual_f64=true_res,
+            local_iters=int(res.iters), structure_shared=shared,
+            fresh_bind_s=round(t_fresh, 3), bind_full_s=round(t_full, 3),
+            verify_plan=len(plan_findings))
+        check(errs["k1_vs_local"] <= 1e-5 and errs["k16_vs_local"] <= 1e-5,
+              f"the sharded apply equals the local plan's: {errs}")
+        check(errs["k1_vs_scipy_f64"] <= 1e-4
+              and errs["k16_vs_scipy_f64"] <= 1e-4, f"vs scipy: {errs}")
+        check(rd.status == "converged" and true_res <= 1e-5
+              and abs(int(rd.iters) - int(res.iters)) <= 1,
+              "the sharded solve converged within one iteration of the "
+              "local one")
+        check(errs["refill_vs_fresh"] <= 1e-5 and shared,
+              "the sharded refill equals a fresh sharded bind, structure "
+              "shared")
+        check(plan_findings == [], f"verify_plan: {plan_findings}")
+        # -- every rank's shard in this process, the exchange replayed ------
+        pm = SUITE["powerlaw_8k"]()
+        pe = plan(pm, execution=ExecutionConfig(
+            format="ehyb", partition_method="bfs"),
+            device=dev).host_build(pm)
+        pm_sp = sp.csr_matrix((pm.data, pm.indices, pm.indptr),
+                              shape=(pm.n, pm.n))
+        rng = np.random.default_rng(SEED + 2)
+        px = rng.standard_normal((pm.n, K_RHS))
+        for label, mat_sp, e_, nd, cases in (
+                ("elasticity3d_64", a_sp, e, 4,
+                 ((1, x_host, x), (K_RHS, xb_host, xb))),
+                ("powerlaw_8k", pm_sp, pe, 8,
+                 ((1, px[:, 0], None), (K_RHS, px, None)))):
+            t0 = time.perf_counter()
+            hp_n = build_halo_plan(e_, nd)
+            shards = [_shards_from_ehyb(e_, hp_n, torch.float32, dev, r)[0]
+                      for r in range(nd)]
+            torch.cuda.synchronize()
+            t_shard = time.perf_counter() - t0
+            out = {}
+            for k, xh, xt in cases:
+                xt = xt if xt is not None else torch.as_tensor(
+                    xh, dtype=torch.float32, device=dev)
+                xs = [shard_of(o_, xt) for o_ in shards]
+                y = torch.cat(replay_apply(shards, xs))
+                y_again = torch.cat(replay_apply(shards, xs))
+                y_plain = torch.cat(replay_apply(shards, xs, plain=True))
+                y_orig = y[shards[0].inv_perm[: e_.n]].cpu()
+                out[f"k{k}_vs_scipy_f64"] = rel_err(y_orig, mat_sp @ xh)
+                out[f"k{k}_vs_plain"] = rel_to_largest(y.cpu(),
+                                                       y_plain.cpu())
+                out[f"k{k}_bit_identical"] = bool(torch.equal(y, y_again))
+            log("dist-shards", matrix=label, n_dev=nd,
+                halo_words=hp_n.halo_words,
+                allgather_words=hp_n.allgather_words,
+                halo_share=round(hp_n.halo_words / hp_n.allgather_words, 6),
+                has_push=hp_n.has_push, needs_comm=hp_n.needs_comm,
+                seg_len=hp_n.seg_len, halo_len=hp_n.halo_len,
+                push_words=int(hp_n.counts_push.sum()),
+                fetch_words=int(hp_n.counts_fetch.sum()),
+                plan_and_shards_s=round(t_shard, 3), **out)
+            check(all(v <= 1e-4 for kk, v in out.items()
+                      if kk.endswith(("scipy_f64", "plain"))),
+                  f"{label} at {nd} ranks: {out}")
+            if label == "powerlaw_8k":
+                check(hp_n.has_push, "powerlaw_8k at 8 ranks pushes")
+            del shards
+        # -- times: the sharded apply and solve beside the local kernels ----
+        o = op.obj
+        xl, xbl = opd.to_space(x), opd.to_space(xb)
+        x_new, xb_new = op.to_space(x), op.to_space(xb)
+        od = opd.obj
+        t = {"sharded_k1": time_ms(lambda: sharded_apply_permuted(od, xl),
+                                   dev),
+             "sharded_k16": time_ms(lambda: sharded_apply_permuted(od, xbl),
+                                    dev),
+             "plain_k1": time_ms(lambda: local_apply_plain(
+                 od, xl[:, None], None), dev),
+             "ell_4_k1": time_ms(lambda: _ell_kernel(od, xl.reshape(
+                 od.ell_vals.shape[0], od.vec_size, 1)), dev),
+             "er_6_k1": time_ms(lambda: K.er(xl, od.fer_vals, od.fer_cols,
+                                             od.fer_col_rows), dev),
+             "local_2_k1": time_ms(lambda: ops.ehyb_spmv_packed_permuted(
+                 o, x_new), dev),
+             "local_8_k16": time_ms(lambda: ops.ehyb_spmv_packed_permuted(
+                 o, xb_new), dev)}
+        # one rank pushes nothing and adds each ER row once: the same bits
+        # on every launch (the replays above, which push, are not)
+        same_1 = bool(torch.equal(sharded_apply_permuted(od, xl),
+                                  sharded_apply_permuted(od, xl)))
+        check(same_1, "the one-rank sharded apply is bit-identical over two "
+              "launches")
+        warm = {"sharded": [], "local_fused": []}
+        for label, o_ in (("sharded", opd), ("local_fused", op)):
+            for _ in range(WARM_REPS):
+                t0 = time.perf_counter()
+                r_ = o_.solve(b, precond="spai", tol=1e-6)
+                torch.cuda.synchronize()
+                warm[label].append(time.perf_counter() - t0)
+        log("dist-times", card=repr(smi), **{k: v for k, v in t.items()},
+            sharded_vs_local_k1=round(t["sharded_k1"] / t["local_2_k1"], 4),
+            sharded_vs_local_k16=round(
+                t["sharded_k16"] / t["local_8_k16"], 4),
+            warm_solve_sharded_s=statistics.median(warm["sharded"]),
+            warm_solve_local_fused_s=statistics.median(warm["local_fused"]),
+            warm_reps=WARM_REPS, bit_identical_one_rank=same_1)
+        healthy("dist")
+        del opd, opd2, yd, yd16, yd2, pd
+    finally:
+        dist.destroy_process_group()
+    log("dist-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return {k: launches[k] for k in path}
 
 
 def verify_phase(m, main_plans: dict, op, all_kernels: dict) -> None:
@@ -2042,6 +2292,12 @@ def run(dev, nx: int) -> list:
     del layer, target, y_l, loss, x_in, w_now, w_next, w_final, y_final, \
         op_before, opt
 
+    # ---- 11e. the distributed path (a main path): a one-rank NCCL group ---
+    launches_d = dist_phase(dev, m, smi, op, {
+        "x": x, "x_host": x_host, "xb": xb, "xb_host": xb_host, "b": b,
+        "b_host": b_host, "a_sp": a_sp, "res": res}, plans, all_kernels,
+        healthy)
+
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)
     x_new2 = x_new[:, None]
@@ -2201,6 +2457,8 @@ def run(dev, nx: int) -> list:
     }
     launches.update({k: launches_b[k] for k in spmm_kernels})
     launches.update({k: launches_r[k] for k in rel_kernels})
+    for k, n in launches_d.items():        # the sharded path's launches
+        launches[k] += n
     max_abs.update({k: v[1] for k, v in rel_chk.items()})
     # (route, source, replaces, device kernels per counted wrapper call)
     meta = {

@@ -7,8 +7,9 @@ cost model, the format and partition-strategy tuner), ``tuning`` (tunable
 kernel parameters, the calibrated cost model and the persistent tune
 store), ``analysis`` (the format-invariant verifier and the lints),
 ``api`` (``plan → bind → apply/solve``), ``reliability`` (guarded apply,
-solve policy, fault injection) — and is held against it module by module.  It imports ``torch`` and never ``jax``
-or ``repro``.
+solve policy, fault injection), ``dist`` (the halo plan and the sharded
+operator on ``torch.distributed``) — and is held against it module by
+module.  It imports ``torch`` and never ``jax`` or ``repro``.
 
     from repro_torch.api import ExecutionConfig, SolvePolicy, plan
 

@@ -21,14 +21,23 @@ devices of its tensors, and checks the record:
                     copy of a tensor from another device to the CPU — each
                     stalls the card's queue — error
   trace-failure     the apply raised — error
+  collective-axis   a ``torch.distributed`` collective of a sharded apply
+                    or solve that does not name the plan's process group
+                    (the default group, or another one) — such a program
+                    works only by accident of which groups exist — error
 
-Two of the reference's rules are dropped: ``collective-axis`` checks the
-sharded program's collectives and comes with ``dist/``; ``oversized-const``
-checks constants closed into a traced program, and eager torch closes over
-none (container tables arrive as arguments by construction).
+``collective-axis`` is the counterpart of the reference's rule for a
+``shard_map``-ed program: the sharded applies (original and permuted
+space, K = 1 and 4) and the sharded CG and BiCGStab run on one rank's
+shard of the probe matrix under a recorder that stands in for the
+collectives (:func:`record_collectives`) and notes the group each names.
+The reference's ``oversized-const`` is dropped: it checks constants closed
+into a traced program, and eager torch closes over none (container tables
+arrive as arguments by construction).
 
-``run_dispatch_lint()`` sweeps every registered format;
-``python -m repro_torch.analysis`` gates it against the port's baseline.
+``run_dispatch_lint()`` sweeps every registered format and the sharded
+paths; ``python -m repro_torch.analysis`` gates it against the port's
+baseline.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from .findings import Finding
 
 __all__ = ["lint_ops", "record_ops", "run_dispatch_lint",
-           "registered_paths"]
+           "registered_paths", "record_collectives", "lint_collectives",
+           "run_collective_lint"]
 
 _FLOAT_WIDTH = {torch.float16: 2, torch.bfloat16: 2, torch.float32: 4,
                 torch.float64: 8}
@@ -191,4 +201,129 @@ def run_dispatch_lint(formats: Optional[List[str]] = None) -> List[Finding]:
                                f"{type(e).__name__}: {e}"))
             continue
         out += lint_ops(ops, site)
+    if formats is None:
+        out += run_collective_lint()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collective-axis: the sharded paths' collectives name the plan's group
+# ---------------------------------------------------------------------------
+
+def _gather_one(out, inp, *args, **kwargs):
+    out.zero_()
+    out[: inp.shape[0]] = inp
+
+
+def _scatter_one(out, inp, *args, **kwargs):
+    out.copy_(inp[: out.shape[0]])
+
+
+def _gather_object_one(out, obj, *args, **kwargs):
+    out[:] = [obj] * len(out)
+
+
+def _no_op(*args, **kwargs):
+    return None
+
+
+# torch.distributed collectives, each with the local stand-in the recorder
+# runs in its place (a one-rank view: enough for the apply to go on)
+_COLLECTIVES = {
+    "all_to_all_single": lambda out, inp, *a, **k: out.copy_(inp),
+    "all_gather_single": _gather_one,
+    "all_gather_into_tensor": _gather_one,
+    "reduce_scatter_single": _scatter_one,
+    "reduce_scatter_tensor": _scatter_one,
+    "all_reduce": _no_op,
+    "all_gather_object": _gather_object_one,
+    "broadcast": _no_op,
+}
+
+
+def record_collectives(fn, *args) -> list:
+    """Run ``fn(*args)`` with every ``torch.distributed`` collective of
+    :data:`_COLLECTIVES` replaced by a recorder; returns ``[(name,
+    group)]``, the group each call named (None: the default group)."""
+    import torch.distributed as dist
+
+    calls = []
+    saved = {name: getattr(dist, name, None) for name in _COLLECTIVES}
+
+    def recorder(name):
+        def call(*args, group=None, **kwargs):
+            calls.append((name, group))
+            return _COLLECTIVES[name](*args, **kwargs)
+        return call
+    try:
+        for name in _COLLECTIVES:
+            setattr(dist, name, recorder(name))
+        fn(*args)
+    finally:
+        for name, f in saved.items():
+            if f is None:
+                delattr(dist, name)
+            else:
+                setattr(dist, name, f)
+    return calls
+
+
+def lint_collectives(calls, group, site: str) -> List[Finding]:
+    """Flag each recorded collective that does not name ``group``."""
+    return [Finding("error", site, "collective-axis",
+                    f"{name} on {'the default group' if g is None else g!r}"
+                    f", not the plan's mesh-axis group")
+            for name, g in calls if g is not group]
+
+
+def sharded_paths(n_dev: int = 2):
+    """Yield ``(site, group, thunk)``: each thunk runs one sharded path on
+    rank 0's shard of the probe matrix over ``n_dev`` ranks (a sentinel
+    object as its group), on the CPU."""
+    from ..core.ehyb import build_ehyb
+    from ..dist.halo import build_halo_plan
+    from ..dist.operator import (ShardedOperator, _shards_from_ehyb,
+                                 sharded_apply, sharded_apply_permuted)
+
+    group = object()
+    e = build_ehyb(_probe_matrix(), n_parts=4, vec_size=16)
+    hp = build_halo_plan(e, n_dev)
+    obj, lay = _shards_from_ehyb(e, hp, torch.float32, torch.device("cpu"),
+                                 0, group)
+    eng = ShardedOperator(format="ehyb", obj=obj, mesh=None, axis="data",
+                          n=e.n, nnz=e.nnz, plan=hp, host_ehyb=e,
+                          dtype=torch.float32, layout=lay)
+    rng = np.random.default_rng(2)
+    for k in (1, 4):
+        shape = (e.n,) if k == 1 else (e.n, k)
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+        xl = torch.as_tensor(rng.standard_normal(
+            (obj.local_size,) + shape[1:]), dtype=torch.float32)
+        yield (f"sharded:apply:k{k}", group,
+               lambda x=x: sharded_apply(obj, x))
+        yield (f"sharded:permuted:k{k}", group,
+               lambda x=xl: sharded_apply_permuted(obj, x))
+    b = torch.as_tensor(rng.standard_normal(obj.local_size),
+                        dtype=torch.float32)
+    for method in ("cg", "bicgstab"):
+        yield (f"sharded:solve:{method}", group,
+               lambda m=method: eng.solver_runner(m)(obj, b, None, None,
+                                                     1e-6, 3))
+
+
+def run_collective_lint(n_dev: int = 2) -> List[Finding]:
+    """Run and lint every sharded path's collectives."""
+    out: List[Finding] = []
+    for site, group, thunk in sharded_paths(n_dev):
+        try:
+            calls = record_collectives(thunk)
+        except Exception as e:  # noqa: BLE001 — any failure to run is
+            # itself the reportable defect; the finding carries the cause
+            out.append(Finding("error", site, "trace-failure",
+                               f"{type(e).__name__}: {e}"))
+            continue
+        if not calls:
+            out.append(Finding("error", site, "collective-axis",
+                               "a sharded path made no collective"))
+        out += lint_collectives(calls, group, site)
     return out

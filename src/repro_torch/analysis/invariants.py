@@ -13,7 +13,7 @@ x.  This pass makes the invariants checkable:
     from repro_torch.analysis import verify, verify_plan
 
     findings = verify(obj)          # any host/device container or operator
-    findings = verify_plan(plan)    # a repro_torch.api.Plan
+    findings = verify_plan(plan)    # a repro_torch.api.Plan, or a HaloPlan
 
 Both return structured :class:`~repro_torch.analysis.findings.Finding`
 records (empty list = clean).  ``Plan.bind(validate=...)`` runs the cheap
@@ -59,10 +59,18 @@ Rule ids (stable — the baseline and the tests key on them):
                            the live ER entries once
   value-finite             no NaN/Inf in any value table
   bucket-cover             bucket part_ids partition [0, n_parts) exactly
+  halo-coverage            every cross-device ER reference covered by
+                           exactly one x-fetch segment or y-push entry
+  halo-push-race           duplicate scatter-add destination inside one
+                           push segment
+  halo-accounting          halo_words / buffer_words / per-device words
+                           match the recorded schedule
 
-The reference's ``halo-coverage``, ``halo-push-race`` and
-``halo-accounting`` rules (``check_halo_plan``, ``check_shards_device``)
-check the distributed operator and come with ``dist/``.
+The halo rules check the host :class:`~repro_torch.dist.HaloPlan`
+(:func:`check_halo_plan`, the reference's, on the same arrays); a rank's
+``EHYBShards`` is checked on its device under the index-bound,
+width-consistency, perm-bijection and value-finite rules
+(:func:`check_shards_device`).
 
 Formats plug in through the ``FormatSpec.invariants`` registry hook —
 ``verify`` consults it for any operator whose format is registered.
@@ -85,7 +93,8 @@ RULES = (
     "index-bound.ell-local", "index-bound.er-global", "index-bound.stream",
     "perm-bijection", "partition-capacity", "width-consistency",
     "staircase-monotone", "padding-sentinel", "fill-plan-bijection",
-    "value-finite", "bucket-cover",
+    "value-finite", "bucket-cover", "halo-coverage", "halo-push-race",
+    "halo-accounting",
 )
 
 
@@ -692,6 +701,211 @@ def check_dense(a, host=None) -> List[Finding]:
     return out
 
 
+def check_shards_device(d) -> List[Finding]:
+    """Invariants of one rank's ``EHYBShards`` (``repro_torch.dist``), on
+    its device: the compact mesh-level index bounds of every table the
+    sharded apply indexes with, the widths the ELL-only and ER kernels read
+    (``col_rows``, ``fer_col_rows``: in range, non-increasing), the
+    permutations and finite values.  The exchange schedule's laws live in
+    :func:`check_halo_plan`."""
+    site = f"EHYBShards[{d.rank}]"
+    out: List[Finding] = []
+    L = d.local_size
+    slots = d.n_dev * d.seg_len
+    _bound(out, site, "ell_cols", d.ell_cols, d.vec_size,
+           "index-bound.ell-local")
+    # fetch-side ER columns are compact: [0, local_size + halo)
+    _bound(out, site, "fer_cols", d.fer_cols, L + d.recv_sel.numel(),
+           "index-bound.er-global")
+    for name, hi in (("fer_rows", L), ("pe_cols", L), ("send_src", L),
+                     ("rp_rows", L), ("pe_dst", slots), ("send_pos", slots),
+                     ("recv_sel", slots), ("rp_sel", slots)):
+        _bound(out, site, name, getattr(d, name), hi,
+               "index-bound.er-global")
+    for name, tab, hi in (("col_rows", d.col_rows, d.vec_size),
+                          ("fer_col_rows", d.fer_col_rows,
+                           d.fer_vals.shape[0])):
+        if tab.numel() and (_minmax(tab)[0] < 0 or _minmax(tab)[1] > hi
+                            or not _non_increasing(tab)):
+            out.append(_f("error", f"{site}.{name}", "width-consistency",
+                          f"{name} is not non-increasing inside [0, {hi}]"))
+    _check_perm_pair(out, site, d.perm, d.inv_perm, d.n_pad)
+    for name in d.VALUE_FIELDS:
+        _finite(out, site, name, getattr(d, name))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# halo-plan conservation laws
+# ---------------------------------------------------------------------------
+
+def check_halo_plan(hp, e=None) -> List[Finding]:
+    """Conservation laws of a :class:`repro_torch.dist.halo.HaloPlan`.
+
+    ``e`` is the host EHYB the plan was built from; without it only the
+    internal accounting is checkable (coverage needs the live entry set).
+    """
+    out: List[Finding] = []
+    site = "HaloPlan"
+    n_dev, S = hp.n_dev, hp.seg_len
+    cf = np.asarray(hp.counts_fetch)
+    cp = np.asarray(hp.counts_push)
+    dirs = np.asarray(hp.direction)
+
+    # ---- accounting -------------------------------------------------------
+    if hp.halo_words != int(cf.sum() + cp.sum()):
+        out.append(_f("error", site, "halo-accounting",
+                      f"halo_words={hp.halo_words} != scheduled payload "
+                      f"{int(cf.sum() + cp.sum())}"))
+    if hp.buffer_words != n_dev * n_dev * S:
+        out.append(_f("error", site, "halo-accounting",
+                      f"buffer_words={hp.buffer_words} != n_dev²·seg_len="
+                      f"{n_dev * n_dev * S}"))
+    per_dev = cf.sum(axis=1) + cp.sum(axis=1)
+    if not np.array_equal(np.asarray(hp.per_device_words), per_dev):
+        out.append(_f("error", site, "halo-accounting",
+                      "per_device_words do not match the per-device "
+                      "fetch+push counts"))
+    if np.any((dirs == 1) & (cp > 0)) or np.any((dirs == 2) & (cf > 0)):
+        out.append(_f("error", site, "halo-accounting",
+                      "fetch/push counts recorded against the opposite "
+                      "direction"))
+    if int(np.maximum(cf, cp).max(initial=0)) > S:
+        out.append(_f("error", site, "halo-accounting",
+                      "a pair's payload exceeds the all_to_all segment "
+                      "length"))
+
+    # ---- schedule layout + push-race check (plan-internal) ----------------
+    rp_sel = np.asarray(hp.rp_sel)
+    rp_rows = np.asarray(hp.rp_rows)
+    rp_mask = np.asarray(hp.rp_mask)
+    recv_sel = np.asarray(hp.recv_sel)
+    for d in range(n_dev):
+        fpos = 0
+        for s in range(n_dev):
+            if dirs[d, s] != 1:
+                continue
+            k = int(cf[d, s])
+            if not np.array_equal(
+                    recv_sel[d, fpos:fpos + k],
+                    s * S + np.arange(k, dtype=recv_sel.dtype)):
+                out.append(_f("error", f"{site}.recv[{d}<-{s}]",
+                              "halo-coverage",
+                              "recv_sel does not address the source's "
+                              "fetch segment contiguously"))
+            fpos += k
+        if recv_sel.shape[1] < fpos:
+            out.append(_f("error", f"{site}.recv[{d}]", "halo-coverage",
+                          "fetched-halo buffer shorter than the scheduled "
+                          "fetch counts"))
+        pos = 0
+        for s in range(n_dev):
+            if dirs[d, s] != 2:
+                continue
+            k = int(cp[d, s])
+            blk = slice(pos, pos + k)
+            if not rp_mask[d, blk].all():
+                out.append(_f("error", f"{site}.rp[{d}<-{s}]",
+                              "halo-coverage",
+                              "receive-push block shorter than the "
+                              "recorded count"))
+            if not np.array_equal(rp_sel[d, blk],
+                                  s * S + np.arange(k, dtype=rp_sel.dtype)):
+                out.append(_f("error", f"{site}.rp[{d}<-{s}]",
+                              "halo-coverage",
+                              "rp_sel does not address the source's "
+                              "segment contiguously"))
+            rows_blk = rp_rows[d, blk]
+            if len(np.unique(rows_blk)) != k:
+                out.append(_f("error", f"{site}.rp[{d}<-{s}]",
+                              "halo-push-race",
+                              f"duplicate scatter-add destination row in "
+                              f"the push segment from device {s} — a data "
+                              f"race under parallel lowering"))
+            pos += k
+        if rp_mask[d, pos:].any():
+            out.append(_f("error", f"{site}.rp[{d}]", "halo-coverage",
+                          "masked receive-push slots beyond the scheduled "
+                          "segments"))
+
+    if e is None:
+        out.append(_f("info", site, "halo-coverage",
+                      "no source EHYB supplied; entry-coverage laws not "
+                      "checked"))
+        return out
+
+    # ---- exact coverage against the live entry set ------------------------
+    from ..dist.halo import _live_entries
+
+    if hp.n_pad != e.n_pad:
+        out.append(_f("error", site, "halo-accounting",
+                      f"plan built for n_pad={hp.n_pad}, matrix has "
+                      f"n_pad={e.n_pad}"))
+        return out
+    rows, cols, src = _live_entries(e)
+    L = hp.local_size
+    own_r, own_c = rows // L, cols // L
+    off = own_r != own_c
+    if hp.allgather_words != 2 * n_dev * e.n_pad:
+        out.append(_f("error", site, "halo-accounting",
+                      "allgather_words baseline does not match "
+                      "2·n_dev·n_pad"))
+
+    is_push = off & (dirs[own_r, own_c] == 2)
+    # every live entry lands in exactly one table: fer (fetch side, incl.
+    # local) or pe (push side)
+    pe_src = np.asarray(hp.pe_src)[np.asarray(hp.pe_mask)]
+    covered = np.concatenate([np.asarray(hp.fer_src), pe_src])
+    if not np.array_equal(np.sort(covered), np.sort(src)):
+        dup = len(covered) - len(np.unique(covered))
+        out.append(_f("error", site, "halo-coverage",
+                      f"fer/pe tables cover {len(covered)} entry slots "
+                      f"({dup} duplicated) but the live pattern has "
+                      f"{len(src)} — some ER reference is dropped or "
+                      f"double-counted"))
+    if not np.array_equal(np.sort(pe_src), np.sort(src[is_push])):
+        out.append(_f("error", site, "halo-coverage",
+                      "push-side entries do not match the entries of "
+                      "push-direction pairs exactly once"))
+    fer_dst = np.asarray(hp.fer_dst)
+    if len(np.unique(fer_dst)) != len(fer_dst):
+        out.append(_f("error", site, "halo-coverage",
+                      "duplicate destinations in the fetch-side ER table"))
+
+    # per-pair fetch segments carry exactly the unique remote columns
+    send_idx = np.asarray(hp.send_idx)
+    send_mask = np.asarray(hp.send_mask)
+    for d in range(n_dev):
+        for s in range(n_dev):
+            if d == s:
+                continue
+            sel = off & (own_r == d) & (own_c == s)
+            if dirs[d, s] == 1:
+                want = np.unique(cols[sel]) - s * L
+                k = int(cf[d, s])
+                got = send_idx[s, d][send_mask[s, d]]
+                if k != len(want) or not np.array_equal(np.sort(got),
+                                                        want):
+                    out.append(_f(
+                        "error", f"{site}.fetch[{d}<-{s}]", "halo-coverage",
+                        f"fetch segment carries {len(got)} column(s), "
+                        f"expected the {len(want)} unique remote columns"))
+            elif dirs[d, s] == 2:
+                want_rows = np.unique(rows[sel]) - d * L
+                k = int(cp[d, s])
+                if k != len(want_rows):
+                    out.append(_f(
+                        "error", f"{site}.push[{d}<-{s}]", "halo-coverage",
+                        f"push segment schedules {k} row(s), expected "
+                        f"{len(want_rows)} distinct destination rows"))
+            elif sel.any():
+                out.append(_f("error", f"{site}.pair[{d},{s}]",
+                              "halo-coverage",
+                              f"{int(sel.sum())} cross-device entries on a "
+                              f"pair with no scheduled direction"))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -765,6 +979,18 @@ def verify(obj) -> List[Finding]:
                              EHYBDevice, EHYBPackedDevice, ELLDevice,
                              HYBDevice)
 
+    from ..dist.operator import EHYBShards, ShardedOperator
+
+    if isinstance(obj, LinearOperator) and obj.plan.is_sharded:
+        eng = obj.plan._engine(obj)
+        out = check_shards_device(obj.obj)
+        out += check_halo_plan(eng.plan, eng.host_ehyb)
+        return out + check_ehyb_host(eng.host_ehyb)
+    if isinstance(obj, ShardedOperator):
+        return (check_shards_device(obj.obj)
+                + check_halo_plan(obj.plan, obj.host_ehyb))
+    if isinstance(obj, EHYBShards):
+        return check_shards_device(obj)
     if isinstance(obj, LinearOperator):
         from ..autotune.registry import get_format
 
@@ -790,19 +1016,28 @@ def verify(obj) -> List[Finding]:
                     f"{type(obj).__name__}")
 
 
-def verify_plan(plan) -> List[Finding]:
-    """Verify the pattern-only planning layer of a
-    :class:`repro_torch.api.Plan`: its pattern, its partition (which may
-    have come from the tune store) and, once built, its host EHYB."""
-    from ..api.plan import Plan
+def verify_plan(plan, ehyb=None) -> List[Finding]:
+    """Verify the pattern-only planning layer.
 
+    ``plan`` may be a :class:`repro_torch.dist.HaloPlan` (pass ``ehyb``,
+    the host build it was planned from, for the entry-coverage laws) or a
+    :class:`repro_torch.api.Plan`: its pattern, its partition (which may
+    have come from the tune store), once built its host EHYB and, for a
+    sharded plan, the halo schedule of each bound engine."""
+    from ..api.plan import Plan
+    from ..dist.halo import HaloPlan
+
+    if isinstance(plan, HaloPlan):
+        return check_halo_plan(plan, ehyb)
     if not isinstance(plan, Plan):
-        raise TypeError(f"verify_plan() takes a repro_torch.api.Plan, got "
-                        f"{type(plan).__name__}")
+        raise TypeError(f"verify_plan() takes a repro_torch.api.Plan or a "
+                        f"dist HaloPlan, got {type(plan).__name__}")
     out = _check_pattern(plan.pattern)
     if plan.partition is not None:
         out += check_partition(plan.partition)
     host = plan._shared.get("ehyb")
     if host is not None:
         out += check_ehyb_host(host)
+    for eng, _ in plan._templates.values():
+        out += check_halo_plan(eng.plan, eng.host_ehyb)
     return out

@@ -28,6 +28,27 @@ class Space(enum.Enum):
 WORKLOADS = ("auto", "spmv", "solver", "dist")
 
 
+def resolve_context(workload: str, mesh: bool, n_dev: int = 1) -> str:
+    """The cost-model context a plan of ``workload`` ranks in: with a mesh
+    (``mesh`` True) of ``n_dev > 1`` ranks it is "dist" ("auto" or "dist"
+    only); on a one-rank mesh there is no interconnect to price, and "auto"
+    and "dist" rank as "solver"; without a mesh "auto" is "spmv" and
+    "dist" raises."""
+    if mesh and n_dev > 1:
+        if workload not in ("auto", "dist"):
+            raise ValueError(
+                f"workload {workload!r} conflicts with a {n_dev}-rank mesh: "
+                f"sharded plans rank with the interconnect-aware 'dist' "
+                f"cost model")
+        return "dist"
+    if mesh:
+        return workload if workload in ("spmv", "solver") else "solver"
+    if workload == "dist":
+        raise ValueError("workload='dist' prices a multi-rank mesh; pass "
+                         "mesh= with more than one rank")
+    return "spmv" if workload == "auto" else workload
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
     """Value-independent planning knobs (hashable — part of the plan key).
@@ -40,11 +61,12 @@ class ExecutionConfig:
                         plan's device and sweeps the winner's tunable
                         parameters.
     workload          — what the byte model prices one apply as: "spmv"
-                        (one-shot original-space call; what "auto" resolves
-                        to on one device) or "solver" (permuted-space
-                        hot-loop iteration).  "dist" prices a sharded
-                        iteration and raises until ``dist/`` is ported
-                        (ROADMAP Queue 1 item 8).
+                        (one-shot original-space call), "solver" (permuted-
+                        space hot-loop iteration), "dist" (sharded hot-loop
+                        iteration, interconnect term included).  "auto"
+                        resolves to "dist" on a multi-rank mesh, "solver"
+                        on a one-rank mesh (no interconnect to price) and
+                        "spmv" without a mesh (:func:`resolve_context`).
     dtype             — default value dtype for ``Plan.bind`` (None = fp32).
     partition_method  — EHYB partition strategy ("natural", "bfs",
                         "mincut", "hub").  None (the default) lets

@@ -19,6 +19,14 @@ applied by the transpose plan's operator bound at the accumulation dtype
 (at least fp32, never the stored one).  Otherwise the apply is the guard's
 alone and builds no graph; a solve never does.
 
+**Sharded plans** (``plan(A, mesh=)``): every rank calls each method with
+the same arguments.  ``op @ x`` takes the replicated global x and returns
+the replicated global y; the permuted space is the rank's
+``(local_size[, R])`` shard (``to_space`` cuts it, ``from_space`` gathers
+the shards back); ``op.solve`` runs the Krylov loop on the shards with the
+halo exchange as the matvec's only communication and every dot
+``all_reduce``-d over the mesh axis's group (``_solve_sharded``).
+
 ``op.solve`` runs CG or BiCGStab in the permuted space (``space="auto"``
 for the EHYB family, as the JAX package's ``solve_operator`` does: b, x0
 and the preconditioner diagonal are permuted once per solve, the matvec is
@@ -121,6 +129,10 @@ def apply_operator(plan: Plan, obj, dtype: torch.dtype, x,
         x = torch.as_tensor(x, device=plan.device).to(dtype)
     if torch.is_grad_enabled() and (x.requires_grad or (
             values is not None and values.requires_grad)):
+        if permuted and plan.is_sharded:
+            raise NotImplementedError(
+                "the sharded permuted-space apply has no gradient; apply in "
+                "the original space, or detach x")
         return _DiffApply.apply(values, x, plan, obj, dtype, permuted)
     guard = plan._raw_apply_permuted() if permuted else plan._raw_apply()
     return guard(obj, x.to(dtype)).to(torch.promote_types(x.dtype, dtype))
@@ -141,6 +153,7 @@ class LinearOperator:
     _values: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
     _precond: dict = dataclasses.field(default_factory=dict, repr=False)
+    _precond_t: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n(self) -> int:
@@ -224,26 +237,46 @@ class LinearOperator:
 
     @property
     def n_pad(self) -> int:
+        """Rows of the permuted execution space (a sharded operator's: all
+        ranks' shards together, ``n_dev · local_size``)."""
         if not self.supports_permuted:
             raise ValueError(f"format {self.format!r} has no permuted "
                              f"execution space")
         return self.obj.n_pad
 
     def to_space(self, x, space: Space = Space.PERMUTED) -> torch.Tensor:
-        """Carry original-space vector(s) into ``space`` (once per loop)."""
+        """Carry original-space vector(s) into ``space`` (once per loop);
+        a sharded operator's permuted space is the rank's shard."""
         x = self._promote(x)
         if _as_space(space) is Space.ORIGINAL:
             return x
+        if self.plan.is_sharded:
+            from ..dist.operator import shard_of
+
+            return shard_of(self.obj, x)
         xn, squeeze = _to_permuted(self.obj, x)
         return xn[:, 0] if squeeze else xn
 
     def from_space(self, y, space: Space = Space.PERMUTED) -> torch.Tensor:
-        """Carry vector(s) in ``space`` back to the original space."""
+        """Carry vector(s) in ``space`` back to the original space (a
+        sharded operator gathers the ranks' shards)."""
         y = torch.as_tensor(y, device=self.device)
         if _as_space(space) is Space.ORIGINAL:
             return y
+        if self.plan.is_sharded:
+            from ..dist.operator import gather_original
+
+            return gather_original(self.obj, y)
         y2, squeeze = _as_2d(y)
         return _from_permuted(self.obj, y2, squeeze)
+
+    @property
+    def halo_plan(self):
+        """The sharded plan's halo-exchange schedule
+        (:class:`repro_torch.dist.HaloPlan`; None for a local plan)."""
+        if not self.plan.is_sharded:
+            return None
+        return self.plan._engine(self).plan
 
     # ---- lifecycle ---------------------------------------------------------
 
@@ -274,7 +307,8 @@ class LinearOperator:
         """The inverse-diagonal preconditioner carried into the permuted
         space (host float64, memoized): slot i gets the entry of original
         vertex ``perm[i]``; padding slots get 1.0 (their residual
-        coordinates are identically zero)."""
+        coordinates are identically zero).  A sharded operator's covers
+        every rank's slots."""
         if kind not in self._precond:
             inv = precond_inv_diag(self.csr, kind)
             if inv is not None:
@@ -285,6 +319,22 @@ class LinearOperator:
                 inv = inv_pad
             self._precond[kind] = inv
         return self._precond[kind]
+
+    def precond_tensor(self, kind: str, dtype: torch.dtype,
+                       permuted: bool) -> Optional[torch.Tensor]:
+        """The preconditioner diagonal as a tensor of ``dtype`` on the
+        operator's device, uploaded once per bound operator: in the
+        permuted space (a sharded operator's: its rank's slots) or the
+        original one.  None for the identity."""
+        key = (kind, dtype, permuted)
+        if key not in self._precond_t:
+            inv = self.precond_inv_permuted(kind) if permuted else \
+                precond_inv_diag(self.csr, kind)
+            if inv is not None and self.plan.is_sharded and permuted:
+                lo = self.obj.rank * self.obj.local_size
+                inv = inv[lo: lo + self.obj.local_size]
+            self._precond_t[key] = _inv_tensor(inv, dtype, self.device)
+        return self._precond_t[key]
 
     def solve(self, b, *, method: str = "cg", precond: str = "jacobi",
               x0=None, tol: float = 1e-6, max_iters: int = 500,
@@ -387,6 +437,11 @@ def solve_operator(op: LinearOperator, b, *, method: str = "cg",
         raise ValueError(
             f"fused_update is a CG-step kernel; method {method!r} has no "
             f"fused vector-update path")
+    if op.plan.is_sharded:
+        return _solve_sharded(op, b, method=method, precond=precond, x0=x0,
+                              tol=tol, max_iters=max_iters, space=space,
+                              fused_update=fused_update, policy=policy,
+                              raise_on_failure=raise_on_failure, warn=warn)
     if fused_update == "auto":
         fused_update = op.device.type == "cuda" and method == "cg"
     if space in ("auto", None):
@@ -404,9 +459,7 @@ def solve_operator(op: LinearOperator, b, *, method: str = "cg",
         raise ValueError(f"solve() takes one right-hand side of shape "
                          f"({op.n},), got {tuple(b.shape)}")
     acc = torch.promote_types(b.dtype, torch.float32)
-    inv = op.precond_inv_permuted(precond) if permuted else \
-        precond_inv_diag(op.csr, precond)
-    inv_t = _inv_tensor(inv, acc, op.device)
+    inv_t = op.precond_tensor(precond, acc, permuted)
     pre = None if inv_t is None else (lambda r: inv_t * r)
     b_new = op.to_space(b, run_space)
     # the guard on the tables alone: no input of the loop requires grad,
@@ -470,6 +523,48 @@ def solve_operator(op: LinearOperator, b, *, method: str = "cg",
                           f"(final status {r.status!r})", ReliabilityWarning,
                           stacklevel=3)
     return _finalize_solve(r, tuple(stages), raise_on_failure, warn)
+
+
+def _solve_sharded(op: LinearOperator, b, *, method: str, precond: str,
+                   x0, tol: float, max_iters: int, space, fused_update,
+                   policy: Optional[SolvePolicy], raise_on_failure: bool,
+                   warn: bool) -> SolveResult:
+    """The sharded solve (reference ``_solve_sharded_engine``): b and x0
+    (global, the same on every rank) cut to the rank's permuted shard once,
+    the preconditioner diagonal's shard kept on the device, the Krylov loop
+    on the shards through the engine's ``solver_runner`` (halo exchange in
+    the matvec, dots ``all_reduce``-d), and x gathered back.  A
+    :class:`SolvePolicy` arms the solver's sentinels; as in the reference a
+    sharded solve reports its status and does not escalate.  Distributed
+    solves use the plain vector updates (``fused_update=True`` raises)."""
+    if fused_update is True:
+        raise ValueError("fused_update is a single-device CG-step kernel; "
+                         "distributed solves use the plain update path")
+    if space not in ("auto", None) and _as_space(space) is not \
+            Space.PERMUTED:
+        raise ValueError("a sharded solve runs in the permuted space")
+    b = op._promote(b).detach()
+    if b.dim() != 1:
+        raise ValueError(f"solve() takes one right-hand side of shape "
+                         f"({op.n},), got {tuple(b.shape)}")
+    from ..dist.operator import gather_original, shard_of
+
+    acc = torch.promote_types(b.dtype, torch.float32)
+    inv_loc = op.precond_tensor(precond, acc, True)
+    x0_loc = None if x0 is None else shard_of(
+        op.obj, op._promote(torch.as_tensor(x0).detach()))
+    kw = {}
+    if policy is not None:
+        kw = {"stag_window": policy.stagnation_window,
+              "stag_rtol": policy.stagnation_rtol,
+              "div_factor": policy.divergence_factor}
+        if method == "bicgstab" and policy.breakdown_tol is not None:
+            kw["breakdown_tol"] = policy.breakdown_tol
+    run = op.plan._engine(op).solver_runner(method)
+    r = run(op.obj, shard_of(op.obj, b), x0_loc, inv_loc, tol, max_iters,
+            **kw)
+    r = r._replace(x=gather_original(op.obj, r.x))
+    return _finalize_solve(r, (), raise_on_failure, warn)
 
 
 def _finalize_solve(r: SolveResult, stages: tuple, raise_on_failure: bool,

@@ -1,8 +1,8 @@
 """Operator API: the pattern-only :class:`Plan` and its cache.
 
-The port of ``repro.api.plan`` (without the mesh).
-The paper's economic argument (§3, §4.3) is that EHYB preprocessing is paid
-once per sparsity pattern and amortized across many SpMVs:
+The port of ``repro.api.plan``.  The paper's economic argument (§3, §4.3)
+is that EHYB preprocessing is paid once per sparsity pattern and amortized
+across many SpMVs:
 
     p  = plan(A)                  # pattern-only: partition strategy and
                                   # format autotuned, cache sizing
@@ -43,6 +43,15 @@ Every apply of a bound operator goes through the plan's guard
 out one guard per kind, which resolves the level of the format's fallback
 chain that runs and reports any downgrade in :attr:`Plan.degraded`.
 
+``plan(A, mesh=init_device_mesh(...), mesh_axis="data")`` plans a
+sharded operator over the mesh axis's process group (one process a
+device, SPMD: every rank plans and binds the same global A, and the ranks
+check that they reached the same decisions): the format is one of the
+EHYB family (the ``shard`` hook), ranked in the ``"dist"`` context on a
+multi-rank mesh and in ``"solver"`` on a one-rank one, and a bind builds
+the rank's shard of the halo-plan operator (``repro_torch.dist``).  Its
+device is the mesh's: ``cuda:<local rank>`` on a ``"cuda"`` mesh.
+
 Every entry point takes ``device=``; the default is ``cuda``, and without a
 card it raises rather than carrying on on the CPU.  On the CPU the plan
 keeps the reference's cache-sizing constants, so its builds are
@@ -69,7 +78,7 @@ from ..core.partition import (Partition, choose_vec_size,
                               choose_vec_size_cuda, get_strategy,
                               make_partition)
 from ..kernels.ehyb_spmm import SPMM_RHS_CHUNK
-from .config import ExecutionConfig
+from .config import ExecutionConfig, resolve_context
 
 # The partition is sized for fp32 tables whatever the bind dtype, so one
 # plan serves every dtype its kernels take (as the reference sizes with 4).
@@ -123,12 +132,15 @@ class PlanCache:
         self.partition_tunings = BoundedCache(maxsize=maxsize)
 
     def plan_for(self, pattern: SparseCSR, execution: ExecutionConfig,
-                 device: torch.device) -> "Plan":
+                 device: torch.device, mesh=None,
+                 axis: str = "data") -> "Plan":
         key = pattern_hash(pattern)
-        ck = (key, execution.token(), str(device))
+        ck = (key, execution.token(), str(device),
+              None if mesh is None else mesh_key(mesh, axis))
         p = self._plans.get(ck)
         if p is None:
-            p = Plan._create(pattern, key, execution, device, self)
+            p = Plan._create(pattern, key, execution, device, self, mesh,
+                             axis)
             self._plans[ck] = p
         return p
 
@@ -157,7 +169,7 @@ class PlanCache:
 
     def load(self, key: str, context: str, *, device: torch.device,
              dtype=None, k: int = 1, mode: str = "model",
-             geometry: Optional[tuple] = None):
+             geometry: Optional[tuple] = None, n_dev: int = 1):
         """Stored ``(TuneEntry, Partition)`` for a pattern hash and plan
         configuration on ``device``, or ``(None, None)``: corruption (a
         partition of another ``geometry`` included) is quarantined, stale
@@ -169,7 +181,7 @@ class PlanCache:
         if st is None:
             return None, None
         res = st.load(key, backend_key(device),
-                      dtype_name(dtype or torch.float32), context, k, 1,
+                      dtype_name(dtype or torch.float32), context, k, n_dev,
                       mode, geometry)
         return (None, None) if res is None else res
 
@@ -186,7 +198,8 @@ class PlanCache:
         entry = TuneEntry(
             pattern=plan.key, backend=backend_key(plan.device),
             dtype=dtype_name(ex.dtype or torch.float32),
-            context=plan.context, k=ex.k, n_dev=1, format=plan.format,
+            context=plan.context, k=ex.k, n_dev=plan.n_dev,
+            format=plan.format,
             partition_method=plan.partition_strategy,
             tuned=plan.tuned.to_dict(), mode=ex.mode,
             meta={"n": plan.n, "nnz": plan.nnz})
@@ -241,33 +254,51 @@ class PlanCache:
 PLAN_CACHE = PlanCache()
 
 
-def plan(pattern: SparseCSR, *, execution: Optional[ExecutionConfig] = None,
-         device=None, cache: Optional[PlanCache] = None) -> "Plan":
+def mesh_key(mesh, axis: str) -> tuple:
+    """The plan-cache key of ``mesh[axis]``: its geometry (device type,
+    rank layout, axis names, the axis) and the mesh itself (a cached plan
+    holds its mesh, so the key cannot be reused by another mesh)."""
+    return (axis, mesh.device_type, tuple(mesh.mesh.flatten().tolist()),
+            tuple(mesh.mesh_dim_names or ()), id(mesh))
+
+
+def plan(pattern: SparseCSR, *, mesh=None, mesh_axis: str = "data",
+         execution: Optional[ExecutionConfig] = None, device=None,
+         cache: Optional[PlanCache] = None) -> "Plan":
     """Plan the operator lifecycle for a sparsity pattern on ``device``.
 
     ``pattern`` is a :class:`SparseCSR`; only its ``indptr``/``indices``
     determine the plan (its values seed the autotuner's measured mode and
     the host build the family's byte models read).  ``device`` defaults to
     ``cuda`` and raises without a Hopper card; pass ``device="cpu"`` for
-    the plain CPU paths.
+    the plain CPU paths.  ``mesh`` (a ``torch.distributed.device_mesh.
+    DeviceMesh``) plans a sharded operator over ``mesh[mesh_axis]``; the
+    device is then the mesh's (a ``device`` of another type raises).
     """
     if not isinstance(pattern, SparseCSR):
         raise TypeError(f"plan() takes a SparseCSR pattern, "
                         f"got {type(pattern).__name__}")
     execution = execution or ExecutionConfig()
-    if execution.workload == "dist":
-        raise NotImplementedError(
-            "workload='dist' prices a sharded operator; the distributed "
-            "path is not ported yet (ROADMAP Queue 1 item 8)")
+    if mesh is None:
+        resolve_context(execution.workload, False)      # raises on "dist"
     if execution.format != "auto":
         get_format(execution.format)
     for f in execution.candidates or ():
         get_format(f)
     if execution.partition_method is not None:
         get_strategy(execution.partition_method)
+    if mesh is not None:
+        from ..dist.operator import mesh_axis_info
+
+        mesh_device = mesh_axis_info(mesh, mesh_axis)[3]
+        if device is not None and \
+                torch.device(device).type != mesh_device.type:
+            raise ValueError(f"device {device} disagrees with the "
+                             f"{mesh.device_type!r} mesh")
+        device = mesh_device
     device = resolve_device(device)
     return (PLAN_CACHE if cache is None else cache).plan_for(
-        pattern, execution, device)
+        pattern, execution, device, mesh, mesh_axis)
 
 
 @dataclasses.dataclass(eq=False)
@@ -308,17 +339,28 @@ class Plan:
     _t_order: Optional[np.ndarray] = None
     _t_order_t: Optional[torch.Tensor] = None
     _transpose: Optional["Plan"] = None
+    # ---- sharded plans (``mesh`` set) --------------------------------------
+    mesh: Any = None
+    axis: str = "data"
+    n_dev: int = 1
+    # dtype -> (this rank's ShardedOperator engine, matrix_key of its values)
+    _templates: dict = dataclasses.field(default_factory=dict)
+    # bound shard container -> the host matrix it was bound from
+    _bound_csr: Any = dataclasses.field(
+        default_factory=weakref.WeakKeyDictionary)
 
     @classmethod
     def _create(cls, pattern: SparseCSR, key: str,
                 execution: ExecutionConfig, device: torch.device,
-                cache: PlanCache) -> "Plan":
-        """The reference's ``Plan._create`` without the mesh: resolve the
-        context, consult the persistent store, autotune the partition
-        strategy when none is pinned or stored and an EHYB-family format
-        may be chosen, autotune the format when it is ``"auto"`` and not
-        stored, and resolve the tuned parameters (pin > store > measured
-        sweep > defaults).
+                cache: PlanCache, mesh=None, axis: str = "data") -> "Plan":
+        """The reference's ``Plan._create``: resolve the context (``"dist"``
+        on a multi-rank mesh), consult the persistent store, autotune the
+        partition strategy when none is pinned or stored and an EHYB-family
+        format may be chosen, autotune the format when it is ``"auto"`` and
+        not stored (a mesh plan among the shardable formats only), and
+        resolve the tuned parameters (pin > store > measured sweep >
+        defaults).  A mesh plan then checks that every rank of the group
+        reached the same decisions (:meth:`_check_ranks_agree`).
 
         A stored entry for (pattern, backend, dtype, context, k, mode)
         warm-starts the decisions: its partition strategy and arrays (which
@@ -331,21 +373,35 @@ class Plan:
         from ..autotune.tuner import autotune, autotune_partition
         from ..tuning.params import TunedParams, resolve
 
-        context = "spmv" if execution.workload == "auto" else \
-            execution.workload
+        n_dev = 1
+        if mesh is not None:
+            from ..dist.operator import mesh_axis_info
+
+            n_dev = mesh_axis_info(mesh, axis)[1]
+        context = resolve_context(execution.workload, mesh is not None,
+                                  n_dev)
+        dist_kw = {"n_dev": n_dev} if context == "dist" else {}
         fmt = execution.format
         dtype = execution.dtype or torch.float32
+        allowed = execution.candidates or available_formats()
+        if mesh is not None:
+            shardable = tuple(f for f in available_formats()
+                              if get_format(f).shard is not None)
+            if fmt != "auto" and get_format(fmt).shard is None:
+                raise ValueError(
+                    f"format {fmt!r} carries no partition structure to "
+                    f"shard; pick one of {sorted(shardable)}")
+            allowed = tuple(f for f in allowed if f in shardable)
         # the EHYB family builds on the partition; the reference asks its
         # ``shard`` hook, which only the family has
-        family = (any(get_format(f).partitioned for f in
-                      execution.candidates or available_formats())
+        family = (any(get_format(f).partitioned for f in allowed)
                   if fmt == "auto" else get_format(fmt).partitioned)
         geometry = partition_sizing(pattern.n, device, execution.k)
         entry, stored = cache.load(key, context, device=device, dtype=dtype,
                                    k=execution.k, mode=execution.mode,
-                                   geometry=geometry)
-        if entry is not None and fmt == "auto" and entry.format not in (
-                execution.candidates or available_formats()):
+                                   geometry=geometry, n_dev=n_dev)
+        if entry is not None and fmt == "auto" and entry.format not in \
+                allowed:
             entry = stored = None
         method = execution.partition_method
         if method is None and entry is not None:
@@ -360,7 +416,7 @@ class Plan:
             ptuning = autotune_partition(
                 pattern, context=context,
                 val_bytes=torch.empty((), dtype=dtype).element_size(),
-                geometry=geometry, cache=cache)
+                geometry=geometry, cache=cache, **dist_kw)
             part = ptuning.partition
         tuned = execution.tuned
         if tuned is None and entry is not None:
@@ -376,9 +432,11 @@ class Plan:
                 # values reuses it)
                 shared["ehyb"] = cache.host_ehyb(pattern, key, part)
             tuning = autotune(pattern, dtype, mode=execution.mode,
-                              candidates=execution.candidates,
+                              candidates=(execution.candidates
+                                          if mesh is None else allowed),
                               shared=shared, context=context,
-                              k=execution.k, tuned=tuned, device=device)
+                              k=execution.k, tuned=tuned, device=device,
+                              **dist_kw)
             fmt = tuning.format
             if tuned is None and tuning.tuned is not None:
                 tuned = TunedParams.from_dict(tuning.tuned)
@@ -390,10 +448,43 @@ class Plan:
                 context=context, execution=execution, device=device,
                 partition=part, pattern=pattern, cache=cache,
                 tuning=tuning, partition_tuning=ptuning, tuned=tuned,
-                _shared=shared)
+                _shared=shared, mesh=mesh, axis=axis, n_dev=n_dev)
+        if mesh is not None:
+            p._check_ranks_agree()
         if tuning is not None:
             cache.save(p)                   # no-op without an active store
         return p
+
+    def _check_ranks_agree(self) -> None:
+        """Raise unless every rank of the mesh axis's group planned the same
+        decisions — format, context, partition (strategy, geometry and the
+        permutation's bytes) and tuned parameters: a decision that differs
+        between ranks would deadlock the first collective of the sharded
+        apply.  One ``all_gather_object`` of a digest."""
+        import hashlib
+
+        import torch.distributed as dist
+
+        h = hashlib.sha256(repr(self.identity()).encode())
+        if self.partition is not None:
+            h.update(repr((self.n_parts, self.vec_size)).encode())
+            h.update(np.ascontiguousarray(self.partition.perm).tobytes())
+        digests = [None] * self.n_dev
+        dist.all_gather_object(digests, h.hexdigest(), group=self.group)
+        if len(set(digests)) != 1:
+            raise RuntimeError(
+                f"the ranks of the mesh planned different decisions "
+                f"(digests {digests}); every rank must plan the same global "
+                f"matrix with the same configuration")
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def group(self):
+        """The process group of the mesh axis (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.get_group(self.axis)
 
     def identity(self) -> tuple:
         """The plan's decisions: pattern hash, format, context, partition
@@ -489,6 +580,8 @@ class Plan:
         from .operator import LinearOperator
 
         dtype = dtype or self.execution.dtype or torch.float32
+        if self.is_sharded:
+            return self._bind_sharded(values, dtype, validate)
         if isinstance(values, torch.Tensor):
             return self._bind_tensor(values, dtype, validate)
         csr = self._as_csr(values)
@@ -511,6 +604,53 @@ class Plan:
             self._verify_full(op)
         self._last[dtype] = (weakref.ref(obj), mk)
         return op
+
+    def _bind_sharded(self, values, dtype, validate):
+        """:meth:`bind` of a mesh plan: this rank's shard of the halo-plan
+        operator (``dist.operator._build_sharded_operator`` on the plan's
+        host build), built at the first bind of a dtype and refilled at
+        every bind of new values (``ShardedOperator.update_values``: the
+        host build refilled, the rank's value tables uploaded, no structure
+        pass).  A tensor of values binds through the host, and cannot
+        carry gradients."""
+        from ..dist.operator import _build_sharded_operator
+        from .operator import LinearOperator
+
+        if isinstance(values, torch.Tensor):
+            if values.requires_grad and torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "a sharded plan binds values through the host; "
+                    "gradients with respect to bound values are not "
+                    "sharded (bind detached values or a SparseCSR)")
+            values = values.detach().cpu().double().numpy()
+        csr = self._as_csr(values)
+        if validate:
+            self._validate_bind(csr.data)
+        mk = matrix_key(csr, self.key)
+        slot = self._templates.get(dtype)
+        if slot is None:
+            self._shared["ehyb"] = self.cache.host_ehyb(
+                csr, self.key, self.partition, mk)
+            eng = _build_sharded_operator(
+                csr, self.mesh, self.axis, format=self.format, dtype=dtype,
+                shared=self._shared, pattern_key=self.key,
+                tuning=self.tuning)
+        elif slot[1] != mk:
+            eng = slot[0].update_values(csr, pattern=self.key)
+        else:
+            eng = slot[0]
+        self._templates[dtype] = (eng, mk)
+        self._bound_csr[eng.obj] = csr
+        op = LinearOperator(plan=self, obj=eng.obj, dtype=dtype, _csr=csr)
+        if validate == "full":
+            self._verify_full(op)
+        return op
+
+    def _engine(self, op):
+        """This rank's :class:`~repro_torch.dist.ShardedOperator` behind a
+        sharded operator ``op`` bound on this plan (its dtype's engine; the
+        halo plan and the solver runner are the same for every bind)."""
+        return self._templates[op.dtype][0]
 
     def _verify_full(self, op) -> None:
         """Raise on any error finding of the full verifier on ``op``."""
@@ -584,13 +724,25 @@ class Plan:
         """The format's original-space ``(obj, x) -> y`` apply, wrapped in
         the reliability guard: a kernel that fails to build or launch
         downgrades through the fallback chain (fused -> unfused ->
-        reference) instead of crashing the apply."""
+        reference) instead of crashing the apply.  A sharded plan's is the
+        sharded apply itself, unguarded as in the reference (every rank
+        must run the same collectives, which a per-rank fallback would
+        break), so a kernel that fails raises."""
+        if self.is_sharded:
+            from ..dist.operator import sharded_apply
+
+            return sharded_apply
         from ..reliability.guard import guarded_apply
 
         return guarded_apply(self, "apply")
 
     def _raw_apply_permuted(self):
-        """The guarded permuted-space apply (the solver's matvec)."""
+        """The guarded permuted-space apply (the solver's matvec); a
+        sharded plan's takes and returns the rank's shard."""
+        if self.is_sharded:
+            from ..dist.operator import sharded_apply_permuted
+
+            return sharded_apply_permuted
         from ..reliability.guard import guarded_apply
 
         return guarded_apply(self, "permuted")
@@ -638,7 +790,8 @@ class Plan:
             tp = from_coo(self.n, cols[t], rows[t].astype(np.int32),
                           self.pattern.data[t], sum_duplicates=False)
             self._transpose = self.cache.plan_for(tp, self.execution,
-                                                  self.device)
+                                                  self.device, self.mesh,
+                                                  self.axis)
         return self._transpose
 
     def coo_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -668,7 +821,15 @@ class Plan:
         (``FormatSpec.value_index``), so they hold for every bind of the
         plan.  A duplicate entry the format sums into another (the dense
         format's) reads a zero, so a product over the values counts each
-        table entry once."""
+        table entry once.  A sharded container holds only its rank's
+        tables: its values are those of the host matrix it was bound
+        from, in the tables' dtype."""
+        if self.is_sharded:
+            csr = self._bound_csr.get(obj)
+            if csr is None:
+                raise ValueError("this container was not bound on this plan")
+            return torch.from_numpy(np.ascontiguousarray(csr.data)).to(
+                self.device, obj.ell_vals.dtype)
         if self._value_idx is None:
             self._value_idx = torch.from_numpy(
                 get_format(self.format).value_index(
@@ -678,7 +839,10 @@ class Plan:
         return flat.index_select(0, self._value_idx)
 
     def __repr__(self):
+        where = (f", mesh[{self.axis}]={self.n_dev}"
+                 if self.mesh is not None else "")
         return (f"Plan(n={self.n}, nnz={self.nnz}, format={self.format!r}, "
+                f"context={self.context!r}, "
                 f"partition={self.partition_strategy!r}, "
                 f"n_parts={self.n_parts}, vec_size={self.vec_size}, "
-                f"device={self.device}, key={self.key})")
+                f"device={self.device}{where}, key={self.key})")

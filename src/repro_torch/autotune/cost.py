@@ -17,13 +17,18 @@ reads are exact (one shared-memory fill per partition).
 * ``context="solver"`` — an iterative hot loop in the permuted space: the
   permutation is hoisted out of the loop, so the per-iteration bytes drop
   by exactly the round-trip term.
-* ``context="dist"`` — one iteration sharded over several devices, which
-  adds an interconnect term.  It needs the halo plans of ``dist/`` (ROADMAP
-  Queue 1 item 8), which the port does not have yet, and raises
-  ``NotImplementedError``.
+* ``context="dist"`` — one hot-loop iteration sharded over ``n_dev``
+  devices (``shared["n_dev"]``; set by ``autotune(..., n_dev=)``).  The
+  device-memory bytes are the solver context's, and the model adds the
+  **interconnect term**: EHYB-family formats pay their
+  :class:`repro_torch.dist.HaloPlan`'s scheduled ``halo_words``; formats
+  without partition structure (no ``FormatSpec.shard`` hook) would gather
+  the whole x and reduce the whole y every iteration, the mesh-total
+  all-gather penalty ``n_dev·2·(n − n/n_dev)`` words.
 
-Non-EHYB formats have no reordered space; their accounting is
-context-independent.  The pattern and matrix hashes key the plan cache and
+Non-EHYB formats have no reordered space; their device-memory accounting is
+context-independent (only the dist interconnect term varies).  The pattern
+and matrix hashes key the plan cache and
 the tuner's decisions; they equal the JAX package's.
 """
 
@@ -107,14 +112,13 @@ CONTEXTS = ("spmv", "solver", "dist")
 TERMS = ("ell", "x_cache", "er", "y", "perm", "interconnect")
 
 
-def _check_context(context: str) -> None:
+def _check_context(context: str, shared: Optional[dict] = None) -> None:
     if context not in CONTEXTS:
         raise ValueError(f"unknown context {context!r}; have {CONTEXTS}")
-    if context == "dist":
-        raise NotImplementedError(
-            "context='dist' prices the interconnect of a sharded operator, "
-            "which needs the halo plans of dist/ (ROADMAP Queue 1 item 8); "
-            "not ported yet")
+    if context == "dist" and shared is not None and "n_dev" not in shared:
+        raise ValueError("context='dist' needs the mesh size: pass "
+                         "shared={'n_dev': ...} (autotune(..., n_dev=) "
+                         "sets it)")
 
 
 def allgather_penalty_bytes(n: int, n_dev: int, val_bytes: int,
@@ -134,20 +138,30 @@ def estimate_bytes(m: SparseCSR, fmt: str, val_bytes: int = 4,
 
     ``context="solver"`` models one hot-loop iteration in the operator's
     native (permuted) space; ``"spmv"`` models a one-shot original-space
-    call.  ``k`` is the rhs batch width of a multi-rhs (SpMM) apply:
+    call; ``context="dist"`` adds the interconnect term of execution
+    sharded over ``shared["n_dev"]`` devices (see the module docstring).
+    ``k`` is the rhs batch width of a multi-rhs (SpMM) apply:
     A-sided streams are read once regardless of k, x/y-sided streams scale
     ×k, so the ranking is k-dependent.  ``shared`` carries the host EHYB
     build the family's models read (``shared["ehyb"]``; without it, a bfs
     build at the reference's geometry from the port's plan cache)."""
     from .registry import get_format
 
-    _check_context(context)
     if not isinstance(k, int) or k < 1:
         raise ValueError(f"k must be a positive int, got {k!r}")
     shared = {} if shared is None else shared
+    _check_context(context, shared)
     stats = stats or matrix_stats(m)
-    return int(get_format(fmt).model(m, stats, val_bytes, shared,
-                                     context=context, k=k))
+    spec = get_format(fmt)
+    if context == "dist" and spec.shard is None:
+        # no partition structure to shard: the device-memory story is the
+        # solver iteration's, the interconnect story the full gather+reduce
+        return int(spec.model(m, stats, val_bytes, shared, context="solver",
+                              k=k)
+                   + allgather_penalty_bytes(stats.n, int(shared["n_dev"]),
+                                             val_bytes, k))
+    return int(spec.model(m, stats, val_bytes, shared, context=context,
+                          k=k))
 
 
 def estimate_terms(m: SparseCSR, fmt: str, val_bytes: int = 4,
@@ -159,10 +173,15 @@ def estimate_terms(m: SparseCSR, fmt: str, val_bytes: int = 4,
     along the :data:`TERMS` axes."""
     from .registry import get_format
 
-    _check_context(context)
     shared = {} if shared is None else shared
+    _check_context(context, shared)
     stats = stats or matrix_stats(m)
     spec = get_format(fmt)
+    if context == "dist" and spec.shard is None:
+        base = estimate_terms(m, fmt, val_bytes, shared, stats, "solver", k)
+        base["interconnect"] = allgather_penalty_bytes(
+            stats.n, int(shared["n_dev"]), val_bytes, k)
+        return base
     if spec.terms is not None:
         raw = spec.terms(m, stats, val_bytes, shared, context=context, k=k)
     else:
@@ -204,10 +223,12 @@ def partition_cost(m: SparseCSR, part, val_bytes: int = 4,
     can rank every registered strategy without building an EHYB each.
     One value-dependence caveat: the built container's ER term vanishes
     when every ER *value* is an explicit zero; this pattern-level pricer
-    keeps the term whenever ER *entries* exist.  ``n_dev`` is the mesh
-    size of the ``dist`` context, which raises until ``dist/`` is
-    ported."""
+    keeps the term whenever ER *entries* exist.  ``context="dist"`` adds
+    the scheduled halo words (:func:`repro_torch.dist.halo.
+    partition_halo_words`) over ``n_dev`` devices."""
     _check_context(context)
+    if context == "dist" and n_dev < 2:
+        raise ValueError("context='dist' needs n_dev >= 2")
     n, n_pad = m.n, part.n_pad
     P, V = part.n_parts, part.vec_size
     rows = np.repeat(np.arange(n, dtype=np.int64), m.row_lengths())
@@ -234,6 +255,11 @@ def partition_cost(m: SparseCSR, part, val_bytes: int = 4,
         er = 0
     y = n_pad * val_bytes * k
     perm = 2 * n_pad * val_bytes * k if context == "spmv" else 0
+    ic = 0
+    if context == "dist":
+        from ..dist.halo import partition_halo_words
+
+        ic = partition_halo_words(m, part, n_dev) * val_bytes * k
     return {"ell": ell, "x_cache": x_cache, "er": er, "y": y, "perm": perm,
-            "interconnect": 0,
-            "total": ell + x_cache + er + y + perm}
+            "interconnect": ic,
+            "total": ell + x_cache + er + y + perm + ic}

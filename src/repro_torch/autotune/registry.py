@@ -26,9 +26,10 @@ the framework needs to treat a format as a candidate:
   with placeholder value tables;
 * ``fallback``/``fallback_permuted`` — the guarded apply's unfused level
   (``ehyb_packed`` only: ``use_er_kernel=False``);
-* ``partitioned`` — built on the plan's partition (the EHYB family).  The
-  reference tells the family by its ``shard`` hook; the port has no
-  ``dist/`` yet and names it;
+* ``partitioned`` — built on the plan's partition (the EHYB family);
+* ``shard`` — ``(op, mesh, axis, csr=None) -> ShardedOperator``: lifts a
+  bound operator of the format onto a mesh (``repro_torch.dist``); only
+  the EHYB family has one, and a mesh plan takes only those formats;
 * ``invariants`` — ``(obj, host=None) -> list[Finding]``: the format's
   structural invariants on a built container, on its device
   (``analysis.invariants``; ``host`` is the host EHYB build an EHYB-family
@@ -72,6 +73,7 @@ class FormatSpec:
     permuted: Optional[Callable] = None   # (obj, x_new) -> y_new
     kernel: str = "plain"                 # "cuda": the applies launch kernels
     partitioned: bool = False             # built on the plan's partition
+    shard: Optional[Callable] = None      # (op, mesh, axis, csr) -> Sharded
     structure: Optional[Callable] = None  # (m, shared, dtype, device) -> obj
     terms: Optional[Callable] = None      # per-term split of ``model``
     fallback: Optional[Callable] = None            # unfused level, original
@@ -254,12 +256,25 @@ def _packed_unfused_permuted(d, x_new):
     return ehyb_spmv_packed_permuted(d, x_new, use_er_kernel=False)
 
 
+def _shard_ehyb(op, mesh, axis, csr=None):
+    """The EHYB family's ``shard`` hook: lift a bound operator onto a mesh
+    through the halo plan (``repro_torch.dist``).  The sharded apply runs
+    the base uniform-tile stages built from the host EHYB for the whole
+    family — the bucketed and packed layouts have no sharded kernels, which
+    is also why the family's "dist" models collapse to ``ehyb``'s."""
+    from ..dist.operator import shard_operator
+
+    return shard_operator(op, mesh, axis, csr=csr)
+
+
 # ---------------------------------------------------------------------------
 # byte models (one SpMV, fp-width ``vb``); x-stream bounds in cost.py.
 # ``context``: "spmv" = one-shot original-space call; "solver" = one
 # permuted-space hot-loop iteration (the EHYB family drops the perm round
-# trip; the other formats have no reordered space).  ``k``: rhs batch width
-# — A-sided streams are read once, every x/y-sided term scales ×k.
+# trip; the other formats have no reordered space); "dist" = a solver
+# iteration sharded over ``shared["n_dev"]`` devices, plus the halo words.
+# ``k``: rhs batch width — A-sided streams are read once, every x/y-sided
+# term scales ×k.
 # ---------------------------------------------------------------------------
 
 def _model_csr(m, stats: MatrixStats, vb: int, shared,
@@ -292,24 +307,43 @@ def _model_hyb(m, stats: MatrixStats, vb: int, shared,
 
 
 def _ehyb_space(context: str) -> str:
-    return "permuted" if context == "solver" else "original"
+    # solver and dist iterations run in the permuted space
+    return "permuted" if context in ("solver", "dist") else "original"
+
+
+def _ehyb_dist_kw(m, shared, context: str) -> dict:
+    """halo_words/n_dev keywords of ``bytes_moved`` in the dist context:
+    the scheduled exchange payload of the matrix's halo plan."""
+    if context != "dist":
+        return {}
+    from ..dist.halo import ehyb_halo_words
+
+    n_dev = int(shared["n_dev"])      # required; estimate_bytes checks
+    return {"halo_words": ehyb_halo_words(shared_ehyb(m, shared), n_dev),
+            "n_dev": n_dev}
 
 
 def _model_ehyb(m, stats, vb, shared, context: str = "spmv",
                 k: int = 1) -> int:
     return shared_ehyb(m, shared).bytes_moved(
         vb, layout="tile", space=_ehyb_space(context), fused_er=True,
-        k=k)["total"]
+        k=k, **_ehyb_dist_kw(m, shared, context))["total"]
 
 
 def _model_ehyb_bucketed(m, stats, vb, shared, context: str = "spmv",
                          k: int = 1) -> int:
+    if context == "dist":
+        # the shard hook runs the base uniform tiles for the whole family:
+        # the dist ranking collapses to ehyb's (ties break to "ehyb")
+        return _model_ehyb(m, stats, vb, shared, context, k)
     return shared_buckets(m, shared).bytes_moved(
         vb, space=_ehyb_space(context), fused_er=True, k=k)["total"]
 
 
 def _model_ehyb_packed(m, stats, vb, shared, context: str = "spmv",
                        k: int = 1) -> int:
+    if context == "dist":
+        return _model_ehyb(m, stats, vb, shared, context, k)
     return shared_ehyb(m, shared).bytes_moved(
         vb, layout="packed", space=_ehyb_space(context), fused_er=True,
         k=k)["total"]
@@ -354,15 +388,20 @@ def _split_bytes_moved(d: dict) -> dict:
 
 def _terms_ehyb(m, stats, vb, shared, context="spmv", k=1):
     return _split_bytes_moved(shared_ehyb(m, shared).bytes_moved(
-        vb, layout="tile", space=_ehyb_space(context), fused_er=True, k=k))
+        vb, layout="tile", space=_ehyb_space(context), fused_er=True, k=k,
+        **_ehyb_dist_kw(m, shared, context)))
 
 
 def _terms_ehyb_bucketed(m, stats, vb, shared, context="spmv", k=1):
+    if context == "dist":
+        return _terms_ehyb(m, stats, vb, shared, context, k)  # see model
     return _split_bytes_moved(shared_buckets(m, shared).bytes_moved(
         vb, space=_ehyb_space(context), fused_er=True, k=k))
 
 
 def _terms_ehyb_packed(m, stats, vb, shared, context="spmv", k=1):
+    if context == "dist":
+        return _terms_ehyb(m, stats, vb, shared, context, k)  # see model
     return _split_bytes_moved(shared_ehyb(m, shared).bytes_moved(
         vb, layout="packed", space=_ehyb_space(context), fused_er=True, k=k))
 
@@ -402,7 +441,7 @@ register_format(_scatter_format(
 register_format(FormatSpec(
     "ehyb", _build_ehyb, _model_ehyb, ehyb_spmv, _ehyb_index,
     scatter_values, _ehyb_positions, permuted=ehyb_spmv_permuted,
-    partitioned=True, terms=_terms_ehyb,
+    partitioned=True, shard=_shard_ehyb, terms=_terms_ehyb,
     invariants=_invariants_hook("ehyb"),
     description="EHYB uniform tiles, uint16 local cols; plain PyTorch "
                 "apply"))
@@ -410,12 +449,13 @@ register_format(_scatter_format(
     "ehyb_bucketed", (_buckets_structure, _buckets_index),
     _model_ehyb_bucketed, _terms_ehyb_bucketed, ehyb_buckets_spmv,
     "EHYB with width-bucketed partition tiles; plain PyTorch apply",
-    permuted=ehyb_buckets_spmv_permuted, partitioned=True))
+    permuted=ehyb_buckets_spmv_permuted, partitioned=True,
+    shard=_shard_ehyb))
 register_format(FormatSpec(
     "ehyb_packed", _build_ehyb_packed, _model_ehyb_packed, ehyb_spmv_packed,
     _packed_index, scatter_values, _packed_positions,
     permuted=ehyb_spmv_packed_permuted, kernel="cuda", partitioned=True,
-    terms=_terms_ehyb_packed, fallback=_packed_unfused,
+    shard=_shard_ehyb, terms=_terms_ehyb_packed, fallback=_packed_unfused,
     fallback_permuted=_packed_unfused_permuted,
     invariants=_invariants_hook("ehyb_packed"),
     description="EHYB packed staircase; fused CUDA kernel on the card"))

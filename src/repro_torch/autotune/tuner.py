@@ -177,7 +177,8 @@ def _partition_key(shared: dict):
 def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
              candidates=None, top_k: int = 3, use_cache: bool = True,
              shared: Optional[dict] = None, context: str = "spmv",
-             k: int = 1, tuned=None, sweep_params: Optional[bool] = None,
+             n_dev: int = 1, k: int = 1, tuned=None,
+             sweep_params: Optional[bool] = None,
              device=None) -> TuneResult:
     """Select the SpMV format for ``m``; see the module docstring.
 
@@ -185,9 +186,13 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     measured pass and the caller's build (one partitioning pass end to
     end).  ``context`` is "spmv" (one-shot original-space call) or
     "solver" (permuted-space hot-loop iteration: the measured pass times
-    the permuted-space apply of the formats that have one); "dist" raises
-    until ``dist/`` is ported.  ``k`` is the rhs batch width the apply will
-    run at.  ``tuned`` pins the tunable parameters of every candidate
+    the permuted-space apply of the formats that have one) or "dist" (one
+    iteration sharded over ``n_dev`` devices: the solver bytes plus the
+    interconnect term; the measured pass and the sweep are skipped and the
+    ranking stays model-driven, since a one-device timing holds none of the
+    interconnect traffic this context prices).  ``k`` is the rhs batch
+    width the apply will run at.  ``tuned`` pins the tunable parameters of
+    every candidate
     build; ``sweep_params`` (default: under ``mode="measure"`` with no pin)
     sweeps the winner's grid and records the fastest assignment in
     ``TuneResult.tuned``.  ``device`` (default ``cuda``) is the plan's: it
@@ -208,6 +213,10 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     if context not in CONTEXTS:
         raise ValueError(f"context must be one of {CONTEXTS}, "
                          f"got {context!r}")
+    if context == "dist" and n_dev < 2:
+        raise ValueError("context='dist' prices a multi-device mesh; "
+                         "pass n_dev >= 2 (a 1-device build is "
+                         "context='solver')")
     if not isinstance(k, int) or k < 1:
         raise ValueError(f"k must be a positive int, got {k!r}")
     device = resolve_device(device)
@@ -216,9 +225,10 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     key = pattern_hash(m)
     shared = {} if shared is None else shared
     cal = calibration.get_model(backend_key(device))
-    sweep = ((mode == "measure" and tuned is None)
+    sweep = ((mode == "measure" and context != "dist" and tuned is None)
              if sweep_params is None else bool(sweep_params))
-    cache_key = (key, str(dtype), mode, cand, context, k,
+    cache_key = (key, str(dtype), mode, cand, context,
+                 n_dev if context == "dist" else None, k,
                  None if tuned is None else tuned.token(), sweep,
                  device.type, _partition_key(shared),
                  None if cal is None else cal.fingerprint())
@@ -227,6 +237,8 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     if use_cache and cache_key in _CACHE:
         return _CACHE[cache_key]
 
+    if context == "dist":
+        shared["n_dev"] = n_dev
     if tuned is not None:
         shared["tuned"] = tuned
     val_bytes = _val_bytes(dtype)
@@ -256,7 +268,8 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
                             device=device)
         return _time_spmv(apply, obj, x)
 
-    if mode == "measure" and eligible[:top_k]:
+    # a "dist" ranking stays model-driven under mode="measure" (see above)
+    if mode == "measure" and context != "dist" and eligible[:top_k]:
         rng0 = np.random.default_rng(0)
         measured = {}
         for f in eligible[:top_k]:
@@ -276,8 +289,8 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     sweep_s = None
     spec = get_format(winner)
     grid = list(sweep_grid(winner, k=k))
-    if sweep and mode == "measure" and len(grid) > 1 and \
-            not (on_cpu and spec.kernel == "cuda"):
+    if sweep and mode == "measure" and context != "dist" and \
+            len(grid) > 1 and not (on_cpu and spec.kernel == "cuda"):
         rng1 = np.random.default_rng(1)
         sweep_s = {}
         for params in grid:
@@ -304,7 +317,8 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
 
 
 def autotune_partition(m: SparseCSR, *, candidates=None,
-                       context: str = "spmv", val_bytes: int = 4,
+                       context: str = "spmv", n_dev: int = 1,
+                       val_bytes: int = 4,
                        geometry: Optional[tuple] = None, cache=None,
                        use_cache: bool = True) -> PartitionTuneResult:
     """Pick the partition strategy the bytes-moved model prefers for ``m``.
@@ -315,7 +329,9 @@ def autotune_partition(m: SparseCSR, *, candidates=None,
     the module's plan cache), and prices each with
     :func:`~repro_torch.autotune.cost.partition_cost` in ``context`` —
     exactly ELL-width padding + ER spill + the in-partition fraction's x
-    and perm traffic.  Ties break toward the higher in-partition fraction,
+    and perm traffic, and for ``context="dist"`` the scheduled halo words
+    over ``n_dev`` devices (kept per strategy in ``halo_words``).  Ties
+    break toward the higher in-partition fraction,
     then the name.  Whenever ``natural`` is a candidate, the winner must
     serve at least as large a share of x-reads from the explicit cache as
     ``natural`` does (the paper's locality metric), which strikes
@@ -330,22 +346,29 @@ def autotune_partition(m: SparseCSR, *, candidates=None,
 
     if context not in CONTEXTS:
         raise ValueError(f"unknown context {context!r}; have {CONTEXTS}")
+    if context == "dist" and n_dev < 2:
+        raise ValueError("context='dist' needs n_dev >= 2")
     cache = PLAN_CACHE if cache is None else cache
     cand = tuple(candidates) if candidates else available_strategies()
     key = pattern_hash(m)
     n_parts, vec_size = geometry or choose_vec_size(m.n)
-    cache_key = (key, cand, context, val_bytes, n_parts, vec_size)
+    cache_key = (key, cand, context, n_dev if context == "dist" else 1,
+                 val_bytes, n_parts, vec_size)
     if use_cache and cache_key in cache.partition_tunings:
         return cache.partition_tunings[cache_key]
 
     modeled: Dict[str, int] = {}
     fracs: Dict[str, float] = {}
     seconds: Dict[str, float] = {}
+    halos: Dict[str, int] = {}
     parts = {}
     for name in cand:
         part = cache.partition(m, key, name, n_parts, vec_size)
-        modeled[name] = partition_cost(m, part, val_bytes,
-                                       context=context)["total"]
+        cost = partition_cost(m, part, val_bytes, context=context,
+                              n_dev=n_dev)
+        modeled[name] = cost["total"]
+        if context == "dist":
+            halos[name] = cost["interconnect"] // (val_bytes or 1)
         fracs[name] = part.in_partition_fraction(m)
         seconds[name] = part.seconds
         parts[name] = part
@@ -354,8 +377,8 @@ def autotune_partition(m: SparseCSR, *, candidates=None,
     eligible = [s for s in cand if fracs[s] >= floor] or list(cand)
     winner = min(eligible, key=lambda s: (modeled[s], -fracs[s], s))
     result = PartitionTuneResult(strategy=winner, key=key, context=context,
-                                 n_dev=1, modeled_bytes=modeled,
-                                 in_part_fraction=fracs, halo_words={},
+                                 n_dev=n_dev, modeled_bytes=modeled,
+                                 in_part_fraction=fracs, halo_words=halos,
                                  partition=parts[winner], seconds=seconds)
     if use_cache:
         cache.partition_tunings[cache_key] = result

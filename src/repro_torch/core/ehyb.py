@@ -83,7 +83,8 @@ class EHYB:
 
     def bytes_moved(self, val_bytes: int = 4, col_bytes: int = 2,
                     layout: str = "sliced", space: str = "permuted",
-                    fused_er: bool = True, k: int = 1) -> dict:
+                    fused_er: bool = True, halo_words: Optional[int] = None,
+                    n_dev: int = 1, k: int = 1) -> dict:
         """Modeled device-memory traffic of one SpMV (the paper's §3.4
         accounting; the same numbers as the JAX package's model).
 
@@ -115,11 +116,17 @@ class EHYB:
                caller-side scatter-add (2·er_rows·val_bytes of y
                read-modify-write), kept for the ablation.
 
+        halo_words / n_dev: the interconnect term of sharded execution
+               (``context="dist"``): ``halo_words`` is the scheduled
+               exchange payload of the :class:`repro_torch.dist.HaloPlan`
+               an iteration (per rhs column), added as ``interconnect =
+               halo_words · val_bytes`` when ``n_dev > 1``.
+
         k: rhs batch width of a multi-rhs (SpMM) apply.  The A streams
                (ELL vals/cols, ER vals/cols/rows) are read ONCE regardless
                of k — that is the whole point of the explicit cache — while
                every x/y-sided term (x_cache, the ER x-gather, y, the
-               permutation round trip) scales ×k.
+               permutation round trip, the halo payload) scales ×k.
         """
         if layout == "tile" or self.slice_widths is None:
             ell_n = self.n_parts * self.vec_size * self.ell_width
@@ -152,8 +159,10 @@ class EHYB:
                   + (2 * self.er_rows * val_bytes * k if has_er else 0))
         y = self.n_pad * val_bytes * k
         perm = 2 * self.n_pad * val_bytes * k if space == "original" else 0
+        ic = (halo_words or 0) * val_bytes * k if n_dev > 1 else 0
         return {"ell": ell, "x_cache": x_cache, "er": er, "y": y,
-                "perm": perm, "total": ell + x_cache + er + y + perm}
+                "perm": perm, "interconnect": ic,
+                "total": ell + x_cache + er + y + perm + ic}
 
     def refill(self, new_data: np.ndarray) -> "EHYB":
         """Same sparsity pattern, new values: replay the build's scatters.
@@ -526,12 +535,15 @@ class PackedEHYB:
 
     def bytes_moved(self, val_bytes: int = 4, col_bytes: int = 2,
                     space: str = "permuted", fused_er: bool = True,
-                    k: int = 1) -> dict:
+                    halo_words: Optional[int] = None,
+                    n_dev: int = 1, k: int = 1) -> dict:
         b = self.base.bytes_moved(val_bytes, col_bytes, layout="sliced",
-                                  space=space, fused_er=fused_er, k=k)
+                                  space=space, fused_er=fused_er,
+                                  halo_words=halo_words, n_dev=n_dev, k=k)
         ell = self.base.n_parts * self.packed_len * (val_bytes + col_bytes)
         return {**b, "ell": ell,
-                "total": ell + b["x_cache"] + b["er"] + b["y"] + b["perm"]}
+                "total": ell + b["x_cache"] + b["er"] + b["y"] + b["perm"]
+                + b["interconnect"]}
 
 
 def pack_staircase(e: EHYB) -> PackedEHYB:
@@ -606,13 +618,15 @@ class EHYBBuckets:
 
     def bytes_moved(self, val_bytes: int = 4, col_bytes: int = 2,
                     space: str = "permuted", fused_er: bool = True,
-                    k: int = 1) -> dict:
+                    halo_words: Optional[int] = None,
+                    n_dev: int = 1, k: int = 1) -> dict:
         ell = sum(v.size * (val_bytes + col_bytes) for v in self.vals)
         base = self.base.bytes_moved(val_bytes, col_bytes, space=space,
-                                     fused_er=fused_er, k=k)
+                                     fused_er=fused_er,
+                                     halo_words=halo_words, n_dev=n_dev, k=k)
         return {**base, "ell": ell,
                 "total": ell + base["x_cache"] + base["er"] + base["y"]
-                + base["perm"]}
+                + base["perm"] + base["interconnect"]}
 
 
 def build_buckets(e: EHYB, n_buckets: int = 4, lane: int = 8) -> EHYBBuckets:

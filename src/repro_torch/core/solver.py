@@ -94,12 +94,26 @@ def _classify_exit(status, res, tol):
                                 STATUS_DIVERGED))).to(torch.int32)
 
 
+def _dot_fn(acc: torch.dtype, group=None) -> Callable:
+    """The solvers' inner product in ``acc``; with a process group, summed
+    over its ranks (``all_reduce``)."""
+    def _dot(u, v):
+        d = torch.dot(u.to(acc), v.to(acc))
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(d, group=group)
+        return d
+    return _dot
+
+
 def cg(matvec: Callable, b: torch.Tensor,
        precond: Optional[Callable] = None, tol: float = 1e-6,
        max_iters: int = 500, *, fused_update: bool = False,
        precond_inv: Optional[torch.Tensor] = None,
        x0: Optional[torch.Tensor] = None, stag_window: int = 0,
-       stag_rtol: float = 1e-8, div_factor: float = 1e12) -> SolveResult:
+       stag_rtol: float = 1e-8, div_factor: float = 1e12,
+       group=None) -> SolveResult:
     """Preconditioned conjugate gradients on (n,) vectors.
 
     ``precond`` maps r to z (None = identity).  ``fused_update=True`` routes
@@ -116,10 +130,22 @@ def cg(matvec: Callable, b: torch.Tensor,
     many iterations without a relative best-residual improvement of
     ``stag_rtol``.  The host reads the stop condition once every
     ``_CHECK_EVERY`` iterations; the iterations in between are masked.
+
+    ``group`` (a ``torch.distributed`` process group; the counterpart of the
+    JAX package's ``axis_name``) runs the same recurrence distributed: b and
+    every vector the loop carries are the rank's shard of a sharded system,
+    and every dot is ``all_reduce``-d (SUM) over the group, so the scalars,
+    the trajectory and the stop are the same on every rank.  Distributed
+    solves use the plain update path: ``fused_update=True`` with a group
+    raises, as in the JAX package.
     """
+    if fused_update and group is not None:
+        raise ValueError("fused_update is a single-device CG-step kernel; "
+                         "distributed solves use the plain update path")
     dt = b.dtype
     acc = torch.promote_types(dt, torch.float32)   # dots/norms in ≥fp32
     dev = b.device
+    _dot = _dot_fn(acc, group)
     if fused_update:
         from ..kernels.solver_step import fused_cg_update
 
@@ -127,9 +153,6 @@ def cg(matvec: Callable, b: torch.Tensor,
                    if precond_inv is None
                    else precond_inv.to(device=dev, dtype=torch.promote_types(
                        precond_inv.dtype, torch.float32)))
-
-    def _dot(u, v):
-        return torch.dot(u.to(acc), v.to(acc))
 
     def _z(r):
         if fused_update:
@@ -214,7 +237,8 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
              max_iters: int = 500, *, x0: Optional[torch.Tensor] = None,
              stag_window: int = 0, stag_rtol: float = 1e-8,
              div_factor: float = 1e12,
-             breakdown_tol: Optional[float] = None) -> SolveResult:
+             breakdown_tol: Optional[float] = None,
+             group=None) -> SolveResult:
     """Preconditioned BiCGStab for non-symmetric systems, on (n,) vectors.
 
     ``precond`` maps r to z (None = identity); ``x0`` warm starts as in
@@ -230,14 +254,12 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     and stagnation stops as in :func:`cg`.  The loop is :func:`cg`'s: device
     scalars, a host read of the stop condition every ``_CHECK_EVERY``
     iterations and masked iterations in between, so it stops where the JAX
-    ``while_loop`` does.
+    ``while_loop`` does.  ``group`` distributes the dots as in :func:`cg`.
     """
     dt = b.dtype
     acc = torch.promote_types(dt, torch.float32)   # dots/norms in ≥fp32
     dev = b.device
-
-    def _dot(u, v):
-        return torch.dot(u.to(acc), v.to(acc))
+    _dot = _dot_fn(acc, group)
 
     def _z(r):
         return (r if precond is None else precond(r)).to(dt)

@@ -1,8 +1,8 @@
 """The port's static-analysis layer against the JAX package's.
 
-Mirrors ``tests/test_analysis.py`` (halo cases excepted: they come with
-``dist/``): every seeded corruption is applied to both packages'
-containers and must be named by the same rule ids; the port's own
+Mirrors ``tests/test_analysis.py``: every seeded corruption is applied to
+both packages' containers (and halo plans) and must be named by the same
+rule ids; the port's own
 pattern-laid tables (``col_rows``, ``er_col_rows``, the compact ER stream
 ``er_s_*``) are mutated too.  Then a clean sweep of every SUITE matrix ×
 the seven formats, ``bind(validate="full")`` refusing a corrupt container,
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.analysis import verify as jverify
+from repro.analysis.invariants import check_halo_plan as jcheck_halo_plan
 from repro.analysis.jaxpr_lint import _probe_matrix as jprobe
 from repro.autotune import build_format as jbuild_format
 from repro.core import build_ehyb as jbuild_ehyb
@@ -38,6 +39,11 @@ from repro_torch.core import counters
 from repro_torch.core.ehyb import build_buckets, build_ehyb, pack_staircase
 from repro_torch.core.matrices import SparseCSR
 from repro_torch.core.spmv import EHYBDevice, EHYBPackedDevice
+from repro.dist.halo import build_halo_plan as jbuild_halo_plan
+from repro_torch.analysis.invariants import (check_halo_plan,
+                                             check_shards_device)
+from repro_torch.dist.halo import build_halo_plan
+from repro_torch.dist.operator import _shards_from_ehyb
 
 
 def rules_of(findings):
@@ -78,7 +84,8 @@ def test_finding_record():
     assert errors(fs) == [f]
     assert summarize(fs) == {"bf16-accum": 1, "index-bound.ell-local": 1,
                              "note": 1}
-    assert not any(r.startswith("halo-") for r in RULES)
+    assert {r for r in RULES if r.startswith("halo-")} == {
+        "halo-coverage", "halo-push-race", "halo-accounting"}
 
 
 # ---------------------------------------------------------------------------
@@ -585,3 +592,103 @@ def test_verify_counts_no_structure_pass(builds):
     after = counters.snapshot()
     for k in ("partition", "build_ehyb", "pack_staircase"):
         assert after.get(k, 0) == before.get(k, 0)
+
+
+# ---------------------------------------------------------------------------
+# halo plan conservation laws and a rank's shard, both packages
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def halo_plans(builds):
+    """(reference plan, reference build, port plan, port build) at 4
+    devices, as the reference test plans them."""
+    je, te = builds
+    return jbuild_halo_plan(je, 4), je, build_halo_plan(te, 4), te
+
+
+def _dup_push_row(hp):
+    d = next(d for d in range(hp.n_dev) if hp.counts_push[d].sum() >= 2)
+    rr = hp.rp_rows.copy()
+    rr[d, 1] = rr[d, 0]                 # two scatter-adds on one row
+    return dataclasses.replace(hp, rp_rows=rr)
+
+
+def _tampered_send(hp):
+    pair = np.argwhere((np.asarray(hp.direction) == 1)
+                       & (np.asarray(hp.counts_fetch) > 0))
+    d, s = pair[0]
+    si = hp.send_idx.copy()
+    si[s, d, 0] += 1                    # fetch the wrong column
+    return dataclasses.replace(hp, send_idx=si)
+
+
+HALO_MUTATIONS = {
+    "duplicate_push_row": _dup_push_row,
+    "word_accounting": lambda hp: dataclasses.replace(
+        hp, halo_words=hp.halo_words + 1),
+    "dropped_coverage": lambda hp: dataclasses.replace(
+        hp, fer_src=hp.fer_src[:-1], fer_dst=hp.fer_dst[:-1]),
+    "tampered_send": _tampered_send,
+}
+
+
+def test_halo_plan_clean_on_both(halo_plans):
+    jhp, je, thp, te = halo_plans
+    assert jcheck_halo_plan(jhp, je) == [] and check_halo_plan(thp, te) == []
+    assert verify_plan(thp, te) == []
+    info = check_halo_plan(thp)
+    assert errors(info) == [] and any(f.severity == "info" for f in info)
+
+
+@pytest.mark.parametrize("case", list(HALO_MUTATIONS))
+def test_halo_mutation_same_rules_as_reference(halo_plans, case):
+    jhp, je, thp, te = halo_plans
+    want = rules_of(jcheck_halo_plan(HALO_MUTATIONS[case](jhp), je))
+    got = rules_of(check_halo_plan(HALO_MUTATIONS[case](thp), te))
+    assert got == want and got, (case, got, want)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_shards_clean_and_corruptions_caught(builds, n_dev):
+    """Every rank's shard of the probe matrix verifies clean; a fetch
+    column past the halo, a push slot past the buffer, a widening
+    ``fer_col_rows`` and a NaN value are each named by their rule."""
+    te = builds[1]
+    hp = build_halo_plan(te, n_dev)
+    shards = [_shards_from_ehyb(te, hp, torch.float32, torch.device("cpu"),
+                                r)[0] for r in range(n_dev)]
+    for d in shards:
+        assert check_shards_device(d) == [] and verify(d) == []
+    d = next(d for d in shards if d.fer_cols.numel() and d.pe_dst.numel())
+    cases = {
+        "fer_cols": ("index-bound.er-global", lambda t: t.fill_(
+            d.local_size + d.recv_sel.numel())),
+        "pe_dst": ("index-bound.er-global", lambda t: t.fill_(
+            d.n_dev * d.seg_len)),
+        "fer_col_rows": ("width-consistency", lambda t: t.copy_(
+            torch.arange(t.numel(), dtype=t.dtype))),
+        "fer_vals": ("value-finite", lambda t: t.fill_(float("nan"))),
+        "ell_cols": ("index-bound.ell-local", lambda t: t.fill_(
+            d.vec_size)),
+    }
+    for field, (rule, mutate) in cases.items():
+        bad = dataclasses.replace(d, **{field: mutate(
+            getattr(d, field).clone())})
+        assert rule in rules_of(check_shards_device(bad)), field
+
+
+def test_collective_axis_lint(monkeypatch):
+    """Every collective of the sharded applies and solves names the plan's
+    group; an exchange on the default group is flagged."""
+    from repro_torch.analysis import dispatch_lint
+    from repro_torch.dist import operator as dop
+
+    assert dispatch_lint.run_collective_lint() == []
+    sites = [s for s, _, _ in dispatch_lint.sharded_paths()]
+    assert {"sharded:apply:k1", "sharded:permuted:k4",
+            "sharded:solve:cg", "sharded:solve:bicgstab"} <= set(sites)
+    real = dop.group_exchange
+    monkeypatch.setattr(dop, "group_exchange", lambda group: real(None))
+    bad = dispatch_lint.run_collective_lint()
+    assert bad and rules_of(bad) == {"collective-axis"}
+    assert {f.site for f in bad} == set(sites)

@@ -184,3 +184,23 @@ def test_solve_rejects_an_unknown_space():
     assert op.supports_permuted
     with pytest.raises(ValueError, match="space"):
         op.solve(np.ones(m.n), space="diagonal")
+
+
+def test_solve_keeps_the_diagonal_on_the_device(monkeypatch):
+    """The preconditioner diagonal is made a tensor once per bound operator
+    and space, not on every solve."""
+    from repro_torch.api import operator as top
+
+    m, _ = port_matrix("elasticity_8")
+    op = port_op(m, "ehyb")
+    made = []
+    real = top._inv_tensor
+    monkeypatch.setattr(top, "_inv_tensor",
+                        lambda *a: made.append(1) or real(*a))
+    b = np.random.default_rng(0).standard_normal(m.n)
+    r1 = op.solve(b, precond="spai")
+    r2 = op.solve(b, precond="spai")
+    op.solve(b, precond="spai", space="original")
+    assert len(made) == 2 and int(r1.iters) == int(r2.iters)
+    assert op.precond_tensor("spai", torch.float32, True) is \
+        op.precond_tensor("spai", torch.float32, True)

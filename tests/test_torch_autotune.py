@@ -28,6 +28,7 @@ from repro_torch import tuning
 from repro_torch.autotune import tuner
 from repro_torch.core import counters
 from repro_torch.core.ehyb import build_ehyb
+from repro_torch.dist.halo import ehyb_halo_words
 from repro_torch.core.matrices import SparseCSR
 from repro_torch.core.partition import (choose_vec_size_cuda,
                                         make_partition)
@@ -172,7 +173,12 @@ def test_cost_model_is_the_formats_own_accounting():
     assert (tat.estimate_bytes(m, "ehyb", 4, shared)
             - tat.estimate_bytes(m, "ehyb", 4, shared, context="solver")
             == 2 * e.n_pad * 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # the dist context adds the halo plan's words to the solver bytes
+    assert tat.estimate_bytes(m, "ehyb", 4, {**shared, "n_dev": 4},
+                              context="dist") == \
+        tat.estimate_bytes(m, "ehyb", 4, shared, context="solver") \
+        + 4 * ehyb_halo_words(e, 4)
+    with pytest.raises(ValueError, match="mesh size"):
         tat.estimate_bytes(m, "ehyb", 4, shared, context="dist")
     with pytest.raises(ValueError, match="unknown context"):
         tat.estimate_bytes(m, "ehyb", 4, shared, context="nope")

@@ -1210,3 +1210,129 @@ def test_calibrate_on_the_card(cuda_device, card_store):
              cache=PlanCache()).tuning
     assert r.calibrated_s is not None and r.format == min(
         sorted(r.calibrated_s), key=r.calibrated_s.get)
+
+
+# ---------------------------------------------------------------------------
+# the sharded path's stages on the card (repro_torch.dist)
+# ---------------------------------------------------------------------------
+
+def _sharded_tables(name, n_dev, device, dtype=torch.float32, **build):
+    from repro_torch.core.ehyb import build_ehyb
+    from repro_torch.dist.halo import build_halo_plan
+    from repro_torch.dist.operator import _shards_from_ehyb
+
+    m = SUITE[name]() if isinstance(name, str) else name
+    e = build_ehyb(m, **build)
+    hp = build_halo_plan(e, n_dev)
+    return m, hp, [_shards_from_ehyb(e, hp, dtype, device, r)[0]
+                   for r in range(n_dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,n_dev", [("powerlaw_4k", 4),
+                                        ("elasticity_8", 8)])
+def test_width_sorted_fetch_table_through_er(cuda_device, name, n_dev,
+                                             dtype):
+    """Each rank's width-sorted fetch-side ER table, on x_ext = [x shard,
+    halo], through #6 against its plain version (each row's live prefix),
+    at one and at 16 right-hand sides."""
+    _, _, shards = _sharded_tables(name, n_dev, cuda_device, dtype)
+    rng = np.random.default_rng(0)
+    for o in shards:
+        if not o.fer_rows.numel():
+            continue
+        for r in (1, 16):
+            x_ext = torch.as_tensor(rng.standard_normal(
+                (o.local_size + o.recv_sel.numel(), r)), dtype=dtype,
+                device=cuda_device)
+            n0 = K.er.launches
+            y = K.er(x_ext, o.fer_vals, o.fer_cols, o.fer_col_rows)
+            assert K.er.launches == n0 + 1
+            y_ref = ref.er_live_ref(x_ext, o.fer_vals, o.fer_cols,
+                                    o.fer_col_rows)
+            assert _rel(y, y_ref) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16])
+def test_ell_kernels_on_a_ranks_padded_tiles(cuda_device, k):
+    """#4 (K = 1) and #9 (K = 16) on the ELL tiles of a rank whose last
+    partition is padding (``n_parts = 3`` over 2 ranks: ``col_rows`` 0)."""
+    from repro_torch.core.matrices import poisson3d
+    from repro_torch.dist.operator import _ell_kernel, _ell_plain
+
+    m = poisson3d(9)
+    _, hp, shards = _sharded_tables(m, 2, cuda_device, n_parts=3,
+                                    vec_size=-(-m.n // 3 // 8) * 8)
+    o = shards[1]
+    assert hp.n_parts_pad == 4 and not o.col_rows[1].any()
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (o.ell_vals.shape[0], o.vec_size, k)), dtype=torch.float32,
+        device=cuda_device)
+    kern = K.ehyb_ell if k == 1 else KM.ehyb_ell_spmm
+    n0 = kern.launches
+    y = _ell_kernel(o, x)
+    assert kern.launches == n0 + 1
+    assert _rel(y, _ell_plain(o, x)) <= REL_TOL[torch.float32]
+    assert not y[1].any()                 # the padded partition's rows
+
+
+@pytest.mark.cuda
+def test_replayed_shards_on_the_card(cuda_device):
+    """Every rank's ``_local_apply`` on the card (#4/#9 and #6), the
+    exchange replayed by indexing, against the CSR product and the same
+    shards' plain stages."""
+    from repro_torch.dist.operator import replay_apply, shard_of
+
+    m, hp, shards = _sharded_tables("powerlaw_4k", 8, cuda_device)
+    assert hp.has_push
+    rng = np.random.default_rng(2)
+    for k in (1, 16):
+        x = rng.standard_normal((m.n, k))
+        xs = [shard_of(o, torch.as_tensor(x, dtype=torch.float32,
+                                          device=cuda_device))
+              for o in shards]
+        y = torch.cat(replay_apply(shards, xs))
+        y_plain = torch.cat(replay_apply(shards, xs, plain=True))
+        assert _rel(y, y_plain) <= TOL[torch.float32]
+        y_orig = y[shards[0].inv_perm[: m.n]].double().cpu().numpy()
+        want = np.stack([m.spmv(x[:, j]) for j in range(k)], axis=1)
+        assert np.abs(y_orig - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_plan_matches_the_local_plan(cuda_device, tmp_path):
+    """``plan(A, mesh=)`` on a one-rank NCCL group: ``op @ x``, ``op @ X``
+    and the solve against the local plan, through #4, #9 and #6."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        m = SUITE["elasticity_8"]()
+        cfg = ExecutionConfig(format="ehyb_packed", partition_method="bfs")
+        opd = plan(m, mesh=mesh, execution=cfg).bind(m)
+        op = plan(m, execution=cfg, device=cuda_device).bind(m)
+        assert opd.plan.is_sharded and opd.halo_plan.halo_words == 0
+        rng = np.random.default_rng(3)
+        x = torch.as_tensor(rng.standard_normal(m.n), dtype=torch.float32,
+                            device=cuda_device)
+        X = torch.as_tensor(rng.standard_normal((m.n, 16)),
+                            dtype=torch.float32, device=cuda_device)
+        n0 = (K.ehyb_ell.launches, KM.ehyb_ell_spmm.launches,
+              K.er.launches)
+        assert _rel(opd @ x, op @ x) <= 1e-5
+        assert _rel(opd @ X, op @ X) <= 1e-5
+        r = opd.solve(x, precond="spai")
+        r0 = op.solve(x, precond="spai")
+        assert r.status == "converged"
+        assert abs(int(r.iters) - int(r0.iters)) <= 1
+        n1 = (K.ehyb_ell.launches, KM.ehyb_ell_spmm.launches,
+              K.er.launches)
+        assert n1[0] > n0[0] + 1 and n1[1] == n0[1] + 1 and n1[2] > n0[2] + 2
+    finally:
+        dist.destroy_process_group()

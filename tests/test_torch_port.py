@@ -48,7 +48,7 @@ def test_converters_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 def test_unported_planning_choices_raise():
     """The default plan (format and partition autotuned) and every format
-    plan; what is not ported (the ``dist`` workload) raises, as do
+    plan; the ``dist`` workload without a multi-rank mesh raises, as do
     unknown names."""
     m = poisson3d(6)
     p = plan(m, device="cpu")                        # format="auto"
@@ -60,7 +60,7 @@ def test_unported_planning_choices_raise():
                                           partition_method="bfs"),
              device="cpu")
     assert p.format == "csr" and p.partition_strategy == "bfs"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="multi-rank mesh"):
         plan(m, execution=ExecutionConfig(workload="dist"), device="cpu")
     with pytest.raises(KeyError):
         plan(m, execution=ExecutionConfig(format="coo"), device="cpu")
@@ -167,7 +167,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.tuning.__main__', 'repro_torch.analysis.invariants',"
         " 'repro_torch.analysis.dispatch_lint',"
         " 'repro_torch.analysis.source_lint',"
-        " 'repro_torch.analysis.__main__']\n"
+        " 'repro_torch.analysis.__main__', 'repro_torch.dist',"
+        " 'repro_torch.dist.halo', 'repro_torch.dist.operator',"
+        " 'repro_torch.dist.allgather', 'repro_torch.core.dist_spmv']\n"
         "print(n, bad, [k for k in need if k not in sys.modules])\n"
         "assert not bad, bad\n"
         "assert all(k in sys.modules for k in need)\n")

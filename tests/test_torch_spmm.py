@@ -450,6 +450,24 @@ def test_converted_layer_matches_jax(fmt, dt):
                     ) < tol
 
 
+class _StubMesh:
+    """A one-rank mesh the plan reads the geometry of (a mesh plan refuses
+    a format with no shard hook before any collective)."""
+
+    device_type = "cpu"
+    mesh_dim_names = ("data",)
+    mesh = torch.arange(1)
+
+    def size(self, dim=0):
+        return 1
+
+    def get_group(self, axis):
+        return None
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_layer_limits():
     w, x = _layer_inputs(32, 48)
     layer = EHYBLinear.from_dense(w, 0.3, device="cpu")
@@ -460,9 +478,9 @@ def test_layer_limits():
     assert layer3 is layer and type(layer3) is EHYBLinear
     assert layer3.op.obj.perm is perm
     torch.testing.assert_close(layer3(x), 3.0 * y, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapi.pruned_linear(w, 0.3, format="ehyb", partition_method="bfs",
-                           mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="no partition structure"):
+        tapi.pruned_linear(w, 0.3, format="csr", partition_method="bfs",
+                           mesh=_StubMesh(), device="cpu")
     # the format and the partition strategy autotuned, as in the reference
     auto = tapi.pruned_linear(w, 0.3, partition_method="bfs", device="cpu")
     assert auto.op.format == auto.op.tuning.format
