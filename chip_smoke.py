@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight main paths, each driven with every kernel's launch count set to 0
+Nine main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -73,7 +73,20 @@ just before it and read just after:
   one process with the exchange replayed by indexing, against scipy and
   the shards' plain stages, with the halo words against the all-gather's;
   and the sharded apply and warm solve timed beside #2, #8 and the local
-  fused solve.
+  fused solve;
+* the serving path (11f): llama3_2_1b at full width (16 layers, d 2048,
+  vocab 128,256 padded to 129,024), fp32 weights from a seeded generator
+  and bf16 compute, through two ``ServeEngine``s whose LM head is the
+  tied embedding pruned to density 0.1 and bound as ``ehyb_packed`` on
+  bfs partitions: 12 requests (prompts of 4–64 tokens, 8 new tokens)
+  through 4 slots, whose head launches #8 only, and two through 1 slot,
+  whose head launches #2 only, every step's logits within 1e-4 of an
+  fp32 product with the pruned dense head; then a timed run (prefill and
+  decode ms a step, tokens a second), ``refresh_sparse_head`` with zero
+  structure passes, ``chaos(fail_sparse_apply=True)`` degrading to the
+  dense head and ``restore_sparse_head``, and #8 and #2 on the heads'
+  containers against their plain versions, their bounds, the dense head
+  in fp32 and bf16 and a torch CSR product.
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -106,7 +119,9 @@ the rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import shutil
 import statistics
@@ -124,6 +139,12 @@ K_RHS = 16                     # load cases applied to one stiffness matrix
 D_MODEL, D_FF = 2048, 8192     # llama3_2_1b (src/repro/configs/llama3_2_1b.py)
 TOKENS = 16
 WARM_REPS = 5                  # warm fused solves timed (median kept)
+SERVE_SLOTS = (4, 1)           # the serve phase's two engines
+SERVE_REQUESTS = 12            # through the 4-slot engine
+SERVE_NEW = 8                  # new tokens a request
+SERVE_KW = dict(max_prompt=64, max_len=512, sparse_head_density=0.1,
+                sparse_head_format="ehyb_packed",
+                sparse_head_partition="bfs")
 SUITE_K = (4, 32)              # rhs widths of the SUITE sweep
 BANDWIDTH = 3.35e12            # H100 SXM data sheet, bytes/s
 FP32_PEAK = 67e12              # H100 SXM fp32 outside the tensor cores
@@ -729,6 +750,8 @@ def calibration_phase(dev, m, plans: list, healthy) -> None:
 
     from repro_torch import tuning
     from repro_torch.api import ExecutionConfig, plan
+    from repro_torch.autotune import TERMS, autotune, available_formats
+    from repro_torch.tuning.calibration import CalibrationModel
 
     t_phase = time.perf_counter()
     store = tuning.get_store()
@@ -786,6 +809,23 @@ def calibration_phase(dev, m, plans: list, healthy) -> None:
         check(err <= 1e-4, f"calibrated plan op @ x vs scipy: {err}")
         plans.append(pc)
         del op, y
+        # a fit can clamp the "ell" term to zero, which makes the dense
+        # stream free: under such a model the tuner must still not choose
+        # a format whose tables the card cannot hold (dense at n = m.n
+        # would ask for n * n * 4 bytes)
+        tuning.set_model(CalibrationModel(
+            backend=model["backend"], coef={t: 0.0 for t in TERMS},
+            intercept={f: float(f != "dense") for f in available_formats()}))
+        p0 = plans[0]
+        free = autotune(m, torch.float32, shared={"ehyb": p0.host_build(m)},
+                        context=pc.tuning.context, device=dev,
+                        use_cache=False)
+        log("calibrated-dense-free", format=free.format,
+            dense_modeled_bytes=free.modeled_bytes["dense"],
+            card_bytes=torch.cuda.get_device_properties(dev).total_memory,
+            ranked=sorted(free.calibrated_s))
+        check(free.format != "dense" and "dense" not in free.calibrated_s,
+              "a format larger than the card is not a candidate")
     finally:
         tuning.set_store(store)
         tuning.set_model(None)
@@ -1086,6 +1126,383 @@ def verify_phase(m, main_plans: dict, op, all_kernels: dict) -> None:
     del bad, bad_plan
     torch.cuda.empty_cache()
     log("verify-phase", seconds=round(time.perf_counter() - t_phase, 3))
+
+@contextlib.contextmanager
+def head_stage_seconds(seconds: dict):
+    """Host-clock seconds of ``pruned_linear``'s three stages (prune, plan,
+    first bind) while an engine builds its sparse head: the stages are
+    wrapped for the duration of the block, and each synchronises the card
+    before its clock stops."""
+    import torch
+
+    nn = importlib.import_module("repro_torch.api.nn")
+    real_prune, real_plan, bound = nn.prune_to_csr, nn._plan, []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            return out
+        return run
+
+    def plan(*a, **kw):
+        p = timed("plan", real_plan)(*a, **kw)
+        p.bind = timed("bind", p.bind)
+        bound.append(p)
+        return p
+
+    nn.prune_to_csr, nn._plan = timed("prune", real_prune), plan
+    try:
+        yield seconds
+    finally:
+        nn.prune_to_csr, nn._plan = real_prune, real_plan
+        for p in bound:
+            del p.bind
+
+
+def serve_phase(dev, smi: str, plans: list, all_kernels: dict,
+                healthy) -> dict:
+    """The serving main path (phase 11f): llama3_2_1b at full width (16
+    layers, d 2048, 32 heads with 8 KV heads, d_ff 8192, vocab 128,256
+    padded to 129,024), fp32 weights from a seeded generator, bf16
+    compute, served by two ``ServeEngine``s whose LM head is the tied
+    embedding pruned to density 0.1 and bound as ``ehyb_packed`` on bfs
+    partitions (the format and strategy pinned: no partition ranking).
+
+    With every count at 0, 12 requests (seeded prompts of 4–64 tokens, 8
+    new tokens) run through the 4-slot engine, whose head applies launch
+    #8 only (K = 4 every step), and two through the 1-slot one, whose head
+    launches #2 only; every sparse-head step's logits are held against an
+    fp32 ``torch.matmul`` of the same hidden states with the pruned dense
+    head.  Then: a timed run of the same requests (prefill and decode ms a
+    step, tokens a second); ``refresh_sparse_head`` of doubled weights
+    with zero structure passes and the next step's logits against the
+    doubled head; ``chaos(fail_sparse_apply=True)`` degrading to the dense
+    head with every admitted request finished, and
+    ``restore_sparse_head``; #8 and #2 against their plain versions on the
+    heads' own containers, and timed beside their bounds, the dense head
+    (fp32, bf16) and a torch CSR product of the pruned head.  Returns the
+    main path's launches {kernel: n}."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import counters
+    from repro_torch.kernels import ehyb_spmm as KM
+    from repro_torch.kernels import ehyb_spmv as K
+    from repro_torch.kernels import ref
+    from repro_torch.models import init_model
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.reliability import ReliabilityWarning, chaos
+    from repro_torch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3_2_1b")
+    v_pad = pad_vocab(cfg.vocab_size)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, v_pad, cfg.dtype, cfg.param_dtype)
+          == (16, 2048, 32, 8, 8192, 128256, 129024, "bfloat16",
+              "float32"), "llama3_2_1b at full width")
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    engines, setup = {}, {}
+    for slots in SERVE_SLOTS:
+        t0 = time.perf_counter()
+        with head_stage_seconds({}) as stage_s:
+            eng = ServeEngine(params, cfg, batch=slots, device=dev,
+                              **SERVE_KW)
+        torch.cuda.synchronize()
+        head = eng.sparse_head
+        setup[slots] = {"engine_s": round(time.perf_counter() - t0, 3),
+                        **{f"{k}_s": round(v, 3)
+                           for k, v in stage_s.items()},
+                        "n_parts": head.op.plan.n_parts,
+                        "vec_size": head.op.plan.vec_size}
+        check(head.op.format == "ehyb_packed"
+              and head.op.plan.partition_strategy == "bfs",
+              "the head is ehyb_packed on bfs partitions")
+        engines[slots] = eng
+        plans.append(head.op.plan)
+    head4, head1 = engines[4].sparse_head, engines[1].sparse_head
+    csr = head4.csr
+    check(csr.nnz == head1.csr.nnz and csr.n == v_pad
+          and (head4.d_out, head4.d_in) == (v_pad, cfg.d_model),
+          "both engines pruned the same (V, d) head")
+    rows = np.repeat(np.arange(csr.n), csr.row_lengths())
+    w_sp = sp.csr_matrix((csr.data, (rows, csr.indices)),
+                         shape=(head4.d_out, head4.d_in))
+    w_dense = torch.as_tensor(w_sp.toarray(), dtype=torch.float32,
+                              device=dev)
+    e4 = head4.ehyb
+    nnz_er = int(csr.nnz - e4.nnz_in)
+    log("serve-setup", model=cfg.name, params=n_params,
+        init_s=round(t_init, 3), head_nnz=csr.nnz,
+        head_density=SERVE_KW["sparse_head_density"],
+        er_share=round(nnz_er / csr.nnz, 4),
+        **{f"slots{s}": v for s, v in setup.items()})
+
+    # the fp32 dense product of the same hidden states with the pruned
+    # head (scaled with the refresh below), every sparse-head step
+    w_now = [w_dense]
+    head_errs, last_h = [], {}
+
+    def watch(eng, slots) -> None:
+        real = ServeEngine._head_logits.__get__(eng)
+
+        def spy(h, head, head_obj=None):
+            out = real(h, head, head_obj)
+            if head is not None:
+                want = torch.matmul(h[:, 0].float(), w_now[0].T)
+                head_errs.append(float((out[:, 0] - want).abs().max()
+                                       / want.abs().max()))
+                last_h[slots] = h
+            return out
+
+        eng._head_logits = spy
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(4, SERVE_KW["max_prompt"] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+               for n in lens]
+
+    def serve(eng, idx, uid0=0, new=SERVE_NEW):
+        for j, i in enumerate(idx):
+            eng.submit(Request(uid=uid0 + j, prompt=prompts[i],
+                               max_new_tokens=new))
+        return eng.run_until_done()
+
+    def resolve(eng, slots) -> None:
+        op = eng.sparse_head.op          # the guard probes once (#2)
+        op @ torch.zeros((op.n, slots), device=dev)
+        torch.cuda.synchronize()
+
+    # -- main path: counts from 0, 12 requests through the 4-slot engine,
+    #    then two through the 1-slot engine ---------------------------------
+    launches = {}
+    for slots, idx in ((4, range(SERVE_REQUESTS)), (1, range(2))):
+        eng = engines[slots]
+        resolve(eng, slots)
+        watch(eng, slots)
+        n_err = len(head_errs)
+        for fn in all_kernels.values():
+            fn.launches = 0
+        done = serve(eng, idx)
+        torch.cuda.synchronize()
+        launches[slots] = {k: f.launches for k, f in all_kernels.items()}
+        applies = len(head_errs) - n_err
+        want = "ehyb_packed_fused_spmm" if slots > 1 else "ehyb_packed_fused"
+        log("serve-main-path", slots=slots, requests=len(done),
+            tokens=sum(len(r.generated) for r in done),
+            head_applies=applies,
+            launches={k: v for k, v in launches[slots].items() if v},
+            head_vs_f32_dense=max(head_errs[n_err:]))
+        check(len(done) == len(idx) and all(
+            len(r.generated) == SERVE_NEW for r in done),
+            f"{slots} slots: every request finished with its tokens")
+        check(launches[slots][want] == applies and all(
+            v == 0 for k, v in launches[slots].items() if k != want),
+            f"{slots} slots: every head apply launched {want} once, and "
+            f"nothing else hand-written launched: {launches[slots]}")
+        check(max(head_errs[n_err:]) <= 1e-4,
+              f"{slots} slots: the head's logits within 1e-4 of the fp32 "
+              f"dense product")
+        check(not eng.degraded, "the engine serves its sparse head")
+    healthy("serve-main-path")
+
+    # -- the timed run: the same 12 requests, no logit check ---------------
+    eng4 = engines[4]
+    del eng4._head_logits
+    step_s = {"prefill": [], "decode": []}
+    real_call = eng4._guarded_call
+
+    def timed(which, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_call(which, *args)
+        torch.cuda.synchronize()
+        step_s[which].append(time.perf_counter() - t)
+        return out
+
+    eng4._guarded_call = timed
+    t0 = time.perf_counter()
+    done = serve(eng4, range(SERVE_REQUESTS), uid0=100)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    del eng4._guarded_call
+    # where a step's time goes: a profiler trace of one prefill and four
+    # decode steps (4 requests, 5 tokens each); device busy time (the
+    # device's own activities) against the same steps' unprofiled time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(eng4, range(4), uid0=150, new=5)
+        torch.cuda.synchronize()
+        t_traced = time.perf_counter() - t0
+    dev_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and ev.self_device_time_total > 0
+              and not ev.key.startswith("Activity Buffer")}
+    busy_ms = sum(dev_us.values()) / 1e3
+    wall_ms = 1e3 * (statistics.median(step_s["prefill"])
+                     + 4 * statistics.median(step_s["decode"]))
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    log("serve-trace", steps="1 prefill + 4 decode", unprofiled_ms=wall_ms,
+        traced_wall_ms=t_traced * 1e3, device_busy_ms=busy_ms,
+        idle_share=(1 - busy_ms / wall_ms) if busy_ms else "not measured",
+        device_activities=sum(ev.count for ev in prof.key_averages()
+                              if ev.key in dev_us),
+        top_device_us={k[:60]: round(v, 1) for k, v in top})
+    n_tok = sum(len(r.generated) for r in done)
+    log("serve-times", card=repr(smi), slots=4, requests=len(done),
+        tokens=n_tok,
+        seconds=round(t_run, 4), tokens_per_s=round(n_tok / t_run, 2),
+        prefill_steps=len(step_s["prefill"]),
+        prefill_ms=round(1e3 * statistics.median(step_s["prefill"]), 3),
+        decode_steps=len(step_s["decode"]),
+        decode_ms=round(1e3 * statistics.median(step_s["decode"]), 3),
+        decode_ms_min=round(1e3 * min(step_s["decode"]), 3),
+        decode_ms_max=round(1e3 * max(step_s["decode"]), 3))
+
+    # -- the refresh: doubled weights, zero structure passes, and the next
+    #    step's logits follow them ------------------------------------------
+    obj0 = head4.op.obj
+    params2 = dict(params, embed=dict(
+        params["embed"], embedding=params["embed"]["embedding"] * 2.0))
+    before = counters.snapshot()
+    t0 = time.perf_counter()
+    eng4.refresh_sparse_head(params2)
+    torch.cuda.synchronize()
+    t_refresh = time.perf_counter() - t0
+    after = counters.snapshot()
+    work = {c: after.get(c, 0) - before.get(c, 0)
+            for c in ("partition", "build_ehyb", "pack_staircase",
+                      "group_er", "ehyb_refill", "kernels.nvcc",
+                      "kernels.load")}
+    obj1 = eng4.sparse_head.op.obj
+    w_now[0] = 2.0 * w_dense
+    watch(eng4, 4)
+    n_err = len(head_errs)
+    done = serve(eng4, range(1), uid0=200, new=2)
+    del eng4._head_logits
+    refresh_err = max(head_errs[n_err:])
+    log("serve-refresh", seconds=round(t_refresh, 3), structure_work=work,
+        structure_shared=obj1.packed_cols is obj0.packed_cols,
+        head_applies=len(head_errs) - n_err,
+        next_step_vs_doubled_f32=refresh_err)
+    check(all(v == 0 for v in work.values()),
+          f"the refresh made no structure pass: {work}")
+    check(obj1.packed_cols is obj0.packed_cols
+          and obj1.er_s_cols is obj0.er_s_cols, "the structure is shared")
+    check(len(done) == 1 and refresh_err <= 1e-4,
+          "the next step's logits follow the refreshed weights")
+
+    # -- chaos: the sparse head fails on every call; the engine degrades to
+    #    the dense head and finishes what it admitted; restore ---------------
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", ReliabilityWarning)
+        with chaos(fail_sparse_apply=True) as ccfg:
+            done = serve(eng4, range(4), uid0=300)
+    degraded = eng4.degraded
+    log("serve-chaos", injected=dict(ccfg.injected), degraded=degraded,
+        reason=repr(eng4.degraded_reason), requests=len(done),
+        tokens=[len(r.generated) for r in done],
+        retries=eng4.stats["retries"])
+    check(ccfg.injected["serve:sparse"] >= 1 and degraded,
+          "the failing sparse head degraded the engine")
+    check(len(done) == 4 and all(len(r.generated) == SERVE_NEW
+                                 for r in done),
+          "the degraded engine finished every admitted request")
+    eng4.restore_sparse_head()
+    resolve(eng4, 4)                     # chaos moved the guard's epoch
+    n0 = KM.ehyb_packed_fused_spmm.launches
+    done = serve(eng4, range(1), uid0=400, new=2)
+    torch.cuda.synchronize()
+    check(not eng4.degraded and len(done) == 1
+          and KM.ehyb_packed_fused_spmm.launches > n0,
+          "restore_sparse_head serves the sparse head (#8) again")
+    healthy("serve-chaos")
+
+    # -- #8 and #2 against their plain versions on the heads' containers,
+    #    then their times beside the bound, the dense head and torch CSR ----
+    o4, o1 = eng4.sparse_head.op.obj, head1.op.obj
+    x4 = eng4.sparse_head.to_permuted(last_h[4].float()).reshape(
+        -1, o4.n_pad).T.contiguous()                         # (n_pad, 4)
+    x1 = head1.to_permuted(last_h[1].float()).reshape(o1.n_pad)
+    st4 = (o4.packed_vals, o4.packed_cols, o4.col_starts, o4.col_rows)
+    st1 = (o1.packed_vals, o1.packed_cols, o1.col_starts, o1.col_rows)
+    cases = {
+        "ehyb_packed_fused_spmm": (
+            lambda: KM.ehyb_packed_fused_spmm(
+                x4, *st4, o4.er_stream(), vec_size=o4.vec_size,
+                rhs_chunk=o4.rhs_chunk),
+            lambda: ref.ehyb_packed_fused_stream_ref(
+                x4, *st4, o4.er_stream(), o4.vec_size)),
+        "ehyb_packed_fused": (
+            lambda: K.ehyb_packed_fused(
+                x1, *st1, o1.er_stream(), vec_size=o1.vec_size,
+                has_er=o1.has_er),
+            lambda: ref.ehyb_packed_fused_stream_ref(
+                x1[:, None], *st1, o1.er_stream(), o1.vec_size,
+                o1.has_er)[:, 0]),
+    }
+    chk = check_cases(cases, KERNEL_TOL["float32"], "serve head")
+    h4 = last_h[4][:, 0].float()                             # (4, d)
+    h4b, w_b = h4.bfloat16(), w_dense.bfloat16()
+    with warnings.catch_warnings():           # torch's sparse-CSR notices
+        warnings.simplefilter("ignore", UserWarning)
+        w_t = torch.sparse_csr_tensor(        # the library yardstick
+            torch.as_tensor(w_sp.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(w_sp.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(w_sp.data, dtype=torch.float32, device=dev),
+            size=w_sp.shape, check_invariants=False)
+    h4t, h1t = h4.T.contiguous(), h4[:1].T.contiguous()
+    er_rows = {s: int(engines[s].sparse_head.ehyb.fill_plan["n_er_live"])
+               for s in SERVE_SLOTS}
+    rows_out = {}
+    for name, slots, o, k in (("ehyb_packed_fused_spmm", 4, o4, 4),
+                              ("ehyb_packed_fused", 1, o1, 1)):
+        e = engines[slots].sparse_head.ehyb
+        kern, plain = cases[name]
+        hx = h4t if k == 4 else h1t
+        bd, by = spmv_bound(o.n_pad, e.nnz_in, int(csr.nnz - e.nnz_in),
+                            er_rows[slots], 4, k)
+        row = {"kernel_ms": time_ms(kern, dev),
+               "plain_ms": time_ms(plain, dev),
+               "library_ms": time_ms(lambda: w_t @ hx, dev),
+               "dense_f32_ms": time_ms(lambda: torch.matmul(
+                   h4[:k], w_dense.T), dev),
+               "dense_bf16_ms": time_ms(lambda: torch.matmul(
+                   h4b[:k], w_b.T), dev),
+               "bound_ms": bd, "bound_by": by}
+        rows_out[name] = row
+        log("serve-head-time", card=repr(smi), kernel=name, slots=slots,
+            k=k, n_pad=o.n_pad, n_parts=o.n_parts, vec_size=o.vec_size,
+            nnz_in=e.nnz_in, nnz_er=int(csr.nnz - e.nnz_in),
+            er_share=round(1 - e.nnz_in / csr.nnz, 4),
+            er_rows=er_rows[slots], vs_plain=chk[name][0],
+            bound_share=round(bd / row["kernel_ms"], 4), **row)
+    lib_err = rel_err((w_t @ h4t).T.cpu(), (h4 @ w_dense.T).cpu())
+    log("serve-bytes", library_vs_dense=lib_err,
+        **{f"bytes_{k}": v for k, v in head4.bytes_vs_dense().items()})
+    healthy("serve-times")
+    log("serve-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    out = {"ehyb_packed_fused_spmm": launches[4]["ehyb_packed_fused_spmm"],
+           "ehyb_packed_fused": launches[1]["ehyb_packed_fused"]}
+    del engines, params, params2, w_dense, w_b, w_t, head4, head1
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     import torch
@@ -2298,6 +2715,9 @@ def run(dev, nx: int) -> list:
         "b_host": b_host, "a_sp": a_sp, "res": res}, plans, all_kernels,
         healthy)
 
+    # ---- 11f. the serving path (a main path): llama3_2_1b at full width ---
+    launches_s = serve_phase(dev, smi, plans, all_kernels, healthy)
+
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)
     x_new2 = x_new[:, None]
@@ -2458,6 +2878,8 @@ def run(dev, nx: int) -> list:
     launches.update({k: launches_b[k] for k in spmm_kernels})
     launches.update({k: launches_r[k] for k in rel_kernels})
     for k, n in launches_d.items():        # the sharded path's launches
+        launches[k] += n
+    for k, n in launches_s.items():        # the serving path's launches
         launches[k] += n
     max_abs.update({k: v[1] for k, v in rel_chk.items()})
     # (route, source, replaces, device kernels per counted wrapper call)

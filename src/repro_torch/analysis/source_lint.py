@@ -19,9 +19,8 @@ linters don't know:
            Constructors of descriptors (``torch.device``, ``torch.finfo``,
            ``torch.iinfo``, ``torch.Size``) are allowed.
   DEP001   deprecated shim entry points referenced inside ``src/`` — new
-           code goes through the operator API.  The port has ported none
-           of the reference's shims yet, so its tables are empty; a shim
-           ported later names itself in them.
+           code goes through the operator API (the reference's tables,
+           under ``repro_torch``).
   JIT001   wall-clock calls (``time.time``/``perf_counter``/
            ``datetime.now``) inside a function decorated with
            ``torch.compile``, ``torch.jit.script`` or ``triton.jit`` — the
@@ -50,9 +49,16 @@ _NOQA = re.compile(r"#\s*noqa:\s*([A-Z]+\d+)")
 
 # deprecated entry points (name -> the module that legitimately defines
 # it) and deprecated modules; any OTHER src/ module referencing one is
-# flagged.  Empty: no shim of the reference is ported yet.
-_DEPRECATED: Dict[str, str] = {}
-_DEPRECATED_MODULES: set = set()
+# flagged (the reference's tables, under repro_torch)
+_DEPRECATED: Dict[str, str] = {
+    "spmv": "repro_torch.core.spmv",
+    "build_spmv": "repro_torch.core.spmv",
+    "build_dist_spmv": "repro_torch.core.dist_spmv",
+    "build_sharded_spmv": "repro_torch.core.dist_spmv",
+    "build_allgather_spmv": "repro_torch.core.dist_spmv",
+    "from_dense": "repro_torch.core.sparse_linear",
+}
+_DEPRECATED_MODULES = {"repro_torch.core.dist_spmv"}
 
 _CLOCK_CALLS = {
     ("time", "time"), ("time", "perf_counter"), ("time", "monotonic"),

@@ -24,7 +24,11 @@ loop:
 Eligibility follows the plan's device: a CPU plan never selects a format
 whose applies launch CUDA kernels (``kernel="cuda"``), as the reference
 never selects an interpreter-backed kernel on the CPU; a card plan may
-select any.  A measured candidate that fails is skipped with a
+select any.  A card plan also never selects a format whose modeled bytes
+for one apply (its tables and vectors, each read once) exceed the card's
+memory (:func:`_device_capacity`): the dense format of a large pattern
+would otherwise win under a calibration that fitted its stream's traffic
+kind as free, and its build would ask for terabytes.  A measured candidate that fails is skipped with a
 :class:`~repro_torch.reliability.ReliabilityWarning` and the
 ``tune.candidate_failed`` counter on a CPU plan; on a card plan only an
 injected :class:`~repro_torch.reliability.chaos.ChaosFault` skips it, and
@@ -162,6 +166,15 @@ def _skip(device: torch.device, what: str, err: Exception) -> None:
                   f"skipping it", ReliabilityWarning, stacklevel=3)
 
 
+def _device_capacity(device: torch.device) -> Optional[int]:
+    """Bytes of memory a format's tables may take on ``device``: the
+    card's total memory, or None (no limit) on the CPU, whose rankings stay
+    the reference's."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
 def _val_bytes(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
@@ -244,6 +257,14 @@ def autotune(m: SparseCSR, dtype=None, *, mode: str = "model",
     val_bytes = _val_bytes(dtype)
     ranked = rank_formats(m, val_bytes, cand, shared, context, k)
     modeled = dict(ranked)
+    cap = _device_capacity(device)
+    if cap is not None:
+        ranked = [(f, b) for f, b in ranked if b <= cap]
+        if not ranked:
+            raise ValueError(
+                f"no candidate format fits in {cap} bytes on {device}: "
+                f"modeled bytes {modeled}")
+        cand = tuple(f for f in cand if modeled[f] <= cap)
     calibrated = None
     if cal is not None:
         stats = matrix_stats(m)

@@ -15,8 +15,10 @@ everywhere in the port, the device defaults to ``cuda`` and raises without
 a card; pass ``device="cpu"`` for the plain CPU paths.
 :func:`solve_policy` carries a ``repro.reliability.SolvePolicy`` across
 field by field, so both packages' escalation ladders can run under one
-policy.  This module reads numpy arrays and attributes only; it imports
-nothing of the JAX package.
+policy, and :func:`model_config` a ``ModelConfig``.
+:func:`lm_params` carries a language model's parameter tree across, so
+both packages compute on the same weights.  This module reads numpy arrays
+and attributes only; it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .core.spmv import (ER_STREAM, COODevice, DenseDevice,
                         EHYBBucketsDevice, EHYBDevice, EHYBPackedDevice,
                         ELLDevice, HYBDevice, column_rows, er_column_rows,
                         er_stream_tensors)
+from .models.transformer import tree_leaves
 from .reliability.policy import SolvePolicy
 
 _CONTAINERS = {"COODevice": COODevice, "ELLDevice": ELLDevice,
@@ -180,3 +183,40 @@ def sparse_linear(kind: str, leaves: dict, static: dict, *, csr, d_in: int,
                         _csr=m)
     return (cls or SparseLinear)(d_in=d_in, d_out=d_out, op=op,
                                  density=density, csr=m, ehyb=e)
+
+
+def model_config(cfg):
+    """The port's :class:`~repro_torch.configs.ModelConfig` with the fields
+    of ``cfg`` (a reference ``ModelConfig``, or anything with the same
+    attribute names), field by field."""
+    from .configs import ModelConfig
+
+    return ModelConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def lm_params(params, cfg, device=None) -> dict:
+    """The port's parameter tree of a language model on ``device`` (default
+    ``cuda``) from the JAX package's: nested dicts of arrays (anything
+    ``np.asarray`` reads; bf16 bit for bit), the units stacked on axis 0
+    as the reference stacks them (``params["units"]``, and
+    ``params["enc_units"]`` for an encoder-decoder).  ``cfg`` is the
+    model's config (either package's); each stack's leading axis must be
+    its unit count."""
+    device = resolve_device(device)
+
+    def carry(tree):
+        if isinstance(tree, dict):
+            return {k: carry(v) for k, v in tree.items()}
+        return tensor_from_numpy(np.asarray(tree), device)
+
+    out = carry(params)
+    stacks = {"units": cfg.n_layers // len(cfg.unit_pattern)}
+    if cfg.family == "encdec":
+        stacks["enc_units"] = cfg.n_enc_layers // len(cfg.enc_unit_pattern)
+    for name, n_units in stacks.items():
+        for leaf in tree_leaves(out[name]):
+            if leaf.shape[0] != n_units:
+                raise ValueError(f"params[{name!r}] stacks {leaf.shape[0]} "
+                                 f"units; the config has {n_units}")
+    return out

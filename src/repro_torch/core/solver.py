@@ -49,9 +49,6 @@ class SolveResult(NamedTuple):
 # preconditioners (diagonal family)
 # ---------------------------------------------------------------------------
 
-PRECONDITIONERS = ("none", "jacobi", "spai")
-
-
 def _matrix_diag(m: SparseCSR) -> tuple[np.ndarray, np.ndarray]:
     rows = np.repeat(np.arange(m.n), m.row_lengths())
     diag = np.zeros(m.n)
@@ -78,6 +75,41 @@ def precond_inv_diag(m: SparseCSR, kind: str) -> Optional[np.ndarray]:
         return np.where(mdiag == 0, 1.0, mdiag).astype(np.float64)
     raise ValueError(f"unknown preconditioner {kind!r}; "
                      f"have {list(PRECONDITIONERS)}")
+
+
+def _diag_closure(inv: Optional[np.ndarray]) -> Callable:
+    """``r -> M⁻¹ r`` for the inverse diagonal ``inv`` (identity for None),
+    the diagonal carried at the wider of r's dtype and fp32 on r's
+    device."""
+    if inv is None:
+        return lambda r: r
+
+    def apply(r):
+        acc = torch.promote_types(r.dtype, torch.float32)
+        return torch.as_tensor(inv, dtype=acc, device=r.device) * r
+
+    return apply
+
+
+def identity_precond(_: SparseCSR) -> Callable:
+    return _diag_closure(None)
+
+
+def jacobi_precond(m: SparseCSR) -> Callable:
+    return _diag_closure(precond_inv_diag(m, "jacobi"))
+
+
+def spai_diag_precond(m: SparseCSR) -> Callable:
+    """Diagonal SPAI closure (see :func:`precond_inv_diag`)."""
+    return _diag_closure(precond_inv_diag(m, "spai"))
+
+
+# the reference's table: preconditioner name -> closure factory
+PRECONDITIONERS = {
+    "none": identity_precond,
+    "jacobi": jacobi_precond,
+    "spai": spai_diag_precond,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -353,3 +385,79 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
 
 
 SOLVERS = {"cg": cg, "bicgstab": bicgstab}
+
+
+# ---------------------------------------------------------------------------
+# legacy entry points: DeprecationWarning shims over repro_torch.api
+# ---------------------------------------------------------------------------
+
+def precond_for(a: SparseCSR, kind: str, op=None,
+                space: str = "original") -> Callable:
+    """Deprecated: the preconditioner closure ``r -> M⁻¹ r`` for matrix
+    ``a`` in the given execution space; ``space="permuted"`` needs the
+    bound operator ``op`` (a ``repro_torch.api.LinearOperator`` or the
+    legacy ``SpMVOperator``), whose permutation carries the diagonal into
+    its space as ``op.solve`` does (padding slots get 1.0).  Use
+    ``op.solve(b, precond=kind)``, or ``op.precond_inv_permuted(kind)``
+    for the permuted diagonal."""
+    import warnings
+
+    warnings.warn("core.solver.precond_for is deprecated; use "
+                  "repro_torch.api: op.solve(b, precond=...) or "
+                  "op.precond_inv_permuted(kind)", DeprecationWarning,
+                  stacklevel=2)
+    inv = precond_inv_diag(a, kind)
+    if space == "permuted":
+        if op is None or not op.supports_permuted:
+            raise ValueError("space='permuted' needs an operator with a "
+                             "permuted execution space")
+        if inv is not None:
+            perm = op.obj.perm.cpu().numpy()
+            inv_pad = np.ones(op.n_pad)
+            live = perm < a.n
+            inv_pad[live] = inv[perm[live]]
+            inv = inv_pad
+    elif space != "original":
+        raise ValueError(f"unknown space {space!r}")
+    return _diag_closure(inv)
+
+
+def solve(a, b, *, method: str = "cg", precond: str = "jacobi",
+          format: str = "auto", tol: float = 1e-6, max_iters: int = 500,
+          space: str = "auto", fused_update="auto", x0=None,
+          device=None) -> SolveResult:
+    """Deprecated: use ``repro_torch.api`` —
+    ``plan(A, execution=ExecutionConfig(workload="solver")).bind(A)
+    .solve(b)``.
+
+    Solve ``A x = b``: a :class:`SparseCSR` ``a`` is planned with the
+    solver-context cost model and bound at b's dtype (on b's device for a
+    tensor b, else on ``device``, default ``cuda``); a bound
+    ``repro_torch.api.LinearOperator`` solves as it is."""
+    import warnings
+
+    warnings.warn(
+        "core.solver.solve is deprecated; use repro_torch.api: "
+        "plan(A, execution=ExecutionConfig(workload='solver'))"
+        ".bind(A).solve(b, ...)", DeprecationWarning, stacklevel=2)
+    from ..api import ExecutionConfig
+    from ..api.operator import LinearOperator, solve_operator
+    from ..api.plan import plan as _plan
+
+    if space not in ("auto", "original", "permuted"):
+        raise ValueError(f"unknown space {space!r}")
+    if isinstance(a, SparseCSR):
+        if isinstance(b, torch.Tensor):
+            device = b.device
+        b = torch.as_tensor(b)
+        dtype = b.dtype if b.is_floating_point() else torch.float32
+        a = _plan(a, execution=ExecutionConfig(format=format,
+                                               workload="solver"),
+                  device=device).bind(a, dtype=dtype)
+    elif not isinstance(a, LinearOperator):
+        raise TypeError(f"solve takes a SparseCSR or a "
+                        f"repro_torch.api.LinearOperator, "
+                        f"got {type(a).__name__}")
+    return solve_operator(a, b, method=method, precond=precond, x0=x0,
+                          tol=tol, max_iters=max_iters, space=space,
+                          fused_update=fused_update)

@@ -198,6 +198,30 @@ class SparseLinear(nn.Module):
                 "sparse": sparse, "ehyb": sparse, "ratio": sparse / dense}
 
 
+    @classmethod
+    def from_dense(cls, w: np.ndarray, density: float = 0.1,
+                   format: str = "auto", dtype=torch.float32,
+                   partition_method: Optional[str] = None,
+                   mesh=None, mesh_axis: str = "data", device=None,
+                   **build_kw) -> "SparseLinear":
+        """Deprecated: use :func:`repro_torch.api.pruned_linear` (the same
+        pruning; the operator is planned and bound through
+        ``repro_torch.api.plan``).  ``build_kw`` are ``pruned_linear``'s
+        other keywords (``mode``, ``candidates``, ``k``)."""
+        import warnings
+
+        warnings.warn(
+            "SparseLinear.from_dense is deprecated; use "
+            "repro_torch.api.pruned_linear(w, density, ...)",
+            DeprecationWarning, stacklevel=2)
+        from ..api.nn import pruned_linear
+
+        return pruned_linear(w, density, format=format, dtype=dtype,
+                             partition_method=partition_method, mesh=mesh,
+                             mesh_axis=mesh_axis, cls=cls, device=device,
+                             **build_kw)
+
+
 class EHYBLinear(SparseLinear):
     """The paper's layer: SparseLinear pinned to the EHYB format."""
 

@@ -827,3 +827,168 @@ def ehyb_buckets_spmv(m: EHYBBucketsDevice, x: torch.Tensor) -> torch.Tensor:
     """Bucketed EHYB SpMV/SpMM, original space."""
     x_new, squeeze = _to_permuted(m, x)
     return _from_permuted(m, ehyb_buckets_spmv_permuted(m, x_new), squeeze)
+
+
+# ---------------------------------------------------------------------------
+# legacy entry points: DeprecationWarning shims over repro_torch.api
+# ---------------------------------------------------------------------------
+# The reference's one-call surface (``spmv(A, x)``, ``build_spmv(A)``, the
+# ``SpMVOperator`` they return) before its operator API.  Each warns and
+# delegates to ``repro_torch.api``; nothing inside the port calls them (the
+# source lint's DEP001 rule).
+
+def _deprecated(what: str, use: str) -> None:
+    import warnings
+
+    warnings.warn(f"core.spmv.{what} is deprecated; use repro_torch.api: "
+                  f"{use}", DeprecationWarning, stacklevel=3)
+
+
+@dataclasses.dataclass(eq=False)
+class SpMVOperator:
+    """Deprecated: the legacy operator, a view of a bound
+    :class:`repro_torch.api.LinearOperator` (``op``) with the reference's
+    ``SpMVOperator`` surface — ``op(x)``, ``format``, ``obj``, ``apply``
+    (``(obj, x) -> y``, the plan's guarded apply), ``update_values``, the
+    permuted-space methods.  Construct the operator with
+    ``repro_torch.api.plan(A).bind(A)`` instead."""
+
+    op: object
+
+    def __post_init__(self):
+        _deprecated("SpMVOperator", "plan(A).bind(A) is the operator")
+
+    @classmethod
+    def _of(cls, op) -> "SpMVOperator":
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return cls(op)
+
+    format = property(lambda self: self.op.format)
+    obj = property(lambda self: self.op.obj)
+    n = property(lambda self: self.op.n)
+    nnz = property(lambda self: self.op.nnz)
+    dtype = property(lambda self: self.op.dtype)
+    tuning = property(lambda self: self.op.tuning)
+    supports_permuted = property(lambda self: self.op.supports_permuted)
+    n_pad = property(lambda self: self.op.n_pad)
+
+    @property
+    def apply(self):
+        """``(obj, x) -> y`` in the original space (the plan's guard)."""
+        return self.op.plan._raw_apply()
+
+    @property
+    def apply_permuted(self):
+        """``(obj, x_new) -> y_new``, or None without a permuted space."""
+        return self.op.plan._raw_apply_permuted() \
+            if self.supports_permuted else None
+
+    def __call__(self, x) -> torch.Tensor:
+        return self.op @ x
+
+    @property
+    def matvec(self):
+        return self.__call__
+
+    def update_values(self, a_new, *, pattern: str = None) -> "SpMVOperator":
+        """Same sparsity pattern, new values: a refill of the value tables
+        (``LinearOperator.update_values``).  ``pattern`` is accepted for
+        the reference's signature and not needed."""
+        return SpMVOperator._of(self.op.update_values(a_new))
+
+    def to_permuted(self, x) -> torch.Tensor:
+        return self.op.to_space(x, "permuted")
+
+    def from_permuted(self, y_new) -> torch.Tensor:
+        return self.op.from_space(y_new, "permuted")
+
+    @property
+    def matvec_permuted(self):
+        if not self.supports_permuted:
+            raise ValueError(f"format {self.format!r} has no permuted space")
+        return self.op.matvec_permuted
+
+
+def _plan_bind(a: SparseCSR, format: str, dtype, device, **execution):
+    from ..api import ExecutionConfig
+    from ..api.plan import plan
+
+    p = plan(a, execution=ExecutionConfig(format=format, **execution),
+             device=device)
+    return p.bind(a, dtype=dtype or torch.float32)
+
+
+def build_spmv(a: SparseCSR, format: str = "auto", dtype=None, *,
+               mode: str = "model", candidates=None, context: str = "spmv",
+               k: int = 1, device=None) -> SpMVOperator:
+    """Deprecated: use ``repro_torch.api.plan(a, execution=
+    ExecutionConfig(...)).bind(a)``.  ``context`` is the plan's
+    ``workload``; the reference's ``shared`` and ``n_dev`` have no
+    counterpart (a plan keeps its host build, and ``plan(A, mesh=)``
+    shards)."""
+    _deprecated("build_spmv", "plan(A, execution=ExecutionConfig(...))"
+                ".bind(A)")
+    return SpMVOperator._of(_plan_bind(
+        a, format, dtype, device, mode=mode, workload=context, k=k,
+        candidates=None if candidates is None else tuple(candidates)))
+
+
+def cached_spmv_operator(a: SparseCSR, format: str = "auto", dtype=None,
+                         context: str = "spmv",
+                         device=None) -> SpMVOperator:
+    """Deprecated: the operator for ``a`` through the plan cache
+    (``repro_torch.api.PLAN_CACHE``): the same pattern plans once, and a
+    bind of new values refills the value tables."""
+    _deprecated("cached_spmv_operator", "plan(A).bind(A)")
+    return SpMVOperator._of(_plan_bind(a, format, dtype, device,
+                                       workload=context))
+
+
+def spmv(a, x, format: str = "auto", dtype=None, device=None):
+    """Deprecated: use ``repro_torch.api`` (``plan(A).bind(A) @ x``).
+
+    ``y = A @ x`` for a :class:`SparseCSR` ``A`` in the autotuned (or the
+    given) format, planned through the plan cache; ``a`` may also be a
+    bound operator.  ``x`` may be (n,) or (n, R); ``dtype`` defaults to
+    x's for a floating-point x and float32 otherwise.  The device is x's
+    for a tensor x, else ``device`` (default ``cuda``)."""
+    _deprecated("spmv", "plan(A).bind(A) @ x")
+    if not isinstance(a, SparseCSR):
+        return a(x)
+    if isinstance(x, torch.Tensor):
+        device = x.device
+    else:
+        x = torch.as_tensor(np.asarray(x))
+    if dtype is None:
+        dtype = x.dtype if x.is_floating_point() else torch.float32
+    op = _plan_bind(a, format, dtype, device, workload="spmv")
+    return op @ x.to(op.device, dtype)
+
+
+def csr_spmv(m: COODevice, x: torch.Tensor) -> torch.Tensor:
+    """Deprecated: the ``csr`` format's apply on its container, as the
+    reference's alias of ``coo_spmv``; use ``plan(A, execution=
+    ExecutionConfig(format="csr")).bind(A) @ x``."""
+    _deprecated("csr_spmv", "plan(A, execution=ExecutionConfig("
+                "format='csr')).bind(A) @ x")
+    return coo_spmv(m, x)
+
+
+def ehyb_spmv_buckets(b: EHYBBuckets, x: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Deprecated: the width-bucketed EHYB product from the HOST container,
+    uploaded on every call to x's device (the reference's transparent
+    oracle); use ``plan(A, execution=ExecutionConfig(
+    format="ehyb_bucketed")).bind(A) @ x``."""
+    _deprecated("ehyb_spmv_buckets", "plan(A, execution=ExecutionConfig("
+                "format='ehyb_bucketed')).bind(A) @ x")
+    x = torch.as_tensor(x)
+    m = EHYBBucketsDevice.structure(b, dtype, device=x.device)
+    vals = torch.cat([_tensor(v, x.device, dtype).reshape(-1)
+                      for v in b.vals])
+    er = _tensor(group_er_by_partition(b.base)["er_p_vals"], x.device, dtype)
+    return ehyb_buckets_spmv(dataclasses.replace(m, vals=vals, er_p_vals=er),
+                             x.to(dtype))

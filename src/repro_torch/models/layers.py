@@ -1,0 +1,187 @@
+"""Shared model layers: norms, embeddings, positional encodings, MLPs, head.
+
+The port of ``repro.models.layers``.
+
+Conventions
+-----------
+* params are nested dicts of tensors; every init function draws from an
+  explicit ``torch.Generator`` and makes its tensors on that generator's
+  device, so one seed gives one model on the card or on the CPU.
+* compute dtype (``cfg.dtype``, bf16 at full width) is applied at use;
+  params stay in ``cfg.param_dtype`` (fp32 master copies).  An embedding
+  lookup gathers the rows first and casts them after, which is the same
+  elementwise cast on fewer rows.
+* norm statistics and RoPE angles are fp32 regardless of compute dtype.
+
+``chunked_xent`` and the gradient-dtype boundary of the reference are for
+training; they come with the train slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def cdtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def pdtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def pad_vocab(vocab: int, multiple: int = 2048) -> int:
+    """Pad vocabulary so the vocab-parallel dimension divides the mesh
+    (standard practice: Megatron pads to a multiple of TP×128)."""
+    return -(-vocab // multiple) * multiple
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg, d: int, device) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(d, dtype=pdtype(cfg), device=device),
+                "bias": torch.zeros(d, dtype=pdtype(cfg), device=device)}
+    return {"scale": torch.ones(d, dtype=pdtype(cfg), device=device)}
+
+
+def apply_norm(p, x: torch.Tensor, cfg, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:            # rmsnorm
+        var = (xf ** 2).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings & positions
+# ---------------------------------------------------------------------------
+
+def _dense_init(gen: torch.Generator, shape, dtype, scale=None):
+    fan_in = shape[0]
+    scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device) * scale
+
+
+def init_embedding(gen: torch.Generator, cfg) -> dict:
+    v = pad_vocab(cfg.vocab_size)
+    emb = torch.randn((v, cfg.d_model), generator=gen, dtype=pdtype(cfg),
+                      device=gen.device) * 0.02
+    p = {"embedding": emb}
+    if cfg.pos_embedding == "learned":
+        p["pos_embedding"] = torch.zeros((cfg.max_position, cfg.d_model),
+                                         dtype=pdtype(cfg),
+                                         device=gen.device)
+    return p
+
+
+def _positions(pos_offset, s: int, device) -> torch.Tensor:
+    """(S,) positions from a scalar start, or (B, S) from (B,) starts."""
+    po = torch.as_tensor(pos_offset, device=device)
+    return (po[:, None] if po.ndim == 1 else po) + torch.arange(
+        s, device=device)
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg, pos_offset=0) -> torch.Tensor:
+    """``pos_offset``: scalar start position, or (B,) int per-row starts
+    (continuous batching — each decode slot sits at its own position)."""
+    dt = cdtype(cfg)
+    x = p["embedding"][tokens].to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.pos_embedding == "learned":
+        pos = _positions(pos_offset, tokens.shape[-1], x.device)
+        x = x + p["pos_embedding"][pos].to(dt)
+    return x
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) int.  Split halves (the
+    reference's form), angles in fp32."""
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(d, theta), dtype=torch.float32,
+                            device=x.device)
+    angles = positions[..., None].float() * freqs            # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg, d_model=None, d_ff=None) -> dict:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    dt = pdtype(cfg)
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_gate": _dense_init(gen, (d, f), dt),
+                "w_up": _dense_init(gen, (d, f), dt),
+                "w_down": _dense_init(gen, (f, d), dt)}
+    return {"w_up": _dense_init(gen, (d, f), dt),
+            "w_down": _dense_init(gen, (f, d), dt)}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    dt = cdtype(cfg)
+    if "w_gate" in p:
+        g = x @ p["w_gate"].to(dt)
+        u = x @ p["w_up"].to(dt)
+        act = F.silu(g) if cfg.act == "swiglu" else _gelu(g)
+        h = act * u
+    else:
+        h = _gelu(x @ p["w_up"].to(dt))
+    return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# output head
+# ---------------------------------------------------------------------------
+
+def init_lm_head(gen: torch.Generator, cfg) -> dict:
+    if cfg.tie_embeddings:
+        return {}
+    v = pad_vocab(cfg.vocab_size)
+    return {"w_head": _dense_init(gen, (cfg.d_model, v), pdtype(cfg))}
+
+
+def softcap(logits: torch.Tensor, c: float) -> torch.Tensor:
+    return torch.tanh(logits / c) * c if c else logits
+
+
+def logits_fn(head_p, emb_p, x: torch.Tensor, cfg) -> torch.Tensor:
+    dt = cdtype(cfg)
+    if cfg.tie_embeddings:
+        w = emb_p["embedding"].to(dt).T
+    else:
+        w = head_p["w_head"].to(dt)
+    return softcap(x @ w, cfg.final_softcap)
+
+
+__all__ = ["cdtype", "pdtype", "pad_vocab", "init_norm", "apply_norm",
+           "init_embedding", "embed_tokens", "rope_frequencies",
+           "apply_rope", "init_mlp", "apply_mlp", "init_lm_head",
+           "logits_fn", "softcap"]

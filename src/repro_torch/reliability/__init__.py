@@ -6,11 +6,10 @@ DESIGN
 Failure domains and their degradation ladders
 ---------------------------------------------
 
-The port carries two of the JAX package's three recovery ladders (the
-third, serving, waits for the serve engine).  Every rung is observable (a
-``ReliabilityWarning`` once per distinct event and a named counter in
-``core.counters``) and every ladder ends in a level that cannot fail for
-the reason the rung above it did.
+The port carries the JAX package's three recovery ladders.  Every rung is
+observable (a ``ReliabilityWarning`` once per distinct event and a named
+counter in ``core.counters``) and every ladder ends in a level that cannot
+fail for the reason the rung above it did.
 
 1. **Kernel dispatch** (``reliability.guard``).  A hand-written CUDA
    kernel can fail to build (``nvcc`` refuses the source), to load, or to
@@ -42,10 +41,19 @@ the reason the rung above it did.
    converged warns (:class:`SolveFailureWarning`) or raises
    (:class:`SolveFailure`).
 
-Fault injection (``reliability.chaos``) arms both deterministically —
-kernel-site failures by fnmatch pattern, NaN apply output, latency — so
-each recovery path has a test that proves its fault fired (asserting on
-``cfg.injected``) and that the system still computed the right answer.
+3. **Serving** (``serve.engine``).  Overload and transient apply faults.
+   :class:`EnginePolicy` adds a bounded queue (reject-with-reason),
+   per-request deadlines enforced at admission and per step,
+   retry-with-backoff around the prefill/decode steps (non-finite logits
+   count as a failure), and a degraded mode that swaps the sparse pruned
+   head for the dense path when the sparse apply keeps failing — admitted
+   requests always finish or expire, never hang.
+
+Fault injection (``reliability.chaos``) arms all three deterministically —
+kernel-site failures by fnmatch pattern, NaN apply output, latency, serve
+step budgets — so each recovery path has a test that proves its fault
+fired (asserting on ``cfg.injected``) and that the system still computed
+the right answer.
 Chaos entry and exit bump an epoch, so no level resolved under injection
 survives it.
 
@@ -55,18 +63,20 @@ never takes.  The only in-loop machinery is the solver's status register,
 which rides the existing loop state.
 """
 
-from .chaos import ChaosConfig, ChaosFault, chaos
+from .chaos import ChaosConfig, ChaosFault, chaos, flood
 from .guard import fallback_chain, guarded_apply, reference_apply
-from .policy import (ReliabilityWarning, SolveFailure, SolveFailureWarning,
-                     SolvePolicy)
+from .policy import (EnginePolicy, ReliabilityWarning, SolveFailure,
+                     SolveFailureWarning, SolvePolicy)
 
 __all__ = [
     "ChaosConfig",
     "ChaosFault",
     "chaos",
+    "flood",
     "fallback_chain",
     "guarded_apply",
     "reference_apply",
+    "EnginePolicy",
     "ReliabilityWarning",
     "SolveFailure",
     "SolveFailureWarning",

@@ -1,6 +1,6 @@
 """Deterministic fault injection for the reliability layer.
 
-The port of ``repro.reliability.chaos`` for the kernel and solver paths.
+The port of ``repro.reliability.chaos``.
 ``chaos(...)`` is a context manager that arms one module-global
 :class:`ChaosConfig`; instrumentation points consult it at host dispatch:
 
@@ -13,13 +13,17 @@ The port of ``repro.reliability.chaos`` for the kernel and solver paths.
   through this; with ``nan_apply=True`` any non-``"reference"`` level
   returns all-NaN, simulating silent kernel corruption (the solver
   guardrails and the escalation ladder must recover).
+* ``check_serve(sparse_active)`` — the serve engine's step wrapper;
+  ``serve_apply_failures=N`` raises on the first N calls (transient fault:
+  the retry path must absorb it), ``fail_sparse_apply=True`` raises on
+  every call made while the sparse head is active (persistent fault: the
+  engine must degrade to the dense head).
 * ``slow_apply_s`` — sleeps that long at each consulted site (latency
   injection).
 
-Everything is deterministic — no randomness — so every recovery-path test
-reproduces exactly.  The serve-engine faults of the JAX package
-(``check_serve``, ``serve_apply_failures``, ``fail_sparse_apply``,
-``flood``) wait for the serve engine's port.
+Everything is deterministic — no randomness, budgets count down in call
+order — so every recovery-path test reproduces exactly.  :func:`flood`
+submits a burst of requests to an engine (the overload helper).
 
 Cache hygiene: a decision taken while chaos is armed must not outlive it,
 and a healthy cached decision must not mask it.  Entering and exiting bump
@@ -50,6 +54,8 @@ class ChaosConfig:
     kernel_failure: Tuple[str, ...] = ()   # fnmatch patterns vs site names
     nan_apply: bool = False                # non-reference applies emit NaN
     slow_apply_s: float = 0.0              # sleep per consulted site
+    serve_apply_failures: int = 0          # first-N serve step calls fail
+    fail_sparse_apply: bool = False        # every sparse-head serve call fails
     injected: Counter = dataclasses.field(default_factory=Counter)
 
     def _sleep(self) -> None:
@@ -69,6 +75,16 @@ class ChaosConfig:
             self.injected["nan"] += 1
             return torch.full_like(y, float("nan"))
         return y
+
+    def check_serve(self, sparse_active: bool = True) -> None:
+        self._sleep()
+        if self.fail_sparse_apply and sparse_active:
+            self.injected["serve:sparse"] += 1
+            raise ChaosFault("chaos: injected sparse-head apply failure")
+        if self.serve_apply_failures > 0:
+            self.serve_apply_failures -= 1
+            self.injected["serve:transient"] += 1
+            raise ChaosFault("chaos: injected transient serve apply failure")
 
 
 _ACTIVE: Optional[ChaosConfig] = None
@@ -111,3 +127,22 @@ def chaos(**kw):
     finally:
         _ACTIVE = None
         _EPOCH += 1
+
+
+def flood(engine, n: int, *, prompt=None, max_new_tokens: int = 4,
+          ttl_s: Optional[float] = None, uid_base: int = 10_000) -> list:
+    """Submit ``n`` requests at once (queue-flood helper for overload
+    tests).  Returns the Request objects — rejected ones come back with
+    ``done=True`` and a ``reject_reason``."""
+    import numpy as np
+
+    from ..serve.engine import Request
+
+    p = np.asarray([1, 2, 3] if prompt is None else prompt, np.int32)
+    reqs = []
+    for i in range(n):
+        r = Request(uid=uid_base + i, prompt=p,
+                    max_new_tokens=max_new_tokens, ttl_s=ttl_s)
+        engine.submit(r)
+        reqs.append(r)
+    return reqs

@@ -3,9 +3,9 @@
 The port's own copy of ``repro.reliability.policy`` (plain dataclasses; the
 port imports nothing of the JAX package).  These are host-side
 configuration objects a caller constructs once and threads through
-``solve()``: the solver escalation ladder and the warning taxonomy tests
-filter on.  The serve engine's ``EnginePolicy`` comes with the engine's
-port.
+``solve()`` / :class:`~repro_torch.serve.engine.ServeEngine`: the solver
+escalation ladder, the serving admission/retry knobs, and the warning
+taxonomy tests filter on.
 """
 
 from __future__ import annotations
@@ -70,3 +70,25 @@ class SolvePolicy:
     stagnation_rtol: float = 1e-4
     breakdown_tol: Optional[float] = None
     divergence_factor: float = 1e12
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePolicy:
+    """Admission control + failure handling for :class:`ServeEngine`.
+
+    ``max_queue=None`` keeps the legacy unbounded queue; a bound makes
+    ``submit()`` reject-with-reason (``reject_reason="queue_full"``)
+    instead of growing the deque without limit.  ``default_ttl_s`` stamps
+    a deadline on requests that carry none; deadlines are enforced at
+    admission and per step.  Transient step failures retry up to
+    ``max_retries`` with exponential backoff starting at
+    ``retry_backoff_s`` (0 = immediate retry, the test-friendly default);
+    when retries are exhausted and a sparse head is serving, the engine
+    enters degraded mode — the dense head path — rather than dropping
+    admitted requests.
+    """
+
+    max_queue: Optional[int] = None
+    max_retries: int = 2
+    retry_backoff_s: float = 0.0
+    default_ttl_s: Optional[float] = None

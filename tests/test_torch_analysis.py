@@ -536,13 +536,8 @@ def test_lint_module_scope_torch():
     assert lint_source(ok, "t.py") == []
 
 
-def test_lint_deprecated_shims(monkeypatch):
-    from repro_torch.analysis import source_lint
-
+def test_lint_deprecated_shims():
     src = "from repro_torch.core.spmv import build_spmv\n"
-    assert lint_source(src, "t.py", "repro_torch.other") == []   # none yet
-    monkeypatch.setitem(source_lint._DEPRECATED, "build_spmv",
-                        "repro_torch.core.spmv")
     assert rules_of(lint_source(src, "t.py", "repro_torch.other")) == \
         {"DEP001"}
     # the defining module itself is exempt

@@ -1336,3 +1336,56 @@ def test_one_rank_nccl_plan_matches_the_local_plan(cuda_device, tmp_path):
         assert n1[0] > n0[0] + 1 and n1[1] == n0[1] + 1 and n1[2] > n0[2] + 2
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,kernel", [(2, "ehyb_packed_fused_spmm"),
+                                          (1, "ehyb_packed_fused")])
+def test_serve_sparse_head_launches_its_kernel(cuda_device, batch, kernel):
+    """The serve engine's pruned decode head on the card: an
+    ``ehyb_packed`` head runs #8 at two slots and #2 at one, every step's
+    logits agree with an fp32 product of the same hidden states against
+    the pruned dense head (1e-4 of the largest), and every request
+    finishes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("llama3_2_1b", smoke=True)
+    params = init_model(0, cfg, device=cuda_device)
+    eng = ServeEngine(params, cfg, batch=batch, max_len=48, max_prompt=8,
+                      sparse_head_density=0.5,
+                      sparse_head_format="ehyb_packed",
+                      sparse_head_partition="bfs", device=cuda_device)
+    head = eng.sparse_head
+    w = torch.zeros((head.d_out, head.d_in), device=cuda_device)
+    rows = np.repeat(np.arange(head.csr.n), head.csr.row_lengths())
+    w[torch.as_tensor(rows, device=cuda_device),
+      torch.as_tensor(head.csr.indices, device=cuda_device).long()] = \
+        torch.as_tensor(head.csr.data, dtype=torch.float32,
+                        device=cuda_device)
+    errs = []
+    real = eng._head_logits
+
+    def spy(h, hd, obj=None):
+        out = real(h, hd, obj)
+        if hd is not None:
+            want = h.float() @ w.T
+            errs.append(float((out - want).abs().max()
+                              / want.abs().max()))
+        return out
+
+    eng._head_logits = spy
+    fn = getattr(KM if kernel.endswith("spmm") else K, kernel)
+    op = head.op
+    op @ torch.zeros((op.n, batch), device=cuda_device)  # resolve the guard
+    n0 = fn.launches
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=np.arange(1 + i, 6 + i,
+                                                   dtype=np.int32),
+                           max_new_tokens=4))
+    done = eng.run_until_done()
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.generated) == 4 for r in done)
+    assert fn.launches > n0 and errs and max(errs) <= 1e-4
+    assert not eng.degraded and not op.plan.degraded

@@ -571,3 +571,51 @@ def test_replayed_bf16_shards(n_dev, rng):
     y_ref = m.spmv(x)
     y = y[sh[0].inv_perm[: m.n]].double().numpy()
     assert np.abs(y - y_ref).max() <= 1e-1 * max(np.abs(y_ref).max(), 1.0)
+
+
+def test_serve_sparse_head_mesh(tmp_path):
+    """ServeEngine accepts a mesh for the pruned decode head: a one-rank
+    gloo group in this process (the reference's degenerate 1-device mesh),
+    the same greedy tokens as the unsharded head and as the JAX engine,
+    and the head's operator is a sharded plan whose container is the
+    rank's ``EHYBShards``."""
+    import jax
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro.configs import get_config as jget_config
+    from repro.models import init_model as jinit_model
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeEngine as JServeEngine
+    from repro_torch import convert
+    from repro_torch.dist import EHYBShards
+    from repro_torch.serve import Request, ServeEngine
+
+    jcfg = jget_config("llama3_2_1b", smoke=True)
+    jp = jinit_model(jax.random.PRNGKey(0), jcfg)
+    cfg = convert.model_config(jcfg)
+    params = convert.lm_params(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
+    prompt = np.arange(1, 7, dtype=np.int32)
+    jeng = JServeEngine(jp, jcfg, batch=1, max_len=32, max_prompt=8,
+                        sparse_head_density=0.9)
+    jeng.submit(JRequest(uid=0, prompt=prompt, max_new_tokens=4))
+    want = jeng.run_until_done()[0].generated
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        outs = []
+        for kw in ({}, {"sparse_head_mesh": mesh}):
+            eng = ServeEngine(params, cfg, batch=1, max_len=32,
+                              max_prompt=8, sparse_head_density=0.9,
+                              device="cpu", **kw)
+            eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=4))
+            outs.append(eng.run_until_done()[0].generated)
+        op = eng.sparse_head.op
+        assert op.plan.is_sharded and op.plan.mesh is mesh
+        assert isinstance(op.obj, EHYBShards)
+    finally:
+        dist.destroy_process_group()
+    assert outs[0] == outs[1] == want

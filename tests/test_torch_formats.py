@@ -14,6 +14,7 @@ are bit-identical to fresh binds.
 """
 
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,10 +30,13 @@ from repro_torch import convert
 from repro_torch.autotune import registry
 from repro_torch.core import counters
 from repro_torch.core import ehyb as tehyb
-from repro_torch.core import spmv as tspmv
 from repro_torch.core.matrices import SparseCSR, from_coo
 from repro_torch.reliability import ReliabilityWarning, chaos
 from repro_torch.reliability.guard import fallback_chain, reset_warned
+
+# the module: ``repro_torch.core.spmv`` as an attribute is the legacy
+# ``spmv`` function the package exports, as the reference's is
+tspmv = importlib.import_module("repro_torch.core.spmv")
 
 NEW = ["csr", "ell", "hyb", "ehyb_bucketed", "dense"]
 MATS = {"stencil": lambda: poisson3d(6),

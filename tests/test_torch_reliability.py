@@ -701,3 +701,258 @@ class TestSolveFailureReporting:
         assert after["solver.escalate_method"] == before.get(
             "solver.escalate_method", 0) + 1
         np.testing.assert_allclose(r.x.numpy(), b / d, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# every level of every format's fallback chain: NaN reaches the CSR rows
+# ---------------------------------------------------------------------------
+
+# levels that read a padded slot (value 0, column 0 of the space they
+# gather from) as 0 × x[0]: a NaN there spreads into rows whose CSR product
+# never reads it.  The reference's formats do the same (ROADMAP Queue 3,
+# "Non-finite x"); every other level gives exactly the CSR product's rows.
+_PADDED_READ = {"ehyb:native", "ehyb_bucketed:native",
+                "ehyb_packed:unfused", "ell:native", "hyb:native"}
+
+
+@pytest.mark.parametrize("fmt", sorted(registry.available_formats()))
+def test_every_fallback_level_puts_nan_in_the_csr_rows(fmt):
+    """For one NaN in x, every level of the format's chain (native,
+    unfused where it has one, reference; original and permuted space)
+    makes NaN every row whose CSR product reads that column, at K = 1 and
+    4.  It makes no other row NaN, except ``dense:native`` (0 × NaN over
+    the whole column) and a padded-slot read of the NaN (``_PADDED_READ``
+    with the NaN at x_new[0], or original column 0), which only spread."""
+    rng = np.random.default_rng(0)
+    for name in ("powerlaw_4k", "elasticity_8"):
+        m = SUITE[name]()
+        rows = np.repeat(np.arange(m.n), m.row_lengths())
+        part = "bfs" if registry.get_format(fmt).partitioned else None
+        p = plan(m, execution=ExecutionConfig(format=fmt,
+                                              partition_method=part),
+                 device="cpu", cache=PlanCache())
+        op = p.bind(m)
+        pad_col = int(op.obj.perm[0]) if op.supports_permuted else 0
+        cols = [int(c) for c in rng.choice(np.arange(1, m.n), 2,
+                                           replace=False)] + [0, pad_col]
+        kinds = ("apply", "permuted") if op.supports_permuted else ("apply",)
+        for c in dict.fromkeys(cols):
+            want = set(rows[m.indices == c].tolist())
+            for k in (1, 4):
+                x = torch.as_tensor(rng.standard_normal((m.n, k)),
+                                    dtype=torch.float32)
+                x[c] = float("nan")
+                for kind in kinds:
+                    for level, fn, _ in guard.fallback_chain(p, kind):
+                        y = fn(op.obj, x) if kind == "apply" else \
+                            op.from_space(fn(op.obj, op.to_space(x)))
+                        got = set(np.nonzero(
+                            torch.isnan(y).any(1).numpy())[0].tolist())
+                        what = (name, c, k, kind, level)
+                        assert want <= got, what
+                        spreads = level == "dense:native" or (
+                            level in _PADDED_READ and c == pad_col)
+                        if not spreads:
+                            assert got == want, what
+
+
+# ---------------------------------------------------------------------------
+# serving: admission control, deadlines, overload, chaos recovery
+# (mirrors tests/test_reliability.py's serve tests on the port's engine;
+# the degraded run is held to the JAX engine's dense tokens too)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def serve_setup():
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models import init_model as jinit_model
+
+    jcfg = jget_config("llama3_2_1b", smoke=True)
+    jp = jinit_model(jax.random.PRNGKey(0), jcfg)
+    cfg = convert.model_config(jcfg)
+    params = convert.lm_params(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
+    return params, cfg, jp, jcfg
+
+
+def _engine(serve_setup, **kw):
+    from repro_torch.serve import ServeEngine
+
+    params, cfg = serve_setup[:2]
+    kw.setdefault("batch", 1)
+    kw.setdefault("max_len", 48)
+    kw.setdefault("max_prompt", 8)
+    return ServeEngine(params, cfg, device="cpu", **kw)
+
+
+class TestServeAdmissionControl:
+    def test_queue_flood_rejects_excess_and_finishes_admitted(
+            self, serve_setup):
+        from repro_torch.reliability import flood
+
+        eng = _engine(serve_setup, max_queue=2)
+        reqs = flood(eng, 6, max_new_tokens=3)
+        rejected = [r for r in reqs if r.reject_reason == "queue_full"]
+        admitted = [r for r in reqs if r.reject_reason is None]
+        assert len(rejected) == 4 and len(admitted) == 2
+        assert all(r.done for r in rejected)
+        assert eng.health()["stats"]["rejected_queue_full"] == 4
+        done = eng.run_until_done()
+        finished = [r for r in done if r.reject_reason is None]
+        assert sorted(r.uid for r in finished) == \
+            sorted(r.uid for r in admitted)
+        assert all(len(r.generated) == 3 for r in finished)
+
+    def test_deadline_expires_queued_and_admitted(self, serve_setup):
+        from repro_torch.reliability import EnginePolicy
+        from repro_torch.serve import Request
+
+        t = [0.0]
+        eng = _engine(serve_setup, clock=lambda: t[0],
+                      policy=EnginePolicy(default_ttl_s=10.0))
+        for i in range(3):
+            eng.submit(Request(uid=i, prompt=np.arange(1, 5, dtype=np.int32),
+                               max_new_tokens=6))
+        done = eng.step()               # admits uid 0 into the single slot
+        assert not done
+        t[0] = 11.0                     # past every deadline
+        done = eng.step()
+        expired = {r.uid: r for r in done if r.reject_reason == "deadline"}
+        assert sorted(expired) == [0, 1, 2]
+        assert expired[0].generated     # admitted one keeps partial tokens
+        stats = eng.health()["stats"]
+        assert stats["expired_active"] == 1 and stats["expired_queued"] == 2
+
+    def test_per_request_ttl_overrides_policy(self, serve_setup):
+        from repro_torch.reliability import EnginePolicy
+        from repro_torch.serve import Request
+
+        t = [0.0]
+        eng = _engine(serve_setup, clock=lambda: t[0],
+                      policy=EnginePolicy(default_ttl_s=1.0))
+        eng.submit(Request(uid=0, prompt=np.arange(1, 5, dtype=np.int32),
+                           max_new_tokens=2, ttl_s=100.0))
+        t[0] = 5.0                      # past policy ttl, inside request ttl
+        done = eng.run_until_done()
+        assert len(done) == 1 and done[0].reject_reason is None
+        assert len(done[0].generated) == 2
+
+    def test_transient_apply_failure_retries_through(self, serve_setup):
+        from repro_torch.serve import Request
+
+        eng = _engine(serve_setup)
+        eng.submit(Request(uid=0, prompt=np.arange(1, 5, dtype=np.int32),
+                           max_new_tokens=3))
+        with chaos(serve_apply_failures=2) as cfg:
+            done = eng.run_until_done()
+        assert cfg.injected["serve:transient"] == 2
+        assert len(done) == 1 and len(done[0].generated) == 3
+        assert eng.stats["retries"] >= 2
+        assert not eng.degraded         # transient: no degradation needed
+
+    def test_sparse_head_failure_degrades_to_dense(self, serve_setup):
+        """A persistently failing sparse head must not drop admitted
+        requests — the engine degrades to the dense path and produces
+        exactly what a dense engine (the port's and the JAX package's)
+        would."""
+        from repro.serve import Request as JRequest
+        from repro.serve import ServeEngine as JServeEngine
+        from repro_torch.serve import Request
+
+        prompt = np.arange(1, 7, dtype=np.int32)
+        ref = _engine(serve_setup)
+        ref.submit(Request(uid=0, prompt=prompt, max_new_tokens=4))
+        want = ref.run_until_done()[0].generated
+        jeng = JServeEngine(serve_setup[2], serve_setup[3], batch=1,
+                            max_len=48, max_prompt=8)
+        jeng.submit(JRequest(uid=0, prompt=prompt, max_new_tokens=4))
+        assert jeng.run_until_done()[0].generated == want
+
+        eng = _engine(serve_setup, sparse_head_density=1.0)
+        eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=4))
+        before = counters.snapshot()
+        with pytest.warns(ReliabilityWarning, match="degraded"):
+            with chaos(fail_sparse_apply=True) as cfg:
+                done = eng.run_until_done()
+        assert cfg.injected["serve:sparse"] >= 1
+        assert eng.degraded and eng.health()["degraded"]
+        assert len(done) == 1 and done[0].generated == want
+        after = counters.snapshot()
+        assert after.get("serve.degraded", 0) == \
+            before.get("serve.degraded", 0) + 1
+        # the sparse layer survives: restore swaps it back in
+        eng.restore_sparse_head()
+        assert not eng.degraded
+        eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=2))
+        done2 = eng.run_until_done()
+        assert len(done2) == 1 and len(done2[0].generated) == 2
+
+    def test_non_finite_logits_count_as_a_failure(self, serve_setup):
+        """NaN logits from the sparse head (chaos ``nan_apply`` on its
+        guarded apply) are a failed step: retried, then served by the
+        dense head."""
+        from repro_torch.serve import Request
+
+        eng = _engine(serve_setup, sparse_head_density=1.0)
+        eng.submit(Request(uid=0, prompt=np.arange(1, 7, dtype=np.int32),
+                           max_new_tokens=3))
+        with pytest.warns(ReliabilityWarning, match="FloatingPointError"):
+            with chaos(nan_apply=True) as cfg:
+                done = eng.run_until_done()
+        assert cfg.injected["nan"] >= 1 and eng.degraded
+        assert len(done) == 1 and len(done[0].generated) == 3
+
+    @pytest.mark.parametrize("fault", ["error", "nan", "injected"])
+    def test_card_engine_degrades_only_on_injected_faults(
+            self, serve_setup, monkeypatch, fault):
+        """On a CUDA engine only an injected fault moves the steps to the
+        dense head.  A plain error of the sparse head (a kernel that does
+        not build or launch) or its non-finite logits propagate, with no
+        retry, and the engine keeps its sparse head.  The engine computes
+        here on the CPU with its device set to cuda."""
+        eng = _engine(serve_setup, sparse_head_density=1.0)
+        eng.device = torch.device("cuda")
+        args = (torch.ones((1, 1), dtype=torch.int32), eng.state,
+                torch.zeros(1, dtype=torch.int32), eng._head_obj())
+        real = eng._head_logits
+
+        def broken(h, head, head_obj=None):
+            out = real(h, head, head_obj)
+            if head is None:
+                return out
+            if fault == "error":
+                raise RuntimeError("kernel failed to build")
+            return torch.full_like(out, float("nan"))
+
+        if fault != "injected":
+            monkeypatch.setattr(eng, "_head_logits", broken)
+            want = RuntimeError if fault == "error" else FloatingPointError
+            with pytest.raises(want):
+                eng._guarded_call("decode", *args)
+            assert not eng.degraded and eng.stats["retries"] == 0
+            assert eng.health()["degraded"] is False
+            return
+        with pytest.warns(ReliabilityWarning, match="ChaosFault"):
+            with chaos(fail_sparse_apply=True) as cfg:
+                logits, _ = eng._guarded_call("decode", *args)
+        assert cfg.injected["serve:sparse"] >= 1 and eng.degraded
+        assert logits.shape[0] == 1 and np.isfinite(logits).all()
+
+    def test_health_snapshot_shape(self, serve_setup):
+        eng = _engine(serve_setup, max_queue=4)
+        h = eng.health()
+        assert h["queue_depth"] == 0 and h["active"] == 0
+        assert h["max_queue"] == 4 and h["degraded"] is False
+        assert isinstance(h["stats"], dict)
+        assert "tune" in h["plan_cache"]
+
+    def test_engine_policy_matches_the_reference(self):
+        """The same fields with the same defaults as the reference's."""
+        from repro.reliability import EnginePolicy as JEnginePolicy
+        from repro_torch.reliability import EnginePolicy
+
+        assert [(f.name, f.default) for f in
+                dataclasses.fields(EnginePolicy)] == \
+            [(f.name, f.default) for f in dataclasses.fields(JEnginePolicy)]

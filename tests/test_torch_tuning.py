@@ -13,6 +13,7 @@ synthetic samples and assert nothing about a ranking by measured CPU time,
 which flips from run to run.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -229,6 +230,38 @@ def test_model_reranks_autotune_and_keys_cache():
     # calibrated decision is not served
     tuning.set_model(None)
     assert tat.autotune(m, device="cpu").format == r0.format
+
+
+@pytest.mark.parametrize("mode", ["model", "measure"])
+def test_format_beyond_device_memory_is_not_a_candidate(monkeypatch, mode):
+    """Under a calibration that makes "dense" free, a device too small for
+    the dense table (as the card is for a large pattern) never ranks,
+    measures or selects it; the modeled bytes still list it."""
+    from repro_torch.autotune import tuner
+
+    m = port(poisson3d(8))
+    bad = CalibrationModel(
+        backend="cpu", coef={**{t: 1e-6 for t in tat.TERMS}, "ell": 0.0,
+                             "x_cache": 0.0, "y": 0.0},
+        intercept={f: (0.0 if f == "dense" else 1.0)
+                   for f in tat.available_formats()})
+    tuning.set_model(bad)
+    built = []
+    monkeypatch.setitem(tat.FORMATS, "dense", dataclasses.replace(
+        tat.get_format("dense"),
+        build=lambda *a, **kw: built.append(a) or 1 / 0))
+    dense_bytes = m.n * m.n * 4
+    monkeypatch.setattr(tuner, "_device_capacity", lambda d: dense_bytes - 1)
+    r = tat.autotune(m, device="cpu", mode=mode, use_cache=False)
+    assert r.format != "dense" and "dense" not in r.calibrated_s
+    assert r.modeled_bytes["dense"] > dense_bytes - 1
+    assert r.format == min(sorted(r.measured_s or r.calibrated_s),
+                           key=(r.measured_s or r.calibrated_s).get)
+    assert not built
+    # nothing fits: the tuner says so instead of building anyway
+    monkeypatch.setattr(tuner, "_device_capacity", lambda d: 1)
+    with pytest.raises(ValueError, match="fits"):
+        tat.autotune(m, device="cpu", mode=mode, use_cache=False)
 
 
 def test_stored_calibration_ranks_plans_of_its_backend(tmp_path):
