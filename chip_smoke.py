@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine main paths, each driven with every kernel's launch count set to 0
+Ten main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -39,14 +39,16 @@ just before it and read just after:
   the gradients held against a float64 oracle, the loss falling on every
   step and the forward after the optimizer's step against a float64
   oracle of the stepped weights;
-* the default plan, right after the build: ``plan(m)`` with the default
+* the default plan, right after the build, on ``elasticity3d(40)``
+  (192,000 rows; the solve's 786k-row matrix took ~300 s here, most of it
+  ranking partition strategies): ``plan(m)`` with the default
   ``ExecutionConfig`` (every partition strategy priced at the card's
-  geometry, every format ranked by modeled bytes, the pinned plan's bfs
-  partition shared), then ``op @ x`` and ``op.solve(b, precond="spai")``;
+  geometry, every format ranked by modeled bytes), then ``op @ x`` and
+  ``op.solve(b, precond="spai")``;
   the measured pass (``mode="measure"``: the top candidates timed with
   CUDA events) at k = 1 and at k = 16 with the ``rhs_chunk`` sweep; the
-  formats ``csr``, ``ell``, ``hyb`` and ``ehyb_bucketed`` pinned at full
-  size (K = 1 and 16 against scipy, ``update_values`` of D A D
+  formats ``csr``, ``ell``, ``hyb`` and ``ehyb_bucketed`` pinned on the
+  same matrix (K = 1 and 16 against scipy, ``update_values`` of D A D
   bit-identical to a fresh bind), ``dense`` on the 8,192-row
   ``unstruct_8k``; and ``pruned_linear`` with its defaults on the
   llama3_2_1b down projection.  The winner must have the least modeled
@@ -86,13 +88,26 @@ just before it and read just after:
   structure passes, ``chaos(fail_sparse_apply=True)`` degrading to the
   dense head and ``restore_sparse_head``, and #8 and #2 on the heads'
   containers against their plain versions, their bounds, the dense head
-  in fp32 and bf16 and a torch CSR product.
+  in fp32 and bf16 and a torch CSR product;
+* the train path (11g): llama3_2_1b at full width and depth (fp32 master
+  weights, bf16 compute, fp32 AdamW moments, 2 microbatches, remat)
+  through ``launch.train.build_trainer`` and ``ResilientTrainer.run`` for
+  4 steps of 4 × 512 tokens — step ms, tokens a second, peak memory, the
+  final ~14.8 GB checkpoint's save and restore (bit for bit), then 6 steps
+  overfitting one batch, with no hand-written kernel launched; at 2
+  layers, a resumed run against a straight one (1e-3) and a run that
+  survives an injected failure; fixed-mask value training of the pruned
+  FFN down projection (density 0.2, ``ehyb_packed``, 64 tokens), whose
+  forwards launch #8, gradient against float64; and moonshot, grok,
+  rwkv6 and jamba at their smoke configs against the port's CPU run.
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
 bytes per (matrix, format), each term's effective GB/s, each format's
-intercept, the fit's agreement numbers) and ``elasticity3d(64)`` planned
-under it with the store off; and the full verifier (5d):
+intercept, the fit's agreement numbers) and ``elasticity3d(40)`` planned
+under it with the store off (``elasticity3d(64)``, whose dense form the
+card cannot hold, autotuned under a model that makes ``dense`` free);
+and the full verifier (5d):
 ``bind(validate="full")`` on the k = 1, k = 16 and default plans, seeded
 corruptions of the k = 1 container named by their rules, and a corrupt
 structure refused by ``bind(validate="full")`` before any launch.
@@ -119,8 +134,10 @@ the rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
 
+import collections
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import shutil
@@ -134,6 +151,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 NX = 64                        # elasticity3d(64): 786,432 rows, 61.7M nnz
+# the default plan, the warm start and the calibrated plan (2b-2d) run on
+# elasticity3d(40): 192,000 rows.  At 786k rows the default-plan phase took
+# ~300 s, most of it ranking partition strategies; every check is kept
+NX_DEFAULT = 40
 SEED = 0
 K_RHS = 16                     # load cases applied to one stiffness matrix
 D_MODEL, D_FF = 2048, 8192     # llama3_2_1b (src/repro/configs/llama3_2_1b.py)
@@ -146,8 +167,17 @@ SERVE_KW = dict(max_prompt=64, max_len=512, sparse_head_density=0.1,
                 sparse_head_format="ehyb_packed",
                 sparse_head_partition="bfs")
 SUITE_K = (4, 32)              # rhs widths of the SUITE sweep
+TRAIN_BATCH, TRAIN_SEQ = 4, 512  # the train phase: 2,048 tokens a step
+TRAIN_STEPS = 4
+VALUE_TOKENS = 64              # fixed-mask value training on #8
+VALUE_DENSITY = 0.2
+VALUE_STEPS = 5
+VALUE_LR = 1e-3
+NEW_ARCHS = ("moonshot_v1_16b_a3b", "grok_1_314b", "rwkv6_7b",
+             "jamba_1_5_large_398b")
 BANDWIDTH = 3.35e12            # H100 SXM data sheet, bytes/s
 FP32_PEAK = 67e12              # H100 SXM fp32 outside the tensor cores
+BF16_PEAK = 989e12             # H100 SXM bf16 tensor cores, dense
 # max|Δ| / max(max|y_ref|, 1).  Against scipy float64: the reference's
 # conformance tolerance.  Kernel against its plain version on the same
 # tables: both accumulate in fp32, so in bf16 they may differ only by the
@@ -182,6 +212,33 @@ def rel_to_largest(y, y_ref) -> float:
     y = np.asarray(y, dtype=np.float64)
     y_ref = np.asarray(y_ref, dtype=np.float64)
     return float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
+
+
+def top_device_us(dev_us: dict, n: int) -> dict:
+    """The ``n`` largest device times (µs) by kernel name cut to 60
+    characters; names that share the cut (instances of one template
+    kernel) are summed, not overwritten."""
+    cut = collections.Counter()
+    for k, v in dev_us.items():
+        cut[k[:60]] += v
+    return {k: round(v, 1) for k, v in cut.most_common(n)}
+
+
+# device kernels by the first category whose substring their name holds
+DEVICE_CATEGORIES = (("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+                     ("copy", ("memcpy", "memset")),
+                     ("reduce", ("reduce",)),
+                     ("index", ("index", "scatter", "gather")),
+                     ("elementwise", ("elementwise",)))
+
+
+def device_ms_by_category(dev_us: dict) -> dict:
+    out = dict.fromkeys([c for c, _ in DEVICE_CATEGORIES] + ["other"], 0.0)
+    for k, v in dev_us.items():
+        low = k.lower()
+        out[next((c for c, keys in DEVICE_CATEGORIES
+                  if any(sub in low for sub in keys)), "other")] += v / 1e3
+    return {k: round(v, 3) for k, v in out.items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -462,8 +519,8 @@ def default_plan_phase(dev, m, plans: list, all_kernels: dict,
                   "ehyb_packed_fused"],
               "op @ x and the solve went through the winner's kernel")
     check(p.degraded == {}, f"default plan degraded: {p.degraded}")
-    # the byte model's partition against the pinned bfs plan of the build
-    # phase (a cache hit), the same applies on the card
+    # the byte model's partition against a pinned bfs plan of the same
+    # format, the same applies on the card
     ob = plan(m, execution=ExecutionConfig(format=p.format,
                                            partition_method="bfs"),
               device=dev).bind(m)
@@ -737,13 +794,15 @@ def store_phase(dev, m, cold: dict, plans: list, all_kernels: dict,
     return wd
 
 
-def calibration_phase(dev, m, plans: list, healthy) -> None:
+def calibration_phase(dev, m, m_big, plans: list, healthy) -> None:
     """``tuning.calibrate()`` on ``DEFAULT_SUITE`` on the card, persisted
     into the active store; then ``m`` planned with every default (the
     dtype spelled out, so the cache answers with a new plan that shares
     phase 2b's partition decisions and host build) under the fitted model
     with the store switched off — a store hit would replace the tuner, and
-    the calibration would decide nothing."""
+    the calibration would decide nothing; then ``m_big`` (the solve's
+    matrix, whose dense form the card cannot hold) autotuned on
+    ``plans[0]``'s host build under a model that makes ``dense`` free."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -817,7 +876,8 @@ def calibration_phase(dev, m, plans: list, healthy) -> None:
             backend=model["backend"], coef={t: 0.0 for t in TERMS},
             intercept={f: float(f != "dense") for f in available_formats()}))
         p0 = plans[0]
-        free = autotune(m, torch.float32, shared={"ehyb": p0.host_build(m)},
+        free = autotune(m_big, torch.float32,
+                        shared={"ehyb": p0.host_build(m_big)},
                         context=pc.tuning.context, device=dev,
                         use_cache=False)
         log("calibrated-dense-free", format=free.format,
@@ -1072,8 +1132,9 @@ def dist_phase(dev, m, smi: str, op, data: dict, plans: list,
 
 
 def verify_phase(m, main_plans: dict, op, all_kernels: dict) -> None:
-    """``bind(validate="full")`` on the main plans (each also holds its
-    tables to its host build's pattern); seeded corruptions of clones of
+    """``bind(validate="full")`` on the main plans, ``{name: (plan,
+    matrix)}`` (each also holds its tables to its host build's pattern);
+    seeded corruptions of clones of
     the k = 1 container, named by their rules; the plan's structure
     corrupted the first way (what every rebind scatters into) refused by
     ``bind(validate="full")`` before any launch."""
@@ -1082,9 +1143,9 @@ def verify_phase(m, main_plans: dict, op, all_kernels: dict) -> None:
     from repro_torch.analysis import verify
 
     t_phase = time.perf_counter()
-    for name, p in main_plans.items():
+    for name, (p, mp) in main_plans.items():
         t0 = time.perf_counter()
-        opv = p.bind(m, validate="full")
+        opv = p.bind(mp, validate="full")
         torch.cuda.synchronize()
         log("verify-full", plan=name, format=p.format,
             seconds=round(time.perf_counter() - t0, 3))
@@ -1356,13 +1417,12 @@ def serve_phase(dev, smi: str, plans: list, all_kernels: dict,
     busy_ms = sum(dev_us.values()) / 1e3
     wall_ms = 1e3 * (statistics.median(step_s["prefill"])
                      + 4 * statistics.median(step_s["decode"]))
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     log("serve-trace", steps="1 prefill + 4 decode", unprofiled_ms=wall_ms,
         traced_wall_ms=t_traced * 1e3, device_busy_ms=busy_ms,
         idle_share=(1 - busy_ms / wall_ms) if busy_ms else "not measured",
         device_activities=sum(ev.count for ev in prof.key_averages()
                               if ev.key in dev_us),
-        top_device_us={k[:60]: round(v, 1) for k, v in top})
+        top_device_us=top_device_us(dev_us, 8))
     n_tok = sum(len(r.generated) for r in done)
     log("serve-times", card=repr(smi), slots=4, requests=len(done),
         tokens=n_tok,
@@ -1500,8 +1560,491 @@ def serve_phase(dev, smi: str, plans: list, all_kernels: dict,
     out = {"ehyb_packed_fused_spmm": launches[4]["ehyb_packed_fused_spmm"],
            "ehyb_packed_fused": launches[1]["ehyb_packed_fused"]}
     del engines, params, params2, w_dense, w_b, w_t, head4, head1
+    # the spies on the engines' methods close over the engines (a cycle):
+    # without a collection their weights stay on the card
+    gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def step_vs_cpu(p0, p_card, p_cpu, g_cpu, g_card, cfg, opt_cfg,
+                lr: float) -> list:
+    """One train step on the card against the same step on the CPU, leaf by
+    leaf (all trees on the CPU; ``p0`` the weights both started from).
+
+    The step is held in its two halves: the gradients that reach AdamW
+    (``grad_vs_cpu``: max|Δg| over the leaf's largest gradient), and the
+    card's AdamW against the CPU's AdamW on the card's gradients
+    (``adamw_vs_cpu_lr``, in units of the step's lr).  The stepped weights
+    are held to what AdamW makes of the gradients' difference: its first
+    step moves a weight by lr·s(ĝ), s(ĝ) = ĝ/(|ĝ| + eps) with ĝ the clipped
+    gradient, so gradients that differ near eps move a weight differently
+    by up to 2·lr; ``excess_lr`` is the most any weight moved beyond
+    lr·|s(ĝ_card) − s(ĝ_cpu)|.  ``worst_*`` describe the weight whose step
+    differs most."""
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train import (adamw_update, clip_by_global_norm,
+                                   init_train_state)
+
+    def names(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from names(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k
+
+    p_ref, _, _ = adamw_update(p0, g_card, init_train_state(p0, cfg).opt,
+                               opt_cfg)
+    (gh_c, _), (gh_g, _) = (clip_by_global_norm(g, opt_cfg.clip_norm)
+                            for g in (g_cpu, g_card))
+    rows = []
+    for name, a, b, r, gc, gg, hc, hg in zip(
+            names(p0), *(tree_leaves(t) for t in (
+                p_card, p_cpu, p_ref, g_cpu, g_card, gh_c, gh_g))):
+        d = (a - b).abs()
+        s_g, s_c = (h / (h.abs() + opt_cfg.eps) for h in (hg, hc))
+        j = int(d.argmax())
+        rows.append({
+            "leaf": name,
+            "grad_vs_cpu": float((gg - gc).abs().max()
+                                 / max(float(gc.abs().max()), 1e-30)),
+            "adamw_vs_cpu_lr": float((a - r).abs().max()) / lr,
+            "step_vs_cpu_lr": float(d.max()) / lr,
+            "excess_lr": float((d / lr - (s_g - s_c).abs()).max()),
+            "worst_g_cpu": float(hc.flatten()[j]),
+            "worst_g_card": float(hg.flatten()[j]),
+            "leaf_g_max": float(hc.abs().max())})
+    return rows
+
+
+def train_phase(dev, smi: str, plans: list, all_kernels: dict,
+                healthy) -> dict:
+    """The train main path (phase 11g).
+
+    1. llama3_2_1b at full width and depth (16 layers, d 2048, 32/8 heads,
+       d_ff 8192, vocab 128,256 padded to 129,024; fp32 master weights,
+       bf16 compute, fp32 moments, ``microbatches=2`` and ``remat`` as the
+       config has them) through ``launch.train.build_trainer`` and
+       ``ResilientTrainer.run``: 4 steps of 4 × 512 tokens, whose only
+       save is the run's final blocking one (params + m + v); each step's
+       ms and tokens a second, loss and grad norm, peak memory, the save's
+       and the restore's seconds and bytes; the restored leaves against
+       the live state bit for bit; then 6 steps on one fixed batch, whose
+       loss must fall.  No hand-written kernel may launch here: the dense
+       train step reaches none, as the reference's reaches no Pallas one.
+    2. The same at 2 layers: 4 steps straight against 2 steps, a save, a
+       restore into a fresh template and 2 more (losses within 1e-3:
+       ``index_add_`` and the embedding's backward accumulate with
+       atomics); and a run with a failure injected at step 3, restored
+       from the latest checkpoint, which must finish.
+    3. Fixed-mask value training on #8: the llama3_2_1b FFN down
+       projection (2,048 × 8,192) pruned to density 0.2, ``ehyb_packed``
+       on bfs, 64 tokens, 5 steps of ``make_sparse_value_train_step``
+       with AdamW, counts from 0: #8 at least 5 launches and no other
+       kernel, the loss falling on every step; the values' gradient
+       against a float64 oracle within 1e-4 of the largest.
+    4. moonshot, grok, rwkv6 and jamba at their smoke configs on the card
+       against the port's own CPU run of the same weights (forward and
+       loss, one train step, prefill and 4 decode steps), each within
+       1e-4 of the largest.
+
+    Returns the main path's launches {kernel: n}."""
+    import dataclasses as dc
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.api import pruned_linear
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels import ehyb_spmm as KM
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_model, prefill)
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train import (OptimizerConfig, adamw_update,
+                                   init_opt_state, init_train_state,
+                                   make_loss_fn, make_sparse_value_train_step,
+                                   make_train_step)
+    from repro_torch.train import train_step as TS
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what the earlier phases still hold on the card: the phase's peak is
+    # read above this base
+    base = torch.cuda.memory_allocated(dev)
+    log("train-memory-before", allocated_bytes=base,
+        reserved_bytes=torch.cuda.memory_reserved(dev))
+    cfg = get_config("llama3_2_1b")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.d_ff, cfg.vocab_size, cfg.dtype, cfg.param_dtype,
+           cfg.opt_state_dtype, cfg.microbatches, cfg.remat)
+          == (16, 2048, 32, 8, 8192, 128256, "bfloat16", "float32",
+              "float32", 2, True), "llama3_2_1b at full width and depth")
+    opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def leaves_equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in
+                   zip(state_leaves(a), state_leaves(b)))
+
+    def state_leaves(st):
+        return [*tree_leaves(st.params), *tree_leaves(st.opt.m),
+                *tree_leaves(st.opt.v), st.opt.step, st.step]
+
+    def timed_saves(trainer, out: list) -> None:
+        save = trainer.ckpt.save
+
+        def timed(step, tree, extra=None, blocking=True):
+            t0 = time.perf_counter()
+            save(step, tree, extra, blocking)
+            out.append((step, time.perf_counter() - t0, blocking))
+
+        trainer.ckpt.save = timed
+
+    # -- 1. full width, full depth: 4 steps, the final save, the restore ---
+    for fn in all_kernels.values():
+        fn.launches = 0
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer, state = build_trainer(cfg, opt_cfg, device=dev,
+                                   global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, ckpt_dir=ckpt_dir,
+                                   ckpt_every=TRAIN_STEPS + 1, seed=SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in state_leaves(state))
+    disk = shutil.disk_usage(ckpt_dir)
+    log("train-setup", model=cfg.name, card=repr(smi), params=n_params,
+        state_bytes=state_bytes, init_s=round(t_init, 3),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=cfg.microbatches,
+        remat=cfg.remat, disk_free_bytes=disk.free,
+        disk_total_bytes=disk.total)
+    check(disk.free > 1.2 * state_bytes,
+          f"{disk.free} bytes free for a {state_bytes}-byte checkpoint")
+    saves = []
+    timed_saves(trainer, saves)
+    retries0 = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    state, hist = trainer.run(state, 0, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries",
+                                                0) - retries0
+    ck = ckpt_dir / f"step_{TRAIN_STEPS:010d}.npz"
+    ck_bytes = ck.stat().st_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = trainer.ckpt.restore(TRAIN_STEPS, state)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    same = leaves_equal(restored, state)
+    del restored
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    log("train-full", steps=len(hist), step_ms=step_ms,
+        tokens_per_s=[tokens / h["seconds"] for h in hist],
+        loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist],
+        lr=[h["lr"] for h in hist], peak_bytes=peak,
+        phase_peak_bytes=peak - base, alloc_retries=retries,
+        saves=saves, checkpoint_bytes=ck_bytes,
+        restore_s=round(t_restore, 3), restored_bit_identical=same,
+        stragglers=len(trainer.watchdog.flagged))
+    check(len(hist) == TRAIN_STEPS and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+        for h in hist), "finite loss and grad norm on every step")
+    check(len(saves) == 1 and saves[0][0] == TRAIN_STEPS and saves[0][2],
+          f"the run's only save is its final blocking one: {saves}")
+    check(int(state.step) == TRAIN_STEPS
+          and int(state.opt.step) == TRAIN_STEPS, "the state counted 4 steps")
+    check(same, "the restored checkpoint equals the live state bit for bit")
+    # overfit one fixed batch
+    fixed = trainer.batch_fn(0)
+    over, over_ms = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        state, met = trainer.step_fn(state, fixed)
+        over.append(float(met["loss"]))
+        over_ms.append((time.perf_counter() - t0) * 1e3)
+    log("train-overfit", loss=over, step_ms=over_ms)
+    check(over[-1] < over[0], f"the loss on a fixed batch falls: {over}")
+    # where a step's time goes: a profiler trace of one more step; device
+    # busy time against the unprofiled steps' median.  The least time of
+    # a step: its matmuls (6 flops a parameter and token, plus attention's
+    # QKᵀ and PV) at the bf16 peak, or AdamW's bytes (read p, g, m, v and
+    # write p, m, v, fp32) at the memory rate
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = trainer.step_fn(state, fixed)
+        float(met["loss"])
+        t_traced = time.perf_counter() - t0
+    dev_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and ev.self_device_time_total > 0
+              and not ev.key.startswith("Activity Buffer")}
+    busy_ms = sum(dev_us.values()) / 1e3
+    step_med = statistics.median(over_ms)
+    flops = 6 * n_params * tokens + 3 * cfg.n_layers * 4 * TRAIN_BATCH \
+        * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
+    flop_ms = flops / BF16_PEAK * 1e3
+    opt_ms = 7 * 4 * n_params / BANDWIDTH * 1e3
+    log("train-trace", card=repr(smi), unprofiled_median_ms=step_med,
+        traced_wall_ms=t_traced * 1e3, device_busy_ms=busy_ms,
+        idle_share=(1 - busy_ms / step_med) if busy_ms else "not measured",
+        device_activities=sum(ev.count for ev in prof.key_averages()
+                              if ev.key in dev_us),
+        model_flops=flops, flops_bound_ms=flop_ms, adamw_bytes_ms=opt_ms,
+        bound_ms=max(flop_ms, opt_ms),
+        model_flops_share=flops / (step_med * 1e-3) / BF16_PEAK,
+        device_ms=device_ms_by_category(dev_us),
+        top_device_us=top_device_us(dev_us, 10))
+    del prof
+    dense_launches = {k: f.launches for k, f in all_kernels.items()}
+    check(not any(dense_launches.values()),
+          f"the dense train step launched a hand-written kernel: "
+          f"{dense_launches}")
+    del trainer, state, fixed
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+
+    # -- 2. resume and failure at 2 layers ----------------------------------
+    cfg2 = dc.replace(cfg, n_layers=2)
+    t_resume = time.perf_counter()
+    dirs = [Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
+            for _ in range(3)]
+
+    def fresh(d, ckpt_every=1000, seed=SEED):
+        return build_trainer(cfg2, opt_cfg, device=dev,
+                             global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             ckpt_dir=d, ckpt_every=ckpt_every, seed=seed)
+
+    tr, st = fresh(dirs[0])
+    n_params2 = sum(t.numel() for t in tree_leaves(st.params))
+    straight = []
+    for i in range(4):
+        st, met = tr.step_fn(st, tr.batch_fn(i))
+        straight.append(float(met["loss"]))
+    del tr, st
+    tr, st = fresh(dirs[1])
+    resumed = []
+    for i in range(2):
+        st, met = tr.step_fn(st, tr.batch_fn(i))
+        resumed.append(float(met["loss"]))
+    t0 = time.perf_counter()
+    tr.ckpt.save(2, st)
+    t_save2 = time.perf_counter() - t0
+    ck2_bytes = (dirs[1] / f"step_{2:010d}.npz").stat().st_size
+    del st
+    template = init_train_state(init_model(SEED + 1, cfg2, device=dev), cfg2)
+    t0 = time.perf_counter()
+    st = tr.ckpt.restore(2, template)
+    torch.cuda.synchronize()
+    t_restore2 = time.perf_counter() - t0
+    del template
+    for i in range(2, 4):
+        st, met = tr.step_fn(st, tr.batch_fn(i))
+        resumed.append(float(met["loss"]))
+    del tr, st
+    tr, st = fresh(dirs[2], ckpt_every=2)
+    fired = []
+
+    def injector(i):
+        if i == 3 and not fired:
+            fired.append(i)
+            raise RuntimeError("injected failure")
+
+    tr.failure_injector = injector
+    st, hist2 = tr.run(st, 0, 4)
+    survived = [h["loss"] for h in hist2]
+    gap = max(abs(a - b) for a, b in zip(straight, resumed))
+    gap_fail = abs(hist2[-1]["loss"] - straight[-1])
+    log("train-resume", layers=cfg2.n_layers, params=n_params2,
+        checkpoint_bytes=ck2_bytes, save_s=round(t_save2, 3),
+        restore_s=round(t_restore2, 3), straight=straight, resumed=resumed,
+        max_gap=gap, failure_steps=[h["step"] for h in hist2],
+        failure_loss=survived, failure_vs_straight=gap_fail,
+        failures_fired=len(fired), latest=tr.ckpt.latest_step(),
+        seconds=round(time.perf_counter() - t_resume, 3))
+    check(gap <= 1e-3, f"resume agrees with the straight run: {gap}")
+    check(fired == [3] and [h["step"] for h in hist2] == [0, 1, 2, 2, 3]
+          and tr.ckpt.latest_step() == 4 and gap_fail <= 1e-3,
+          "the injected failure was restored from step 2 and the run "
+          "finished")
+    del tr, st
+    for d in dirs:
+        shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+    # -- 3. fixed-mask value training on #8 ----------------------------------
+    rng = np.random.default_rng(SEED + 7)
+    w_down = rng.standard_normal((D_FF, D_MODEL)) / np.sqrt(D_FF)
+    t0 = time.perf_counter()
+    lin = pruned_linear(w_down.T, density=VALUE_DENSITY,
+                        format="ehyb_packed", partition_method="bfs",
+                        k=VALUE_TOKENS, device=dev)
+    t_lin = time.perf_counter() - t0
+    vplan = lin.op.plan
+    plans.append(vplan)
+    n = lin.op.n
+    x_host = rng.standard_normal((VALUE_TOKENS, D_FF))
+    xt = torch.as_tensor(x_host.T[:n], dtype=torch.float32, device=dev)
+    y_goal_host = (x_host @ w_down).T                      # (d_model, T)
+    y_goal = torch.as_tensor(y_goal_host, dtype=torch.float32, device=dev)
+
+    def loss_fn(op):
+        d = (op @ xt)[:D_MODEL] - y_goal
+        return (d * d).sum() / d.numel()
+
+    v0 = lin.values.detach().clone()
+    # the guard resolves (its probe launches #8 once) before counting
+    lin.op @ torch.zeros_like(xt)
+    # the gradient at v0 against a float64 oracle (a comparison launch)
+    c = lin.csr
+    rows = np.repeat(np.arange(c.n), c.row_lengths())
+    cols = c.indices.astype(np.int64)
+    v = v0.clone().requires_grad_(True)
+    loss_fn(vplan.bind(v, validate=False)).backward()
+    xt64 = x_host.T[:n]
+    y64 = sp.csr_matrix((v0.double().cpu().numpy(), c.indices, c.indptr),
+                        shape=(n, n)) @ xt64
+    g_y = np.zeros_like(y64)
+    g_y[:D_MODEL] = 2.0 * (y64[:D_MODEL] - y_goal_host) / y_goal_host.size
+    g_ref = np.einsum("kt,kt->k", g_y[rows], xt64[cols])
+    g_err = rel_to_largest(v.grad.cpu(), g_ref)
+    del v
+    step = make_sparse_value_train_step(
+        vplan, loss_fn, OptimizerConfig(lr=VALUE_LR, warmup_steps=0,
+                                        weight_decay=0.0, clip_norm=1e9))
+    opt = init_opt_state({"values": v0})
+    vals = v0
+    for fn in all_kernels.values():
+        fn.launches = 0
+    losses, step_ms = [], []
+    for _ in range(VALUE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, opt, met = step(vals, opt)
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: f.launches for k, f in all_kernels.items()}
+    # #8 against its plain version at the value step's shape (K = 64) on the
+    # container of the trained values (comparison launches, not counted)
+    o = vplan.bind(vals, validate=False).obj
+    x_new = lin.op.to_space(xt).contiguous()              # (n_pad, 64)
+    stair = (o.packed_vals, o.packed_cols, o.col_starts, o.col_rows)
+    chk = check_cases({"ehyb_packed_fused_spmm": (
+        lambda: KM.ehyb_packed_fused_spmm(x_new, *stair, o.er_stream(),
+                                          vec_size=o.vec_size,
+                                          rhs_chunk=o.rhs_chunk),
+        lambda: ref.ehyb_packed_fused_stream_ref(x_new, *stair, o.er_stream(),
+                                                 o.vec_size))},
+        KERNEL_TOL["float32"], "value step")["ehyb_packed_fused_spmm"]
+    log("train-values", shape=(D_MODEL, D_FF), density=VALUE_DENSITY,
+        nnz=c.nnz, tokens=VALUE_TOKENS, format=lin.op.format,
+        n_parts=vplan.n_parts, vec_size=vplan.vec_size,
+        setup_s=round(t_lin, 3), loss=losses, step_ms=step_ms,
+        grad_vs_f64=g_err, launches=launches, kernel_k=x_new.shape[1],
+        kernel_vs_plain=chk[0], kernel_max_abs_err=chk[1],
+        degraded=vplan.degraded)
+    check(launches["ehyb_packed_fused_spmm"] >= VALUE_STEPS
+          and sum(launches.values())
+          == launches["ehyb_packed_fused_spmm"],
+          f"the value steps launched #8 (and nothing else): {launches}")
+    check(g_err <= 1e-4, f"the values' gradient against float64: {g_err}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"the loss falls on every step: {losses}")
+    check(vplan.degraded == {}, f"the value plan degraded: "
+          f"{vplan.degraded}")
+    out = {"ehyb_packed_fused_spmm": launches["ehyb_packed_fused_spmm"]}
+    max_abs = {"ehyb_packed_fused_spmm": chk[1]}
+    del lin, xt, y_goal, vals, opt, v0, o, x_new, stair
+    torch.cuda.empty_cache()
+
+    # -- 4. the four new architectures: the card against the CPU ------------
+    def t2n(t):
+        return t.detach().float().cpu().numpy()
+
+    seen = []                     # the gradients each step hands AdamW
+
+    def spy(params, grads, *args, **kw):
+        seen.append(tree_map(lambda g: g.detach().cpu().clone(), grads))
+        return adamw_update(params, grads, *args, **kw)
+
+    arch_cfg = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    TS.adamw_update = spy
+    try:
+        for arch in NEW_ARCHS:
+            t_arch = time.perf_counter()
+            cfg_s = get_config(arch, smoke=True)
+            if cfg_s.n_experts:     # no capacity drops (as the reference's
+                cfg_s = dc.replace(cfg_s, capacity_factor=8.0)  # decode test)
+            p_cpu = init_model(SEED, cfg_s, device="cpu")
+            ds = SyntheticTokenDataset(cfg_s.vocab_size, 32, 2, seed=SEED)
+            batch = ds.train_inputs(0)
+            res, steps = {}, {}
+            seen.clear()
+            for where in ("cpu", dev):
+                p = tree_map(lambda t: t.to(where), p_cpu)
+                b = {k: torch.from_numpy(v).to(where)
+                     for k, v in batch.items()}
+                with torch.no_grad():
+                    h, _ = forward(p, b, cfg_s)
+                    loss, _ = make_loss_fn(cfg_s)(p, b)
+                st = init_train_state(tree_map(torch.clone, p), cfg_s)
+                st, met = make_train_step(cfg_s, arch_cfg)(st, b)
+                steps[str(where)] = (tree_map(lambda t: t.cpu(), st.params),
+                                     float(met["lr"]))
+                with torch.no_grad():
+                    loss_after, _ = make_loss_fn(cfg_s)(st.params, b)
+                    ds_ = init_decode_state(cfg_s, 2, 64, torch.float32,
+                                            device=where)
+                    hs = []
+                    h_last, ds_ = prefill(p, {"tokens": b["tokens"][:, :16]},
+                                          cfg_s, ds_)
+                    hs.append(h_last)
+                    for j in range(4):
+                        hd, ds_ = decode_step(
+                            p, b["tokens"][:, 16 + j:17 + j], cfg_s, ds_,
+                            16 + j)
+                        hs.append(hd)
+                res[str(where)] = {
+                    "h": t2n(h), "loss": t2n(loss),
+                    "step_loss": t2n(met["loss"]),
+                    "grad_norm": t2n(met["grad_norm"]),
+                    "loss_after": t2n(loss_after),
+                    "decode": np.stack([t2n(t) for t in hs])}
+            ref_, got = res["cpu"], res[str(dev)]
+            errs = {k: rel_to_largest(got[k], ref_[k]) for k in ref_}
+            (p_c, lr), (p_g, _) = steps["cpu"], steps[str(dev)]
+            rows = step_vs_cpu(p_cpu, p_g, p_c, *seen, cfg_s, arch_cfg, lr)
+            worst = max(rows, key=lambda r: r["step_vs_cpu_lr"])
+            bad = [r for r in rows if r["grad_vs_cpu"] > 1e-4
+                   or r["adamw_vs_cpu_lr"] > 1e-2 or r["excess_lr"] > 1e-2]
+            log("train-arch", arch=arch, family=cfg_s.family,
+                seconds=round(time.perf_counter() - t_arch, 3),
+                loss=float(got["loss"]),
+                **{f"{k}_vs_cpu": v for k, v in errs.items()},
+                grad_vs_cpu=max(r["grad_vs_cpu"] for r in rows),
+                adamw_vs_cpu_lr=max(r["adamw_vs_cpu_lr"] for r in rows),
+                step_excess_lr=max(r["excess_lr"] for r in rows),
+                step_worst=worst, eps=arch_cfg.eps)
+            check(max(errs.values()) <= 1e-4 and np.isfinite(got["loss"])
+                  and not bad, f"{arch} on the card against the CPU: "
+                  f"{errs} {bad}")
+    finally:
+        TS.adamw_update = adamw_update
+    healthy("train")
+    log("train-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return out, max_abs
 
 
 def main() -> int:
@@ -1624,13 +2167,17 @@ def run(dev, nx: int) -> list:
     store_dir = Path(tempfile.mkdtemp(prefix="tune_store_",
                                       dir=ROOT / "build"))
     tuning.set_store(store_dir)
-    cold = default_plan_phase(dev, m, plans, all_kernels, healthy)
+    m_default = elasticity3d(NX_DEFAULT)
+    log("default-plan-matrix", nx=NX_DEFAULT, n=m_default.n,
+        nnz=m_default.nnz)
+    cold = default_plan_phase(dev, m_default, plans, all_kernels, healthy)
 
     # ---- 2c. the same plans served by the store (a main path) --------------
-    warm_default = store_phase(dev, m, cold, plans, all_kernels, healthy)
+    warm_default = store_phase(dev, m_default, cold, plans, all_kernels,
+                               healthy)
 
     # ---- 2d. a calibration fitted on the card, and the plan it ranks -------
-    calibration_phase(dev, m, plans, healthy)
+    calibration_phase(dev, m_default, m, plans, healthy)
     tuning.set_store(None)
     shutil.rmtree(store_dir)
 
@@ -1893,9 +2440,9 @@ def run(dev, nx: int) -> list:
     del y_nan, xnan
 
     # ---- 5d. the full verifier on the main plans; seeded corruptions -------
-    verify_phase(m, {"k1": p_packed, "k16": pb, "default": warm_default},
-                 op, all_kernels)
-    del warm_default
+    verify_phase(m, {"k1": (p_packed, m), "k16": (pb, m),
+                     "default": (warm_default, m_default)}, op, all_kernels)
+    del warm_default, m_default
 
     # ---- 6. K = 16 on the solver's k = 1 plan (chunked re-sweep) -----------
     kc1 = KM.rhs_chunk_for(K_RHS, o.vec_size, 4, None,
@@ -2198,12 +2745,11 @@ def run(dev, nx: int) -> list:
               and ev.self_device_time_total > 0
               and not ev.key.startswith("Activity Buffer")}
     busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     log("solve-trace", warm_wall_ms=warm["fused"] * 1e3,
         traced_wall_ms=t_traced * 1e3, device_busy_ms=busy_ms,
         idle_share=(1 - busy_ms / (warm["fused"] * 1e3)) if busy_ms else
         "not measured",
-        top_device_us={k[:60]: round(v, 1) for k, v in top},
+        top_device_us=top_device_us(dev_us, 6),
         device_activities=sum(ev.count for ev in prof.key_averages()
                               if ev.key in dev_us))
 
@@ -2718,6 +3264,11 @@ def run(dev, nx: int) -> list:
     # ---- 11f. the serving path (a main path): llama3_2_1b at full width ---
     launches_s = serve_phase(dev, smi, plans, all_kernels, healthy)
 
+    # ---- 11g. the train path (a main path): llama3_2_1b at full width, the
+    # resume and failure runs, value training on #8, the new architectures
+    launches_g, max_abs_g = train_phase(dev, smi, plans, all_kernels,
+                                        healthy)
+
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)
     x_new2 = x_new[:, None]
@@ -2881,7 +3432,11 @@ def run(dev, nx: int) -> list:
         launches[k] += n
     for k, n in launches_s.items():        # the serving path's launches
         launches[k] += n
+    for k, n in launches_g.items():        # the train path's launches
+        launches[k] += n
     max_abs.update({k: v[1] for k, v in rel_chk.items()})
+    for k, e in max_abs_g.items():         # #8 at the value step's K = 64
+        max_abs[k] = max(max_abs[k], e)
     # (route, source, replaces, device kernels per counted wrapper call)
     meta = {
         "ehyb_packed_fused": ("cuda", "src/repro_torch/csrc/ehyb_spmv.cu",

@@ -8,8 +8,10 @@ kernel parameters, the calibrated cost model and the persistent tune
 store), ``analysis`` (the format-invariant verifier and the lints),
 ``api`` (``plan → bind → apply/solve``), ``reliability`` (guarded apply,
 solve policy, fault injection), ``dist`` (the halo plan and the sharded
-operator on ``torch.distributed``) — and is held against it module by
-module.  It imports ``torch`` and never ``jax`` or ``repro``.
+operator on ``torch.distributed``), the LM substrate — ``configs``,
+``models``, ``serve``, ``train`` (AdamW, the train steps, checkpoints,
+fault tolerance), ``data`` and ``launch`` — and is held against it
+module by module.  It imports ``torch`` and never ``jax`` or ``repro``.
 
     from repro_torch.api import ExecutionConfig, SolvePolicy, plan
 

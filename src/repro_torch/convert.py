@@ -16,8 +16,11 @@ a card; pass ``device="cpu"`` for the plain CPU paths.
 :func:`solve_policy` carries a ``repro.reliability.SolvePolicy`` across
 field by field, so both packages' escalation ladders can run under one
 policy, and :func:`model_config` a ``ModelConfig``.
-:func:`lm_params` carries a language model's parameter tree across, so
-both packages compute on the same weights.  This module reads numpy arrays
+:func:`lm_params` carries a language model's parameter tree across (every
+architecture's: attention, MoE, Mamba and RWKV blocks alike), so both
+packages compute on the same weights, and :func:`train_state` a
+``repro.train.TrainState`` (params, AdamW moments in their dtype, steps),
+so both packages train from the same state.  This module reads numpy arrays
 and attributes only; it imports nothing of the JAX package.
 """
 
@@ -220,3 +223,25 @@ def lm_params(params, cfg, device=None) -> dict:
                 raise ValueError(f"params[{name!r}] stacks {leaf.shape[0]} "
                                  f"units; the config has {n_units}")
     return out
+
+
+def train_state(state, cfg, device=None):
+    """The port's :class:`~repro_torch.train.TrainState` on ``device``
+    (default ``cuda``) from the JAX package's (anything with ``params``,
+    ``opt.m``, ``opt.v``, ``opt.step`` and ``step``): the params and both
+    moments by :func:`lm_params` (a bf16 moment bit for bit), the steps as
+    int32 scalars."""
+    from .train import OptState, TrainState
+
+    device = resolve_device(device)
+
+    def step(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=device)
+
+    return TrainState(
+        params=lm_params(state.params, cfg, device),
+        opt=OptState(m=lm_params(state.opt.m, cfg, device),
+                     v=lm_params(state.opt.v, cfg, device),
+                     step=step(state.opt.step)),
+        step=step(state.step))

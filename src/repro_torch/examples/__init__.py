@@ -1,2 +1,3 @@
 """Runnable examples of the port (``python -m repro_torch.examples.<name>``):
-``quickstart``, ``cg_solver`` and ``serve_lm``."""
+``quickstart``, ``cg_solver``, ``serve_lm``, ``train_lm`` and
+``sparse_ffn_lm``."""

@@ -11,10 +11,13 @@ Conventions
   params stay in ``cfg.param_dtype`` (fp32 master copies).  An embedding
   lookup gathers the rows first and casts them after, which is the same
   elementwise cast on fewer rows.
-* norm statistics and RoPE angles are fp32 regardless of compute dtype.
-
-``chunked_xent`` and the gradient-dtype boundary of the reference are for
-training; they come with the train slice.
+* norm statistics, RoPE angles and the loss's logsumexp are fp32
+  regardless of compute dtype.
+* the reference's gradient-dtype boundary (``_grad_same_dtype`` before
+  every norm: the fp32 cotangent of the norm statistics is cast back to the
+  primal's dtype, so the backward residual stream stays bf16) needs no
+  ``autograd.Function`` here: the backward of ``x.float()`` already returns
+  the gradient in ``x``'s dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -181,7 +185,42 @@ def logits_fn(head_p, emb_p, x: torch.Tensor, cfg) -> torch.Tensor:
     return softcap(x @ w, cfg.final_softcap)
 
 
+def _xent_chunk(head_p, emb_p, xc, lc, mc, cfg) -> torch.Tensor:
+    """Σ mask · (logsumexp − gold logit) over one (B, C) chunk, fp32."""
+    logits = logits_fn(head_p, emb_p, xc, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None])[..., 0]
+    return ((lse - gold) * mc).sum()
+
+
+def chunked_xent(head_p, emb_p, x: torch.Tensor, labels, mask, cfg,
+                 chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy without materializing fp32 (B,S,V) logits.
+
+    Loops over sequence chunks; per-chunk logits stay (B,C,V) in compute
+    dtype, logsumexp in fp32.  Under grad mode each chunk runs in
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so its
+    logits are recomputed in the backward pass instead of being kept for
+    the whole sequence."""
+    b, s, _ = x.shape
+    labels = torch.as_tensor(labels, device=x.device).long()
+    mask = torch.as_tensor(mask, device=x.device).float()
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        args = (head_p, emb_p, x[:, i:i + chunk], labels[:, i:i + chunk],
+                mask[:, i:i + chunk], cfg)
+        tot = tot + (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                     if remat else _xent_chunk(*args))
+        cnt = cnt + mask[:, i:i + chunk].sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 __all__ = ["cdtype", "pdtype", "pad_vocab", "init_norm", "apply_norm",
            "init_embedding", "embed_tokens", "rope_frequencies",
            "apply_rope", "init_mlp", "apply_mlp", "init_lm_head",
-           "logits_fn", "softcap"]
+           "logits_fn", "softcap", "chunked_xent"]

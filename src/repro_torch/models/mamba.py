@@ -1,0 +1,134 @@
+"""Mamba (selective SSM) block — Jamba's sequence mixer [arXiv:2312.00752,
+2403.19887].
+
+The port of ``repro.models.mamba``.  Projections and the depthwise causal
+conv are batched over the full sequence; only the diagonal SSM recurrence
+runs as a loop over time carrying h: (B, d_inner, d_state) in fp32.  The
+loop is cut into chunks, and under grad mode each chunk runs in
+``torch.utils.checkpoint`` (the reference's rematerialized inner scan), so
+the backward pass keeps one state a chunk, not one a step.  Decode keeps
+(conv_state, ssm_state).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .layers import _dense_init, cdtype, pdtype
+
+
+def init_mamba(gen: torch.Generator, cfg) -> dict:
+    d, di, n = cfg.d_model, cfg.mamba_d_inner, cfg.mamba_d_state
+    r, dc = cfg.dt_rank, cfg.mamba_d_conv
+    dt = pdtype(cfg)
+    dev = gen.device
+    a = torch.arange(1, n + 1, dtype=dt, device=dev).expand(di, n)
+    return {
+        "in_proj": _dense_init(gen, (d, 2 * di), dt),
+        "conv_w": torch.randn((dc, di), generator=gen, dtype=dt,
+                              device=dev) / np.sqrt(dc),
+        "conv_b": torch.zeros(di, dtype=dt, device=dev),
+        "x_proj": _dense_init(gen, (di, r + 2 * n), dt),
+        "dt_proj": _dense_init(gen, (r, di), dt),
+        "dt_bias": torch.full((di,), -4.6, dtype=dt, device=dev),
+        "A_log": torch.log(a).contiguous(),
+        "D": torch.ones(di, dtype=dt, device=dev),
+        "out_proj": _dense_init(gen, (di, d), dt),
+    }
+
+
+def _causal_depthwise_conv(xs: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor, init_state=None) -> torch.Tensor:
+    """xs: (B,S,di); w: (dc,di). Shift-and-add form (dc is tiny).
+    init_state: (B, dc-1, di) tail of the previous segment (decode)."""
+    dc = w.shape[0]
+    pad = init_state if init_state is not None else xs.new_zeros(
+        (xs.shape[0], dc - 1, xs.shape[2]))
+    xp = torch.cat([pad, xs], dim=1)       # (B, S+dc-1, di), promoted
+    s = xs.shape[1]
+    out = sum(xp[:, j:j + s, :] * w[j] for j in range(dc))
+    return out + b
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``a @ w.astype(dt)`` with jnp's promotion: a conv that read an fp32
+    decode state under bf16 compute stays fp32 through the projections."""
+    return a @ w.to(torch.promote_types(a.dtype, dt))
+
+
+def _ssm_chunk(h, dt_c, x_c, b_c, c_c, a):
+    """The recurrence over one chunk.  dt_c, x_c: (C,B,di); b_c, c_c:
+    (C,B,N); h: (B,di,N).  Returns (y (C,B,di), h)."""
+    ys = []
+    for t in range(dt_c.shape[0]):
+        da = torch.exp(dt_c[t][..., None] * a)                  # (B,di,N)
+        h = da * h + (dt_c[t] * x_c[t])[..., None] * b_c[t][:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, c_c[t]))
+    return torch.stack(ys), h
+
+
+def _ssm_scan(dt_full, x_full, b_full, c_full, a, h0, chunk: int = 128):
+    """Diagonal selective-SSM recurrence, chunked for bwd memory.
+
+    dt_full, x_full: (B,S,di); b_full, c_full: (B,S,N); a: (di,N);
+    h0: (B,di,N).  Returns (y: (B,S,di), hT)."""
+    s = dt_full.shape[1]
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    remat = torch.is_grad_enabled()
+    seq = [t.transpose(0, 1) for t in (dt_full, x_full, b_full, c_full)]
+    h, ys = h0, []
+    for i in range(0, s, chunk):
+        args = (h, *(t[i:i + chunk] for t in seq), a)
+        y, h = (checkpoint(_ssm_chunk, *args, use_reentrant=False) if remat
+                else _ssm_chunk(*args))
+        ys.append(y)
+    return torch.cat(ys).transpose(0, 1), h
+
+
+def apply_mamba(p, x: torch.Tensor, cfg, state=None):
+    """x: (B,S,d). state: None (train) or {"conv","ssm"} for segment carry.
+    Returns (out, new_state)."""
+    dt_ = cdtype(cfg)
+    b, s, _ = x.shape
+    di, n = cfg.mamba_d_inner, cfg.mamba_d_state
+    r = cfg.dt_rank
+    xz = x @ p["in_proj"].to(dt_)
+    xs_, z = torch.chunk(xz, 2, dim=-1)
+    conv_in = state["conv"] if state is not None else None
+    xc = _causal_depthwise_conv(xs_, p["conv_w"].to(dt_),
+                                p["conv_b"].to(dt_), conv_in)
+    xc = F.silu(xc)
+    dbc = _mm(xc, p["x_proj"], dt_)
+    dt_raw, b_ssm, c_ssm = torch.split(dbc, [r, n, n], dim=-1)
+    dts = F.softplus(_mm(dt_raw, p["dt_proj"], dt_).float()
+                     + p["dt_bias"].float())
+    a = -torch.exp(p["A_log"].float())
+    h0 = (state["ssm"].float() if state is not None
+          else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
+    y, h_t = _ssm_scan(dts, xc.float(), b_ssm.float(), c_ssm.float(), a, h0)
+    y = (y + xc.float() * p["D"].float()).to(dt_)
+    y = y * F.silu(z)
+    out = y @ p["out_proj"].to(dt_)
+    new_state = None
+    if state is not None:
+        dc = cfg.mamba_d_conv
+        tail = torch.cat([state["conv"], xs_], dim=1)[:, -(dc - 1):, :]
+        new_state = {"conv": tail.to(state["conv"].dtype),
+                     "ssm": h_t.to(state["ssm"].dtype)}
+    return out, new_state
+
+
+def init_mamba_state(cfg, batch: int, dtype, device) -> dict:
+    di, n, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    return {"conv": torch.zeros((batch, dc - 1, di), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((batch, di, n), dtype=torch.float32,
+                               device=device)}
+
+
+__all__ = ["init_mamba", "apply_mamba", "init_mamba_state"]

@@ -1,58 +1,48 @@
-"""Model assembly: a loop over units covering the attention families of the
-assigned architectures (dense GQA, local/global alternation,
-encoder-decoder, early-fusion VLM).
+"""Model assembly: a loop over units covering all ten assigned
+architectures (dense GQA, MoE, local/global alternation, RWKV-6, Mamba
+hybrid, encoder-decoder, early-fusion VLM).
 
 The port of ``repro.models.transformer``.  A *unit* is the repeating group
 of (mixer, ffn) blocks (``cfg.unit_pattern``); parameters and decode states
 are stacked along a leading ``n_units`` axis, as the reference's are, and a
-Python loop over that axis replaces its ``lax.scan`` (``cfg.remat`` has no
-effect: nothing here is differentiated through a scan).
-
-The mixers ``mamba`` and ``rwkv`` and the ffns ``moe`` and ``rwkv_cm`` are
-not ported yet (ROADMAP Queue 1 item 9): a model that holds one raises
-``NotImplementedError`` at init and at apply.  So six of the ten
-architectures run: llama3_2_1b, yi_6b, phi3_mini_3_8b, gemma2_2b,
-chameleon_34b and whisper_tiny.
+Python loop over that axis replaces its ``lax.scan`` (each stacked leaf is
+unbound once, so the backward pass stacks the units' gradients in one
+pass).  ``cfg.remat`` runs each unit in ``torch.utils.checkpoint`` when
+grad mode is on — the reference's ``jax.checkpoint`` with
+``nothing_saveable``: only the unit's inputs are kept, and its activations
+are recomputed in the backward pass.
 
 Three entry points:
   forward(params, batch, cfg)                      → (hidden, moe aux)
   prefill(params, batch, cfg, state)               → (hidden_last, state')
   decode_step(params, tokens, cfg, state, pos)     → (hidden, state')
-The caller turns hidden states into logits (``layers.logits_fn``).  No
-entry point modifies the state it is given.
+The caller turns hidden states into logits or the loss
+(``layers.logits_fn``, ``layers.chunked_xent``).  No entry point modifies
+the state it is given.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import mamba as mamba_mod
+from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, cdtype, embed_tokens,
                      init_embedding, init_lm_head, init_mlp, init_norm)
+from .moe import apply_moe, init_moe
 
 _ATTN_KINDS = ("attn", "attn_local", "attn_bidir", "attn_cross")
-_UNPORTED = ("mamba", "rwkv", "moe", "rwkv_cm")
 
 
-def _unported(kind: str):
-    return NotImplementedError(
-        f"{kind!r} blocks are not ported yet (ROADMAP Queue 1 item 9: "
-        f"models/moe.py, mamba.py and rwkv.py come with the next slice)")
-
-
-def _check_ported(cfg) -> None:
-    for pattern in (cfg.unit_pattern, cfg.enc_unit_pattern):
-        for mixer, ffn in pattern:
-            for kind in (mixer, ffn):
-                if kind in _UNPORTED:
-                    raise _unported(kind)
-
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a nested dict (and the leaves at the same
+    paths of ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _stack(trees: list):
@@ -75,16 +65,20 @@ def _init_block(gen, cfg, mixer: str, ffn: str) -> dict:
         if mixer == "attn_cross":
             p["ln_cross"] = init_norm(cfg, cfg.d_model, dev)
             p["cross"] = attn.init_attention(gen, cfg, cross=True)
-    elif mixer in _UNPORTED:
-        raise _unported(mixer)
+    elif mixer == "mamba":
+        p["mixer"] = mamba_mod.init_mamba(gen, cfg)
+    elif mixer == "rwkv":
+        p["mixer"] = rwkv_mod.init_rwkv_time_mix(gen, cfg)
     else:
         raise ValueError(mixer)
     if ffn != "none":
         p["ln2"] = init_norm(cfg, cfg.d_model, dev)
     if ffn == "mlp":
         p["ffn"] = init_mlp(gen, cfg)
-    elif ffn in _UNPORTED:
-        raise _unported(ffn)
+    elif ffn == "moe":
+        p["ffn"] = init_moe(gen, cfg)
+    elif ffn == "rwkv_cm":
+        p["ffn"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg)
     elif ffn != "none":
         raise ValueError(ffn)
     if cfg.post_norm:
@@ -108,7 +102,6 @@ def init_model(gen, cfg, device=None) -> dict:
         from ..api.plan import resolve_device
 
         gen = torch.Generator(resolve_device(device)).manual_seed(int(gen))
-    _check_ported(cfg)
     params = {"embed": init_embedding(gen, cfg),
               "final_norm": init_norm(cfg, cfg.d_model, gen.device),
               "head": init_lm_head(gen, cfg)}
@@ -140,55 +133,95 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
     for i, (mixer, ffn) in enumerate(pattern):
         bp = up[f"b{i}"]
         bkey = f"b{i}"
+        st = state[bkey] if state is not None else None
         h = apply_norm(bp["ln1"], x, cfg)
         # ---- mixer -------------------------------------------------------
-        if mixer not in _ATTN_KINDS:
-            raise _unported(mixer)
-        # the self-attention of a cross block is ordinary causal attn;
-        # "attn_cross" selects only the *extra* cross-attention below
-        self_kind = "attn" if mixer == "attn_cross" else mixer
-        if mode == "decode":
-            out, kv = attn.decode_attention(
-                bp["mixer"], h, {"k": state[bkey]["k"],
-                                 "v": state[bkey]["v"]},
-                pos, cfg, kind=self_kind)
-            new_state[bkey] = dict(kv)
+        if mixer in _ATTN_KINDS:
+            out = _attention_mixer(bp, x, h, cfg, mixer, mode, st, new_state,
+                                   bkey, enc_out, pos, pos_offset,
+                                   skip_causal)
+        elif mixer == "mamba":
+            out, new_st = mamba_mod.apply_mamba(bp["mixer"], h, cfg, st)
+            if state is not None:
+                new_state[bkey] = new_st
+        elif mixer == "rwkv":
+            out, (x_last, wkv) = rwkv_mod.apply_rwkv_time_mix(
+                bp["mixer"], h, cfg,
+                x_prev=None if st is None else st["x_prev_tm"],
+                wkv_state=None if st is None else st["wkv"])
+            if state is not None:
+                new_state[bkey] = {
+                    "x_prev_tm": x_last.to(st["x_prev_tm"].dtype),
+                    "wkv": wkv.to(st["wkv"].dtype)}
         else:
-            out, (k, v) = attn.apply_attention(
-                bp["mixer"], h, cfg, kind=self_kind,
-                pos_offset=pos_offset, block_skip_causal=skip_causal)
-            if mode == "prefill":
-                new_state[bkey] = {"k": _write_prefix(state[bkey]["k"], k),
-                                   "v": _write_prefix(state[bkey]["v"], v)}
-        if mixer == "attn_cross":
-            hc = apply_norm(bp["ln_cross"], x + out, cfg)
-            if mode == "decode":
-                out2 = attn.decode_cross_attention(
-                    bp["cross"], hc, (state[bkey]["ck"],
-                                      state[bkey]["cv"]), cfg)
-                new_state[bkey]["ck"] = state[bkey]["ck"]
-                new_state[bkey]["cv"] = state[bkey]["cv"]
-            else:
-                out2, (ck, cv) = attn.apply_attention(
-                    bp["cross"], hc, cfg, kind="attn_cross", kv_x=enc_out)
-                if mode == "prefill":
-                    new_state[bkey]["ck"] = ck.to(state[bkey]["ck"].dtype)
-                    new_state[bkey]["cv"] = cv.to(state[bkey]["cv"].dtype)
-            out = out + out2
+            raise ValueError(mixer)
         if cfg.post_norm:
             out = apply_norm(bp["post_ln1"], out, cfg)
         x = x + out
         # ---- ffn ----------------------------------------------------------
         if ffn == "none":
             continue
-        if ffn != "mlp":
-            raise _unported(ffn)
         h2 = apply_norm(bp["ln2"], x, cfg)
-        out = apply_mlp(bp["ffn"], h2, cfg)
+        if ffn == "mlp":
+            out = apply_mlp(bp["ffn"], h2, cfg)
+        elif ffn == "moe":
+            out, a = apply_moe(bp["ffn"], h2, cfg)
+            aux = aux + a
+        elif ffn == "rwkv_cm":
+            prev = None if st is None else st.get("x_prev_cm")
+            out, x_last_cm = rwkv_mod.apply_rwkv_channel_mix(
+                bp["ffn"], h2, cfg, x_prev=prev)
+            if state is not None:
+                new_state[bkey]["x_prev_cm"] = x_last_cm.to(
+                    st["x_prev_cm"].dtype)
+        else:
+            raise ValueError(ffn)
         if cfg.post_norm:
             out = apply_norm(bp["post_ln2"], out, cfg)
         x = x + out
     return x, aux, new_state
+
+
+def _attention_mixer(bp, x, h, cfg, mixer, mode, st, new_state, bkey,
+                     enc_out, pos, pos_offset, skip_causal):
+    """An attention block's mixer output; fills ``new_state[bkey]`` in the
+    prefill and decode modes."""
+    # the self-attention of a cross block is ordinary causal attn;
+    # "attn_cross" selects only the *extra* cross-attention below
+    self_kind = "attn" if mixer == "attn_cross" else mixer
+    if mode == "decode":
+        out, kv = attn.decode_attention(
+            bp["mixer"], h, {"k": st["k"], "v": st["v"]}, pos, cfg,
+            kind=self_kind)
+        new_state[bkey] = dict(kv)
+    else:
+        out, (k, v) = attn.apply_attention(
+            bp["mixer"], h, cfg, kind=self_kind, pos_offset=pos_offset,
+            block_skip_causal=skip_causal)
+        if mode == "prefill":
+            new_state[bkey] = {"k": _write_prefix(st["k"], k),
+                               "v": _write_prefix(st["v"], v)}
+    if mixer == "attn_cross":
+        hc = apply_norm(bp["ln_cross"], x + out, cfg)
+        if mode == "decode":
+            out2 = attn.decode_cross_attention(bp["cross"], hc,
+                                               (st["ck"], st["cv"]), cfg)
+            new_state[bkey]["ck"] = st["ck"]
+            new_state[bkey]["cv"] = st["cv"]
+        else:
+            out2, (ck, cv) = attn.apply_attention(
+                bp["cross"], hc, cfg, kind="attn_cross", kv_x=enc_out)
+            if mode == "prefill":
+                new_state[bkey]["ck"] = ck.to(st["ck"].dtype)
+                new_state[bkey]["cv"] = cv.to(st["cv"].dtype)
+        out = out + out2
+    return out
+
+
+def _unstack(tree, n: int) -> list:
+    """A stacked (n, ...) tree as n trees, each leaf unbound once."""
+    split = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda parts, u=u: parts[u], split) for u in range(n)]
 
 
 def _run_units(units_params, x, cfg, pattern, mode, states=None,
@@ -196,14 +229,16 @@ def _run_units(units_params, x, cfg, pattern, mode, states=None,
     """The unit stack, one unit after another (the reference's scan).
     states: stacked (n_units, ...) tree or None."""
     n_units = next(iter(tree_leaves(units_params))).shape[0]
+    ups = _unstack(units_params, n_units)
+    sts = [None] * n_units if states is None else _unstack(states, n_units)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states = []
-    for u in range(n_units):
-        up = tree_map(lambda a: a[u], units_params)
-        st = None if states is None else tree_map(lambda a: a[u], states)
-        x, a, new_st = _apply_unit(
-            up, x, cfg, pattern, mode, state=st, enc_out=enc_out, pos=pos,
-            pos_offset=pos_offset, skip_causal=skip_causal)
+    for up, st in zip(ups, sts):
+        args = (up, x, cfg, pattern, mode, st, enc_out, pos, pos_offset,
+                skip_causal)
+        x, a, new_st = (checkpoint(_apply_unit, *args, use_reentrant=False)
+                        if remat else _apply_unit(*args))
         aux = aux + a
         new_states.append(new_st)
     return x, aux, None if states is None else _stack(new_states)
@@ -242,7 +277,6 @@ def _encode(params, enc_frames, cfg):
 def forward(params, batch, cfg, *, skip_causal=False):
     """Training/scoring forward: batch {"tokens": (B,S)[, "enc_frames"]}.
     Returns (hidden (B,S,d), moe_aux)."""
-    _check_ported(cfg)
     x = embed_tokens(params["embed"], _as_tokens(batch["tokens"], params),
                      cfg)
     enc_out = None
@@ -256,20 +290,31 @@ def forward(params, batch, cfg, *, skip_causal=False):
 
 def init_decode_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                       enc_len: int = 0, device=None) -> dict:
-    """Stacked per-unit decode state (KV caches; the encoder's cross K/V
-    for an encoder-decoder) on ``device`` (default ``cuda``)."""
+    """Stacked per-unit decode state (KV caches, the encoder's cross K/V
+    for an encoder-decoder, Mamba's conv and SSM states, RWKV's shifted
+    tokens and WKV state) on ``device`` (default ``cuda``)."""
     from ..api.plan import resolve_device
 
-    _check_ported(cfg)
     device = resolve_device(device)
     unit_state = {}
-    for i, (mixer, _ffn) in enumerate(cfg.unit_pattern):
-        st = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
-        if mixer == "attn_cross":
-            shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
-            st["ck"] = torch.zeros(shape, dtype=dtype, device=device)
-            st["cv"] = torch.zeros(shape, dtype=dtype, device=device)
-        unit_state[f"b{i}"] = st
+    for i, (mixer, ffn) in enumerate(cfg.unit_pattern):
+        key = f"b{i}"
+        if mixer in _ATTN_KINDS:
+            st = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+            if mixer == "attn_cross":
+                shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+                st["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+                st["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+            unit_state[key] = st
+        elif mixer == "mamba":
+            unit_state[key] = mamba_mod.init_mamba_state(cfg, batch, dtype,
+                                                         device)
+        elif mixer == "rwkv":
+            rs = rwkv_mod.init_rwkv_state(cfg, batch, dtype, device)
+            unit_state[key] = {"x_prev_tm": rs["x_prev_tm"], "wkv": rs["wkv"]}
+        if ffn == "rwkv_cm":
+            unit_state[key]["x_prev_cm"] = torch.zeros(
+                (batch, 1, cfg.d_model), dtype=dtype, device=device)
     return tree_map(
         lambda a: a.new_zeros((cfg.n_units,) + tuple(a.shape)), unit_state)
 
@@ -279,7 +324,6 @@ def prefill(params, batch, cfg, state, *, skip_causal=False):
     state').  The hidden state is the one at the last position of
     ``batch["tokens"]``, padding included, as the reference's is.
     ``skip_causal`` enables the triangular block enumeration."""
-    _check_ported(cfg)
     x = embed_tokens(params["embed"], _as_tokens(batch["tokens"], params),
                      cfg)
     enc_out = None
@@ -298,7 +342,6 @@ def decode_step(params, tokens, cfg, state, pos):
     (continuous batching: slots admitted at different times each write
     their KV-cache entry, RoPE angle, and learned-position lookup at their
     own index).  Returns (hidden (B,1,d), new state)."""
-    _check_ported(cfg)
     dev = params["embed"]["embedding"].device
     pos = torch.as_tensor(pos, device=dev)
     x = embed_tokens(params["embed"], _as_tokens(tokens, params), cfg,

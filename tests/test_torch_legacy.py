@@ -247,9 +247,10 @@ def test_shims_are_not_used_by_the_examples():
     """The examples use ``repro_torch.api`` only: no DEP001 finding."""
     import inspect
 
-    from repro_torch.examples import cg_solver, quickstart, serve_lm
+    from repro_torch.examples import (cg_solver, quickstart, serve_lm,
+                                      sparse_ffn_lm, train_lm)
 
-    for mod in (quickstart, cg_solver, serve_lm):
+    for mod in (quickstart, cg_solver, serve_lm, train_lm, sparse_ffn_lm):
         assert lint_source(inspect.getsource(mod), mod.__file__,
                            mod.__name__) == []
     assert dataclasses.is_dataclass(core.SpMVOperator)

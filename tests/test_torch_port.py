@@ -169,7 +169,14 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.analysis.source_lint',"
         " 'repro_torch.analysis.__main__', 'repro_torch.dist',"
         " 'repro_torch.dist.halo', 'repro_torch.dist.operator',"
-        " 'repro_torch.dist.allgather', 'repro_torch.core.dist_spmv']\n"
+        " 'repro_torch.dist.allgather', 'repro_torch.core.dist_spmv',"
+        " 'repro_torch.train', 'repro_torch.train.optimizer',"
+        " 'repro_torch.train.train_step', 'repro_torch.train.checkpoint',"
+        " 'repro_torch.train.fault_tolerance', 'repro_torch.data',"
+        " 'repro_torch.data.pipeline', 'repro_torch.launch.train',"
+        " 'repro_torch.models.moe', 'repro_torch.models.mamba',"
+        " 'repro_torch.models.rwkv', 'repro_torch.examples.train_lm',"
+        " 'repro_torch.examples.sparse_ffn_lm']\n"
         "print(n, bad, [k for k in need if k not in sys.modules])\n"
         "assert not bad, bad\n"
         "assert all(k in sys.modules for k in need)\n")
