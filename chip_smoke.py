@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten main paths, each driven with every kernel's launch count set to 0
+Eleven main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -99,7 +99,17 @@ just before it and read just after:
   survives an injected failure; fixed-mask value training of the pruned
   FFN down projection (density 0.2, ``ehyb_packed``, 64 tokens), whose
   forwards launch #8, gradient against float64; and moonshot, grok,
-  rwkv6 and jamba at their smoke configs against the port's CPU run.
+  rwkv6 and jamba at their smoke configs against the port's CPU run;
+* the mesh path (11h), in its own one-rank NCCL group: llama3_2_1b at
+  full width and depth through ``build_trainer(..., mesh=make_host_mesh(1,
+  1, "cuda"))`` (the state ``DTensor``s, each unit's parameters gathered
+  inside its remat boundary, each gradient reduced to its leaf's spec)
+  for 3 steps against the unsharded trainer's (losses 1e-6, the first
+  step's gradients and weights as ``step_vs_cpu`` holds them), one MoE
+  layer at moonshot_v1_16b_a3b's full width through the distributed path
+  (the expert all-to-all) against the local one, grok's ffn mode at smoke
+  size, a 2-layer state restored onto the mesh bit for bit, and the dry
+  run over every cell (how many fit the card).
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -1568,7 +1578,7 @@ def serve_phase(dev, smi: str, plans: list, all_kernels: dict,
 
 
 def step_vs_cpu(p0, p_card, p_cpu, g_cpu, g_card, cfg, opt_cfg,
-                lr: float) -> list:
+                lr: float, device=None) -> list:
     """One train step on the card against the same step on the CPU, leaf by
     leaf (all trees on the CPU; ``p0`` the weights both started from).
 
@@ -1581,10 +1591,12 @@ def step_vs_cpu(p0, p_card, p_cpu, g_cpu, g_card, cfg, opt_cfg,
     gradient, so gradients that differ near eps move a weight differently
     by up to 2·lr; ``excess_lr`` is the most any weight moved beyond
     lr·|s(ĝ_card) − s(ĝ_cpu)|.  ``worst_*`` describe the weight whose step
-    differs most."""
+    differs most.  With ``device`` each leaf is compared there (the trees
+    stay where they are)."""
+    import torch
+
     from repro_torch.models.transformer import tree_leaves
-    from repro_torch.train import (adamw_update, clip_by_global_norm,
-                                   init_train_state)
+    from repro_torch.train import adamw_update, global_norm, init_opt_state
 
     def names(tree, prefix=""):
         for k, v in tree.items():
@@ -1593,14 +1605,23 @@ def step_vs_cpu(p0, p_card, p_cpu, g_cpu, g_card, cfg, opt_cfg,
             else:
                 yield prefix + k
 
-    p_ref, _, _ = adamw_update(p0, g_card, init_train_state(p0, cfg).opt,
-                               opt_cfg)
-    (gh_c, _), (gh_g, _) = (clip_by_global_norm(g, opt_cfg.clip_norm)
-                            for g in (g_cpu, g_card))
+    def clip_scale(g):
+        n = global_norm(g)
+        return torch.clamp(opt_cfg.clip_norm / torch.clamp(n, min=1e-9),
+                           max=1.0)
+
+    # leaf by leaf (a full-width model's trees are held a few at a time):
+    # the clipped gradients, and AdamW's first step from p0 on the card's
+    no_clip = dataclasses.replace(opt_cfg, clip_norm=float("inf"))
+    k_c, k_g = clip_scale(g_cpu), clip_scale(g_card)
     rows = []
-    for name, a, b, r, gc, gg, hc, hg in zip(
-            names(p0), *(tree_leaves(t) for t in (
-                p_card, p_cpu, p_ref, g_cpu, g_card, gh_c, gh_g))):
+    for name, *leaves in zip(names(p0), *(tree_leaves(t) for t in (
+            p0, p_card, p_cpu, g_cpu, g_card))):
+        p, a, b, gc, gg = (t.to(device or t.device) for t in leaves)
+        hc, hg = (gc * k_c.to(gc.device, gc.dtype),
+                  gg * k_g.to(gg.device, gg.dtype))
+        r = adamw_update({"w": p}, {"w": hg}, init_opt_state(
+            {"w": p}, cfg.opt_state_dtype), no_clip)[0]["w"]
         d = (a - b).abs()
         s_g, s_c = (h / (h.abs() + opt_cfg.eps) for h in (hg, hc))
         j = int(d.argmax())
@@ -2045,6 +2066,244 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
     healthy("train")
     log("train-phase", seconds=round(time.perf_counter() - t_phase, 3))
     return out, max_abs
+
+
+def mesh_phase(dev, smi: str, all_kernels: dict) -> None:
+    """The mesh path (phase 11h), in its own one-rank NCCL group (an
+    in-memory store), destroyed at its end; the card machine has one card,
+    so every collective is one rank's.
+
+    a. llama3_2_1b at full width and depth through ``build_trainer(...,
+       mesh=make_host_mesh(1, 1, "cuda"))`` (the state ``DTensor``s placed
+       by ``launch.sharding``'s rules; each unit's parameters gathered
+       inside its remat boundary, each gradient reduced to its leaf's spec)
+       against 11g's unsharded trainer on the same seed, batches (4 × 512
+       tokens) and optimizer: three steps each, the losses within 1e-6
+       relative, the first step's weights held as ``step_vs_cpu`` holds
+       the card to the CPU (gradients within 1e-4 of each leaf's largest,
+       AdamW within 1 % of lr, the step within 1 % of lr beyond what AdamW
+       makes of the gradients' difference); step ms, and each run's peak
+       memory above what was held when it began (the plain run's copies
+       are held through the mesh run).
+    b. One MoE layer at moonshot_v1_16b_a3b's full width (d 2048, 64
+       experts, top-6, expert d_ff 1408) on 2,048 tokens in fp32 through
+       ``_apply_moe_dist`` on the mesh (the a2a path) and through the local
+       path: y, aux and the gradients of x and of every expert weight within
+       1e-5 of the largest, both times; the same for grok's ``"ffn"`` mode
+       at smoke size.
+    c. A 2-layer state after one unsharded step, saved and restored onto
+       the mesh (``CheckpointManager.restore`` with a sharded template),
+       gathered back bit for bit.
+    d. ``launch.dryrun`` over every (architecture × shape × production
+       mesh) cell: the count of OK, SKIP and FAIL cells and how many fit
+       this card's memory.
+
+    No hand-written kernel may launch: the dense step and the MoE reach
+    none, as the reference's reach no Pallas kernel."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import distribute_state, gather_state
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import init_model
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train import (CheckpointManager, OptimizerConfig,
+                                   adamw_update, init_train_state, lr_at)
+    from repro_torch.train import train_step as TS
+
+    t_phase = time.perf_counter()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, "cuda")
+        # -- a. the mesh train step at full width against 11g's -------------
+        cfg = get_config("llama3_2_1b")
+        opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+        ckpt_root = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+        seen = []
+
+        def spy(params, grads, *args, **kw):    # the first step's
+            if not seen:
+                seen.append(tree_map(lambda g: g.detach().cpu(), grads))
+            return adamw_update(params, grads, *args, **kw)
+
+        def steps(m):
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            tr, st = build_trainer(cfg, opt_cfg, mesh=m, device=dev,
+                                   global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ,
+                                   ckpt_dir=ckpt_root / str(m is None),
+                                   seed=SEED)
+            # the copies kept for the comparison wait in host memory: the
+            # card holds one trainer's state at a time
+            p0 = None if m else tree_map(lambda t: t.cpu(), st.params)
+            losses, ms, p1 = [], [], None
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, met = tr.step_fn(st, tr.batch_fn(i))
+                losses.append(float(met["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    p1 = tree_map(lambda t: (t.to_local() if m else t)
+                                  .cpu(), st.params)
+            peak = torch.cuda.max_memory_allocated(dev) - held
+            del tr, st
+            gc.collect()
+            torch.cuda.empty_cache()
+            return p0, p1, losses, ms, peak
+
+        TS.adamw_update = spy
+        try:
+            p0, p_plain, l_plain, ms_plain, peak_plain = steps(None)
+            g_plain = seen[0]
+            seen.clear()
+            _, p_mesh, l_mesh, ms_mesh, peak_mesh = steps(mesh)
+            g_mesh = seen[0]
+        finally:
+            TS.adamw_update = adamw_update
+        seen.clear()
+        rows = step_vs_cpu(p0, p_mesh, p_plain, g_plain, g_mesh, cfg,
+                           opt_cfg, float(lr_at(opt_cfg, 1)), device=dev)
+        bad = [r for r in rows if r["grad_vs_cpu"] > 1e-4
+               or r["adamw_vs_cpu_lr"] > 1e-2 or r["excess_lr"] > 1e-2]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(l_mesh, l_plain))
+        log("mesh-train", card=repr(smi), model=cfg.name, mesh="(1, 1)",
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, loss_mesh=l_mesh,
+            loss_plain=l_plain, loss_rel_gap=loss_gap, step_ms_mesh=ms_mesh,
+            step_ms_plain=ms_plain, peak_bytes_mesh=peak_mesh,
+            peak_bytes_plain=peak_plain, base_bytes=base,
+            grad_vs_plain=max(r["grad_vs_cpu"] for r in rows),
+            adamw_vs_plain_lr=max(r["adamw_vs_cpu_lr"] for r in rows),
+            step_excess_lr=max(r["excess_lr"] for r in rows),
+            step_worst=max(rows, key=lambda r: r["step_vs_cpu_lr"]))
+        check(loss_gap <= 1e-6, f"the mesh step's losses against 11g's: "
+              f"{l_mesh} {l_plain}")
+        check(not bad, f"the mesh step's weights against 11g's: {bad}")
+        del p0, p_plain, p_mesh, g_plain, g_mesh, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- b. the distributed MoE at moonshot's full width ----------------
+        moe_out = {}
+        for arch, smoke, tokens in (("moonshot_v1_16b_a3b", False, 2048),
+                                    ("grok_1_314b", True, 256)):
+            mcfg = dc.replace(get_config(arch, smoke=smoke), dtype="float32")
+            gen = torch.Generator(dev).manual_seed(SEED)
+            p_init = M.init_moe(gen, mcfg)
+            x_init = torch.randn((tokens // 512 if tokens >= 512 else 1,
+                                  min(tokens, 512), mcfg.d_model),
+                                 generator=gen, device=dev)
+            c = torch.randn(x_init.shape, generator=gen, device=dev)
+            outs, times = [], {}
+            for path in ("dist", "local"):
+                ts_ = []
+                for _ in range(3):
+                    p = {k: v.clone().requires_grad_(True)
+                         for k, v in p_init.items()}
+                    x = x_init.clone().requires_grad_(True)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y, aux = (M._apply_moe_dist(p, x, mcfg, mesh, ("data",))
+                              if path == "dist"
+                              else M._apply_moe_local(p, x, mcfg))
+                    ((y * c).sum() + aux).backward()
+                    torch.cuda.synchronize()
+                    ts_.append((time.perf_counter() - t0) * 1e3)
+                times[path] = statistics.median(ts_)
+                outs.append({"y": y.detach(), "aux": aux.detach(),
+                             "x": x.grad, **{k: v.grad for k, v in p.items()}})
+            errs = {k: rel_to_largest(outs[0][k].cpu(), outs[1][k].cpu())
+                    if outs[1][k].ndim else
+                    abs(float(outs[0][k] - outs[1][k]))
+                    for k in outs[1]}
+            split = M.moe_split(x_init.shape[0] * x_init.shape[1], mesh,
+                                ("data",), mcfg)
+            log("mesh-moe", arch=arch, smoke=smoke, d_model=mcfg.d_model,
+                experts=mcfg.n_experts, top_k=mcfg.top_k, d_ff=mcfg.d_ff,
+                tokens=tokens, split=split, dist_fwd_bwd_ms=times["dist"],
+                local_fwd_bwd_ms=times["local"], errs=errs)
+            check(max(errs.values()) <= 1e-5,
+                  f"{arch}: the distributed MoE against the local path: "
+                  f"{errs}")
+            moe_out[arch] = split
+            del outs, p_init, x_init, c
+        check(moe_out["moonshot_v1_16b_a3b"][2]
+              and not moe_out["grok_1_314b"][2],
+              f"the a2a path on moonshot, not on grok: {moe_out}")
+
+        # -- c. an unsharded 2-layer state restored onto the mesh ----------
+        cfg2 = dc.replace(cfg, n_layers=2)
+        tr, st = build_trainer(cfg2, opt_cfg, device=dev,
+                               global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               ckpt_dir=ckpt_root / "c", seed=SEED)
+        st, _ = tr.step_fn(st, tr.batch_fn(0))
+        t0 = time.perf_counter()
+        tr.ckpt.save(1, st)
+        t_save = time.perf_counter() - t0
+        tmpl = distribute_state(init_train_state(
+            init_model(SEED + 1, cfg2, device=dev), cfg2), mesh, cfg2)
+        t0 = time.perf_counter()
+        on_mesh = CheckpointManager(str(ckpt_root / "c")).restore(1, tmpl)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        back = gather_state(on_mesh)
+
+        def leaves(x):
+            return [*tree_leaves(x.params), *tree_leaves(x.opt.m),
+                    *tree_leaves(x.opt.v), x.opt.step, x.step]
+
+        same = all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                     leaves(st)))
+        log("mesh-restore", layers=2, save_s=round(t_save, 3),
+            restore_s=round(t_restore, 3), bit_identical=same,
+            placements=str(on_mesh.params["embed"]["embedding"].placements))
+        check(same, "the 2-layer state restored onto the mesh bit for bit")
+        del tr, st, tmpl, on_mesh, back
+        shutil.rmtree(ckpt_root)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # -- d. the dry run over every cell ---------------------------------------
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    counts = collections.Counter()
+    fit = {}
+    for multi in (False, True):
+        for arch in ARCH_IDS:
+            for name in SHAPES:
+                rec = dryrun.run_cell(arch, name, multi, force=True,
+                                      verbose=False, device_bytes=total)
+                counts[rec["status"]] += 1
+                if rec["status"] == "OK":
+                    fit[f"{arch}|{name}|{rec['mesh']}"] = (
+                        rec["bytes_per_device"], rec["fits"])
+    largest = max(fit.items(), key=lambda kv: kv[1][0])
+    log("mesh-dryrun", card=repr(smi), total_memory=total,
+        ok=counts["OK"], skip=counts["SKIP"], fail=counts["FAIL"],
+        fit=sum(f for _, f in fit.values()),
+        largest_cell=largest[0], largest_bytes=largest[1][0],
+        seconds=round(time.perf_counter() - t0, 3))
+    check(counts == {"OK": 64, "SKIP": 16}, f"dry-run cells: {counts}")
+    launches = {k: f.launches for k, f in all_kernels.items()}
+    check(not any(launches.values()),
+          f"the mesh path launched a hand-written kernel: {launches}")
+    log("mesh-phase", seconds=round(time.perf_counter() - t_phase, 3))
 
 
 def main() -> int:
@@ -3268,6 +3527,11 @@ def run(dev, nx: int) -> list:
     # resume and failure runs, value training on #8, the new architectures
     launches_g, max_abs_g = train_phase(dev, smi, plans, all_kernels,
                                         healthy)
+
+    # ---- 11h. the mesh path: the sharded train step, the distributed MoE,
+    # a restore onto the mesh and the dry run, in a one-rank NCCL group
+    mesh_phase(dev, smi, all_kernels)
+    healthy("mesh")
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)

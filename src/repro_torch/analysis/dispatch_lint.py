@@ -31,6 +31,13 @@ devices of its tensors, and checks the record:
 space, K = 1 and 4) and the sharded CG and BiCGStab run on one rank's
 shard of the probe matrix under a recorder that stands in for the
 collectives (:func:`record_collectives`) and notes the group each names.
+The mesh path (:func:`mesh_paths`) runs the same way on rank 0 of a
+(data=2, model=2) mesh stand-in (:class:`LintMesh`): the distributed MoE's
+forward and backward (the all-to-alls, the token gathers, the Switch
+statistics' sums) in both expert modes, and the mesh train step of three
+smoke configs (each unit's parameter gathers and their gradient
+reductions, the loss's counts, the global norm's sums); each collective
+must name a group the mesh handed out.
 The reference's ``oversized-const`` is dropped: it checks constants closed
 into a traced program, and eager torch closes over none (container tables
 arrive as arguments by construction).
@@ -48,11 +55,12 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..launch.mesh import ShapeMesh
 from .findings import Finding
 
 __all__ = ["lint_ops", "record_ops", "run_dispatch_lint",
            "registered_paths", "record_collectives", "lint_collectives",
-           "run_collective_lint"]
+           "run_collective_lint", "LintMesh", "mesh_paths"]
 
 _FLOAT_WIDTH = {torch.float16: 2, torch.bfloat16: 2, torch.float32: 4,
                 torch.float64: 8}
@@ -269,11 +277,82 @@ def record_collectives(fn, *args) -> list:
 
 
 def lint_collectives(calls, group, site: str) -> List[Finding]:
-    """Flag each recorded collective that does not name ``group``."""
+    """Flag each recorded collective that does not name ``group`` (or, for
+    a :class:`LintMesh`, one of the groups it handed out)."""
+    allowed = (tuple(group.groups.values()) if isinstance(group, LintMesh)
+               else (group,))
     return [Finding("error", site, "collective-axis",
                     f"{name} on {'the default group' if g is None else g!r}"
-                    f", not the plan's mesh-axis group")
-            for name, g in calls if g is not group]
+                    f", not a mesh-axis group")
+            for name, g in calls if not any(g is a for a in allowed)]
+
+
+class LintMesh(ShapeMesh):
+    """A device-mesh stand-in: a :class:`ShapeMesh` with rank 0's
+    coordinates and one sentinel group per set of axes."""
+
+    def __init__(self, shape: dict):
+        super().__init__(shape)
+        self.groups: dict = {}
+
+    def get_group(self, axes):
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        return self.groups.setdefault(key, object())
+
+    def get_coordinate(self):
+        return [0] * len(self.axis_names)
+
+
+def _moe_path(cfg, mesh):
+    from ..models import moe as M
+    from ..models import shard_ctx
+
+    gen = torch.Generator("cpu").manual_seed(0)
+    p = {k: v.requires_grad_(True) for k, v in M.init_moe(gen, cfg).items()}
+    x = torch.randn((4, 8, cfg.d_model), generator=gen, requires_grad=True)
+    shard_ctx.set_sharding_context(mesh, ("data",))
+    try:
+        y, aux = M.apply_moe(p, x, cfg)
+        (y.sum() + aux).backward()
+    finally:
+        shard_ctx.clear_sharding_context()
+
+
+def _mesh_step(cfg, mesh):
+    from ..data import SyntheticTokenDataset
+    from ..launch.sharding import local_block, param_specs
+    from ..models import init_model
+    from ..models.transformer import tree_map
+    from ..train import OptimizerConfig, init_train_state
+    from ..train.train_step import make_mesh_train_step
+
+    params = init_model(0, cfg, device="cpu")
+    specs = param_specs(params, mesh, cfg)
+    local = tree_map(lambda t, s: local_block(t, s, mesh).clone(), params,
+                     specs)
+    step = make_mesh_train_step(cfg, OptimizerConfig(), mesh, specs=specs)
+    batch = SyntheticTokenDataset(cfg.vocab_size, 8, 4,
+                                  seed=0).train_inputs(0)
+    step(init_train_state(local, cfg), batch)
+
+
+def mesh_paths():
+    """Yield ``(site, mesh, thunk)``: the mesh path's pieces on rank 0 of a
+    (data=2, model=2) :class:`LintMesh`, on the CPU."""
+    import dataclasses
+
+    from ..configs import get_config
+
+    for arch, tag in (("moonshot_v1_16b_a3b", "expert"),
+                      ("grok_1_314b", "ffn")):
+        mesh = LintMesh({"data": 2, "model": 2})
+        cfg = get_config(arch, smoke=True)
+        yield f"mesh:moe:{tag}", mesh, lambda c=cfg, m=mesh: _moe_path(c, m)
+    for arch in ("llama3_2_1b", "moonshot_v1_16b_a3b", "grok_1_314b"):
+        mesh = LintMesh({"data": 2, "model": 2})
+        cfg = dataclasses.replace(get_config(arch, smoke=True), fsdp=True)
+        yield (f"mesh:step:{arch}", mesh,
+               lambda c=cfg, m=mesh: _mesh_step(c, m))
 
 
 def sharded_paths(n_dev: int = 2):
@@ -312,9 +391,13 @@ def sharded_paths(n_dev: int = 2):
 
 
 def run_collective_lint(n_dev: int = 2) -> List[Finding]:
-    """Run and lint every sharded path's collectives."""
+    """Run and lint every sharded path's and the mesh path's
+    collectives."""
+    import itertools
+
     out: List[Finding] = []
-    for site, group, thunk in sharded_paths(n_dev):
+    for site, group, thunk in itertools.chain(sharded_paths(n_dev),
+                                              mesh_paths()):
         try:
             calls = record_collectives(thunk)
         except Exception as e:  # noqa: BLE001 — any failure to run is

@@ -1,7 +1,13 @@
-"""Launch layer: training and serving from the command line
-(``python -m repro_torch.launch.train``, ``python -m
-repro_torch.launch.serve``).
+"""Launch layer: the production mesh, the sharding rules, and the dry-run,
+train and serve entry points (``python -m repro_torch.launch.dryrun``,
+``python -m repro_torch.launch.train``, ``python -m
+repro_torch.launch.serve``).  The port of ``repro.launch``; importing it
+touches no process group."""
 
-The reference's ``dryrun``, ``mesh`` and ``sharding`` (a device mesh, the
-state's shardings and XLA programs lowered for 512 devices) are not ported
-yet (ROADMAP Queue 1 item 11)."""
+from .mesh import axis_size, batch_axes, make_host_mesh, make_production_mesh
+from .sharding import (batch_shardings, make_shard_act, param_shardings,
+                       state_shardings, train_state_shardings)
+
+__all__ = ["axis_size", "batch_axes", "make_host_mesh",
+           "make_production_mesh", "batch_shardings", "make_shard_act",
+           "param_shardings", "state_shardings", "train_state_shardings"]

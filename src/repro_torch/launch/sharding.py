@@ -1,0 +1,440 @@
+"""Sharding rules: a spec per parameter/state leaf → DTensor placements.
+
+The port of ``repro.launch.sharding``.  The rule tables are the
+reference's, verbatim; each spec function returns, per leaf, a tuple equal
+entry by entry to the reference's ``PartitionSpec`` (None, an axis name, or
+a tuple of names), and takes a ``DeviceMesh`` or a ``launch.mesh.ShapeMesh``.
+
+Strategy (the reference's):
+* TP (`model` axis): attention fused-head dims, d_ff, experts (EP), vocab.
+* FSDP (`data` [+ `pod`] axes): the other large dim of every matrix when
+  ``cfg.fsdp`` — parameters *and* Adam moments shard identically (ZeRO).
+* DP: batch over (`pod`, `data`).
+* Context parallel: long-context decode shards the KV-cache sequence dim
+  over `data` when the batch is too small to.
+
+Every rule passes through a divisibility check — a dim that doesn't divide
+the axis product falls back (KV-heads → head_dim → replicate), so one rule
+table covers all 10 architectures.
+
+How the port computes on these shardings differs from the reference's,
+which hands the whole step to GSPMD: eager PyTorch has no whole-step
+partitioner.  The state's leaves are ``DTensor``s placed by these specs
+(:func:`distribute_state`); the train step splits the global batch over
+:func:`dp_axes` at its entry (:func:`make_shard_act`, the port's form of
+the reference's activation constraint), all-gathers each unit's
+parameters just before the unit runs, and reduces each gradient back to
+its leaf's spec (``train.train_step``).  The model axis shards storage
+and the MoE experts, not the dense matmuls; ``act_sharding="sp"``
+(sequence-parallel activations) has no eager counterpart and is ignored.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..models.shard_ctx import (axis_names, axis_sizes, group_index,
+                                group_size)
+from .mesh import axis_size, batch_axes
+
+# logical axes:  "tp" → model;  "fsdp" → (pod,)data;  "ep" → model (expert)
+# Rules keyed by parameter leaf name; value = logical axis per dim of the
+# UNSTACKED parameter (a leading scan/stack dim is auto-prepended None).
+PARAM_RULES = {
+    # embeddings / head
+    "embedding": ("tp", "fsdp"),
+    "pos_embedding": (None, None),
+    "w_head": ("fsdp", "tp"),
+    # norms
+    "scale": (None,), "bias": (None,),
+    "q_norm": (None,), "k_norm": (None,),
+    # attention
+    "w_q": ("fsdp", "tp"), "w_k": ("fsdp", "tp"), "w_v": ("fsdp", "tp"),
+    "w_o": ("tp", "fsdp"),
+    # dense mlp
+    "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"), "w_down": ("tp", "fsdp"),
+    # moe (expert sharding variant; "ffn" variant handled in code)
+    "router": ("fsdp", None),
+    "we_gate": ("ep", "fsdp", None), "we_up": ("ep", "fsdp", None),
+    "we_down": ("ep", None, "fsdp"),
+    # mamba
+    "in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"), "conv_b": ("tp",),
+    "x_proj": ("tp", None), "dt_proj": (None, "tp"), "dt_bias": ("tp",),
+    "A_log": ("tp", None), "D": ("tp",), "out_proj": ("tp", "fsdp"),
+    # rwkv time mix
+    "mu_x": (None,), "mu_rwkvg": (None, None),
+    "lora_a": ("fsdp", None), "lora_b": (None, None, None),
+    "w_r": ("fsdp", "tp"), "w_g": ("fsdp", "tp"),
+    "decay_base": (None,), "decay_a": ("fsdp", None), "decay_b": (None, None),
+    "bonus_u": ("tp", None), "ln_x": (None,),
+    # rwkv channel mix
+    "mu_k": (None,), "mu_r": (None,),
+}
+
+# FFN-sharded MoE (grok: E=8 < |model|): replicate experts, TP inside expert.
+PARAM_RULES_MOE_FFN = {
+    "we_gate": (None, "fsdp", "tp"), "we_up": (None, "fsdp", "tp"),
+    "we_down": (None, "tp", "fsdp"),
+}
+
+STATE_RULES = {
+    # KV caches (B, S, Hkv, dh): batch → data; heads → model (fallback dh)
+    "k": ("batch", "ctx", "tp_heads", "tp_dh"),
+    "v": ("batch", "ctx", "tp_heads", "tp_dh"),
+    "ck": ("batch", "ctx", "tp_heads", "tp_dh"),
+    "cv": ("batch", "ctx", "tp_heads", "tp_dh"),
+    # mamba (B, dc-1, di) / (B, di, N)
+    "conv": ("batch", None, "tp"),
+    "ssm": ("batch", "tp", None),
+    # rwkv (B,H,hs,hs) / (B,1,d)
+    "wkv": ("batch", "tp", None, None),
+    "x_prev_tm": ("batch", None, None),
+    "x_prev_cm": ("batch", None, None),
+}
+
+MOE_EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
+
+
+def _leaf_name(path) -> str:
+    """The last string key of a leaf's path (a tuple of keys)."""
+    for k in reversed(tuple(path)):
+        if isinstance(k, str):
+            return k
+    return ""
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def _entry(axes):
+    """One spec entry as a ``PartitionSpec`` holds it: None, an axis name,
+    or a tuple of two or more names."""
+    if axes is None or isinstance(axes, str):
+        return axes
+    axes = tuple(axes)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def dp_axes(mesh, cfg) -> tuple:
+    """Axes that shard batch-like dims: (pod,)data, plus model when the
+    config opts into pure-DP (dp_over_model)."""
+    axes = batch_axes(mesh)
+    if getattr(cfg, "dp_over_model", False):
+        axes = axes + ("model",)
+    return axes
+
+
+def _resolve(logical, mesh, cfg):
+    if logical is None:
+        return None
+    if logical in ("tp", "ep"):
+        return None if getattr(cfg, "dp_over_model", False) else "model"
+    if logical == "fsdp":
+        return dp_axes(mesh, cfg) if cfg.fsdp else None
+    raise ValueError(logical)
+
+
+def _spec_for(shape, dims_logical, mesh, cfg) -> tuple:
+    """A spec with divisibility fallbacks."""
+    ndim = len(shape)
+    rule = list(dims_logical)
+    # auto-prepend Nones for stacked leading dims (the unit stack, rwkv
+    # 5-dim packs, etc.)
+    while len(rule) < ndim:
+        rule.insert(0, None)
+    rule = rule[-ndim:] if len(rule) > ndim else rule
+    spec = []
+    for size, logical in zip(shape, rule):
+        axes = _resolve(logical, mesh, cfg)
+        if axes is None:
+            spec.append(None)
+            continue
+        spec.append(_entry(axes) if size % axis_size(mesh, axes) == 0
+                    else None)
+    return tuple(spec)
+
+
+def _param_rules(cfg) -> dict:
+    rules = dict(PARAM_RULES)
+    if cfg.n_experts and cfg.moe_sharding == "ffn":
+        rules.update(PARAM_RULES_MOE_FFN)
+    return rules
+
+
+def param_specs(params_tree, mesh, cfg):
+    """A spec for every leaf of ``params_tree`` (nested dicts of tensors,
+    fake tensors or shapes)."""
+    rules = _param_rules(cfg)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        # rwkv shares names with attention (w_r/w_k/w_v used in both tables
+        # — same rule); unknown names replicate
+        rule = rules.get(_leaf_name(path), tuple(None for _ in shape))
+        return _spec_for(shape, rule, mesh, cfg)
+
+    return _map_with_path(one, params_tree)
+
+
+def train_state_specs(train_state, mesh, cfg):
+    """TrainState(params, OptState(m, v, step), step): moments shard like
+    params (ZeRO); the steps are replicated."""
+    from ..train.optimizer import OptState
+    from ..train.train_step import TrainState
+
+    return TrainState(
+        params=param_specs(train_state.params, mesh, cfg),
+        opt=OptState(m=param_specs(train_state.opt.m, mesh, cfg),
+                     v=param_specs(train_state.opt.v, mesh, cfg), step=()),
+        step=())
+
+
+def state_specs(state_tree, mesh, cfg, *, global_batch: int,
+                context_parallel: bool = False):
+    """Decode-state specs.  ``context_parallel`` shards the cache sequence
+    dim over `data` (long_500k, batch=1)."""
+    sizes = axis_sizes(mesh)
+    b_axes = dp_axes(mesh, cfg)
+    b_ok = global_batch % axis_size(mesh, b_axes) == 0
+
+    def one(path, leaf):
+        rule = STATE_RULES.get(_leaf_name(path))
+        if rule is None:
+            return ()
+        body = _shape(leaf)[1:]                   # (n_units, B, ...)
+        spec = [None]                             # stacked units dim
+        used_tp = False
+        for size, logical in zip(body, rule):
+            if logical == "batch":
+                spec.append(_entry(b_axes) if b_ok and size % axis_size(
+                    mesh, b_axes) == 0 else None)
+            elif logical == "ctx":
+                spec.append("data" if context_parallel
+                            and size % sizes["data"] == 0 else None)
+            elif logical == "tp_heads":
+                used_tp = size % sizes["model"] == 0
+                spec.append("model" if used_tp else None)
+            elif logical == "tp_dh":
+                spec.append("model" if not used_tp
+                            and size % sizes["model"] == 0 else None)
+            elif logical == "tp":
+                spec.append("model" if size % sizes["model"] == 0 else None)
+            else:
+                spec.append(None)
+        return tuple(spec)
+
+    return _map_with_path(one, state_tree)
+
+
+def batch_specs(batch_tree, mesh, *, global_batch: int, cfg=None):
+    """The batch's leading dim over the DP axes when the global batch
+    divides them, else replicated."""
+    b_axes = dp_axes(mesh, cfg) if cfg is not None else batch_axes(mesh)
+    ok = global_batch % axis_size(mesh, b_axes) == 0
+    return _map_with_path(
+        lambda _, leaf: (_entry(b_axes) if ok else None,)
+        + (None,) * (len(_shape(leaf)) - 1), batch_tree)
+
+
+# ---------------------------------------------------------------------------
+# placements: specs as DTensor placements
+# ---------------------------------------------------------------------------
+
+def placements(spec, mesh) -> tuple:
+    """The ``DTensor`` placements of one spec on ``mesh``: ``Shard(d)`` on
+    each mesh dim that shards tensor dim ``d``, ``Replicate()`` elsewhere.
+    A dim sharded over several axes (``("pod", "data")``) is ``Shard(d)``
+    on each, which DTensor splits in mesh order — jax's major-to-minor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry} is not in mesh order "
+                             f"{names}")
+        for i in dims:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def spec_of(leaf) -> tuple:
+    """The spec of a ``DTensor`` (its placements read back), or ``()``
+    for a plain tensor (replicated)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(leaf, DTensor):
+        return ()
+    names = leaf.device_mesh.mesh_dim_names
+    spec = [[] for _ in range(leaf.ndim)]
+    for name, p in zip(names, leaf.placements):
+        if isinstance(p, Shard):
+            spec[p.dim].append(name)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in spec)
+
+
+def _placement_tree(specs, mesh):
+    if isinstance(specs, dict):
+        return {k: _placement_tree(v, mesh) for k, v in specs.items()}
+    if hasattr(specs, "_fields"):                 # a NamedTuple of specs
+        return type(specs)(*(_placement_tree(getattr(specs, f), mesh)
+                             for f in specs._fields))
+    return placements(specs, mesh)
+
+
+def param_shardings(params_tree, mesh, cfg):
+    """Placement tree matching ``params_tree``."""
+    return _placement_tree(param_specs(params_tree, mesh, cfg), mesh)
+
+
+def train_state_shardings(train_state, mesh, cfg):
+    return _placement_tree(train_state_specs(train_state, mesh, cfg), mesh)
+
+
+def state_shardings(state_tree, mesh, cfg, *, global_batch: int,
+                    context_parallel: bool = False):
+    return _placement_tree(state_specs(
+        state_tree, mesh, cfg, global_batch=global_batch,
+        context_parallel=context_parallel), mesh)
+
+
+def batch_shardings(batch_tree, mesh, *, global_batch: int, cfg=None):
+    return _placement_tree(batch_specs(batch_tree, mesh,
+                                       global_batch=global_batch, cfg=cfg),
+                           mesh)
+
+
+# ---------------------------------------------------------------------------
+# the state on a mesh
+# ---------------------------------------------------------------------------
+
+def local_block(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The rank's block of ``full`` under ``spec`` (a view)."""
+    out = full
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            n = group_size(mesh, entry)
+            rows = full.shape[d] // n
+            out = out.narrow(d, group_index(mesh, entry) * rows, rows)
+    return out
+
+
+def local_size_bytes(shape, spec, mesh, itemsize: int) -> int:
+    """Bytes of one rank's block of a ``shape`` leaf under ``spec``."""
+    n = math.prod(shape)
+    for entry in spec:
+        if entry is not None:
+            n //= group_size(mesh, entry)
+    return n * itemsize
+
+
+def _dtensor(local: torch.Tensor, spec, mesh, shape):
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def shard_leaf(full: torch.Tensor, spec, mesh, device=None):
+    """A ``DTensor`` on ``mesh`` holding the rank's block of ``full`` (a
+    copy, on ``device``, default ``full``'s: ``full`` can be freed); no
+    collective."""
+    local = local_block(full, spec, mesh).to(device or full.device,
+                                             copy=True)
+    return _dtensor(local, spec, mesh, tuple(full.shape))
+
+
+def distribute_params(params, mesh, cfg):
+    """``params`` (full, the same on every rank) as ``DTensor``s placed by
+    :func:`param_specs`."""
+    def tree(t, s):
+        if isinstance(t, dict):
+            return {k: tree(t[k], s[k]) for k in t}
+        return shard_leaf(t, s, mesh)
+
+    return tree(params, param_specs(params, mesh, cfg))
+
+
+def distribute_state(state, mesh, cfg):
+    """The sharded form of a full ``TrainState`` (every rank holding the
+    same one, e.g. from ``init_train_state`` with one seed or
+    ``convert.train_state``): params and moments as ``DTensor``s placed by
+    :func:`train_state_specs`, the steps as they are."""
+    from ..train.optimizer import OptState
+    from ..train.train_step import TrainState
+
+    return TrainState(
+        params=distribute_params(state.params, mesh, cfg),
+        opt=OptState(m=distribute_params(state.opt.m, mesh, cfg),
+                     v=distribute_params(state.opt.v, mesh, cfg),
+                     step=state.opt.step),
+        step=state.step)
+
+
+def full_tensor(leaf) -> torch.Tensor:
+    """A ``DTensor`` leaf all-gathered into a plain tensor on every rank of
+    its mesh (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.shard_ctx import _all_gather
+
+    if not isinstance(leaf, DTensor):
+        return leaf
+    out = leaf.to_local()
+    for d, entry in enumerate(spec_of(leaf)):
+        if entry is not None:
+            out = _all_gather(out, d, leaf.device_mesh, entry)
+    return out.contiguous()
+
+
+def gather_state(tree):
+    """``tree`` (dicts and NamedTuples) with every ``DTensor`` leaf
+    gathered into a full tensor — every rank of its mesh must call it."""
+    if isinstance(tree, dict):
+        return {k: gather_state(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(gather_state(getattr(tree, f))
+                            for f in tree._fields))
+    return full_tensor(tree)
+
+
+def make_shard_act(mesh, cfg):
+    """The batch split at the train step's entry: ``shard(x)`` is the
+    rank's block of ``x``'s leading (batch) dim over :func:`dp_axes`, or
+    ``x`` itself when the dim does not divide them (the reference's
+    ``batch_shardings`` ``ok`` flag).  The reference's constraint also
+    shards the sequence over `model` under ``act_sharding="sp"``; eager
+    PyTorch has no counterpart, so that half is not ported."""
+    b_axes = dp_axes(mesh, cfg)
+    n = axis_size(mesh, b_axes)
+
+    def shard(x):
+        if x.ndim == 0 or x.shape[0] % n:
+            return x
+        return local_block(x, (b_axes,), mesh)
+
+    return shard
+
+
+__all__ = ["PARAM_RULES", "PARAM_RULES_MOE_FFN", "STATE_RULES", "dp_axes",
+           "param_specs", "train_state_specs", "state_specs", "batch_specs",
+           "placements", "spec_of", "param_shardings",
+           "train_state_shardings", "state_shardings", "batch_shardings",
+           "local_block", "local_size_bytes", "shard_leaf",
+           "distribute_params", "distribute_state", "full_tensor", "gather_state",
+           "make_shard_act"]

@@ -16,10 +16,29 @@ Two points keep the port's routing the reference's:
 
 The reference's ``.at[].add`` scatters are ``index_add``: on CUDA that
 accumulates with atomics, so a token's k contributions may sum in another
-order (not bit-reproducible; two contributions onto zero are).  The
-reference's distributed path (``shard_map`` over the token stream, the
-expert-parallel all-to-all) needs a device mesh and waits with
-``launch/sharding.py`` (ROADMAP Queue 1 item 11).
+order (not bit-reproducible; two contributions onto zero are).
+
+Two dispatch paths, as the reference's:
+
+* **Distributed path** — used whenever a sharding context is set
+  (``models.shard_ctx``; the mesh train step sets one).  Routing, sort and
+  the capacity buffer run per rank on its slice of the token stream (the
+  axes :func:`_token_split_axes` picks, the reference's per-shard
+  ``shard_map``), producing a compact ``(E, C_dev, d)`` buffer; when the
+  experts shard over `model`, one ``all_to_all_single`` over the model
+  group moves expert groups between model peers (``(E, cap, d) →
+  (E/tp, tp·cap, d)``), the rank's experts run, and the reverse exchange
+  brings their outputs home.  The tokens are then gathered back over the
+  split axes that the dense layers replicate.  Each collective runs in
+  autograd as ``shard_ctx``'s Megatron pairs do, so no gradient is summed
+  over ranks that only repeat work.
+* **Single-device path** — without a context.  Same math, same capacity
+  semantics.
+
+``moe_sharding="ffn"`` (grok-1: E=8 < TP axis 16) keeps the experts whole
+on every model peer and splits the tokens over the data axes only; the
+reference's tensor parallelism inside each expert has no eager
+counterpart here (the model axis splits no dense matmul in the port).
 """
 
 from __future__ import annotations
@@ -30,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import shard_ctx
 from .layers import _dense_init, _gelu, cdtype, pdtype
 
 
@@ -112,8 +132,7 @@ def capacity(t: int, cfg) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def apply_moe(p, x: torch.Tensor, cfg):
-    """x: (B, S, d) → (y: (B, S, d), aux_loss scalar fp32)."""
+def _apply_moe_local(p, x: torch.Tensor, cfg):
     dt = cdtype(cfg)
     b, s, d = x.shape
     t = b * s
@@ -127,4 +146,100 @@ def apply_moe(p, x: torch.Tensor, cfg):
     return y.reshape(b, s, d), aux
 
 
-__all__ = ["init_moe", "apply_moe", "top_k", "capacity"]
+# ---------------------------------------------------------------------------
+# distributed path (per-rank routing over the token stream)
+# ---------------------------------------------------------------------------
+
+def _token_split_axes(t, mesh, batch_axes_, include_model=True):
+    """Largest set of mesh axes (DP axes first, then model) that divides T.
+
+    FFN-sharded MoE (``include_model=False``) keeps tokens data-split only:
+    every model peer needs every token, so splitting tokens over `model`
+    would force a buffer re-gather."""
+    sizes = shard_ctx.axis_sizes(mesh)
+    axes = []
+    n = 1
+    cand = list(batch_axes_ or ()) + (["model"] if include_model else [])
+    for a in cand:
+        if a in axes:           # `model` already a batch axis (dp_over_model)
+            continue
+        size = sizes[a]
+        if t % (n * size) == 0:
+            axes.append(a)
+            n *= size
+    return tuple(axes), n
+
+
+def moe_split(t: int, mesh, batch_axes_, cfg):
+    """(split axes, n_split, use_a2a) of a MoE layer over ``t`` tokens (the
+    whole batch's), the reference's choice: tokens split over
+    :func:`_token_split_axes`; the all-to-all when the experts shard over
+    `model` and the tokens were split over it too."""
+    ep = cfg.moe_sharding == "expert"
+    split, n_split = _token_split_axes(t, mesh, batch_axes_,
+                                       include_model=ep)
+    tp = shard_ctx.axis_sizes(mesh)["model"]
+    use_a2a = ep and "model" in split and cfg.n_experts % tp == 0
+    return split, n_split, use_a2a
+
+
+def _apply_moe_dist(p, x, cfg, mesh, batch_axes_, split_in=()):
+    """The distributed path.  ``x`` is this rank's block of the batch: the
+    whole batch split over ``split_in`` (the axes the caller already split
+    it over, a leading part of the token split; ``()`` when every rank
+    holds all of it).  The expert leaves of ``p`` are either whole
+    ``(E, d, f)`` or this rank's experts ``(E/tp, d, f)`` over `model`.
+    Returns (y: x's shape, aux)."""
+    dt = cdtype(cfg)
+    b, s, d = x.shape
+    t = b * s * shard_ctx.group_size(mesh, split_in)
+    e = cfg.n_experts
+    split, n_split, use_a2a = moe_split(t, mesh, batch_axes_, cfg)
+    if tuple(split[:len(split_in)]) != tuple(split_in):
+        raise ValueError(f"the batch split {split_in} is not a leading part "
+                         f"of the MoE token split {split}")
+    extra = split[len(split_in):]
+    t_dev = t // n_split
+    cap_dev = capacity(t_dev, cfg)
+    tp = shard_ctx.axis_sizes(mesh)["model"]
+
+    xt = shard_ctx.scatter_to(x.reshape(b * s, d).to(dt), 0, mesh, extra)
+    buf, slot, tok_of, w, (me, ce) = _route_and_pack(xt, p["router"], cfg,
+                                                     cap_dev)
+    me = shard_ctx.sum_over(me, mesh, split)
+    ce = shard_ctx.reduce_sum(ce, mesh, split)
+    experts = {k: p[k] for k in ("we_gate", "we_up", "we_down")}
+    local = experts["we_gate"].shape[0] < e
+    if use_a2a:
+        if not local:                      # this rank's experts of all E
+            j = shard_ctx.group_index(mesh, "model")
+            experts = {k: v[j * (e // tp):(j + 1) * (e // tp)]
+                       for k, v in experts.items()}
+        # (E, cap, d) -> (E/tp, tp*cap, d): expert group j to model peer j
+        buf = shard_ctx.all_to_all(buf, mesh, "model")
+        buf = buf.reshape(tp, e // tp, cap_dev, d).transpose(0, 1).reshape(
+            e // tp, tp * cap_dev, d)
+    elif local:                            # the experts whole on every peer
+        experts = {k: shard_ctx.gather_from(v, 0, mesh, "model")
+                   for k, v in experts.items()}
+    out_buf = _expert_ffn(experts, buf, cfg)
+    if use_a2a:   # reverse exchange: (E/tp, tp*cap, d) -> (E, cap, d)
+        out_buf = out_buf.reshape(e // tp, tp, cap_dev, d).transpose(0, 1)
+        out_buf = shard_ctx.all_to_all(out_buf, mesh, "model").reshape(
+            e, cap_dev, d)
+    y = _combine(out_buf, slot, tok_of, w, t_dev)
+    y = shard_ctx.gather_from(y, 0, mesh, extra)
+    aux = e * torch.sum((me / t) * (ce / t)) * cfg.router_aux_coef
+    return y.reshape(b, s, d), aux
+
+
+def apply_moe(p, x: torch.Tensor, cfg):
+    """x: (B, S, d) → (y: (B, S, d), aux_loss scalar fp32)."""
+    mesh = shard_ctx._CTX["mesh"]
+    if mesh is not None:
+        return _apply_moe_dist(p, x, cfg, mesh, shard_ctx._CTX["batch_axes"],
+                               shard_ctx._CTX["split"])
+    return _apply_moe_local(p, x, cfg)
+
+
+__all__ = ["init_moe", "apply_moe", "top_k", "capacity", "moe_split"]

@@ -1,0 +1,289 @@
+"""Ambient sharding context, and the collectives the mesh path runs on it.
+
+The port of ``repro.models.shard_ctx``, its context: the launch layer sets
+the mesh and the axes that shard batch-like dims (``set_sharding_context``)
+before the model runs, and ``models.moe.apply_moe`` dispatches on it — the
+distributed MoE path with a mesh, the single-device path without one.  The
+port's context has one more entry, ``split``: the axes over which the
+activations a layer receives are already split along the batch (the train
+step sets it to the axes it split the global batch over; ``()``, the
+default, means every rank holds the whole batch).
+
+The reference's ``constrain`` (``with_sharding_constraint`` on an internal
+tensor) has no eager meaning: there is no whole-program partitioner to
+hint.  It is not ported.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (one process a
+device) or a stand-in with ``.shape`` (name → size), ``.axis_names``,
+``get_group(axes)`` and ``get_coordinate()`` — the dispatch lint runs the
+mesh path on one such stand-in.  Every collective here names a group of
+the mesh (:func:`axis_group`), never the default group, and runs in
+autograd as Megatron's pairs do:
+
+* :func:`scatter_to` — forward: the rank's slice; backward: all-gather;
+* :func:`gather_from` — forward: all-gather; backward: the rank's slice;
+* :func:`sum_over` — forward: all-reduce; backward: identity (the sum
+  feeds a value every rank of the group computes alike);
+* :func:`all_to_all` — forward and backward: one ``all_to_all_single``;
+* :func:`gather_param` — forward: a leaf's shards all-gathered into the
+  tensor a layer computes with; backward: the gradient summed over the
+  ranks that saw other tokens (in fp32) and sliced back to the leaf's
+  shard.
+
+None of them sums a gradient over ranks that only repeat work: that
+would multiply it by the group's size.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+_CTX: dict = {"mesh": None, "batch_axes": None, "split": ()}
+
+
+def set_sharding_context(mesh, batch_axes, split=()) -> None:
+    _CTX["mesh"] = mesh
+    _CTX["batch_axes"] = tuple(batch_axes) if batch_axes else None
+    _CTX["split"] = tuple(split or ())
+
+
+def clear_sharding_context() -> None:
+    set_sharding_context(None, None)
+
+
+# ---------------------------------------------------------------------------
+# mesh geometry (a DeviceMesh or a stand-in)
+# ---------------------------------------------------------------------------
+
+def axis_names(mesh) -> tuple:
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a DeviceMesh (whose ``.shape`` is a tuple)
+    or of a stand-in (whose ``.shape`` is that mapping, as a jax mesh's
+    is)."""
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return dict(shape)
+    return dict(zip(axis_names(mesh), tuple(shape)))
+
+
+def _axes(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def group_size(mesh, axes) -> int:
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in _axes(axes))
+
+
+def group_index(mesh, axes) -> int:
+    """The rank's index in the group of ``axes``: its mesh coordinates over
+    those axes, the first one major (a jax ``PartitionSpec`` entry's
+    order)."""
+    names, sizes = axis_names(mesh), axis_sizes(mesh)
+    coord = mesh.get_coordinate()
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * sizes[a] + int(coord[names.index(a)])
+    return idx
+
+
+_GROUPS: dict = {}
+
+
+def axis_group(mesh, axes):
+    """The process group of the ranks that differ only along ``axes`` (one
+    name or several), its ranks in :func:`group_index` order for axes in
+    mesh order.  One axis is the mesh's own group; several are made once a
+    mesh (every rank makes them, in the same order, as a collective
+    call)."""
+    names = axis_names(mesh)
+    axes = tuple(sorted(_axes(axes), key=names.index))
+    if not hasattr(mesh, "mesh_dim_names"):          # a stand-in
+        return mesh.get_group(axes[0] if len(axes) == 1 else axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    dims = [names.index(a) for a in axes]
+    key = (id(mesh), axes)
+    hit = _GROUPS.get(key)
+    if hit is None or hit[0] is not mesh:
+        ranks = mesh.mesh
+        rest = [i for i in range(ranks.ndim) if i not in dims]
+        rows = ranks.permute(*rest, *dims).reshape(
+            -1, math.prod(ranks.shape[d] for d in dims)).tolist()
+        group, _ = dist.new_subgroups_by_enumeration(rows)
+        hit = _GROUPS[key] = (mesh, group)
+    return hit[1]
+
+
+# ---------------------------------------------------------------------------
+# collectives (each names a group of the mesh)
+# ---------------------------------------------------------------------------
+
+def _all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    n = group_size(mesh, axes)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, xt, group=axis_group(mesh, axes))
+    return out.movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    n = group_size(mesh, axes)
+    rows = x.shape[dim] // n
+    return x.narrow(dim, group_index(mesh, axes) * rows, rows)
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    x = x.contiguous()
+    dist.all_reduce(x, group=axis_group(mesh, axes))
+    return x
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return _slice(x, dim, mesh, axes).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g, *ctx.args), None, None, None)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return _all_gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_slice(g, *ctx.args).contiguous(), None, None, None)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _exchange(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, *ctx.args), None, None
+
+
+def _exchange(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis_group(mesh, axes))
+    return out
+
+
+def scatter_to(x, dim, mesh, axes):
+    """The rank's slice of ``x`` along ``dim`` over ``axes`` (backward:
+    all-gather).  No-op for no axes."""
+    return _ScatterTo.apply(x, dim, mesh, _axes(axes)) if _axes(axes) else x
+
+
+def gather_from(x, dim, mesh, axes):
+    """The group's slices of ``x`` along ``dim`` joined in group order
+    (backward: the rank's slice).  No-op for no axes."""
+    return _GatherFrom.apply(x, dim, mesh, _axes(axes)) if _axes(axes) else x
+
+
+def sum_over(x, mesh, axes):
+    """``x`` summed over the group (backward: identity).  No-op for no
+    axes."""
+    return _SumOver.apply(x, mesh, _axes(axes)) if _axes(axes) else x
+
+
+def all_to_all(x, mesh, axes):
+    """One ``all_to_all_single`` over the group: dim 0 in ``n`` equal
+    chunks, chunk ``j`` to rank ``j``, the received chunks stacked in
+    rank order (its own backward)."""
+    return _AllToAll.apply(x, mesh, _axes(axes))
+
+
+# ---------------------------------------------------------------------------
+# parameters: a leaf's shards gathered for compute
+# ---------------------------------------------------------------------------
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec shards over, in the order they appear."""
+    out = []
+    for entry in spec:
+        out += [a for a in _axes(entry) if a not in out]
+    return tuple(out)
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh, partial):
+        ctx.args = (spec, mesh, partial)
+        out = x.view_as(x)
+        for d, entry in enumerate(spec):
+            if _axes(entry):
+                out = _all_gather(out, d, mesh, entry)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh, partial = ctx.args
+        dt = g.dtype
+        g = g.float()
+        if partial:
+            g = _all_reduce(g, mesh, partial)
+        for d, entry in enumerate(spec):
+            if _axes(entry):
+                g = _slice(g, d, mesh, entry)
+        return g.to(dt).contiguous(), None, None, None
+
+
+def gather_param(x: torch.Tensor, spec, mesh, partial=(),
+                 keep=()) -> torch.Tensor:
+    """The tensor a layer computes with from a leaf's local shard ``x``
+    under ``spec`` (one entry a dim: None, an axis, or a tuple of axes),
+    gathered over every axis but those in ``keep`` (which stay sharded).
+    Backward: the gradient summed over ``partial`` — the axes whose ranks
+    saw other tokens — then sliced back to the shard."""
+    spec = tuple(None if entry is None or set(_axes(entry)) & set(keep)
+                 else entry for entry in spec)
+    partial = _axes(partial)
+    if not spec_axes(spec) and not partial:
+        return x
+    return _GatherParam.apply(x, spec, mesh, partial)
+
+
+def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over the group of ``axes``, outside autograd (metrics,
+    norms, counts)."""
+    if not _axes(axes):
+        return x
+    return _all_reduce(x.detach().clone(), mesh, axes)
+
+
+__all__ = ["set_sharding_context", "clear_sharding_context", "axis_names",
+           "axis_sizes", "group_size", "group_index", "axis_group",
+           "scatter_to", "gather_from", "sum_over", "all_to_all",
+           "spec_axes", "gather_param", "reduce_sum"]

@@ -19,6 +19,13 @@ Three entry points:
 The caller turns hidden states into logits or the loss
 (``layers.logits_fn``, ``layers.chunked_xent``).  No entry point modifies
 the state it is given.
+
+On a mesh the train step hands ``forward`` the units' parameters as this
+rank's shards and a ``gather(key, unit_params)`` callable (``key`` is
+``"units"`` or ``"enc_units"``) that all-gathers one unit's leaves; it runs
+inside the checkpointed unit, so the backward pass gathers again instead of
+keeping every unit's full weights alive (where the reference passes
+``shard_act`` to its scan body).  Without it nothing changes.
 """
 
 from __future__ import annotations
@@ -224,10 +231,17 @@ def _unstack(tree, n: int) -> list:
     return [tree_map(lambda parts, u=u: parts[u], split) for u in range(n)]
 
 
+def _gathered_unit(gather, up, *args):
+    return _apply_unit(gather(up), *args)
+
+
 def _run_units(units_params, x, cfg, pattern, mode, states=None,
-               enc_out=None, pos=None, pos_offset=0, skip_causal=False):
+               enc_out=None, pos=None, pos_offset=0, skip_causal=False,
+               gather=None):
     """The unit stack, one unit after another (the reference's scan).
-    states: stacked (n_units, ...) tree or None."""
+    states: stacked (n_units, ...) tree or None.  ``gather(up)``, when
+    given, turns one unit's parameters into those it computes with, inside
+    the checkpointed unit."""
     n_units = next(iter(tree_leaves(units_params))).shape[0]
     ups = _unstack(units_params, n_units)
     sts = [None] * n_units if states is None else _unstack(states, n_units)
@@ -235,10 +249,12 @@ def _run_units(units_params, x, cfg, pattern, mode, states=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states = []
     for up, st in zip(ups, sts):
-        args = (up, x, cfg, pattern, mode, st, enc_out, pos, pos_offset,
-                skip_causal)
-        x, a, new_st = (checkpoint(_apply_unit, *args, use_reentrant=False)
-                        if remat else _apply_unit(*args))
+        fn, args = _apply_unit, (up, x, cfg, pattern, mode, st, enc_out, pos,
+                                 pos_offset, skip_causal)
+        if gather is not None:
+            fn, args = _gathered_unit, (gather,) + args
+        x, a, new_st = (checkpoint(fn, *args, use_reentrant=False)
+                        if remat else fn(*args))
         aux = aux + a
         new_states.append(new_st)
     return x, aux, None if states is None else _stack(new_states)
@@ -261,7 +277,11 @@ def _as_tokens(tokens, params) -> torch.Tensor:
     return torch.as_tensor(tokens, device=dev).long()
 
 
-def _encode(params, enc_frames, cfg):
+def _unit_gather(gather, key):
+    return None if gather is None else (lambda up: gather(key, up))
+
+
+def _encode(params, enc_frames, cfg, gather=None):
     """Whisper-style encoder over precomputed frame embeddings (stub
     frontend: the caller provides the frames)."""
     dev = params["embed"]["embedding"].device
@@ -270,20 +290,22 @@ def _encode(params, enc_frames, cfg):
         s = x.shape[1]
         x = x + params["embed"]["pos_embedding"][:s].to(x.dtype)
     x, _, _ = _run_units(params["enc_units"], x, cfg, cfg.enc_unit_pattern,
-                         "train")
+                         "train", gather=_unit_gather(gather, "enc_units"))
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
-def forward(params, batch, cfg, *, skip_causal=False):
+def forward(params, batch, cfg, *, skip_causal=False, gather=None):
     """Training/scoring forward: batch {"tokens": (B,S)[, "enc_frames"]}.
-    Returns (hidden (B,S,d), moe_aux)."""
+    Returns (hidden (B,S,d), moe_aux).  ``gather(key, unit_params)``: see
+    the module docstring."""
     x = embed_tokens(params["embed"], _as_tokens(batch["tokens"], params),
                      cfg)
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = _encode(params, batch["enc_frames"], cfg)
+        enc_out = _encode(params, batch["enc_frames"], cfg, gather)
     x, aux, _ = _run_units(params["units"], x, cfg, cfg.unit_pattern,
-                           "train", enc_out=enc_out, skip_causal=skip_causal)
+                           "train", enc_out=enc_out, skip_causal=skip_causal,
+                           gather=_unit_gather(gather, "units"))
     x = apply_norm(params["final_norm"], x, cfg)
     return x, aux
 

@@ -21,9 +21,17 @@ bf16 leaves are written as the reference writes them (numpy has no
 bfloat16: two raw bytes an element, ``|V2`` when read back), and
 ``restore`` takes each leaf's dtype from the template, so a bf16 state
 round-trips bit for bit — from the port's files and from the reference's.
-``restore(step, template, device=None)`` takes the place of the
-reference's ``shardings=``: one process holds the whole state, so each
-leaf goes to ``device`` (default: the template leaf's device).
+``restore(step, template, device=None, mesh=None)`` takes the place of
+the reference's ``shardings=``: a plain template leaf goes to ``device``
+(default: the template leaf's device); a ``DTensor`` template leaf (a state
+sharded by ``launch.sharding.distribute_state``) is placed by its spec on
+``mesh`` (default: its own mesh) — each rank reads the stored leaf and
+keeps its block.  The files hold every leaf whole, so this is the
+reference's elastic reshard: a job saved on one mesh shape restarts on
+another, or in one process with no mesh.  A sharded ``save`` gathers
+each ``DTensor`` leaf on every rank (all ranks call it) and rank 0 writes
+the files; a blocking save, and ``wait``, end with a barrier, so every
+rank then reads the same manifest.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 SEP = "//"
 
@@ -60,6 +70,10 @@ def _items(tree, prefix=()):
 def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
     # a copy, also of a CPU tensor: the step loop may update its state in
     # place while a background thread writes the snapshot
+    if isinstance(leaf, DTensor):
+        from ..launch.sharding import full_tensor
+
+        leaf = full_tensor(leaf)
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:       # the reference's |V2 bytes
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -83,7 +97,29 @@ def _leaf_from(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _unflatten_into(template, flat, device=None):
+def _is_sharded(tree) -> bool:
+    if _is_namedtuple(tree):
+        return any(_is_sharded(getattr(tree, n)) for n in tree._fields)
+    if isinstance(tree, dict):
+        return any(_is_sharded(v) for v in tree.values())
+    return isinstance(tree, DTensor)
+
+
+def _place(arr: np.ndarray, tmpl, device, mesh):
+    """The stored leaf as ``tmpl``'s kind: a DTensor template's block on
+    ``mesh`` (default: its own), else a tensor on ``device``."""
+    if not isinstance(tmpl, DTensor):
+        return _leaf_from(arr, tmpl.dtype,
+                          tmpl.device if device is None else device)
+    from ..launch.mesh import mesh_device
+    from ..launch.sharding import shard_leaf, spec_of
+
+    mesh = tmpl.device_mesh if mesh is None else mesh
+    return shard_leaf(_leaf_from(arr, tmpl.dtype, "cpu"), spec_of(tmpl),
+                      mesh, device=mesh_device(mesh))
+
+
+def _unflatten_into(template, flat, device=None, mesh=None):
     """``template``'s structure with every leaf read from ``flat`` (a dict
     or an open ``.npz``)."""
 
@@ -100,8 +136,7 @@ def _unflatten_into(template, flat, device=None):
         if tuple(arr.shape) != tuple(tree.shape):
             raise ValueError(f"shape mismatch at {key}: "
                              f"{arr.shape} vs {tuple(tree.shape)}")
-        return _leaf_from(arr, tree.dtype,
-                          tree.device if device is None else device)
+        return _place(arr, tree, device, mesh)
 
     return build(template)
 
@@ -112,24 +147,35 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(self.dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False                 # the last save was a mesh's
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree, extra: Optional[dict] = None,
              blocking: bool = True):
         flat = _flatten(tree)                 # snapshot on caller thread
+        self._sharded = _is_sharded(tree)
+        writer = not self._sharded or dist.get_rank() == 0
         if blocking:
-            self._write(step, flat, extra or {})
+            if writer:
+                self._write(step, flat, extra or {})
+            self._barrier()
         else:
             self.wait()
-            self._thread = threading.Thread(
-                target=self._write, args=(step, flat, extra or {}),
-                daemon=True)
-            self._thread.start()
+            if writer:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, flat, extra or {}),
+                    daemon=True)
+                self._thread.start()
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
+
+    def _barrier(self):
+        if self._sharded:
+            dist.barrier()
 
     def _write(self, step: int, flat: dict, extra: dict):
         tmp = os.path.join(self.dir, f".tmp-{step}")
@@ -174,20 +220,21 @@ class CheckpointManager:
             os.path.join(self.dir, f"step_{s:010d}.npz"))]
         return max(steps) if steps else None
 
-    def restore(self, step: int, template, device=None):
+    def restore(self, step: int, template, device=None, mesh=None):
         """Restore into ``template``'s structure (dicts and NamedTuples of
-        tensors): every leaf with the template leaf's shape
-        (checked) and dtype, on ``device`` (default: the template leaf's
-        device)."""
+        tensors and DTensors): every leaf with the template leaf's shape
+        (checked) and dtype; a tensor on ``device`` (default: the template
+        leaf's device), a DTensor's block on ``mesh`` (default: the
+        template leaf's mesh) by the template leaf's spec."""
         path = os.path.join(self.dir, f"step_{step:010d}.npz")
         with np.load(path) as z:          # each leaf read as it is needed
-            return _unflatten_into(template, z, device)
+            return _unflatten_into(template, z, device, mesh)
 
-    def restore_latest(self, template, device=None):
+    def restore_latest(self, template, device=None, mesh=None):
         s = self.latest_step()
         if s is None:
             return None, None
-        return s, self.restore(s, template, device)
+        return s, self.restore(s, template, device, mesh)
 
 
 __all__ = ["CheckpointManager", "SEP"]

@@ -18,6 +18,13 @@ one state, not two (a full-width llama3_2_1b's params and fp32 moments are
 ~14.8 GB).  The arithmetic is the same either way.  An in-place update
 that fails part-way has already written some leaves, so it raises
 :class:`PartialUpdateError`: the state it was given is no longer whole.
+
+On a mesh the leaves are ``DTensor``s (or local shards with their specs
+passed beside them): the update runs on each rank's shards, the decay rule
+reads the global ndim (a shard has its leaf's), ``step`` is replicated,
+and :func:`global_norm` counts every element once — it sums the squares
+of the local shards and all-reduces them over the axes that shard each
+leaf, never over the axes that replicate it.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..models import shard_ctx
 from ..models.transformer import tree_leaves, tree_map
 
 
@@ -82,48 +91,95 @@ def lr_at(opt_cfg: OptimizerConfig, step) -> torch.Tensor:
     return opt_cfg.lr * warm * (floor + (1 - floor) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """√(Σ over leaves of Σ x²), in fp32."""
-    norms = [torch.linalg.vector_norm(leaf, dtype=torch.float32)
-             for leaf in tree_leaves(tree)]
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sharding(leaf, spec, mesh):
+    """(local tensor, mesh, axes that shard it) of a plain, DTensor or
+    local-shard leaf."""
+    if isinstance(leaf, DTensor):
+        from ..launch.sharding import spec_of
+
+        return leaf.to_local(), leaf.device_mesh, shard_ctx.spec_axes(
+            spec_of(leaf))
+    return leaf, mesh, shard_ctx.spec_axes(spec) if spec else ()
+
+
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """√(Σ over leaves of Σ x²), in fp32, every element counted once.
+    ``tree``'s leaves are tensors, ``DTensor``s, or local shards whose
+    specs (on ``mesh``) are the leaves of ``specs``."""
+    spec_leaves = (list(tree_leaves(specs)) if specs is not None
+                   else None)
+    norms, groups = [], {}
+    for i, leaf in enumerate(tree_leaves(tree)):
+        x, m, axes = _sharding(leaf, None if spec_leaves is None
+                               else spec_leaves[i], mesh)
+        n = torch.linalg.vector_norm(x, dtype=torch.float32)
+        if axes and shard_ctx.group_size(m, axes) > 1:
+            groups.setdefault((id(m), axes), (m, []))[1].append(n * n)
+        else:
+            norms.append(n)
+    for (_, axes), (m, sq) in groups.items():
+        norms.append(torch.sqrt(shard_ctx.reduce_sum(
+            torch.stack(sq).sum(), m, axes)))
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(grads, max_norm):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm, specs=None, mesh=None):
+    norm = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+    return tree_map(lambda g: g * scale.to(g.dtype),
+                    tree_map(_local, grads)), norm
+
+
+def _like(new: torch.Tensor, old):
+    """``new`` (a local shard) as ``old``'s kind: a DTensor placed like
+    ``old`` when ``old`` is one."""
+    if not isinstance(old, DTensor):
+        return new
+    return DTensor.from_local(new, old.device_mesh, old.placements,
+                              run_check=False, shape=old.shape,
+                              stride=old.stride())
 
 
 def adamw_update(params, grads, opt_state: OptState,
-                 opt_cfg: OptimizerConfig, *, in_place: bool = False):
+                 opt_cfg: OptimizerConfig, *, in_place: bool = False,
+                 specs=None, mesh=None):
     """One AdamW step.  Returns (new_params, new_opt_state, metrics);
     ``in_place=True`` writes them into ``params`` and ``opt_state``'s
-    tensors (which are returned) instead of new tensors."""
+    tensors (which are returned) instead of new tensors.  Sharded leaves
+    (``DTensor``s, or local shards with ``specs`` on ``mesh``) update
+    their local shards."""
     with torch.no_grad():
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.clip_norm, specs,
+                                           mesh)
         step = opt_state.step + 1
         lr = lr_at(opt_cfg, step)
         b1, b2 = opt_cfg.beta1, opt_cfg.beta2
         bc1 = 1.0 - b1 ** step.float()
         bc2 = 1.0 - b2 ** step.float()
 
-        def upd(p, g, m, v):
+        def upd(p_leaf, g, m_leaf, v_leaf):
+            p, m, v = _local(p_leaf), _local(m_leaf), _local(v_leaf)
             gf = g.float()
             mf = m.float() * b1 + (1 - b1) * gf
             vf = v.float() * b2 + (1 - b2) * gf * gf
             mhat = mf / bc1
             vhat = vf / bc2
             delta = mhat / (torch.sqrt(vhat) + opt_cfg.eps)
-            if p.ndim >= 2:  # decay matrices only (standard practice)
+            if p_leaf.ndim >= 2:  # decay matrices only (standard practice)
                 delta = delta + opt_cfg.weight_decay * p.float()
             newp = p.float() - lr * delta
             if in_place:
                 p.copy_(newp)
                 m.copy_(mf)
                 v.copy_(vf)
-                return p, m, v
-            return newp.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+                return p_leaf, m_leaf, v_leaf
+            return (_like(newp.to(p.dtype), p_leaf),
+                    _like(mf.to(m.dtype), m_leaf),
+                    _like(vf.to(v.dtype), v_leaf))
 
         try:
             out = tree_map(upd, params, grads, opt_state.m, opt_state.v)

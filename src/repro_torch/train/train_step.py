@@ -9,6 +9,20 @@ slice while the optimizer still sees the full global batch.
 ``donate=True`` updates the state's tensors in place (the state passed in
 is consumed, as the reference's ``donate_argnums=(0,)`` consumes it).
 
+``make_train_step(..., mesh=)`` is the step on a device mesh (one process
+a device): the state's params and moments are ``DTensor``s placed by
+``launch.sharding``'s rules (``distribute_state``).  The step takes this
+rank's block of the global batch (split over ``dp_axes``, or all of it
+when the batch does not divide them; then microbatches), runs the model
+with each unit's parameters all-gathered inside its remat boundary
+(``shard_ctx.gather_param``), and reduces each gradient to its leaf's
+spec in that gather's backward: a sum over the ranks that saw other
+tokens — the batch's axes for a dense leaf, the MoE's token split for the
+router and the experts — and a slice along the axes that shard the leaf,
+never a sum over ranks that only repeat work.  Each rank's loss is its
+tokens' share of the global mean, so the gradients and the metrics (loss,
+grad norm) are the global batch's; AdamW updates the local shards.
+
 ``make_sparse_value_train_step(plan, loss_fn, opt_cfg)`` trains the
 ``(nnz,)`` values of a fixed sparsity pattern through the operator: each
 step binds them (``plan.bind(v)``, a scatter on the plan's device), runs
@@ -22,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models import forward
+from ..models import forward, shard_ctx
 from ..models.layers import cdtype, chunked_xent
 from ..models.transformer import tree_leaves, tree_map
 from .optimizer import (OptimizerConfig, OptState, adamw_update,
@@ -108,7 +122,12 @@ def make_sparse_value_train_step(plan, loss_fn, opt_cfg: OptimizerConfig):
 
 
 def make_train_step(cfg, opt_cfg: OptimizerConfig, *, microbatches: int = 1,
-                    skip_causal: bool = False, donate: bool = False):
+                    skip_causal: bool = False, donate: bool = False,
+                    mesh=None):
+    if mesh is not None:
+        return make_mesh_train_step(cfg, opt_cfg, mesh,
+                                    microbatches=microbatches,
+                                    skip_causal=skip_causal, donate=donate)
     loss_fn = make_loss_fn(cfg, skip_causal=skip_causal)
 
     def train_step(state: TrainState, batch):
@@ -142,6 +161,138 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, *, microbatches: int = 1,
     return train_step
 
 
+# ---------------------------------------------------------------------------
+# the step on a mesh
+# ---------------------------------------------------------------------------
+
+_UNIT_KEYS = ("units", "enc_units")
+
+
+def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
+    """Per leaf of ``specs`` (the params' specs), the ``(spec, partial,
+    keep)`` its gather takes: the axes its gradient is summed over and
+    those that stay sharded in compute.  ``split_in``: the axes the batch
+    is split over; ``t``: a microbatch's tokens in the whole batch."""
+    from ..launch.sharding import (MOE_EXPERT_LEAVES, _leaf_name,
+                                   _map_with_path, dp_axes)
+    from ..models.moe import moe_split
+
+    split = (moe_split(t, mesh, dp_axes(mesh, cfg), cfg)[0]
+             if cfg.n_experts else ())
+
+    def one(path, spec):
+        name = _leaf_name(path)
+        if path[0] in _UNIT_KEYS:
+            spec = spec[1:]                 # one unit of the stack
+        if name == "router":
+            return spec, split, ()
+        if name in MOE_EXPERT_LEAVES:
+            # the experts stay sharded over `model` where their specs put
+            # them: a rank runs its own (the all-to-all brings the tokens)
+            keep = ("model",) if "model" in shard_ctx.spec_axes(
+                spec[:1]) else ()
+            return spec, tuple(a for a in split if a not in keep), keep
+        return spec, tuple(split_in), ()
+
+    return _map_with_path(one, specs)
+
+
+def _gather_tree(tree, rules, mesh):
+    return tree_map(lambda x, r: shard_ctx.gather_param(
+        x, r[0], mesh, partial=r[1], keep=r[2]), tree, rules)
+
+
+def make_mesh_loss_fn(cfg, rules, mesh, split_in, *, skip_causal=False):
+    """``loss_fn(local_params, local_batch)``: this rank's share of the
+    global batch's loss (its tokens' nll sum over the batch's mask count,
+    plus the MoE aux, which every rank computes alike), with the params
+    gathered by ``rules`` (:func:`mesh_gather_rules`)."""
+    def gather(key, up):
+        return _gather_tree(up, rules[key], mesh)
+
+    def loss_fn(params, batch):
+        params_c = cast_params_for_compute(params, cfg)
+        full = {k: v if k in _UNIT_KEYS else _gather_tree(v, rules[k], mesh)
+                for k, v in params_c.items()}
+        h, aux = forward(full, batch, cfg, skip_causal=skip_causal,
+                         gather=gather)
+        nll = chunked_xent(full["head"], full["embed"], h, batch["labels"],
+                           batch["mask"], cfg)
+        mask = torch.as_tensor(batch["mask"], device=h.device).float()
+        cnt = mask.sum()
+        share = cnt / torch.clamp(shard_ctx.reduce_sum(cnt, mesh, split_in),
+                                  min=1.0)
+        nll = nll * share
+        return nll + aux, {"nll": nll, "moe_aux": aux}
+
+    return loss_fn
+
+
+def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
+                         skip_causal=False, donate=False, specs=None):
+    """The step on ``mesh`` (``make_train_step(..., mesh=)``).  The state's
+    params and moments are ``DTensor``s, or — with their ``specs`` given —
+    this rank's local shards (as the dispatch lint runs it on a mesh
+    stand-in)."""
+    from ..launch.sharding import dp_axes, make_shard_act, param_specs
+    from .optimizer import _local
+
+    shard = make_shard_act(mesh, cfg)
+    b_axes = dp_axes(mesh, cfg)
+    fixed_specs = specs
+
+    def train_step(state: TrainState, batch):
+        specs = fixed_specs or param_specs(state.params, mesh, cfg)
+        dev = state.step.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        b, s = batch["tokens"].shape[:2]
+        split_in = b_axes if b % shard_ctx.group_size(mesh, b_axes) == 0 \
+            else ()
+        local = {k: shard(v) for k, v in batch.items()}
+        rows = len(local["tokens"])
+        if rows % microbatches:
+            raise ValueError(f"a rank's {rows} rows do not split into "
+                             f"{microbatches} microbatches")
+        rules = mesh_gather_rules(specs, mesh, cfg, split_in,
+                                  b // microbatches * s)
+        loss_fn = make_mesh_loss_fn(cfg, rules, mesh, split_in,
+                                    skip_causal=skip_causal)
+        params = tree_map(_local, state.params)
+        saved = dict(shard_ctx._CTX)
+        shard_ctx.set_sharding_context(mesh, b_axes, split=split_in)
+        try:
+            rows //= microbatches
+            nll = aux = grads = None
+            for i in range(microbatches):
+                micro = {k: v[i * rows:(i + 1) * rows]
+                         for k, v in local.items()}
+                _, ex, g = value_and_grad(loss_fn, params, micro)
+                n = shard_ctx.reduce_sum(ex["nll"], mesh, split_in)
+                if grads is None:
+                    grads = g if microbatches == 1 else tree_map(
+                        lambda t: t.float(), g)
+                    nll, aux = n, ex["moe_aux"]
+                else:
+                    tree_map(lambda a, t: a.add_(t), grads, g)
+                    nll, aux = nll + n, aux + ex["moe_aux"]
+        finally:
+            shard_ctx._CTX.update(saved)
+        loss = (nll + aux) / microbatches
+        if microbatches == 1:
+            extras = {"nll": nll, "moe_aux": aux}
+        else:
+            tree_map(lambda a: a.div_(microbatches), grads)
+            extras = {"nll": loss, "moe_aux": torch.zeros_like(loss)}
+        new_params, new_opt, om = adamw_update(
+            state.params, grads, state.opt, opt_cfg, in_place=donate,
+            specs=specs, mesh=mesh)
+        metrics = {"loss": loss, **extras, **om}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return train_step
+
+
 __all__ = ["TrainState", "init_train_state", "cast_params_for_compute",
            "make_loss_fn", "make_train_step", "make_sparse_value_train_step",
-           "value_and_grad"]
+           "value_and_grad", "mesh_gather_rules", "make_mesh_loss_fn",
+           "make_mesh_train_step"]

@@ -687,3 +687,27 @@ def test_collective_axis_lint(monkeypatch):
     bad = dispatch_lint.run_collective_lint()
     assert bad and rules_of(bad) == {"collective-axis"}
     assert {f.site for f in bad} == set(sites)
+
+
+def test_mesh_collective_axis_lint(monkeypatch):
+    """The mesh path's collectives — the MoE's all-to-alls and token
+    gathers, the step's parameter gathers, gradient reductions and norm
+    sums — each name a group of the mesh; one on the default group is
+    flagged at every mesh site."""
+    from repro_torch.analysis import dispatch_lint
+    from repro_torch.models import shard_ctx
+
+    sites = [s for s, _, _ in dispatch_lint.mesh_paths()]
+    assert {"mesh:moe:expert", "mesh:moe:ffn", "mesh:step:llama3_2_1b",
+            "mesh:step:moonshot_v1_16b_a3b"} <= set(sites)
+    for site, mesh, thunk in dispatch_lint.mesh_paths():
+        calls = dispatch_lint.record_collectives(thunk)
+        names = {n for n, _ in calls}
+        assert "all_reduce" in names, site
+        if site in ("mesh:moe:expert", "mesh:step:moonshot_v1_16b_a3b"):
+            assert "all_to_all_single" in names, site
+        assert dispatch_lint.lint_collectives(calls, mesh, site) == []
+    monkeypatch.setattr(shard_ctx, "axis_group", lambda mesh, axes: None)
+    bad = dispatch_lint.run_collective_lint()
+    assert bad and rules_of(bad) == {"collective-axis"}
+    assert {f.site for f in bad} == set(sites)

@@ -1549,3 +1549,112 @@ def test_train_step_and_decode_on_the_card_match_the_cpu(cuda_device, arch,
         back = cm.restore(1, st_g)
     for a, b in zip(tree_leaves(back.params), tree_leaves(st_g.params)):
         assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A (data=1, model=1) mesh in a one-rank NCCL group (the card machine
+    has one card)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "moonshot_v1_16b_a3b"])
+def test_mesh_step_on_one_rank_matches_the_unsharded_step(nccl_mesh, arch,
+                                                          monkeypatch):
+    """Two steps of ``make_train_step(mesh=)`` on the one-rank mesh (the
+    gathers and gradient reductions run as NCCL collectives of one rank)
+    against the unsharded step from the same weights: the same losses
+    (1e-6); the first step's gradients within 1e-5 of each leaf's largest;
+    its weights within 1 % of lr beyond what AdamW makes of the gradients'
+    difference (a weight moves by about lr·ĝ/(|ĝ| + eps), so gradients
+    near eps that differ in their last digits — ``index_add_`` accumulates
+    with atomics on the card — move it differently)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch.sharding import distribute_state, gather_state
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train import (OptimizerConfig, adamw_update,
+                                   clip_by_global_norm, init_train_state,
+                                   make_train_step)
+    from repro_torch.train import train_step as TS
+
+    seen = []
+
+    def spy(params, grads, *args, **kw):
+        seen.append(tree_map(lambda g: g.detach().clone(), grads))
+        return adamw_update(params, grads, *args, **kw)
+
+    monkeypatch.setattr(TS, "adamw_update", spy)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), fsdp=True)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    p = init_model(0, cfg, device="cuda")
+    s0 = init_train_state(tree_map(torch.clone, p), cfg)
+    s1 = distribute_state(init_train_state(p, cfg), nccl_mesh, cfg)
+    step0 = make_train_step(cfg, opt)
+    step1 = make_train_step(cfg, opt, mesh=nccl_mesh, donate=True)
+    ds = SyntheticTokenDataset(cfg.vocab_size, 64, 4, seed=5)
+    for i in range(2):
+        b = {k: torch.from_numpy(v).cuda() for k, v in
+             ds.train_inputs(i).items()}
+        s0, m0 = step0(s0, b)
+        s1, m1 = step1(s1, b)
+        assert abs(float(m1["loss"]) - float(m0["loss"])) <= 1e-6 * abs(
+            float(m0["loss"])), i
+        if i == 0:
+            w0 = [t.clone() for t in tree_leaves(s0.params)]
+            w1 = [t.clone() for t in tree_leaves(gather_state(s1).params)]
+            g0, g1 = (clip_by_global_norm(g, opt.clip_norm)[0]
+                      for g in seen)
+    for a, b, h0, h1 in zip(w0, w1, tree_leaves(g0), tree_leaves(g1)):
+        assert float((h1 - h0).abs().max()) <= 1e-5 * float(
+            h0.abs().max())
+        sign0, sign1 = (h / (h.abs() + opt.eps) for h in (h0, h1))
+        excess = (a - b).abs() / opt.lr - (sign1 - sign0).abs()
+        assert float(excess.max()) <= 1e-2
+    assert int(gather_state(s1).step) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "grok_1_314b"])
+def test_mesh_moe_on_the_card_matches_the_local_path(nccl_mesh, arch):
+    """``_apply_moe_dist`` on the one-rank mesh (its all-to-alls and
+    gathers NCCL collectives of one rank) against the local path: output,
+    aux, and the gradients of x and of every expert weight within 1e-5 of
+    the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator("cuda").manual_seed(0)
+    p0 = M.init_moe(gen, cfg)
+    x0 = torch.randn((4, 64, cfg.d_model), generator=gen, device="cuda")
+    c = torch.randn(x0.shape, generator=gen, device="cuda")
+    outs = []
+    for dist_path in (True, False):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        y, aux = (M._apply_moe_dist(p, x, cfg, nccl_mesh, ("data",))
+                  if dist_path else M._apply_moe_local(p, x, cfg))
+        ((y * c).sum() + aux).backward()
+        outs.append((y.detach(), aux.detach(), x.grad,
+                     {k: v.grad for k, v in p.items()}))
+    (y1, a1, gx1, g1), (y0, a0, gx0, g0) = outs
+    assert _rel(y1, y0) <= 1e-5 and abs(float(a1 - a0)) <= 1e-5
+    assert float((gx1 - gx0).abs().max() / gx0.abs().max()) <= 1e-5
+    for k in g0:
+        assert float((g1[k] - g0[k]).abs().max()
+                     / g0[k].abs().max()) <= 1e-5, k

@@ -176,7 +176,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.data.pipeline', 'repro_torch.launch.train',"
         " 'repro_torch.models.moe', 'repro_torch.models.mamba',"
         " 'repro_torch.models.rwkv', 'repro_torch.examples.train_lm',"
-        " 'repro_torch.examples.sparse_ffn_lm']\n"
+        " 'repro_torch.examples.sparse_ffn_lm',"
+        " 'repro_torch.launch.mesh', 'repro_torch.launch.sharding',"
+        " 'repro_torch.launch.dryrun', 'repro_torch.models.shard_ctx']\n"
         "print(n, bad, [k for k in need if k not in sys.modules])\n"
         "assert not bad, bad\n"
         "assert all(k in sys.modules for k in need)\n")
@@ -186,3 +188,26 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 16, out.stdout
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    """``make_host_mesh`` and ``make_production_mesh`` build a ``cuda``
+    mesh unless asked for another device type; importing the launch layer
+    starts no process group."""
+    import torch.distributed as dist
+    from torch.distributed import device_mesh
+
+    import repro_torch.launch  # noqa: F401
+    from repro_torch.launch import mesh
+
+    assert not dist.is_initialized()
+    seen = []
+    monkeypatch.setattr(device_mesh, "init_device_mesh",
+                        lambda dev, shape, mesh_dim_names: seen.append(
+                            (dev, shape, mesh_dim_names)))
+    mesh.make_host_mesh(2, 4)
+    mesh.make_host_mesh(2, 2, "cpu")
+    mesh.make_production_mesh(multi_pod=True)
+    assert seen == [("cuda", (2, 4), ("data", "model")),
+                    ("cpu", (2, 2), ("data", "model")),
+                    ("cuda", (2, 16, 16), ("pod", "data", "model"))]
