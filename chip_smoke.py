@@ -109,7 +109,13 @@ just before it and read just after:
   layer at moonshot_v1_16b_a3b's full width through the distributed path
   (the expert all-to-all) against the local one, grok's ffn mode at smoke
   size, a 2-layer state restored onto the mesh bit for bit, and the dry
-  run over every cell (how many fit the card).
+  run's argument half over every cell (how many fit the card);
+* the dry run's cost half (11i): the same one-rank step costed by
+  ``roofline.op_cost`` on a fake 1 × 1 CPU mesh in a subprocess, its
+  predicted peak and flops held to the card's own step (10 %, 1 %), and
+  llama3_2_1b and moonshot ``train_4k`` costed on the production meshes
+  (rank 0 of a fake group of 256 and 512 ranks): flops a device, useful
+  ratio, dominant roofline term, peak and fit, with no FAIL.
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -142,6 +148,17 @@ The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
+
+    python3 chip_smoke.py --mesh-step-ab OTHER_SRC [ROUNDS]
+
+times 11h's steps alone (llama3_2_1b, 4 × 512 tokens, 2 microbatches:
+six steps unsharded, then six on the one-rank mesh) in four processes a
+round (default one round): ``OTHER_SRC``'s ``repro_torch`` (an unpacked
+``git archive`` of another commit), this checkout's, this checkout's,
+``OTHER_SRC``'s again, and
+logs each one's step ms (the first step of each run is a warm-up) beside
+the card's name and power limit: whether a change of the mesh step's time
+between two runs comes from the code or from the run.
 """
 
 import collections
@@ -150,6 +167,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -2068,7 +2086,7 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
     return out, max_abs
 
 
-def mesh_phase(dev, smi: str, all_kernels: dict) -> None:
+def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
     """The mesh path (phase 11h), in its own one-rank NCCL group (an
     in-memory store), destroyed at its end; the card machine has one card,
     so every collective is one rank's.
@@ -2094,12 +2112,14 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> None:
     c. A 2-layer state after one unsharded step, saved and restored onto
        the mesh (``CheckpointManager.restore`` with a sharded template),
        gathered back bit for bit.
-    d. ``launch.dryrun`` over every (architecture × shape × production
-       mesh) cell: the count of OK, SKIP and FAIL cells and how many fit
-       this card's memory.
+    d. ``launch.dryrun``'s argument half over every (architecture × shape
+       × production mesh) cell: the count of OK, SKIP and FAIL cells and
+       how many fit this card's memory (their arguments; 11i costs the
+       steps).
 
     No hand-written kernel may launch: the dense step and the MoE reach
-    none, as the reference's reach no Pallas kernel."""
+    none, as the reference's reach no Pallas kernel.  Returns the mesh
+    step's ms (a step each)."""
     import dataclasses as dc
 
     import numpy as np
@@ -2288,11 +2308,12 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> None:
         for arch in ARCH_IDS:
             for name in SHAPES:
                 rec = dryrun.run_cell(arch, name, multi, force=True,
-                                      verbose=False, device_bytes=total)
+                                      verbose=False, device_bytes=total,
+                                      cost=False)
                 counts[rec["status"]] += 1
                 if rec["status"] == "OK":
                     fit[f"{arch}|{name}|{rec['mesh']}"] = (
-                        rec["bytes_per_device"], rec["fits"])
+                        rec["memory"]["argument_bytes"], rec["fits"])
     largest = max(fit.items(), key=lambda kv: kv[1][0])
     log("mesh-dryrun", card=repr(smi), total_memory=total,
         ok=counts["OK"], skip=counts["SKIP"], fail=counts["FAIL"],
@@ -2304,6 +2325,239 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> None:
     check(not any(launches.values()),
           f"the mesh path launched a hand-written kernel: {launches}")
     log("mesh-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return ms_mesh
+
+
+# the card cell's fake run, in a process of its own (a fake group is its
+# process's default group): rank 0 of one rank on a 1 × 1 CPU mesh
+CARD_CELL_CHILD = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+arch, b, s, mb, scaled, out = sys.argv[1:7]
+dryrun.fake_group(1)
+mesh = make_host_mesh(1, 1, "cpu")
+res = dryrun.cost_train_step(get_config(arch), mesh, int(b), int(s),
+                             microbatches=int(mb), scaled=scaled == "1")
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+ROOFLINE_CELLS = ("llama3_2_1b", "moonshot_v1_16b_a3b")
+PEAK_TOL = 0.10                # the fake run's peak against the card's
+FLOPS_TOL = 0.01               # its flops against the card step's
+
+
+def roofline_phase(dev, smi: str, all_kernels: dict, step_ms: list) -> None:
+    """The dry run's cost half (phase 11i): ``roofline.op_cost`` over one
+    rank's train step, as ``launch.dryrun`` costs every train cell.
+
+    a. The card cell: 11h's step (llama3_2_1b, 4 × 512 tokens, 2
+       microbatches, a one-rank mesh) costed on a fake 1 × 1 CPU mesh in a
+       subprocess, replayed (the dry run's way) and unrolled, against the
+       same step run for real on the card in a one-rank NCCL group under
+       the same counter: the fake peak within ``PEAK_TOL`` of
+       ``max_memory_allocated`` above what was held before the state was
+       built, the fake flops within ``FLOPS_TOL`` of the card step's; the
+       roofline time beside 11h's measured step ms (logged, no check).
+    b. llama3_2_1b and moonshot ``train_4k`` on both production meshes
+       (rank 0 of a fake group of 256 / 512 ranks, one subprocess a cell):
+       flops a device, ``useful_ratio``, the dominant term, the peak and
+       whether it fits this card.  A FAIL fails the script.
+
+    The fake runs go on while the card runs its step.  No hand-written
+    kernel may launch."""
+    import concurrent.futures
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.roofline.analysis import model_flops_for, roofline
+
+    t_phase = time.perf_counter()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cfg = get_config("llama3_2_1b")
+    tmp = Path(tempfile.mkdtemp(prefix="roofline_", dir=ROOT / "build"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    children = {scaled: subprocess.Popen(
+        [sys.executable, "-c", CARD_CELL_CHILD, cfg.name, str(TRAIN_BATCH),
+         str(TRAIN_SEQ), str(cfg.microbatches), str(int(scaled)),
+         str(tmp / f"card_{int(scaled)}.json")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for scaled in (True, False)}
+    cells = [(arch, "train_4k", multi) for multi in (False, True)
+             for arch in ROOFLINE_CELLS]
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    swept = pool.submit(dryrun.run_cells, cells, force=True, verbose=False,
+                        device_bytes=total, jobs=len(cells))
+    try:
+        # -- a. the card cell: the real step under the same counter ---------
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_device(dev.index or 0)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            t0 = time.perf_counter()
+            card = dryrun.cost_train_step(
+                cfg, make_host_mesh(1, 1, "cuda"), TRAIN_BATCH, TRAIN_SEQ,
+                microbatches=cfg.microbatches, scaled=False, fake=False,
+                seed=SEED)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            peak_card = torch.cuda.max_memory_allocated(dev) - base
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        fake = {}
+        for scaled, p in children.items():
+            _, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"the card cell's fake run: "
+                  f"{err[-2000:]}")
+            fake[scaled] = json.loads(
+                (tmp / f"card_{int(scaled)}.json").read_text())
+        shape = ShapeConfig("card", TRAIN_SEQ, TRAIN_BATCH, "train")
+        params = dryrun.abstract_params(cfg)
+        fk = fake[True]
+        terms = roofline(fk["flops"], fk["dot_bytes"], fk["coll_bytes"],
+                         chips=1, model_flops=model_flops_for(cfg, shape,
+                                                              params),
+                         coll_by_link=fk["coll_by_link"])
+        peak_err = abs(fk["peak_bytes"] - peak_card) / peak_card
+        flops_err = abs(fk["flops"] - card["flops"]) / card["flops"]
+        log("roofline-card", card=repr(smi), model=cfg.name, mesh="(1, 1)",
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=cfg.microbatches,
+            peak_predicted=fk["peak_bytes"],
+            peak_predicted_unrolled=fake[False]["peak_bytes"],
+            peak_card=peak_card, peak_rel_err=peak_err,
+            flops_predicted=fk["flops"],
+            flops_predicted_unrolled=fake[False]["flops"],
+            flops_card=card["flops"], flops_rel_err=flops_err,
+            peak_card_counter=card["peak_bytes"],
+            coll_bytes=fk["coll_bytes"], coll_bytes_card=card["coll_bytes"],
+            fake_s=round(fk["seconds"], 3),
+            fake_unrolled_s=round(fake[False]["seconds"], 3),
+            card_counted_step_s=round(card_s, 3),
+            roofline_ms={k: terms.as_dict()[k] * 1e3 for k in
+                         ("compute_s", "memory_s", "collective_s")},
+            dominant=terms.dominant, useful_ratio=terms.useful_ratio,
+            step_ms_measured_11h=step_ms)
+        check(peak_err <= PEAK_TOL, f"the card cell's predicted peak "
+              f"{fk['peak_bytes']} against the card's {peak_card}")
+        check(flops_err <= FLOPS_TOL, f"the card cell's flops "
+              f"{fk['flops']} against the card step's {card['flops']}")
+        del card
+
+        # -- b. the production cells -----------------------------------------
+        recs = swept.result(timeout=900)
+    finally:
+        pool.shutdown(wait=True)
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rec in recs:
+        if rec["status"] != "OK":
+            log("roofline-cell", card=repr(smi), arch=rec["arch"],
+                mesh=rec["mesh"], status=rec["status"],
+                error=rec.get("error", "")[:300])
+            continue
+        t = rec["roofline"]
+        top = rec["collectives_top"][0] if rec["collectives_top"] else {}
+        log("roofline-cell", card=repr(smi), arch=rec["arch"],
+            shape=rec["shape"], mesh=rec["mesh"], chips=rec["chips"],
+            flops_per_device=rec["flops_per_device"],
+            bytes_per_device=rec["bytes_per_device"],
+            coll_bytes=t["coll_bytes"], useful_ratio=t["useful_ratio"],
+            dominant=t["dominant"], compute_ms=t["compute_s"] * 1e3,
+            memory_ms=t["memory_s"] * 1e3,
+            collective_ms=t["collective_s"] * 1e3,
+            peak_bytes=rec["memory"]["peak_estimate_bytes"],
+            card_bytes=rec["device_bytes"], fits_card=rec["fits"],
+            top_collective=top.get("op"),
+            top_collective_bytes=top.get("bytes"), cost_s=rec["cost_s"])
+    bad = [(r["arch"], r["mesh"], r.get("error")) for r in recs
+           if r["status"] != "OK"]
+    check(not bad, f"roofline cells failed: {bad}")
+    launches = {k: f.launches for k, f in all_kernels.items()}
+    check(not any(launches.values()),
+          f"the roofline phase launched a hand-written kernel: {launches}")
+    log("roofline-phase", card=repr(smi),
+        seconds=round(time.perf_counter() - t_phase, 3))
+
+
+# one process of ``--mesh-step-ab``: argv is (src dir, out file)
+MESH_STEP_CHILD = r"""
+import json, statistics, sys, tempfile, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import build_trainer
+from repro_torch.train import OptimizerConfig
+
+batch, seq, steps = 4, 512, 6
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                        world_size=1)
+cfg = get_config("llama3_2_1b")
+opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+out = {"src": sys.argv[1]}
+ckpt = tempfile.TemporaryDirectory()
+for name, mesh in (("plain", None), ("mesh", make_host_mesh(1, 1, "cuda"))):
+    tr, st = build_trainer(cfg, opt_cfg, mesh=mesh, device=dev,
+                           global_batch=batch, seq_len=seq,
+                           ckpt_dir=f"{ckpt.name}/{name}", seed=0)
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = tr.step_fn(st, tr.batch_fn(i))
+        float(met["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out[name + "_ms"] = ms
+    out[name + "_median_ms"] = statistics.median(ms[1:])
+    del tr, st
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+ckpt.cleanup()
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def mesh_step_ab(other_src: str, smi: str, rounds: int = 1) -> None:
+    """``--mesh-step-ab``: 11h's steps timed from ``other_src`` and from
+    this checkout, other · this · this · other a round, each in a fresh
+    process."""
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        order = [str(Path(other_src).resolve()), str(ROOT / "src")]
+        srcs = [order[0], order[1], order[1], order[0]] * rounds
+        for i, src in enumerate(srcs):
+            out = Path(tmp) / f"run{i}.json"
+            subprocess.run([sys.executable, "-c", MESH_STEP_CHILD, src,
+                            str(out)], check=True, timeout=600)
+            runs.append(json.loads(out.read_text()))
+    for i, r in enumerate(runs):
+        log("mesh-step-ab", card=repr(smi), run=i,
+            tree="other" if r["src"] == order[0] else "this",
+            plain_ms=[round(x, 1) for x in r["plain_ms"]],
+            mesh_ms=[round(x, 1) for x in r["mesh_ms"]],
+            plain_median_ms=round(r["plain_median_ms"], 1),
+            mesh_median_ms=round(r["mesh_median_ms"], 1))
 
 
 def main() -> int:
@@ -2313,6 +2567,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--mesh-step-ab"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+        print(smi, flush=True)
+        mesh_step_ab(sys.argv[2], smi, int(sys.argv[3]) if
+                     len(sys.argv) > 3 else 1)
+        return 0
     t0 = time.perf_counter()
     rows = run(torch.device("cuda"), NX)
     log("script", seconds=round(time.perf_counter() - t0, 3))
@@ -3530,8 +3793,13 @@ def run(dev, nx: int) -> list:
 
     # ---- 11h. the mesh path: the sharded train step, the distributed MoE,
     # a restore onto the mesh and the dry run, in a one-rank NCCL group
-    mesh_phase(dev, smi, all_kernels)
+    step_ms_mesh = mesh_phase(dev, smi, all_kernels)
     healthy("mesh")
+
+    # ---- 11i. the dry run's cost half: the card cell's predicted peak and
+    # flops against the card's step, and four production cells
+    roofline_phase(dev, smi, all_kernels, step_ms_mesh)
+    healthy("roofline")
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)

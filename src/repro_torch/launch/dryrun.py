@@ -1,10 +1,12 @@
-"""Multi-pod dry run: the per-device memory of every cell, from shapes alone.
+"""Multi-pod dry run: per-device memory, flops, bytes and collective bytes
+of every cell, without a card.
 
-The port of ``repro.launch.dryrun``, the half that has a PyTorch meaning.
-For every (architecture × input shape × production mesh) cell it builds
-the step's arguments as fake tensors (``FakeTensorMode``: shapes and
-dtypes, nothing allocated, no process group) as the reference's
-``build_cell`` builds them —
+The port of ``repro.launch.dryrun``.  For every (architecture × input
+shape × production mesh) cell it records two halves.
+
+**The arguments** (every cell).  The step's arguments as fake tensors
+(``FakeTensorMode``: shapes and dtypes, nothing allocated, no process
+group) as the reference's ``build_cell`` builds them —
 
 * train: the fp32 params, the AdamW moments in ``cfg.opt_state_dtype``,
   the two step counters, and the batch of ``data.make_batch_specs``;
@@ -13,39 +15,65 @@ dtypes, nothing allocated, no process group) as the reference's
   (context-parallel for ``long_500k``), and the tokens (plus the encoder
   frames of an encoder-decoder's prefill, and decode's position) —
 
-places each under ``launch.sharding``'s specs on the production mesh
-(``launch.mesh.ShapeMesh``: 16 × 16 or 2 × 16 × 16), and records one
-device's bytes of them, ``n_params``, and whether the cell fits a device
-of ``--device-bytes`` (default: the card's ``total_memory`` when there is
-a card).  Full-attention architectures skip ``long_500k``, as in the
-reference.  Records go to ``build/dryrun/<mesh>/<arch>__<shape>.json``;
-a re-run reads a recorded cell unless ``--force``.
+placed under ``launch.sharding``'s specs on the production mesh's shape
+(``launch.mesh.ShapeMesh``: 16 × 16 or 2 × 16 × 16): one device's bytes
+(``memory.argument_bytes``, by argument in ``argument_bytes_by_arg``) and
+``n_params``.
 
-The reference's other half has no counterpart: it lowers and compiles
-each cell's XLA program for 512 devices and records ``cost_analysis``,
-``memory_analysis`` (temporaries included), the HLO's collective bytes and
-the roofline terms (``repro.roofline``).  The port compiles no XLA
-program, and eager PyTorch has no whole-step program to analyse, so the
-bytes here are the step's arguments only — a floor under the reference's
-``peak_estimate_bytes``, not an estimate of the peak.
+**The cost** (train cells).  Rank 0 of a ``fake`` process group of 256 or
+512 ranks (no communication: each collective returns at once) runs the
+port's own mesh step — ``make_train_step(cfg, OptimizerConfig(),
+microbatches=cfg.microbatches, mesh=, donate=True)`` on the production
+``DeviceMesh`` (``make_production_mesh(device_type="cpu")``), its state
+built and distributed as ``launch.train.build_trainer`` builds it, on the
+global batch — under ``FakeTensorMode`` and ``roofline.op_cost.OpCost``.
+That is the SPMD program each card runs, so its counts are one device's:
+``flops_per_device``, ``bytes_per_device`` (matmul bytes, the memory
+term's input), ``bytes_per_device_upper`` (every op's), ``collectives``
+(by op; ``collectives_by_axis``, ``collectives_by_link``),
+``collectives_top``, ``memory.peak_estimate_bytes`` (the live storages'
+high-water mark, the arguments included) with its ``argument`` / ``held``
+/ ``output`` / ``alias`` / ``temp`` parts, ``n_params_active``, the H100
+``roofline`` terms and ``cost_s`` (the fake run's seconds).  Each unit
+and loss chunk runs once per signature and is replayed at every later
+call, a scan chunk inside a unit running in the unit's measurement
+(``op_cost``'s repeats: its counts and its peak are the unrolled run's).  Each cell runs in a
+subprocess of its own: the fake group is the process's default group.
+
+A serving cell has no cost yet (``"cost": null`` and ``cost_reason``):
+its decode state shards the KV cache by heads over `model`, so a mesh
+prefill or decode needs head-parallel attention, which the port does not
+have.  ``fits`` compares the peak with ``--device-bytes`` (default: the
+card's ``total_memory`` when there is a card) where there is a peak, else
+the argument bytes.  Full-attention architectures skip ``long_500k``, as
+in the reference.  Records go to ``build/dryrun/<mesh>/<arch>__<shape>
+.json``; a re-run reads a recorded cell unless ``--force``, or unless the
+record has no cost and a cost is asked for.  A cell whose fake run raises
+is recorded FAIL (the CLI then exits 1).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] \\
-      [--shape S] [--mesh single|multi|both] [--force] [--device-bytes N]
+      [--shape S] [--mesh single|multi|both] [--force] [--args-only] \\
+      [--jobs N] [--device-bytes N]
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
+import subprocess
+import sys
+import tempfile
 import time
 import traceback
 
 import torch
 
-from ..configs import ARCH_IDS, SHAPES, get_config
+from ..configs import ARCH_IDS, SHAPES, ShapeConfig, get_config
 from ..data.pipeline import make_batch_specs
 from ..models.transformer import init_decode_state, init_model, tree_leaves
+from ..roofline.analysis import count_params, model_flops_for, roofline
 from .mesh import PRODUCTION_SHAPES, ShapeMesh
 from .sharding import (_map_with_path, batch_specs, local_size_bytes,
                        param_specs, state_specs)
@@ -53,6 +81,10 @@ from .sharding import (_map_with_path, batch_specs, local_size_bytes,
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "dryrun")
 MESHES = {False: "single_pod_16x16", True: "multi_pod_2x16x16"}
+SERVE_REASON = ("no cost: the decode state shards the KV cache by heads "
+                "over `model`, so a mesh prefill or decode needs "
+                "head-parallel attention (tensor-parallel compute), which "
+                "the port does not have yet")
 
 
 def _fake(fn):
@@ -70,21 +102,6 @@ def abstract_params(cfg) -> dict:
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
-
-
-def count_params(params, *, active_only=False, cfg=None) -> float:
-    """Elements of every leaf (an expert leaf's scaled by top_k / E when
-    ``active_only``), the reference's ``roofline.analysis.count_params``."""
-    total = []
-
-    def one(path, leaf):
-        n = float(leaf.numel())
-        if active_only and path[-1].startswith("we_"):
-            n *= cfg.top_k / cfg.n_experts
-        total.append(n)
-
-    _map_with_path(one, params)
-    return sum(total)
 
 
 def cell_args(cfg, shape, mesh, serve_dtype=torch.bfloat16) -> dict:
@@ -142,20 +159,186 @@ def card_bytes():
     return torch.cuda.get_device_properties(0).total_memory
 
 
+# ---------------------------------------------------------------------------
+# the cost half: one rank of a fake group
+# ---------------------------------------------------------------------------
+
+def fake_group(world_size: int) -> None:
+    """Make this process rank 0 of a ``fake`` process group of
+    ``world_size`` ranks (its collectives return at once, untouched)."""
+    import torch.distributed as dist
+    # registers the "fake" backend (torch's own fake process group)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def cost_train_step(cfg, mesh, global_batch: int, seq_len: int, *,
+                    microbatches=None, scaled=None, seed: int = 0,
+                    opt_cfg=None, fake: bool = True) -> dict:
+    """``op_cost``'s count of one train step of ``cfg`` on ``mesh`` (this
+    rank's ``DeviceMesh``), under ``FakeTensorMode`` (``fake=False``: on
+    real tensors on the mesh's device, the step really run): the state
+    built and distributed as ``build_trainer`` does it, the step
+    ``make_train_step(..., mesh=mesh, donate=True)`` on a global batch of
+    ``make_batch_specs`` (tokens and labels 0, mask 1).  ``scaled``
+    (default: ``fake``) replays the remat regions, which a fake run only
+    may do: a real run raises ``ValueError`` before it builds anything.  Adds
+    ``held_bytes`` (the storages alive when the step starts),
+    ``output_bytes`` / ``alias_bytes`` (the step's outputs, and those that
+    are its arguments' storages) and ``seconds``."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..roofline.op_cost import OpCost, local_tensors
+    from ..train import OptimizerConfig, init_train_state, make_train_step
+    from .mesh import mesh_device
+    from .sharding import distribute_params
+
+    scaled = fake if scaled is None else scaled
+    if scaled and not fake:
+        raise ValueError("a scaled count runs on fake tensors only: its "
+                         "replayed regions' outputs hold no values")
+    t0 = time.perf_counter()
+    shape = ShapeConfig("cost", seq_len, global_batch, "train")
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        params = init_model(seed, cfg, device=mesh_device(mesh))
+        params = distribute_params(params, mesh, cfg)
+        state = init_train_state(params, cfg)
+        del params
+        step = make_train_step(cfg, opt_cfg or OptimizerConfig(),
+                               microbatches=microbatches or cfg.microbatches,
+                               mesh=mesh, donate=True)
+        batch = {k: (torch.ones if k == "mask" else torch.zeros)(
+            sh, dtype=dt, device=mesh_device(mesh))
+            for k, (sh, dt) in make_batch_specs(cfg, shape).items()}
+        cost = OpCost(mesh, scaled=scaled)
+        cost.hold(state, batch)
+        held = {id(t.untyped_storage())
+                for t in local_tensors((state, batch))}
+        with cost:
+            new_state, metrics = step(state, batch)
+        out = {}
+        for t in local_tensors((new_state, metrics)):
+            st = t.untyped_storage()
+            out[id(st)] = (int(st.nbytes()), id(st) in held)
+        res = cost.result()
+    res["held_bytes"] = res.pop("argument_bytes")
+    res["output_bytes"] = sum(n for n, _ in out.values())
+    res["alias_bytes"] = sum(n for n, a in out.values() if a)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def cost_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
+    """The cost of one production train cell, in this process: rank 0 of
+    a fake group of the mesh's size (the process must have no group)."""
+    import torch.distributed as dist
+
+    from .mesh import make_production_mesh
+
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    size = ShapeMesh(PRODUCTION_SHAPES[MESHES[multi_pod]]).size
+    fake_group(size)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        return cost_train_step(cfg, mesh, shape.global_batch, shape.seq_len)
+    finally:
+        dist.destroy_process_group()
+
+
+def _src_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
+def cost_in_subprocess(arch: str, shape_name: str, multi_pod: bool, *,
+                       timeout: float = 3600) -> dict:
+    """:func:`cost_cell` in a fresh Python process (the fake group is that
+    process's default group); raises with the child's error if it
+    fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cost.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--cost-one", arch, shape_name, MESHES[multi_pod],
+               "--out", out]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [_src_root()] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           timeout=timeout)
+        if r.returncode != 0 or not os.path.exists(out):
+            tail = (r.stderr or r.stdout).strip().splitlines()[-12:]
+            raise RuntimeError(f"cost run of {arch} × {shape_name} on "
+                               f"{MESHES[multi_pod]} exited {r.returncode}:"
+                               "\n" + "\n".join(tail))
+        with open(out) as f:
+            return json.load(f)
+
+
+def cost_record(cfg, shape, chips: int, c: dict, params, arg_bytes: int,
+                per_arg: dict) -> dict:
+    """The reference's record keys from a cost run ``c``."""
+    mf = model_flops_for(cfg, shape, params)
+    terms = roofline(float(c["flops"]), float(c["dot_bytes"]),
+                     float(c["coll_bytes"]), chips=chips, model_flops=mf,
+                     coll_by_link=c["coll_by_link"])
+    peak = int(c["peak_bytes"])
+    held, out, alias = c["held_bytes"], c["output_bytes"], c["alias_bytes"]
+    return {
+        "flops_per_device": float(c["flops"]),
+        "bytes_per_device": float(c["dot_bytes"]),
+        "bytes_per_device_upper": float(c["bytes"]),
+        "collectives": c["coll_by_op"],
+        "collectives_by_axis": c["coll_by_axis"],
+        "collectives_by_link": c["coll_by_link"],
+        "collectives_top": c["coll_top"],
+        "memory": {
+            "argument_bytes": arg_bytes,
+            "argument_bytes_by_arg": per_arg,
+            "held_bytes": held,
+            "output_bytes": out,
+            "alias_bytes": alias,
+            "temp_bytes": peak - held - (out - alias),
+            "peak_estimate_bytes": peak,
+        },
+        "n_ops": c["n_ops"],
+        "regions": c["regions"],
+        "roofline": terms.as_dict(),
+        "cost_s": round(c["seconds"], 3),
+    }
+
+
+def _fits(rec, device_bytes):
+    if device_bytes is None or rec.get("status") != "OK":
+        return None
+    return rec["memory"]["peak_estimate_bytes" if "flops_per_device" in rec
+                         else "argument_bytes"] <= device_bytes
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
-             verbose=True, device_bytes=None) -> dict:
+             verbose=True, device_bytes=None, cost=True, costed=None) -> dict:
+    """One cell's record (read back when recorded, unless ``force``, or
+    unless it has no cost and ``cost`` asks for one).  ``costed``: the
+    cell's cost run when the caller ran it (``cost_in_subprocess``)."""
     mesh_name = MESHES[multi_pod]
     out_dir = os.path.join(OUT_DIR, mesh_name)
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{arch}__{shape_name}.json")
-    if os.path.exists(out_path) and not force:
+    train = SHAPES[shape_name].kind == "train"
+    want_cost = cost and train
+    if os.path.exists(out_path) and not force and costed is None:
         with open(out_path) as f:
             rec = json.load(f)
-        if rec["status"] == "OK":           # fits: against this device
+        if rec["status"] != "OK" or not want_cost or \
+                "flops_per_device" in rec:
             rec["device_bytes"] = device_bytes
-            rec["fits"] = (None if device_bytes is None
-                           else rec["bytes_per_device"] <= device_bytes)
-        return rec
+            rec["fits"] = _fits(rec, device_bytes)
+            return rec
 
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -181,18 +364,38 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
             "status": "OK",
             "chips": mesh.size,
             "build_s": round(time.perf_counter() - t0, 3),
-            "bytes_per_device": total,
-            "bytes_per_device_by_arg": per_arg,
             "n_params": count_params(params),
             "n_params_active": count_params(params, active_only=True,
                                             cfg=cfg),
-            "device_bytes": device_bytes,
-            "fits": None if device_bytes is None else total <= device_bytes,
+            "memory": {"argument_bytes": total,
+                       "argument_bytes_by_arg": per_arg},
         })
+        if want_cost:
+            c = costed if costed is not None else cost_in_subprocess(
+                arch, shape_name, multi_pod)
+            rec.update(cost_record(cfg, shape, mesh.size, c, params, total,
+                                   per_arg))
+        elif train:
+            rec["cost"] = None
+            rec["cost_reason"] = "args only: the cost was not asked for"
+        else:
+            rec["cost"] = None
+            rec["cost_reason"] = SERVE_REASON
+        rec["device_bytes"] = device_bytes
+        rec["fits"] = _fits(rec, device_bytes)
         if verbose:
-            print(f"[{mesh_name}] {arch} × {shape_name}: OK "
-                  f"args/dev={total / 2**30:.2f}GiB fits={rec['fits']}",
-                  flush=True)
+            line = (f"[{mesh_name}] {arch} × {shape_name}: OK "
+                    f"args/dev={total / 2**30:.2f}GiB")
+            if "roofline" in rec:
+                t = rec["roofline"]
+                line += (f" peak/dev={rec['memory']['peak_estimate_bytes'] / 2**30:.2f}GiB"
+                         f" flops/dev={rec['flops_per_device']:.3e}"
+                         f" dominant={t['dominant']}"
+                         f" (c={t['compute_s'] * 1e3:.2f}ms"
+                         f" m={t['memory_s'] * 1e3:.2f}ms"
+                         f" coll={t['collective_s'] * 1e3:.2f}ms)"
+                         f" cost_s={rec['cost_s']}")
+            print(line + f" fits={rec['fits']}", flush=True)
     except Exception as exc:  # noqa: BLE001 — record the failure, keep going
         rec["status"] = "FAIL"
         rec["error"] = f"{type(exc).__name__}: {exc}"
@@ -205,6 +408,67 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
     return rec
 
 
+def run_cells(cells, *, force=False, verbose=True, device_bytes=None,
+              cost=True, jobs=1) -> list:
+    """:func:`run_cell` over ``cells`` ((arch, shape, multi_pod) triples),
+    the cost runs of those that need one ``jobs`` at a time (each a
+    subprocess); records in ``cells``' order."""
+    def needs(cell):
+        arch, name, multi = cell
+        if not (cost and SHAPES[name].kind == "train"
+                and name in get_config(arch).shapes):
+            return False
+        path = os.path.join(OUT_DIR, MESHES[multi], f"{arch}__{name}.json")
+        if force or not os.path.exists(path):
+            return True
+        with open(path) as f:
+            rec = json.load(f)
+        return rec["status"] == "OK" and "flops_per_device" not in rec
+
+    runs = {}
+    with concurrent.futures.ThreadPoolExecutor(max(1, jobs)) as pool:
+        futs = {pool.submit(cost_in_subprocess, *cell): cell
+                for cell in cells if needs(cell)}
+        for fut in concurrent.futures.as_completed(futs):
+            try:
+                runs[futs[fut]] = fut.result()
+            except Exception as exc:  # noqa: BLE001 — run_cell records it
+                runs[futs[fut]] = exc
+    out = []
+    for cell in cells:
+        got = runs.get(cell)
+        if isinstance(got, Exception):
+            out.append(_failed(cell, got, verbose))
+            continue
+        out.append(run_cell(*cell, force=force or got is not None,
+                            verbose=verbose, device_bytes=device_bytes,
+                            cost=cost, costed=got))
+    return out
+
+
+def _failed(cell, exc, verbose) -> dict:
+    arch, name, multi = cell
+    rec = {"arch": arch, "shape": name, "mesh": MESHES[multi],
+           "kind": SHAPES[name].kind, "status": "FAIL",
+           "error": f"{type(exc).__name__}: {exc}"}
+    out_dir = os.path.join(OUT_DIR, MESHES[multi])
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{arch}__{name}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    if verbose:
+        print(f"[{MESHES[multi]}] {arch} × {name}: FAIL {rec['error']}",
+              flush=True)
+    return rec
+
+
+def _cost_one(arch, shape_name, mesh_name, out) -> int:
+    multi = {v: k for k, v in MESHES.items()}[mesh_name]
+    res = cost_cell(arch, shape_name, multi)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
@@ -212,27 +476,40 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--args-only", action="store_true",
+                    help="record the argument bytes only (no cost run)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cost runs at a time (one subprocess each)")
     ap.add_argument("--device-bytes", type=int, default=None,
                     help="one device's memory (default: the card's)")
+    ap.add_argument("--cost-one", nargs=3, metavar=("ARCH", "SHAPE", "MESH"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.cost_one:
+        return _cost_one(*args.cost_one, args.out)
 
     dev_bytes = args.device_bytes or card_bytes()
     archs = ARCH_IDS if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
+    cells = [(arch, shape, multi) for multi in meshes for arch in archs
+             for shape in shapes]
+    recs = run_cells(cells, force=args.force, device_bytes=dev_bytes,
+                     cost=not args.args_only, jobs=args.jobs)
     n = {"OK": 0, "SKIP": 0, "FAIL": 0}
-    fit = 0
-    for multi in meshes:
-        for arch in archs:
-            for shape in shapes:
-                rec = run_cell(arch, shape, multi, force=args.force,
-                               device_bytes=dev_bytes)
-                n[rec["status"]] += 1
-                fit += bool(rec.get("fits"))
+    for rec in recs:
+        n[rec["status"]] += 1
+    fit = sum(bool(rec.get("fits")) for rec in recs)
     print(f"dry-run complete: {n['OK']} OK, {n['SKIP']} SKIP, "
           f"{n['FAIL']} FAIL; {fit} fit {dev_bytes} bytes", flush=True)
     return 1 if n["FAIL"] else 0
+
+
+__all__ = ["cell_args", "count_params", "model_flops_for", "run_cell",
+           "run_cells", "cost_train_step", "cost_cell",
+           "cost_in_subprocess", "fake_group", "main"]
 
 
 if __name__ == "__main__":

@@ -22,10 +22,41 @@ Conventions
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+
+# what a remat region runs through: None for ``torch.utils.checkpoint``,
+# else the function set by ``remat_through`` (the cost counter's replay)
+_REMAT = contextvars.ContextVar("remat", default=None)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` in ``torch.utils.checkpoint`` (not reentrant): the
+    reference's ``jax.checkpoint``.  Every remat region of the port (a
+    unit of the stack, a chunk of the Mamba or RWKV scan, a chunk of the
+    loss) goes through here, so that :func:`remat_through` reaches all of
+    them."""
+    hook = _REMAT.get()
+    if hook is not None:
+        return hook(fn, *args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+@contextlib.contextmanager
+def remat_through(hook):
+    """Inside, every :func:`remat` region of this thread runs as
+    ``hook(fn, *args)`` (``roofline.op_cost``'s replay)."""
+    token = _REMAT.set(hook)
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -208,14 +239,14 @@ def chunked_xent(head_p, emb_p, x: torch.Tensor, labels, mask, cfg,
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
-    remat = torch.is_grad_enabled()
+    use_remat = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, chunk):
         args = (head_p, emb_p, x[:, i:i + chunk], labels[:, i:i + chunk],
                 mask[:, i:i + chunk], cfg)
-        tot = tot + (checkpoint(_xent_chunk, *args, use_reentrant=False)
-                     if remat else _xent_chunk(*args))
+        tot = tot + (remat(_xent_chunk, *args) if use_remat
+                     else _xent_chunk(*args))
         cnt = cnt + mask[:, i:i + chunk].sum()
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -223,4 +254,5 @@ def chunked_xent(head_p, emb_p, x: torch.Tensor, labels, mask, cfg,
 __all__ = ["cdtype", "pdtype", "pad_vocab", "init_norm", "apply_norm",
            "init_embedding", "embed_tokens", "rope_frequencies",
            "apply_rope", "init_mlp", "apply_mlp", "init_lm_head",
-           "logits_fn", "softcap", "chunked_xent"]
+           "logits_fn", "softcap", "chunked_xent", "remat",
+           "remat_through"]

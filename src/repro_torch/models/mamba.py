@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from .layers import _dense_init, cdtype, pdtype
+from .layers import _dense_init, cdtype, pdtype, remat
 
 
 def init_mamba(gen: torch.Generator, cfg) -> dict:
@@ -79,13 +78,12 @@ def _ssm_scan(dt_full, x_full, b_full, c_full, a, h0, chunk: int = 128):
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
-    remat = torch.is_grad_enabled()
+    use_remat = torch.is_grad_enabled()
     seq = [t.transpose(0, 1) for t in (dt_full, x_full, b_full, c_full)]
     h, ys = h0, []
     for i in range(0, s, chunk):
         args = (h, *(t[i:i + chunk] for t in seq), a)
-        y, h = (checkpoint(_ssm_chunk, *args, use_reentrant=False) if remat
-                else _ssm_chunk(*args))
+        y, h = remat(_ssm_chunk, *args) if use_remat else _ssm_chunk(*args)
         ys.append(y)
     return torch.cat(ys).transpose(0, 1), h
 

@@ -76,6 +76,15 @@ def top_k(probs: torch.Tensor, k: int):
     return probs.gather(-1, idx), idx
 
 
+def expert_counts(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Tokens an expert: ``bincount(idx, minlength=e)`` for indices below
+    ``e`` (the reference's ``jnp.bincount(length=e)``), as a scatter into
+    ``e`` slots — a static shape, so no host sync and no data-dependent
+    output under ``FakeTensorMode``."""
+    return torch.zeros(e, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
+
+
 def _route_and_pack(xt: torch.Tensor, router: torch.Tensor, cfg, cap: int):
     """Routing + sort-based packing.  xt: (T, d).  Returns (buf (E, cap, d),
     slot, tok_of, w, (me_sum, ce_sum))."""
@@ -89,12 +98,12 @@ def _route_and_pack(xt: torch.Tensor, router: torch.Tensor, cfg, cap: int):
                                         min=1e-9)
     # Switch aux-loss statistics (sums; the caller normalizes)
     me_sum = probs.sum(dim=0)                                    # (E,)
-    ce_sum = torch.bincount(expert_idx[:, 0], minlength=e).float()
+    ce_sum = expert_counts(expert_idx[:, 0], e).float()
 
     flat_e = expert_idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=e)
+    counts = expert_counts(sorted_e, e)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=xt.device) - starts[sorted_e]
     keep = rank < cap
@@ -242,4 +251,5 @@ def apply_moe(p, x: torch.Tensor, cfg):
     return _apply_moe_local(p, x, cfg)
 
 
-__all__ = ["init_moe", "apply_moe", "top_k", "capacity", "moe_split"]
+__all__ = ["init_moe", "apply_moe", "top_k", "expert_counts", "capacity",
+           "moe_split"]

@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from .layers import _dense_init, cdtype, pdtype
+from .layers import _dense_init, cdtype, pdtype, remat
 
 _LORA = 32       # ddlerp LoRA rank
 _DECAY_LORA = 64
@@ -69,13 +68,12 @@ def _wkv_scan(r, k, v, w, u, s0, chunk: int = 64):
     chunk = min(chunk, seq)
     while seq % chunk:
         chunk //= 2
-    remat = torch.is_grad_enabled()
+    use_remat = torch.is_grad_enabled()
     xs = [t.transpose(0, 1) for t in (r, k, v, w)]
     s, ys = s0, []
     for i in range(0, seq, chunk):
         args = (s, *(t[i:i + chunk] for t in xs), u)
-        y, s = (checkpoint(_wkv_chunk, *args, use_reentrant=False) if remat
-                else _wkv_chunk(*args))
+        y, s = remat(_wkv_chunk, *args) if use_remat else _wkv_chunk(*args)
         ys.append(y)
     return torch.cat(ys).transpose(0, 1), s
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -115,9 +116,15 @@ def axis_group(mesh, axes):
     key = (id(mesh), axes)
     hit = _GROUPS.get(key)
     if hit is None or hit[0] is not mesh:
-        ranks = mesh.mesh
+        # the rank table is host bookkeeping: read with every dispatch mode
+        # off (under FakeTensorMode its ops would turn fake and have no
+        # values), then reshaped in numpy
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            ranks = np.array(mesh.mesh.tolist())
         rest = [i for i in range(ranks.ndim) if i not in dims]
-        rows = ranks.permute(*rest, *dims).reshape(
+        rows = ranks.transpose(*rest, *dims).reshape(
             -1, math.prod(ranks.shape[d] for d in dims)).tolist()
         group, _ = dist.new_subgroups_by_enumeration(rows)
         hit = _GROUPS[key] = (mesh, group)

@@ -31,13 +31,13 @@ keeping every unit's full weights alive (where the reference passes
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, cdtype, embed_tokens,
-                     init_embedding, init_lm_head, init_mlp, init_norm)
+                     init_embedding, init_lm_head, init_mlp, init_norm,
+                     remat)
 from .moe import apply_moe, init_moe
 
 _ATTN_KINDS = ("attn", "attn_local", "attn_bidir", "attn_cross")
@@ -245,7 +245,7 @@ def _run_units(units_params, x, cfg, pattern, mode, states=None,
     n_units = next(iter(tree_leaves(units_params))).shape[0]
     ups = _unstack(units_params, n_units)
     sts = [None] * n_units if states is None else _unstack(states, n_units)
-    remat = cfg.remat and torch.is_grad_enabled()
+    use_remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states = []
     for up, st in zip(ups, sts):
@@ -253,8 +253,7 @@ def _run_units(units_params, x, cfg, pattern, mode, states=None,
                                  pos_offset, skip_causal)
         if gather is not None:
             fn, args = _gathered_unit, (gather,) + args
-        x, a, new_st = (checkpoint(fn, *args, use_reentrant=False)
-                        if remat else fn(*args))
+        x, a, new_st = remat(fn, *args) if use_remat else fn(*args)
         aux = aux + a
         new_states.append(new_st)
     return x, aux, None if states is None else _stack(new_states)

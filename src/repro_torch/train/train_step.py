@@ -228,6 +228,20 @@ def make_mesh_loss_fn(cfg, rules, mesh, split_in, *, skip_causal=False):
     return loss_fn
 
 
+def rank_microbatches(rows: int, microbatches: int) -> int:
+    """The microbatches a rank's ``rows`` run in: ``microbatches``, or one
+    row each when the rank holds fewer rows than that (a 2 × 16 × 16
+    mesh gives jamba's 256-row batch 8 rows a rank for its 16
+    microbatches, where the reference hands 16-row microbatches to GSPMD
+    over 32 devices).  Raises when neither divides."""
+    if rows % microbatches == 0:
+        return microbatches
+    if microbatches % rows == 0:
+        return rows
+    raise ValueError(f"a rank's {rows} rows do not split into "
+                     f"{microbatches} microbatches")
+
+
 def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
                          skip_causal=False, donate=False, specs=None):
     """The step on ``mesh`` (``make_train_step(..., mesh=)``).  The state's
@@ -250,26 +264,23 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
             else ()
         local = {k: shard(v) for k, v in batch.items()}
         rows = len(local["tokens"])
-        if rows % microbatches:
-            raise ValueError(f"a rank's {rows} rows do not split into "
-                             f"{microbatches} microbatches")
-        rules = mesh_gather_rules(specs, mesh, cfg, split_in,
-                                  b // microbatches * s)
+        mb = rank_microbatches(rows, microbatches)
+        rules = mesh_gather_rules(specs, mesh, cfg, split_in, b // mb * s)
         loss_fn = make_mesh_loss_fn(cfg, rules, mesh, split_in,
                                     skip_causal=skip_causal)
         params = tree_map(_local, state.params)
         saved = dict(shard_ctx._CTX)
         shard_ctx.set_sharding_context(mesh, b_axes, split=split_in)
         try:
-            rows //= microbatches
+            rows //= mb
             nll = aux = grads = None
-            for i in range(microbatches):
+            for i in range(mb):
                 micro = {k: v[i * rows:(i + 1) * rows]
                          for k, v in local.items()}
                 _, ex, g = value_and_grad(loss_fn, params, micro)
                 n = shard_ctx.reduce_sum(ex["nll"], mesh, split_in)
                 if grads is None:
-                    grads = g if microbatches == 1 else tree_map(
+                    grads = g if mb == 1 else tree_map(
                         lambda t: t.float(), g)
                     nll, aux = n, ex["moe_aux"]
                 else:
@@ -277,11 +288,11 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
                     nll, aux = nll + n, aux + ex["moe_aux"]
         finally:
             shard_ctx._CTX.update(saved)
-        loss = (nll + aux) / microbatches
-        if microbatches == 1:
+        loss = (nll + aux) / mb
+        if mb == 1:
             extras = {"nll": nll, "moe_aux": aux}
         else:
-            tree_map(lambda a: a.div_(microbatches), grads)
+            tree_map(lambda a: a.div_(mb), grads)
             extras = {"nll": loss, "moe_aux": torch.zeros_like(loss)}
         new_params, new_opt, om = adamw_update(
             state.params, grads, state.opt, opt_cfg, in_place=donate,
@@ -295,4 +306,4 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
 __all__ = ["TrainState", "init_train_state", "cast_params_for_compute",
            "make_loss_fn", "make_train_step", "make_sparse_value_train_step",
            "value_and_grad", "mesh_gather_rules", "make_mesh_loss_fn",
-           "make_mesh_train_step"]
+           "make_mesh_train_step", "rank_microbatches"]

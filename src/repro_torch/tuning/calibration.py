@@ -14,10 +14,12 @@ amortize forever):
 1. **measure** (:func:`measure_suite`) — time every eligible format on a
    calibration suite with the tuner's ``_time_spmv`` (CUDA events on a
    card, the host clock on the CPU), and record beside each timing the
-   cost model's per-term byte split (``cost.estimate_terms``).  The
-   reference also records the compiled program's HLO bytes as a
-   cross-check column; the port has no HLO, so ``hlo_bytes`` is None (the
-   column was never a fit input);
+   cost model's per-term byte split (``cost.estimate_terms``) and, as a
+   cross-check column (never a fit input), the bytes one apply's ops
+   read and write (``hlo_bytes``: ``roofline.op_cost``'s count, the
+   port's stand-in for the reference's HLO bytes).  A dispatch mode sees
+   every aten op but not a hand-written kernel launched through ctypes,
+   so a format whose applies launch one (``kernel="cuda"``) keeps None;
 2. **fit** (:func:`fit`) — least-squares a per-term *effective time per
    byte* plus a per-format *dispatch intercept* (seconds), clamped
    non-negative;
@@ -191,8 +193,9 @@ def measure_suite(names: Optional[Sequence[str]] = None, dtype=None, *,
 
     Returns one sample dict per (matrix, format): ``matrix``, ``format``,
     ``measured_s``, ``terms`` (per-``cost.TERMS`` byte split),
-    ``modeled_bytes`` (their sum) and ``hlo_bytes`` (None: see the module
-    docstring).  The EHYB family shares one host build per matrix, on bfs
+    ``modeled_bytes`` (their sum) and ``hlo_bytes`` (one apply's op
+    bytes, None for a format that launches hand-written kernels: see the
+    module docstring).  The EHYB family shares one host build per matrix, on bfs
     partitions at the geometry a plan on ``device`` builds
     (``api.plan.partition_sizing``).  On the CPU the formats whose applies
     launch CUDA kernels (``kernel="cuda"``) are skipped — their CPU
@@ -259,9 +262,19 @@ def measure_suite(names: Optional[Sequence[str]] = None, dtype=None, *,
                 "matrix": name, "format": f, "measured_s": float(t),
                 "terms": {tk: int(tv) for tk, tv in terms.items()},
                 "modeled_bytes": int(sum(terms.values())),
-                "hlo_bytes": None,
+                "hlo_bytes": (None if spec.kernel == "cuda"
+                              else _op_bytes(spec.apply, obj, x)),
             })
     return samples
+
+
+def _op_bytes(apply, obj, x) -> float:
+    """Bytes the ops of one ``apply(obj, x)`` read and write
+    (``roofline.op_cost``'s upper count: operands plus results of every
+    op but views and allocations)."""
+    from ..roofline.op_cost import count
+
+    return float(count(apply, obj, x, hold=(x,))["bytes"])
 
 
 # ---------------------------------------------------------------------------

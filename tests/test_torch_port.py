@@ -178,7 +178,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.models.rwkv', 'repro_torch.examples.train_lm',"
         " 'repro_torch.examples.sparse_ffn_lm',"
         " 'repro_torch.launch.mesh', 'repro_torch.launch.sharding',"
-        " 'repro_torch.launch.dryrun', 'repro_torch.models.shard_ctx']\n"
+        " 'repro_torch.launch.dryrun', 'repro_torch.models.shard_ctx',"
+        " 'repro_torch.roofline', 'repro_torch.roofline.analysis',"
+        " 'repro_torch.roofline.op_cost', 'repro_torch.roofline.summarize']\n"
         "print(n, bad, [k for k in need if k not in sys.modules])\n"
         "assert not bad, bad\n"
         "assert all(k in sys.modules for k in need)\n")

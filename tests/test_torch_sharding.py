@@ -240,7 +240,8 @@ def test_specs_match_reference(reference, arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_dryrun_bytes_match_reference(reference, arch, tmp_path,
                                       monkeypatch):
-    """Each cell's per-device argument bytes equal the reference's sum of
+    """Each cell's per-device argument bytes (``memory.argument_bytes``,
+    the argument half: ``cost=False``) equal the reference's sum of
     ``shard_shape`` bytes; ``long_500k`` skips on full-attention
     architectures; records land under the output directory."""
     monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
@@ -248,15 +249,16 @@ def test_dryrun_bytes_match_reference(reference, arch, tmp_path,
     for multi in (False, True):
         for name in SHAPES:
             rec = dryrun.run_cell(arch, name, multi, verbose=False,
-                                  device_bytes=80 * 2**30)
+                                  device_bytes=80 * 2**30, cost=False)
             key = f"{arch}|{name}|{rec['mesh']}"
             if name not in cfg.shapes:
                 assert rec["status"] == "SKIP" and key not in \
                     reference["bytes"]
                 continue
             assert rec["status"] == "OK", rec
-            assert rec["bytes_per_device"] == reference["bytes"][key], key
-            assert rec["fits"] == (rec["bytes_per_device"] <= 80 * 2**30)
+            args = rec["memory"]["argument_bytes"]
+            assert args == reference["bytes"][key], key
+            assert rec["fits"] == (args <= 80 * 2**30)
             assert rec["chips"] == (512 if multi else 256)
             assert (tmp_path / rec["mesh"] / f"{arch}__{name}.json").exists()
     n = dryrun.count_params(_abstract(arch)[0])
@@ -267,10 +269,11 @@ def test_dryrun_bytes_match_reference(reference, arch, tmp_path,
 def test_dryrun_cli_counts_cells(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
     assert dryrun.main(["--arch", "rwkv6_7b", "--device-bytes",
-                        str(2**30)]) == 0
+                        str(2**30), "--args-only"]) == 0
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("dry-run complete: 8 OK, 0 SKIP, 0 FAIL")
-    assert dryrun.main(["--arch", "llama3_2_1b", "--mesh", "single"]) == 0
+    assert dryrun.main(["--arch", "llama3_2_1b", "--mesh", "single",
+                        "--args-only"]) == 0
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert "3 OK, 1 SKIP, 0 FAIL" in last
 

@@ -293,7 +293,10 @@ def test_measure_suite_terms_equal_reference_estimate_terms():
             want = jat.estimate_terms(m, f, 4, shared)
             assert s["terms"] == {t: int(v) for t, v in want.items()}
             assert s["modeled_bytes"] == sum(want.values())
-            assert s["hlo_bytes"] is None and s["measured_s"] > 0
+            assert s["measured_s"] > 0
+            # the cross-check column: one plain apply's op bytes, which
+            # read every stored value at least once (fp32)
+            assert s["hlo_bytes"] >= 4 * m.nnz, (name, f, s["hlo_bytes"])
 
 
 def test_calibrate_persists_installs_and_reports(tmp_path):
