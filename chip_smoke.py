@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven main paths, each driven with every kernel's launch count set to 0
+Twelve main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -115,7 +115,17 @@ just before it and read just after:
   predicted peak and flops held to the card's own step (10 %, 1 %), and
   llama3_2_1b and moonshot ``train_4k`` costed on the production meshes
   (rank 0 of a fake group of 256 and 512 ranks): flops a device, useful
-  ratio, dominant roofline term, peak and fit, with no FAIL.
+  ratio, dominant roofline term, peak and fit, with no FAIL; and the
+  headroom the dry run's ``fits`` keeps (the CUDA context and the
+  allocator's reserve over the allocated bytes at that step's peak),
+  logged beside ``dryrun.HEADROOM_BYTES``;
+* the mesh prefill and decode (11j), in its own one-rank NCCL group:
+  llama3_2_1b at full width, a prefill of 4 × 512 tokens and 16 decode
+  steps through ``prefill(..., mesh=)``, ``decode_step(..., mesh=)`` and
+  ``serve_logits`` against the unsharded path on the same weights (logits
+  1e-4, the caches, prefill and decode ms), and the same decode step
+  costed by ``roofline.op_cost`` on a fake one-rank CPU mesh against the
+  card's own (peak 10 %, flops 1 %).
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -159,6 +169,13 @@ round (default one round): ``OTHER_SRC``'s ``repro_torch`` (an unpacked
 logs each one's step ms (the first step of each run is a warm-up) beside
 the card's name and power limit: whether a change of the mesh step's time
 between two runs comes from the code or from the run.
+
+    python3 chip_smoke.py --serve-decode-ab OTHER_SRC [ROUNDS]
+
+does the same for 11f's serving: its 4-slot engine serves its 12 requests
+once, then three times timed (each prefill and decode step), and the
+unsharded trunk's ``decode_step`` runs 40 times alone (4 rows at the
+engine's 512-deep cache, no head); it logs each process's medians.
 """
 
 import collections
@@ -2347,6 +2364,222 @@ ROOFLINE_CELLS = ("llama3_2_1b", "moonshot_v1_16b_a3b")
 PEAK_TOL = 0.10                # the fake run's peak against the card's
 FLOPS_TOL = 0.01               # its flops against the card step's
 
+# phase 11j: the mesh prefill of 4 × 512 tokens, then 16 decode steps
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 4, 512, 16
+SERVE_MESH_LEN = 1024          # the cache's depth
+SERVE_MESH_TOL = 1e-4          # mesh logits against the unsharded path's
+
+
+# the costed decode step's fake run, in a process of its own: rank 0 of one
+# rank on a 1 × 1 CPU mesh; argv is (arch, batch, depth, pos, out file)
+SERVE_CELL_CHILD = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+arch, b, s, pos, out = sys.argv[1:6]
+dryrun.fake_group(1)
+res = dryrun.cost_serve_step(get_config(arch), make_host_mesh(1, 1, "cpu"),
+                             ShapeConfig("card", int(s), int(b), "decode"),
+                             pos=int(pos))
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
+    """The mesh prefill and decode (phase 11j), in its own one-rank NCCL
+    group (an in-memory store), destroyed at its end.
+
+    a. llama3_2_1b at full width and depth (16 layers, d 2048, bf16
+       compute, fp32 weights from ``SEED``): ``prefill`` of 4 × 512
+       tokens into a 1,024-deep bf16 cache, then 16 ``decode_step``s of
+       seeded tokens, unsharded and then on ``make_host_mesh(1, 1,
+       "cuda")`` (``prefill(..., mesh=)``, ``decode_step(..., mesh=)``,
+       ``serve_logits`` of the weights prepared once by ``mesh_params``)
+       from the same weights: every
+       step's logits within ``SERVE_MESH_TOL`` of the largest, the final
+       caches alike, the mesh state written in place; in turns (plain,
+       mesh, mesh, plain), ms of a warm-up prefill, of the timed prefill
+       and of each decode step.
+    b. The same decode step costed by ``roofline.op_cost``: on a fake
+       1 × 1 CPU mesh in a subprocess (the dry run's replay) and on the
+       card in the one-rank group under the same counter
+       (``dryrun.cost_serve_step(..., fake=False)``): the fake peak
+       within ``PEAK_TOL`` of ``max_memory_allocated`` above what was
+       held before the arguments were built (the peak reset once they
+       are), the flops within ``FLOPS_TOL``.
+
+    No hand-written kernel may launch: the dense logits reach none."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_specs
+    from repro_torch.models import decode_step, init_decode_state, init_model
+    from repro_torch.models import prefill
+    from repro_torch.models.transformer import (mesh_params, serve_logits,
+                                                tree_leaves)
+
+    t_phase = time.perf_counter()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    cfg = get_config("llama3_2_1b")
+    b, p, n = SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS
+    pos_cost = p + n
+    tmp = Path(tempfile.mkdtemp(prefix="serve_mesh_", dir=ROOT / "build"))
+    child = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, "cuda")
+        # -- a. the mesh prefill and decode against the unsharded path ------
+        params = init_model(SEED, cfg, device=dev)
+        prepared = mesh_params(params, cfg, mesh,
+                               param_specs(params, mesh, cfg))
+        gen = torch.Generator(dev).manual_seed(SEED + 11)
+        prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen,
+                               device=dev)
+        steps = torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
+                              device=dev)
+        runs = {"plain": [], "mesh": []}
+        # in turns (plain, mesh, mesh, plain); each run's first prefill is
+        # a warm-up on a state of its own (a new group's first collective
+        # creates its communicator), its second is timed
+        for name in ("plain", "mesh", "mesh", "plain"):
+            src = prepared if name == "mesh" else params
+            kw = {"mesh": mesh} if name == "mesh" else {}
+            logit_kw = dict(kw, global_batch=b) if kw else {}
+            for warm in (True, False):
+                state = init_decode_state(cfg, b, SERVE_MESH_LEN,
+                                          torch.bfloat16, device=dev)
+                handed = state
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    h, state = prefill(src, {"tokens": prompt}, cfg,
+                                       state, **kw)
+                    logits = [serve_logits(src, h, cfg,
+                                           **logit_kw).float()]
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                if warm:
+                    warm_ms = prefill_ms
+                    del state, handed
+            ms = []
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    h, state = decode_step(src, steps[i], cfg, state,
+                                           p + i, **kw)
+                    logits.append(serve_logits(src, h, cfg,
+                                               **logit_kw).float())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[name].append({
+                "logits": [x.cpu() for x in logits],
+                "state": [t.cpu() for t in tree_leaves(state)],
+                "warm_prefill_ms": warm_ms, "prefill_ms": prefill_ms,
+                "decode_ms": ms, "in_place": state is handed})
+            del state, handed, h, logits
+            torch.cuda.empty_cache()
+        first = {k: v[0] for k, v in runs.items()}
+        errs = [rel_to_largest(a, b_) for a, b_ in zip(
+            first["mesh"]["logits"], first["plain"]["logits"])]
+        state_err = max(rel_to_largest(a.float(), b_.float()) for a, b_ in
+                        zip(first["mesh"]["state"], first["plain"]["state"]))
+
+        def each(name, key):
+            return [r[key] for r in runs[name]]
+
+        log("mesh-serve", card=repr(smi), model=cfg.name, mesh="(1, 1)",
+            batch=b, prompt=p, decode_steps=n, cache_len=SERVE_MESH_LEN,
+            order="plain mesh mesh plain",
+            logits_rel_err_max=max(errs), state_rel_err=state_err,
+            mesh_state_in_place=all(each("mesh", "in_place")),
+            warm_prefill_ms_plain=each("plain", "warm_prefill_ms"),
+            warm_prefill_ms_mesh=each("mesh", "warm_prefill_ms"),
+            prefill_ms_plain=each("plain", "prefill_ms"),
+            prefill_ms_mesh=each("mesh", "prefill_ms"),
+            decode_ms_plain_median=[statistics.median(m) for m in
+                                    each("plain", "decode_ms")],
+            decode_ms_mesh_median=[statistics.median(m) for m in
+                                   each("mesh", "decode_ms")],
+            decode_ms_plain=each("plain", "decode_ms"),
+            decode_ms_mesh=each("mesh", "decode_ms"))
+        check(max(errs) <= SERVE_MESH_TOL,
+              f"the mesh prefill and decode against the unsharded path: "
+              f"{errs}")
+        check(state_err <= SERVE_MESH_TOL, f"the mesh caches against the "
+              f"unsharded path's: {state_err}")
+        check(all(each("mesh", "in_place")),
+              "the mesh state written in place")
+        del params, prepared, src, runs, first, prompt, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- b. the decode step costed on the card and on a fake rank ---------
+        # (the fake run starts after a's timings: it would share the host)
+        child = subprocess.Popen(
+            [sys.executable, "-c", SERVE_CELL_CHILD, cfg.name, str(b),
+             str(SERVE_MESH_LEN), str(pos_cost), str(tmp / "fake.json")],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        base = torch.cuda.memory_allocated(dev)
+
+        def ready():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        card = dryrun.cost_serve_step(
+            cfg, mesh, ShapeConfig("card", SERVE_MESH_LEN, b, "decode"),
+            fake=False, pos=pos_cost, ready=ready)
+        torch.cuda.synchronize()
+        peak_card = torch.cuda.max_memory_allocated(dev) - base
+    finally:
+        dist.destroy_process_group()
+        if child is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _, err = child.communicate(timeout=600)
+        check(child.returncode == 0, f"the decode step's fake run: "
+              f"{err[-2000:]}")
+        fk = json.loads((tmp / "fake.json").read_text())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak_err = abs(fk["peak_bytes"] - peak_card) / peak_card
+    flops_err = abs(fk["flops"] - card["flops"]) / card["flops"]
+    log("mesh-serve-cost", card=repr(smi), model=cfg.name, mesh="(1, 1)",
+        batch=b, cache_len=SERVE_MESH_LEN, pos=pos_cost,
+        peak_predicted=fk["peak_bytes"], held_predicted=fk["held_bytes"],
+        peak_card=peak_card, peak_rel_err=peak_err,
+        flops_predicted=fk["flops"], flops_card=card["flops"],
+        flops_rel_err=flops_err, coll_bytes=fk["coll_bytes"],
+        coll_bytes_card=card["coll_bytes"], regions=fk["regions"],
+        fake_s=round(fk["seconds"], 3), card_s=round(card["seconds"], 3))
+    check(peak_err <= PEAK_TOL, f"the decode step's predicted peak "
+          f"{fk['peak_bytes']} against the card's {peak_card}")
+    check(flops_err <= FLOPS_TOL, f"the decode step's flops {fk['flops']} "
+          f"against the card's {card['flops']}")
+    launches = {k: f.launches for k, f in all_kernels.items()}
+    check(not any(launches.values()),
+          f"the mesh serve phase launched a hand-written kernel: {launches}")
+    log("mesh-serve-phase", card=repr(smi),
+        seconds=round(time.perf_counter() - t_phase, 3))
+
 
 def roofline_phase(dev, smi: str, all_kernels: dict, step_ms: list) -> None:
     """The dry run's cost half (phase 11i): ``roofline.op_cost`` over one
@@ -2414,6 +2647,14 @@ def roofline_phase(dev, smi: str, all_kernels: dict, step_ms: list) -> None:
             torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
             peak_card = torch.cuda.max_memory_allocated(dev) - base
+            # what the process holds beyond its live tensors: the CUDA
+            # context (and NCCL's and the libraries' own buffers) outside
+            # the caching allocator, plus the allocator's reserve over the
+            # allocated bytes at this cell's peak: the dry run's headroom
+            free, whole = torch.cuda.mem_get_info(dev)
+            outside = (whole - free) - torch.cuda.memory_reserved(dev)
+            reserve = (torch.cuda.max_memory_reserved(dev)
+                       - torch.cuda.max_memory_allocated(dev))
         finally:
             dist.destroy_process_group()
         gc.collect()
@@ -2451,6 +2692,11 @@ def roofline_phase(dev, smi: str, all_kernels: dict, step_ms: list) -> None:
                          ("compute_s", "memory_s", "collective_s")},
             dominant=terms.dominant, useful_ratio=terms.useful_ratio,
             step_ms_measured_11h=step_ms)
+        log("roofline-headroom", card=repr(smi), context_bytes=outside,
+            reserve_over_allocated_bytes=reserve,
+            headroom_bytes=outside + reserve,
+            dryrun_headroom_bytes=dryrun.HEADROOM_BYTES,
+            headroom_over_dryrun=(outside + reserve) / dryrun.HEADROOM_BYTES)
         check(peak_err <= PEAK_TOL, f"the card cell's predicted peak "
               f"{fk['peak_bytes']} against the card's {peak_card}")
         check(flops_err <= FLOPS_TOL, f"the card cell's flops "
@@ -2538,22 +2784,119 @@ with open(sys.argv[2], "w") as f:
 """
 
 
-def mesh_step_ab(other_src: str, smi: str, rounds: int = 1) -> None:
-    """``--mesh-step-ab``: 11h's steps timed from ``other_src`` and from
-    this checkout, other · this · this · other a round, each in a fresh
-    process."""
+# one process of ``--serve-decode-ab``: argv is (src dir, out file); 11f's
+# 4-slot engine serves its 12 requests once (the head's kernel is built
+# then), then SERVE_AB_ROUNDS times timed; then the unsharded trunk's
+# decode_step alone, 4 rows at the engine's depth, no head
+SERVE_AB_ROUNDS, TRUNK_STEPS = 3, 40
+SERVE_DECODE_CHILD = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from repro_torch.configs import get_config
+from repro_torch.models import decode_step, init_decode_state, init_model
+from repro_torch.serve import Request, ServeEngine
+
+kw, n_req, new, seed, rounds, n_trunk = json.loads(sys.argv[3])
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+cfg = get_config("llama3_2_1b")
+params = init_model(torch.Generator(dev).manual_seed(seed), cfg)
+eng = ServeEngine(params, cfg, batch=4, device=dev, **kw)
+rng = np.random.default_rng(seed)
+lens = rng.integers(4, kw["max_prompt"] + 1, n_req)
+prompts = [rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32)
+           for n in lens]
+uid = [0]
+
+
+def serve():
+    for p in prompts:
+        eng.submit(Request(uid=uid[0], prompt=p, max_new_tokens=new))
+        uid[0] += 1
+    return eng.run_until_done()
+
+
+serve()
+step_s = {"prefill": [], "decode": []}
+real = eng._guarded_call
+
+
+def timed(which, *args):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = real(which, *args)
+    torch.cuda.synchronize()
+    step_s[which].append(time.perf_counter() - t)
+    return out
+
+
+eng._guarded_call = timed
+for _ in range(rounds):
+    serve()
+del eng._guarded_call, eng
+state = init_decode_state(cfg, 4, kw["max_len"], torch.bfloat16, device=dev)
+tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+trunk = []
+with torch.no_grad():
+    for i in range(n_trunk):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, state = decode_step(params, tok, cfg, state, kw["max_prompt"] + i)
+        torch.cuda.synchronize()
+        trunk.append(time.perf_counter() - t)
+out = {"src": sys.argv[1],
+       "engine_decode_ms": [1e3 * x for x in step_s["decode"]],
+       "engine_prefill_ms": [1e3 * x for x in step_s["prefill"]],
+       "trunk_decode_ms": [1e3 * x for x in trunk]}
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def ab_runs(child: str, other_src: str, rounds: int, *args) -> tuple:
+    """``child`` (argv: src dir, out file, ``args``) from ``other_src``
+    and from this checkout, other · this · this · other a round, each in
+    a fresh process: (other's src dir, every run's JSON)."""
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         order = [str(Path(other_src).resolve()), str(ROOT / "src")]
         srcs = [order[0], order[1], order[1], order[0]] * rounds
         for i, src in enumerate(srcs):
             out = Path(tmp) / f"run{i}.json"
-            subprocess.run([sys.executable, "-c", MESH_STEP_CHILD, src,
-                            str(out)], check=True, timeout=600)
+            subprocess.run([sys.executable, "-c", child, src, str(out),
+                            *args], check=True, timeout=600)
             runs.append(json.loads(out.read_text()))
+    return order[0], runs
+
+
+def serve_decode_ab(other_src: str, smi: str, rounds: int = 1) -> None:
+    """``--serve-decode-ab``: 11f's engine decode and the unsharded
+    trunk's decode step timed from ``other_src`` and from this checkout
+    (:func:`ab_runs`)."""
+    other, runs = ab_runs(SERVE_DECODE_CHILD, other_src, rounds, json.dumps(
+        [SERVE_KW, SERVE_REQUESTS, SERVE_NEW, SEED, SERVE_AB_ROUNDS,
+         TRUNK_STEPS]))
+    for i, r in enumerate(runs):
+        log("serve-decode-ab", card=repr(smi), run=i,
+            tree="other" if r["src"] == other else "this",
+            engine_decode_steps=len(r["engine_decode_ms"]),
+            engine_decode_median_ms=statistics.median(r["engine_decode_ms"]),
+            engine_prefill_median_ms=statistics.median(
+                r["engine_prefill_ms"]),
+            trunk_decode_median_ms=statistics.median(
+                r["trunk_decode_ms"][1:]),
+            trunk_decode_ms=[round(x, 2) for x in r["trunk_decode_ms"]])
+
+
+def mesh_step_ab(other_src: str, smi: str, rounds: int = 1) -> None:
+    """``--mesh-step-ab``: 11h's steps timed from ``other_src`` and from
+    this checkout (:func:`ab_runs`)."""
+    order0, runs = ab_runs(MESH_STEP_CHILD, other_src, rounds)
     for i, r in enumerate(runs):
         log("mesh-step-ab", card=repr(smi), run=i,
-            tree="other" if r["src"] == order[0] else "this",
+            tree="other" if r["src"] == order0 else "this",
             plain_ms=[round(x, 1) for x in r["plain_ms"]],
             mesh_ms=[round(x, 1) for x in r["mesh_ms"]],
             plain_median_ms=round(r["plain_median_ms"], 1),
@@ -2567,14 +2910,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    if sys.argv[1:2] == ["--mesh-step-ab"]:
+    ab = {"--mesh-step-ab": mesh_step_ab,
+          "--serve-decode-ab": serve_decode_ab}.get(
+              sys.argv[1] if len(sys.argv) > 1 else None)
+    if ab is not None:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip()
         print(smi, flush=True)
-        mesh_step_ab(sys.argv[2], smi, int(sys.argv[3]) if
-                     len(sys.argv) > 3 else 1)
+        ab(sys.argv[2], smi, int(sys.argv[3]) if len(sys.argv) > 3 else 1)
         return 0
     t0 = time.perf_counter()
     rows = run(torch.device("cuda"), NX)
@@ -3800,6 +4145,11 @@ def run(dev, nx: int) -> list:
     # flops against the card's step, and four production cells
     roofline_phase(dev, smi, all_kernels, step_ms_mesh)
     healthy("roofline")
+
+    # ---- 11j. the mesh prefill and decode: llama3_2_1b at full width on a
+    # one-rank mesh against the unsharded path, and its decode step costed
+    mesh_serve_phase(dev, smi, all_kernels)
+    healthy("mesh-serve")
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)

@@ -40,16 +40,28 @@ call, a scan chunk inside a unit running in the unit's measurement
 (``op_cost``'s repeats: its counts and its peak are the unrolled run's).  Each cell runs in a
 subprocess of its own: the fake group is the process's default group.
 
-A serving cell has no cost yet (``"cost": null`` and ``cost_reason``):
-its decode state shards the KV cache by heads over `model`, so a mesh
-prefill or decode needs head-parallel attention, which the port does not
-have.  ``fits`` compares the peak with ``--device-bytes`` (default: the
-card's ``total_memory`` when there is a card) where there is a peak, else
-the argument bytes.  Full-attention architectures skip ``long_500k``, as
+**The cost** (serving cells of attention, MLP and MoE architectures).  The
+same fake rank runs :func:`cost_serve_step`, the reference's
+``build_cell`` serving branch on the port's mesh prefill and decode
+(``models.transformer.prefill(..., mesh=)`` / ``decode_step(...,
+mesh=)``, then ``serve_logits``: the logits kept vocab-sharded): bf16
+weights for the ≥ 2-D fp32 leaves, the decode state of
+``init_decode_state`` under ``state_specs``, the tokens under
+``batch_specs``, the triangular block enumeration for prefill, and the
+state donated (written in place: its storages are the output's).  Each
+unit is measured once per signature and replayed.  The serving cells of
+Mamba and RWKV architectures wait with ``"cost": null`` and
+``cost_reason`` (``SERVE_REASON``).
+
+``fits`` compares the peak plus ``HEADROOM_BYTES`` (what a process holds
+on the card beyond its live tensors) with ``--device-bytes`` (default:
+the card's ``total_memory`` when there is a card) where there is a peak,
+else the argument bytes; ``margin_bytes`` is what is left.  Full-attention architectures skip ``long_500k``, as
 in the reference.  Records go to ``build/dryrun/<mesh>/<arch>__<shape>
 .json``; a re-run reads a recorded cell unless ``--force``, or unless the
-record has no cost and a cost is asked for.  A cell whose fake run raises
-is recorded FAIL (the CLI then exits 1).
+record has no cost and a cost is asked for (a record read back is
+rewritten with its fit on the device asked about).  A cell whose fake run
+raises is recorded FAIL (the CLI then exits 1).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] \\
       [--shape S] [--mesh single|multi|both] [--force] [--args-only] \\
@@ -81,10 +93,18 @@ from .sharding import (_map_with_path, batch_specs, local_size_bytes,
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "dryrun")
 MESHES = {False: "single_pod_16x16", True: "multi_pod_2x16x16"}
-SERVE_REASON = ("no cost: the decode state shards the KV cache by heads "
-                "over `model`, so a mesh prefill or decode needs "
-                "head-parallel attention (tensor-parallel compute), which "
-                "the port does not have yet")
+SERVE_REASON = ("no cost: the mesh prefill and decode run attention, MLP "
+                "and MoE blocks; the Mamba (d_inner) and RWKV (heads) "
+                "state splits over `model` and the long_500k context "
+                "parallelism wait for ROADMAP Queue 1 item 12c")
+# what a process holds on the card beyond its live tensors, as phase 11i
+# of chip_smoke.py measured it on an NVIDIA H100 80GB HBM3 at 700 W: the
+# CUDA context (and NCCL's and the libraries' buffers outside the caching
+# allocator), 1,378,746,368 bytes, plus the allocator's reserve over the
+# allocated bytes at the peak of the card cell's train step (llama3_2_1b,
+# 4 × 512 tokens, a one-rank mesh), 14,313,505,280 bytes
+HEADROOM_BYTES = 15_692_251_648
+SERVE_MIXERS = ("attn", "attn_local", "attn_bidir", "attn_cross")
 
 
 def _fake(fn):
@@ -232,9 +252,118 @@ def cost_train_step(cfg, mesh, global_batch: int, seq_len: int, *,
     return res
 
 
+def serve_params(params) -> dict:
+    """The serving weights: bf16 for the ≥ 2-D fp32 leaves (the
+    reference's ``build_cell``), the others as they are."""
+    def cast(t):
+        return t.to(torch.bfloat16) if t.dtype == torch.float32 and \
+            t.ndim >= 2 else t
+    return {k: serve_params(v) if isinstance(v, dict) else cast(v)
+            for k, v in params.items()}
+
+
+def serve_costed(cfg, shape_name: str) -> bool:
+    """Whether a serving cell of ``cfg`` runs the mesh prefill or decode:
+    attention, MLP and MoE blocks only, and no context parallelism."""
+    mixers = [m for m, _ in tuple(cfg.unit_pattern)
+              + tuple(cfg.enc_unit_pattern)]
+    return shape_name != "long_500k" and all(m in SERVE_MIXERS
+                                             for m in mixers)
+
+
+def _distribute(tree, specs, mesh):
+    from .sharding import shard_leaf
+
+    if isinstance(tree, dict):
+        return {k: _distribute(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_leaf(tree, specs, mesh)
+
+
+def cost_serve_step(cfg, mesh, shape, *, fake: bool = True, pos=None,
+                    ready=None) -> dict:
+    """``op_cost``'s count of one serving step of ``cfg`` (``shape``: a
+    prefill or decode ``ShapeConfig``) on ``mesh``, under
+    ``FakeTensorMode`` (``fake=False``: real tensors on the mesh's
+    device), as the reference's ``build_cell`` serving branch builds it:
+    ``serve_params`` of ``init_model(0)`` placed by ``param_specs``,
+    the zero decode state of ``init_decode_state`` placed by
+    ``state_specs``, zero tokens (and encoder frames) placed by
+    ``batch_specs``; then the mesh ``prefill`` (block-skipping causal) or
+    ``decode_step`` at ``pos`` (default the last position) and
+    ``serve_logits`` (vocab-sharded).  A fake run replays the measured
+    units.  The state is donated: written in place, its storages are the
+    step's output.  ``ready()``, when given, is called once the arguments
+    are built, just before the step (a card run resets its peak memory
+    there: building the serving weights from fp32 ones passes through more
+    memory than the step holds).  Keys as :func:`cost_train_step`'s, and
+    ``logits_shape``."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..models.transformer import (decode_step, mesh_params, prefill,
+                                      serve_logits)
+    from ..roofline.op_cost import OpCost, local_tensors
+    from .mesh import mesh_device
+    from .sharding import distribute_params
+
+    t0 = time.perf_counter()
+    b, s = shape.global_batch, shape.seq_len
+    dev = mesh_device(mesh)
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        params = mesh_params(distribute_params(serve_params(
+            init_model(0, cfg, device=dev)), mesh, cfg), cfg, mesh)
+        enc_len = s if cfg.family == "encdec" else 0
+        state = init_decode_state(cfg, b, s, torch.bfloat16,
+                                  enc_len=enc_len, device=dev)
+        state = _distribute(state, state_specs(state, mesh, cfg,
+                                               global_batch=b), mesh)
+        if shape.kind == "prefill":
+            batch = {"tokens": torch.zeros((b, s), dtype=torch.int32,
+                                           device=dev)}
+            if cfg.family == "encdec":
+                batch["enc_frames"] = torch.zeros(
+                    (b, s, cfg.d_model), dtype=torch.bfloat16, device=dev)
+        else:
+            batch = {"tokens": torch.zeros((b, 1), dtype=torch.int32,
+                                           device=dev)}
+        batch = _distribute(batch, batch_specs(batch, mesh, global_batch=b,
+                                               cfg=cfg), mesh)
+        args = (params, state, batch)
+        if shape.kind == "decode":
+            pos_t = torch.tensor(s - 1 if pos is None else pos,
+                                 dtype=torch.int32, device=dev)
+            args += (pos_t,)
+        if ready is not None:
+            ready()
+        cost = OpCost(mesh, scaled=fake)
+        cost.hold(*args)
+        held = {id(t.untyped_storage()) for t in local_tensors(args)}
+        with cost:
+            if shape.kind == "prefill":
+                h, new_state = prefill(params, batch, cfg, state, mesh=mesh,
+                                       skip_causal=True)
+            else:
+                h, new_state = decode_step(params, batch["tokens"], cfg,
+                                           state, pos_t, mesh=mesh)
+            logits = serve_logits(params, h, cfg, mesh=mesh,
+                                  global_batch=b)
+        out = {}
+        for t in local_tensors((logits, new_state)):
+            st = t.untyped_storage()
+            out[id(st)] = (int(st.nbytes()), id(st) in held)
+        res = cost.result()
+        res["logits_shape"] = list(logits.shape)
+    res["held_bytes"] = res.pop("argument_bytes")
+    res["output_bytes"] = sum(n for n, _ in out.values())
+    res["alias_bytes"] = sum(n for n, a in out.values() if a)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def cost_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
-    """The cost of one production train cell, in this process: rank 0 of
-    a fake group of the mesh's size (the process must have no group)."""
+    """The cost of one production cell, in this process: rank 0 of a fake
+    group of the mesh's size (the process must have no group)."""
     import torch.distributed as dist
 
     from .mesh import make_production_mesh
@@ -245,6 +374,8 @@ def cost_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     fake_group(size)
     try:
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        if shape.kind != "train":
+            return cost_serve_step(cfg, mesh, shape)
         return cost_train_step(cfg, mesh, shape.global_batch, shape.seq_len)
     finally:
         dist.destroy_process_group()
@@ -313,11 +444,24 @@ def cost_record(cfg, shape, chips: int, c: dict, params, arg_bytes: int,
     }
 
 
-def _fits(rec, device_bytes):
+def _margin(rec, device_bytes):
+    """The bytes left on a device of ``device_bytes`` beside the cell's
+    peak (its arguments when it has no cost) and ``HEADROOM_BYTES``, or
+    None."""
     if device_bytes is None or rec.get("status") != "OK":
         return None
-    return rec["memory"]["peak_estimate_bytes" if "flops_per_device" in rec
-                         else "argument_bytes"] <= device_bytes
+    need = rec["memory"]["peak_estimate_bytes" if "flops_per_device" in rec
+                         else "argument_bytes"]
+    return device_bytes - HEADROOM_BYTES - need
+
+
+def _fit(rec, device_bytes) -> None:
+    """Sets the record's ``device_bytes``, ``margin_bytes`` and ``fits``."""
+    margin = _margin(rec, device_bytes)
+    rec["device_bytes"] = device_bytes
+    rec["headroom_bytes"] = HEADROOM_BYTES
+    rec["margin_bytes"] = margin
+    rec["fits"] = None if margin is None else margin >= 0
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
@@ -329,18 +473,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
     out_dir = os.path.join(OUT_DIR, mesh_name)
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{arch}__{shape_name}.json")
+    cfg = get_config(arch)
     train = SHAPES[shape_name].kind == "train"
-    want_cost = cost and train
+    costed_kind = train or serve_costed(cfg, shape_name)
+    want_cost = cost and costed_kind
     if os.path.exists(out_path) and not force and costed is None:
         with open(out_path) as f:
             rec = json.load(f)
         if rec["status"] != "OK" or not want_cost or \
                 "flops_per_device" in rec:
-            rec["device_bytes"] = device_bytes
-            rec["fits"] = _fits(rec, device_bytes)
+            if rec["status"] == "OK":      # the fit on this device, kept
+                _fit(rec, device_bytes)
+                with open(out_path, "w") as f:
+                    json.dump(rec, f, indent=1)
             return rec
 
-    cfg = get_config(arch)
     shape = SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "kind": shape.kind}
@@ -375,14 +522,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
                 arch, shape_name, multi_pod)
             rec.update(cost_record(cfg, shape, mesh.size, c, params, total,
                                    per_arg))
-        elif train:
+        elif costed_kind:
             rec["cost"] = None
             rec["cost_reason"] = "args only: the cost was not asked for"
         else:
             rec["cost"] = None
             rec["cost_reason"] = SERVE_REASON
-        rec["device_bytes"] = device_bytes
-        rec["fits"] = _fits(rec, device_bytes)
+        _fit(rec, device_bytes)
         if verbose:
             line = (f"[{mesh_name}] {arch} × {shape_name}: OK "
                     f"args/dev={total / 2**30:.2f}GiB")
@@ -395,7 +541,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
                          f" m={t['memory_s'] * 1e3:.2f}ms"
                          f" coll={t['collective_s'] * 1e3:.2f}ms)"
                          f" cost_s={rec['cost_s']}")
-            print(line + f" fits={rec['fits']}", flush=True)
+            print(line + f" fits={rec['fits']} margin={rec['margin_bytes']}",
+                  flush=True)
     except Exception as exc:  # noqa: BLE001 — record the failure, keep going
         rec["status"] = "FAIL"
         rec["error"] = f"{type(exc).__name__}: {exc}"
@@ -415,8 +562,9 @@ def run_cells(cells, *, force=False, verbose=True, device_bytes=None,
     subprocess); records in ``cells``' order."""
     def needs(cell):
         arch, name, multi = cell
-        if not (cost and SHAPES[name].kind == "train"
-                and name in get_config(arch).shapes):
+        cfg = get_config(arch)
+        if not (cost and name in cfg.shapes and (
+                SHAPES[name].kind == "train" or serve_costed(cfg, name))):
             return False
         path = os.path.join(OUT_DIR, MESHES[multi], f"{arch}__{name}.json")
         if force or not os.path.exists(path):
@@ -508,7 +656,8 @@ def main(argv=None) -> int:
 
 
 __all__ = ["cell_args", "count_params", "model_flops_for", "run_cell",
-           "run_cells", "cost_train_step", "cost_cell",
+           "run_cells", "cost_train_step", "cost_serve_step", "serve_params",
+           "serve_costed", "HEADROOM_BYTES", "cost_cell",
            "cost_in_subprocess", "fake_group", "main"]
 
 

@@ -24,9 +24,13 @@ partitioner.  The state's leaves are ``DTensor``s placed by these specs
 :func:`dp_axes` at its entry (:func:`make_shard_act`, the port's form of
 the reference's activation constraint), all-gathers each unit's
 parameters just before the unit runs, and reduces each gradient back to
-its leaf's spec (``train.train_step``).  The model axis shards storage
-and the MoE experts, not the dense matmuls; ``act_sharding="sp"``
-(sequence-parallel activations) has no eager counterpart and is ignored.
+its leaf's spec (``train.train_step``): there the model axis shards
+storage and the MoE experts, not the dense matmuls.  The mesh prefill and
+decode (``models.transformer.prefill(..., mesh=)``) split their compute
+over `model` instead: :func:`serve_gather_rules` keeps each leaf's
+`model` shard where it is aligned with what its layer splits.
+``act_sharding="sp"`` (sequence-parallel activations) has no eager
+counterpart and is ignored.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import math
 import torch
 
 from ..models.shard_ctx import (axis_names, axis_sizes, group_index,
-                                group_size)
+                                group_size, spec_axes)
 from .mesh import axis_size, batch_axes
 
 # logical axes:  "tp" → model;  "fsdp" → (pod,)data;  "ep" → model (expert)
@@ -413,6 +417,43 @@ def gather_state(tree):
     return full_tensor(tree)
 
 
+# the leaves a layer computes with on its `model` shard (tensor-parallel
+# compute), and the config's dim that shard must divide into whole units
+_TP_KEEP = {"w_q": "n_heads", "w_o": "n_heads", "w_k": "n_kv_heads",
+            "w_v": "n_kv_heads", "w_gate": None, "w_up": None,
+            "w_down": None, "embedding": None, "w_head": None}
+
+
+def serve_gather_rules(specs, mesh, cfg):
+    """Per leaf of ``specs`` (the params' specs), the ``(spec, partial,
+    keep)`` that ``shard_ctx.gather_param`` takes in the mesh prefill and
+    decode: every axis is gathered (the fsdp axes per unit, as the train
+    step gathers them) but `model`, which stays sharded where the leaf's
+    shard is aligned with what its layer splits — ``w_q``/``w_o`` where
+    ``n_heads`` divides `model`, ``w_k``/``w_v`` where ``n_kv_heads``
+    does, the MLP on d_ff, the embedding and head on the vocab, and the
+    experts on E (``moe_sharding="expert"``) or on d_ff (``"ffn"``).
+    Any other leaf is gathered over `model` too (at |model| = 16 llama's
+    ``w_k`` fused 512 columns split into 32-column blocks, each cutting a
+    kv head in half).  Forward only: no gradient is summed."""
+    from ..models.transformer import UNIT_KEYS
+
+    tp = axis_size(mesh, "model")
+
+    def one(path, spec):
+        name = _leaf_name(path)
+        if path[0] in UNIT_KEYS:
+            spec = spec[1:]                   # one unit of the stack
+        unit = _TP_KEEP.get(name, 0)
+        if name in MOE_EXPERT_LEAVES:
+            unit = None
+        aligned = unit is None or (unit and getattr(cfg, unit) % tp == 0)
+        keep = ("model",) if aligned and "model" in spec_axes(spec) else ()
+        return spec, (), keep
+
+    return _map_with_path(one, specs)
+
+
 def make_shard_act(mesh, cfg):
     """The batch split at the train step's entry: ``shard(x)`` is the
     rank's block of ``x``'s leading (batch) dim over :func:`dp_axes`, or
@@ -436,5 +477,6 @@ __all__ = ["PARAM_RULES", "PARAM_RULES_MOE_FFN", "STATE_RULES", "dp_axes",
            "placements", "spec_of", "param_shardings",
            "train_state_shardings", "state_shardings", "batch_shardings",
            "local_block", "local_size_bytes", "shard_leaf",
+           "serve_gather_rules",
            "distribute_params", "distribute_state", "full_tensor", "gather_state",
            "make_shard_act"]

@@ -14,8 +14,33 @@ the value dtype before the product with V, as the reference's are.
 blocks that hold an unmasked position (the reference's triangular block
 enumeration), so its result is the masked one.
 
+Decode (one query row against a cache) is the reference's
+``_grouped_decode_attention``: an online softmax over ``chunk_kv``-row
+chunks of the cache, so no whole-cache copy or score row is ever live.
+
 The reference pins head and batch shardings with ``shard_ctx.constrain``;
 in one process that call has no meaning, so the port drops it.
+
+**On a mesh** (a tensor-parallel context, ``shard_ctx.tp_split``) each
+projection is whole or the rank's block of heads — ``w_q``/``w_o`` where
+``n_heads`` divides the axis, ``w_k``/``w_v`` where ``n_kv_heads`` does —
+and the layer reads which from its shape.  The rank computes its own
+query heads against the kv heads they read (all of them when the query
+heads are whole), and ``w_o``'s rows are summed over the group
+(``shard_ctx.row_split``).  The cache a rank holds follows the state's
+specs, chosen per cache:
+
+* **head-parallel** — the cache holds the rank's kv heads (``n_kv_heads``
+  divides the axis): everything stays local;
+* **head_dim-parallel** — the cache holds every kv head's block of
+  head_dim: a decode step gathers the query heads, takes its block of
+  head_dim, sums the partial scores over the group before the softmax,
+  and gathers the output's head_dim blocks before ``w_o``.
+
+A prefill never reads the cache: it attends over the k and v it has just
+computed and writes the rank's block of them into the cache
+(:func:`cache_part`).  With ``donate=True`` a decode step writes into the
+cache it is handed, as the reference's donated state is.
 """
 
 from __future__ import annotations
@@ -23,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import shard_ctx
 from .layers import _dense_init, apply_rope, cdtype, pdtype
 
 NEG_INF = -1e30
@@ -106,19 +132,75 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
 # module-level apply (train/prefill) and decode
 # ---------------------------------------------------------------------------
 
+def _column_input(x, *ws, full):
+    """``x`` as a column-split projection reads it: through
+    ``shard_ctx.copy_to`` when any of ``ws`` is the rank's block of its
+    ``full`` columns under a tensor-parallel context."""
+    tp = shard_ctx.tp_split()
+    if tp is not None and any(w.shape[1] < f for w, f in zip(ws, full)):
+        return shard_ctx.copy_to(x, *tp)
+    return x
+
+
 def _project_qkv(p, x, kv_x, cfg):
+    """q, k, v: (B, S, heads, D), the heads the rank's projections hold
+    (all of them off a mesh)."""
     dt = cdtype(cfg)
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["w_q"].to(dt)).reshape(b, s, hq, dh)
+    if kv_x is None:
+        x = _column_input(x, p["w_q"], p["w_k"], full=(hq * dh, hkv * dh))
+    else:
+        x = _column_input(x, p["w_q"], full=(hq * dh,))
+        kv_x = _column_input(kv_x, p["w_k"], full=(hkv * dh,))
+    q = (x @ p["w_q"].to(dt)).reshape(b, s, -1, dh)
     src = x if kv_x is None else kv_x
     sk = src.shape[1]
-    k = (src @ p["w_k"].to(dt)).reshape(b, sk, hkv, dh)
-    v = (src @ p["w_v"].to(dt)).reshape(b, sk, hkv, dh)
+    k = (src @ p["w_k"].to(dt)).reshape(b, sk, -1, dh)
+    v = (src @ p["w_v"].to(dt)).reshape(b, sk, -1, dh)
     if cfg.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])
     return q, k, v
+
+
+def _tp_index() -> int:
+    return shard_ctx.group_index(*shard_ctx.tp_split())
+
+
+def _kv_for_q(k, v, hq_l: int, cfg):
+    """``k``, ``v`` narrowed to the kv heads that the rank's ``hq_l`` query
+    heads read, in GQA's grouping: as they are when the query heads are
+    whole or the kv heads are the rank's own (which align with them)."""
+    if hq_l == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = _tp_index() * hq_l
+    if hq_l % g == 0 or g % hq_l == 0:      # whole groups, or in one group
+        sel = slice(first // g, first // g + max(hq_l // g, 1))
+        return k[:, :, sel], v[:, :, sel]
+    idx = torch.arange(first, first + hq_l, device=k.device) // g
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _out_proj(out, w_o, cfg):
+    """``out @ w_o``, summed over the group where ``w_o`` holds the rank's
+    rows (its query heads)."""
+    dt = cdtype(cfg)
+    tp = shard_ctx.tp_split()
+    if tp is not None and w_o.shape[0] < cfg.n_heads * cfg.head_dim:
+        return shard_ctx.row_split(out, w_o.to(dt), *tp)
+    return out @ w_o.to(dt)
+
+
+def cache_part(new: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """``new`` (B, S, H, D) as ``cache`` holds it: the rank's block of
+    heads or of head_dim where the cache holds one (a view)."""
+    for d in (2, 3):
+        n = cache.shape[d]
+        if n < new.shape[d]:
+            new = new.narrow(d, _tp_index() * n, n)
+    return new
 
 
 def apply_attention(p, x, cfg, *, kind: str = "attn", kv_x=None,
@@ -137,11 +219,89 @@ def apply_attention(p, x, cfg, *, kind: str = "attn", kv_x=None,
         k = apply_rope(k, kv_pos, cfg.rope_theta)
     causal = kind in ("attn", "attn_local")
     window = cfg.window_size if kind == "attn_local" else 0
+    ka, va = _kv_for_q(k, v, q.shape[2], cfg)
     out = flash_attention(
-        q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
+        q, ka, va, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
         softcap=cfg.attn_softcap, block_skip_causal=block_skip_causal)
-    out = out.reshape(b, s, -1) @ p["w_o"].to(cdtype(cfg))
+    out = _out_proj(out.reshape(b, s, -1), p["w_o"], cfg)
     return out, (k, v)
+
+
+def grouped_decode_attention(q, k, v, *, q_pos, kv_pos, causal=True,
+                             window=0, softcap=0.0, chunk_kv=2048,
+                             scale=None, score_sum=None):
+    """Decode-shape (small Sq) attention with grouped GQA: an online
+    softmax over ``chunk_kv``-row chunks of the cache (the reference's
+    ``_grouped_decode_attention``), each chunk cast to q's dtype as it is
+    read.  q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D).  ``scale`` defaults to
+    1/√D; ``score_sum(s)`` maps each chunk's raw fp32 scores before they
+    are scaled (the head_dim-parallel layout's sum over the group).
+    Returns (B,Sq,Hq,D) in q.dtype."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ck = _choose_chunk(sk, chunk_kv)
+    scale = 1.0 / np.sqrt(dh) if scale is None else scale
+    qg = q.reshape(b, sq, hkv, g, dh).float()
+    mx = l = acc = None
+    for j in range(0, sk, ck):
+        kj = k[:, j:j + ck].to(q.dtype).float()
+        vj = v[:, j:j + ck].to(q.dtype)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj)
+        if score_sum is not None:
+            s = score_sum(s)
+        s = s * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        diff = q_pos[:, None, None, :, None] \
+            - kv_pos[:, None, None, None, j:j + ck]
+        mask = torch.ones_like(diff, dtype=torch.bool)
+        if causal:
+            mask &= diff >= 0
+        if window:
+            mask &= diff < window
+        s = torch.where(mask, s, NEG_INF)
+        mb = s.amax(dim=-1)
+        e = torch.where(mask, torch.exp(s - mb[..., None]), 0.0)
+        wv = torch.einsum("bhgqk,bkhd->bqhgd", e.to(vj.dtype), vj).float()
+        if mx is None:
+            # the first chunk starts the running state: what the update
+            # below gives from (NEG_INF, 0, 0), in fewer ops
+            mx, l, acc = mb, e.sum(dim=-1), wv
+            continue
+        mx_new = torch.maximum(mx, mb)
+        c_old = torch.exp(mx - mx_new)
+        c_new = torch.exp(mb - mx_new)
+        l = l * c_old + e.sum(dim=-1) * c_new
+        acc = acc * c_old.permute(0, 3, 1, 2)[..., None] \
+            + wv * c_new.permute(0, 3, 1, 2)[..., None]
+        mx = mx_new
+    out = acc / torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
+    return out.to(q.dtype).reshape(b, sq, hq, dh)
+
+
+def _cached_attention(q, k, v, q_pos, kv_pos, cfg, *, causal, window,
+                      chunk_kv):
+    """The rank's query heads ``q`` against a cache as the rank holds it:
+    its kv heads, all of them, or (``k.shape[3] < head_dim``) every kv
+    head's block of head_dim, whose partial scores are summed over the
+    group before the softmax and whose output blocks are gathered."""
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
+              softcap=cfg.attn_softcap, chunk_kv=chunk_kv)
+    hq_l, dh = q.shape[2], cfg.head_dim
+    if k.shape[3] == dh:
+        ka, va = _kv_for_q(k, v, hq_l, cfg)
+        return grouped_decode_attention(q, ka, va, **kw)
+    mesh, axes = shard_ctx.tp_split()
+    r, dd = _tp_index(), k.shape[3]
+    split_q = hq_l < cfg.n_heads
+    if split_q:                                   # every query head
+        q = shard_ctx.gather_from(q, 2, mesh, axes)
+    out = grouped_decode_attention(
+        q[..., r * dd:(r + 1) * dd], k, v, scale=1.0 / np.sqrt(dh),
+        score_sum=lambda s: shard_ctx.sum_over(s, mesh, axes), **kw)
+    out = shard_ctx.gather_from(out, 3, mesh, axes)
+    return out[:, :, r * hq_l:(r + 1) * hq_l] if split_q else out
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
@@ -151,12 +311,15 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(p, x, cache, pos, cfg, *, kind="attn", chunk_kv=2048):
+def decode_attention(p, x, cache, pos, cfg, *, kind="attn", chunk_kv=2048,
+                     donate=False):
     """Single-token decode: x (B,1,d); cache {"k","v"} (B,Smax,Hkv,D); pos
     an int (current length) or a (B,) int tensor of per-row lengths (a
     continuously-batched engine's slots admit at different times, so each
     row carries its own write index / RoPE angle / causal horizon).
-    Returns (out, new_cache); the cache passed in is not modified."""
+    Returns (out, new_cache); the cache passed in is not modified, unless
+    ``donate`` (then the new cache is the one passed in, written in
+    place)."""
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(p, x, None, cfg)
     pos = torch.as_tensor(pos, device=x.device)
@@ -165,18 +328,20 @@ def decode_attention(p, x, cache, pos, cfg, *, kind="attn", chunk_kv=2048):
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, pos_b, cfg.rope_theta)
         k_new = apply_rope(k_new, pos_b, cfg.rope_theta)
-    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
+    k_cache, v_cache = cache["k"], cache["v"]
+    if not donate:
+        k_cache, v_cache = k_cache.clone(), v_cache.clone()
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, pos_b[:, 0]] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, pos_b[:, 0]] = v_new[:, 0].to(v_cache.dtype)
+    k_cache[rows, pos_b[:, 0]] = cache_part(k_new, k_cache)[:, 0].to(
+        k_cache.dtype)
+    v_cache[rows, pos_b[:, 0]] = cache_part(v_new, v_cache)[:, 0].to(
+        v_cache.dtype)
     smax = k_cache.shape[1]
     kv_pos = torch.arange(smax, device=x.device).expand(b, smax)
     window = cfg.window_size if kind == "attn_local" else 0
-    out = flash_attention(
-        q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-        q_pos=pos_b, kv_pos=kv_pos, causal=True, window=window,
-        softcap=cfg.attn_softcap, chunk_q=1, chunk_kv=chunk_kv)
-    out = out.reshape(b, 1, -1) @ p["w_o"].to(cdtype(cfg))
+    out = _cached_attention(q, k_cache, v_cache, pos_b, kv_pos, cfg,
+                            causal=True, window=window, chunk_kv=chunk_kv)
+    out = _out_proj(out.reshape(b, 1, -1), p["w_o"], cfg)
     return out, {"k": k_cache, "v": v_cache}
 
 
@@ -185,13 +350,15 @@ def decode_cross_attention(p, x, enc_kv, cfg):
     b = x.shape[0]
     dt = cdtype(cfg)
     dh, hq = cfg.head_dim, cfg.n_heads
-    q = (x @ p["w_q"].to(dt)).reshape(b, 1, hq, dh)
+    x = _column_input(x, p["w_q"], full=(hq * dh,))
+    q = (x @ p["w_q"].to(dt)).reshape(b, 1, -1, dh)
     if cfg.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
     k, v = enc_kv
     sk = k.shape[1]
     pos = torch.zeros((b, 1), dtype=torch.int64, device=x.device)
     kv_pos = torch.arange(sk, device=x.device).expand(b, sk)
-    out = flash_attention(q, k.to(dt), v.to(dt), q_pos=pos, kv_pos=kv_pos,
-                          causal=False, softcap=cfg.attn_softcap, chunk_q=1)
-    return out.reshape(b, 1, -1) @ p["w_o"].to(dt)
+    # the reference's flash_attention default: 1,024-row cache chunks
+    out = _cached_attention(q, k, v, pos, kv_pos, cfg, causal=False,
+                            window=0, chunk_kv=1024)
+    return _out_proj(out.reshape(b, 1, -1), p["w_o"], cfg)

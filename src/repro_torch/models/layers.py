@@ -13,6 +13,12 @@ Conventions
   elementwise cast on fewer rows.
 * norm statistics, RoPE angles and the loss's logsumexp are fp32
   regardless of compute dtype.
+* under a tensor-parallel context (``shard_ctx.tp_split``) a layer handed
+  the rank's block of a leaf splits its compute: the embedding looks up
+  its vocab range and sums over the group, the MLP splits d_ff (columns,
+  then rows, one sum after ``w_down``), and ``logits_fn`` on the rank's
+  vocab block returns the rank's block of the logits (no gather; the
+  final softcap is elementwise).
 * the reference's gradient-dtype boundary (``_grad_same_dtype`` before
   every norm: the fp32 cotangent of the norm statistics is cast back to the
   primal's dtype, so the backward residual stream stays bf16) needs no
@@ -30,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import shard_ctx
+
 
 # what a remat region runs through: None for ``torch.utils.checkpoint``,
 # else the function set by ``remat_through`` (the cost counter's replay)
@@ -46,6 +54,14 @@ def remat(fn, *args):
     if hook is not None:
         return hook(fn, *args)
     return checkpoint(fn, *args, use_reentrant=False)
+
+
+def region(fn, *args):
+    """``fn(*args)`` where no gradient is taken (a unit of the mesh prefill
+    or decode): run as it is, or through :func:`remat_through`'s hook, so
+    that the cost counter replays it as it replays a remat region."""
+    hook = _REMAT.get()
+    return hook(fn, *args) if hook is not None else fn(*args)
 
 
 @contextlib.contextmanager
@@ -131,7 +147,12 @@ def embed_tokens(p, tokens: torch.Tensor, cfg, pos_offset=0) -> torch.Tensor:
     """``pos_offset``: scalar start position, or (B,) int per-row starts
     (continuous batching — each decode slot sits at its own position)."""
     dt = cdtype(cfg)
-    x = p["embedding"][tokens].to(dt)
+    emb = p["embedding"]
+    tp = shard_ctx.tp_split()
+    if tp is not None and emb.shape[0] < pad_vocab(cfg.vocab_size):
+        x = shard_ctx.vocab_lookup(emb, tokens, *tp, dtype=dt)
+    else:
+        x = emb[tokens].to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.pos_embedding == "learned":
@@ -182,6 +203,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
+    tp = shard_ctx.tp_split()
+    if tp is not None and p["w_down"].shape[0] < cfg.d_ff:
+        x = shard_ctx.copy_to(x, *tp)          # the rank's d_ff columns
+    else:
+        tp = None
     if "w_gate" in p:
         g = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
@@ -189,6 +215,8 @@ def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
         h = act * u
     else:
         h = _gelu(x @ p["w_up"].to(dt))
+    if tp is not None:                         # then its rows, one sum
+        return shard_ctx.row_split(h, p["w_down"].to(dt), *tp)
     return h @ p["w_down"].to(dt)
 
 
@@ -254,5 +282,5 @@ def chunked_xent(head_p, emb_p, x: torch.Tensor, labels, mask, cfg,
 __all__ = ["cdtype", "pdtype", "pad_vocab", "init_norm", "apply_norm",
            "init_embedding", "embed_tokens", "rope_frequencies",
            "apply_rope", "init_mlp", "apply_mlp", "init_lm_head",
-           "logits_fn", "softcap", "chunked_xent", "remat",
+           "logits_fn", "softcap", "chunked_xent", "remat", "region",
            "remat_through"]

@@ -36,9 +36,21 @@ Two dispatch paths, as the reference's:
   semantics.
 
 ``moe_sharding="ffn"`` (grok-1: E=8 < TP axis 16) keeps the experts whole
-on every model peer and splits the tokens over the data axes only; the
-reference's tensor parallelism inside each expert has no eager
-counterpart here (the model axis splits no dense matmul in the port).
+on every model peer and splits the tokens over the data axes only.  Under
+a tensor-parallel context (``shard_ctx.tp_split``: the mesh prefill and
+decode) two layouts follow the reference's GSPMD placement of the
+buffer:
+
+* experts handed as the rank's block of d_ff (grok's ffn mode, the
+  leaves' ``model`` split kept) run the rank's columns then rows, and the
+  combined output is summed over `model` (tensor parallelism inside each
+  expert);
+* experts handed as the rank's block of E, with no all-to-all (tokens not
+  split over `model`: 128 decode tokens over 16 data ranks), run on the
+  rank's slice of the buffer, which every model peer holds alike, and the
+  outputs are gathered over `model` — the reference's relayout of the
+  buffer onto ``("model", "batch", None)``, where the train step gathers
+  the experts' weights instead.
 """
 
 from __future__ import annotations
@@ -219,6 +231,16 @@ def _apply_moe_dist(p, x, cfg, mesh, batch_axes_, split_in=()):
     ce = shard_ctx.reduce_sum(ce, mesh, split)
     experts = {k: p[k] for k in ("we_gate", "we_up", "we_down")}
     local = experts["we_gate"].shape[0] < e
+    tp_ctx = shard_ctx.tp_split()
+    f_split = tp_ctx is not None and \
+        experts["we_gate"].shape[-1] < cfg.d_ff
+    own = tp_ctx is not None and local and not use_a2a
+    if own:                # the rank's experts on its slice of the buffer
+        j = shard_ctx.group_index(mesh, "model")
+        n_own = experts["we_gate"].shape[0]
+        buf = buf[j * n_own:(j + 1) * n_own]
+    if f_split:
+        buf = shard_ctx.copy_to(buf, *tp_ctx)
     if use_a2a:
         if not local:                      # this rank's experts of all E
             j = shard_ctx.group_index(mesh, "model")
@@ -228,15 +250,19 @@ def _apply_moe_dist(p, x, cfg, mesh, batch_axes_, split_in=()):
         buf = shard_ctx.all_to_all(buf, mesh, "model")
         buf = buf.reshape(tp, e // tp, cap_dev, d).transpose(0, 1).reshape(
             e // tp, tp * cap_dev, d)
-    elif local:                            # the experts whole on every peer
+    elif local and not own:                # the experts whole on every peer
         experts = {k: shard_ctx.gather_from(v, 0, mesh, "model")
                    for k, v in experts.items()}
     out_buf = _expert_ffn(experts, buf, cfg)
+    if own:
+        out_buf = shard_ctx.gather_from(out_buf, 0, mesh, "model")
     if use_a2a:   # reverse exchange: (E/tp, tp*cap, d) -> (E, cap, d)
         out_buf = out_buf.reshape(e // tp, tp, cap_dev, d).transpose(0, 1)
         out_buf = shard_ctx.all_to_all(out_buf, mesh, "model").reshape(
             e, cap_dev, d)
     y = _combine(out_buf, slot, tok_of, w, t_dev)
+    if f_split:                            # the rows of the d_ff split
+        y = shard_ctx.sum_over(y, *tp_ctx)
     y = shard_ctx.gather_from(y, 0, mesh, extra)
     aux = e * torch.sum((me / t) * (ce / t)) * cfg.router_aux_coef
     return y.reshape(b, s, d), aux

@@ -25,6 +25,8 @@ autograd as Megatron's pairs do:
 * :func:`sum_over` — forward: all-reduce; backward: identity (the sum
   feeds a value every rank of the group computes alike);
 * :func:`all_to_all` — forward and backward: one ``all_to_all_single``;
+* :func:`copy_to` — forward: identity; backward: all-reduce (the input of
+  a column-split matmul, which every rank of the group reads);
 * :func:`gather_param` — forward: a leaf's shards all-gathered into the
   tensor a layer computes with; backward: the gradient summed over the
   ranks that saw other tokens (in fp32) and sliced back to the leaf's
@@ -32,6 +34,16 @@ autograd as Megatron's pairs do:
 
 None of them sums a gradient over ranks that only repeat work: that
 would multiply it by the group's size.
+
+**Tensor-parallel compute** (the mesh prefill and decode): the context's
+``tp`` entry names the axes the layers split their matmuls over
+(``"model"``; ``()``, the default, splits none).  A leaf a layer computes
+with is then either whole or the rank's block of it along the dimension
+the layer splits (``gather_param(..., keep=tp)``), and the layer reads
+which from its shape: a column split (:func:`copy_to`, then the local
+matmul: the rank's columns of the product), a row split
+(:func:`row_split`: the local matmul summed over the group) and a
+vocab-parallel lookup (:func:`vocab_lookup`).
 """
 
 from __future__ import annotations
@@ -42,13 +54,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-_CTX: dict = {"mesh": None, "batch_axes": None, "split": ()}
+_CTX: dict = {"mesh": None, "batch_axes": None, "split": (), "tp": ()}
 
 
-def set_sharding_context(mesh, batch_axes, split=()) -> None:
+def set_sharding_context(mesh, batch_axes, split=(), tp=()) -> None:
     _CTX["mesh"] = mesh
     _CTX["batch_axes"] = tuple(batch_axes) if batch_axes else None
     _CTX["split"] = tuple(split or ())
+    _CTX["tp"] = _axes(tp)
+
+
+def tp_split():
+    """``(mesh, axes)`` the layers split their matmuls over, or None."""
+    if _CTX["mesh"] is None or not _CTX.get("tp"):
+        return None
+    return _CTX["mesh"], _CTX["tp"]
 
 
 def clear_sharding_context() -> None:
@@ -189,6 +209,17 @@ class _SumOver(torch.autograd.Function):
         return g, None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), *ctx.args), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -223,6 +254,35 @@ def sum_over(x, mesh, axes):
     """``x`` summed over the group (backward: identity).  No-op for no
     axes."""
     return _SumOver.apply(x, mesh, _axes(axes)) if _axes(axes) else x
+
+
+def copy_to(x, mesh, axes):
+    """``x`` as it is (backward: the gradient summed over the group): the
+    input of a column-split matmul, whose every rank reads all of it.
+    No-op for no axes."""
+    return _CopyTo.apply(x, mesh, _axes(axes)) if _axes(axes) else x
+
+
+def row_split(h, w, mesh, axes):
+    """``h @ w`` for ``w`` the rank's block of rows and ``h`` the rank's
+    block of columns alike: the local product summed over the group (the
+    second half of a column-then-row split).  No sum for no axes."""
+    return sum_over(h @ w, mesh, axes)
+
+
+def vocab_lookup(table, tokens, mesh, axes, dtype=None):
+    """``table[tokens]`` for ``table`` the rank's block of rows of a table
+    split over the group (vocab-parallel): the rank looks up the tokens in
+    its range, zeroes the others, and the group sums (each token's row is
+    one rank's, so the sum is exact).  Rows cast to ``dtype`` before the
+    sum."""
+    n = table.shape[0]
+    local = tokens - group_index(mesh, axes) * n
+    inside = (local >= 0) & (local < n)
+    rows = table[torch.where(inside, local, torch.zeros_like(local))]
+    rows = rows.to(dtype or rows.dtype)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return sum_over(rows, mesh, axes)
 
 
 def all_to_all(x, mesh, axes):
@@ -282,6 +342,15 @@ def gather_param(x: torch.Tensor, spec, mesh, partial=(),
     return _GatherParam.apply(x, spec, mesh, partial)
 
 
+def gather_tree(tree, rules, mesh):
+    """:func:`gather_param` over a tree of dicts, each leaf by its rule
+    ``(spec, partial, keep)`` at the same path of ``rules``."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, rules[k], mesh) for k, v in tree.items()}
+    spec, partial, keep = rules
+    return gather_param(tree, spec, mesh, partial=partial, keep=keep)
+
+
 def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``x`` summed over the group of ``axes``, outside autograd (metrics,
     norms, counts)."""
@@ -290,7 +359,8 @@ def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _all_reduce(x.detach().clone(), mesh, axes)
 
 
-__all__ = ["set_sharding_context", "clear_sharding_context", "axis_names",
-           "axis_sizes", "group_size", "group_index", "axis_group",
-           "scatter_to", "gather_from", "sum_over", "all_to_all",
-           "spec_axes", "gather_param", "reduce_sum"]
+__all__ = ["set_sharding_context", "clear_sharding_context", "tp_split",
+           "axis_names", "axis_sizes", "group_size", "group_index",
+           "axis_group", "scatter_to", "gather_from", "sum_over", "copy_to",
+           "row_split", "vocab_lookup", "all_to_all",
+           "spec_axes", "gather_param", "gather_tree", "reduce_sum"]

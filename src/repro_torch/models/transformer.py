@@ -17,8 +17,9 @@ Three entry points:
   prefill(params, batch, cfg, state)               → (hidden_last, state')
   decode_step(params, tokens, cfg, state, pos)     → (hidden, state')
 The caller turns hidden states into logits or the loss
-(``layers.logits_fn``, ``layers.chunked_xent``).  No entry point modifies
-the state it is given.
+(``layers.logits_fn``, ``serve_logits``, ``layers.chunked_xent``).  No
+entry point modifies the state it is given, but the mesh prefill and
+decode.
 
 On a mesh the train step hands ``forward`` the units' parameters as this
 rank's shards and a ``gather(key, unit_params)`` callable (``key`` is
@@ -26,18 +27,42 @@ rank's shards and a ``gather(key, unit_params)`` callable (``key`` is
 inside the checkpointed unit, so the backward pass gathers again instead of
 keeping every unit's full weights alive (where the reference passes
 ``shard_act`` to its scan body).  Without it nothing changes.
+
+**The mesh prefill and decode** (``prefill(..., mesh=, specs=)``,
+``decode_step(..., mesh=, specs=)``) take this rank's shards of the
+params and of the decode state — ``DTensor``s, or local shards with the
+params' ``specs`` given (``launch.sharding.param_specs``; the state laid
+out by ``state_specs``), the params best prepared once by
+``mesh_params`` — and the global tokens, of which the rank takes
+its block of rows over the batch axes where the batch divides them.  Each
+unit's params are gathered over every axis but `model` where the leaf's
+`model` shard is aligned with its layer's split
+(``launch.sharding.serve_gather_rules``), and the layers split their
+compute over `model` (``shard_ctx.tp_split``): attention on heads or on
+head_dim, the MLP on d_ff, the embedding and head on the vocab.  The
+cache is written in place into the state handed in, as the reference
+donates it, and that same state is returned; the hidden states returned
+are the rank's rows.  ``serve_logits(..., mesh=)`` turns them into the
+rank's block of the vocab for every row (the reference's out-spec
+``P(None, None, "model")``).  Each unit runs through ``layers.region``,
+where the cost counter replays it.  Attention, MLP and MoE blocks only:
+Mamba and RWKV state splits wait (ROADMAP Queue 1 item 12c).
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import NamedTuple
+
 import torch
 
 from . import attention as attn
+from . import shard_ctx
 from . import mamba as mamba_mod
 from . import rwkv as rwkv_mod
 from .layers import (apply_mlp, apply_norm, cdtype, embed_tokens,
                      init_embedding, init_lm_head, init_mlp, init_norm,
-                     remat)
+                     logits_fn, region, remat)
 from .moe import apply_moe, init_moe
 
 _ATTN_KINDS = ("attn", "attn_local", "attn_bidir", "attn_cross")
@@ -125,16 +150,20 @@ def init_model(gen, cfg, device=None) -> dict:
 # unit application (shared by train / prefill / decode)
 # ---------------------------------------------------------------------------
 
-def _write_prefix(cache: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """``cache`` with its first ``new.shape[1]`` positions set to ``new``."""
-    out = cache.clone()
-    out[:, :new.shape[1]] = new.to(cache.dtype)
+def _write_prefix(cache: torch.Tensor, new: torch.Tensor,
+                  donate: bool = False) -> torch.Tensor:
+    """``cache`` with its first ``new.shape[1]`` positions set to ``new``
+    (the rank's block of it, as the cache holds it); ``cache`` itself,
+    written in place, when ``donate``."""
+    out = cache if donate else cache.clone()
+    out[:, :new.shape[1]] = attn.cache_part(new, cache).to(cache.dtype)
     return out
 
 
 def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
-                pos=None, pos_offset=0, skip_causal=False):
-    """Returns (x, aux, new_state)."""
+                pos=None, pos_offset=0, skip_causal=False, donate=False):
+    """Returns (x, aux, new_state).  ``donate``: the attention caches are
+    written in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_state = {} if state is not None else None
     for i, (mixer, ffn) in enumerate(pattern):
@@ -146,7 +175,7 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
         if mixer in _ATTN_KINDS:
             out = _attention_mixer(bp, x, h, cfg, mixer, mode, st, new_state,
                                    bkey, enc_out, pos, pos_offset,
-                                   skip_causal)
+                                   skip_causal, donate)
         elif mixer == "mamba":
             out, new_st = mamba_mod.apply_mamba(bp["mixer"], h, cfg, st)
             if state is not None:
@@ -190,7 +219,7 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
 
 
 def _attention_mixer(bp, x, h, cfg, mixer, mode, st, new_state, bkey,
-                     enc_out, pos, pos_offset, skip_causal):
+                     enc_out, pos, pos_offset, skip_causal, donate=False):
     """An attention block's mixer output; fills ``new_state[bkey]`` in the
     prefill and decode modes."""
     # the self-attention of a cross block is ordinary causal attn;
@@ -199,15 +228,15 @@ def _attention_mixer(bp, x, h, cfg, mixer, mode, st, new_state, bkey,
     if mode == "decode":
         out, kv = attn.decode_attention(
             bp["mixer"], h, {"k": st["k"], "v": st["v"]}, pos, cfg,
-            kind=self_kind)
+            kind=self_kind, donate=donate)
         new_state[bkey] = dict(kv)
     else:
         out, (k, v) = attn.apply_attention(
             bp["mixer"], h, cfg, kind=self_kind, pos_offset=pos_offset,
             block_skip_causal=skip_causal)
         if mode == "prefill":
-            new_state[bkey] = {"k": _write_prefix(st["k"], k),
-                               "v": _write_prefix(st["v"], v)}
+            new_state[bkey] = {"k": _write_prefix(st["k"], k, donate),
+                               "v": _write_prefix(st["v"], v, donate)}
     if mixer == "attn_cross":
         hc = apply_norm(bp["ln_cross"], x + out, cfg)
         if mode == "decode":
@@ -219,8 +248,10 @@ def _attention_mixer(bp, x, h, cfg, mixer, mode, st, new_state, bkey,
             out2, (ck, cv) = attn.apply_attention(
                 bp["cross"], hc, cfg, kind="attn_cross", kv_x=enc_out)
             if mode == "prefill":
-                new_state[bkey]["ck"] = ck.to(st["ck"].dtype)
-                new_state[bkey]["cv"] = cv.to(st["cv"].dtype)
+                for key, new in (("ck", ck), ("cv", cv)):
+                    new_state[bkey][key] = (
+                        _write_prefix(st[key], new, True) if donate
+                        else new.to(st[key].dtype))
         out = out + out2
     return out
 
@@ -235,18 +266,33 @@ def _gathered_unit(gather, up, *args):
     return _apply_unit(gather(up), *args)
 
 
+def _unit_in_place(gather, up, *args):
+    """One unit of the mesh prefill or decode: its parameters gathered,
+    its caches written in place; returns (x, aux)."""
+    x, aux, _ = _apply_unit(gather(up), *args, donate=True)
+    return x, aux
+
+
 def _run_units(units_params, x, cfg, pattern, mode, states=None,
                enc_out=None, pos=None, pos_offset=0, skip_causal=False,
-               gather=None):
+               gather=None, donate=False):
     """The unit stack, one unit after another (the reference's scan).
     states: stacked (n_units, ...) tree or None.  ``gather(up)``, when
     given, turns one unit's parameters into those it computes with, inside
-    the checkpointed unit."""
+    the checkpointed unit.  ``donate`` (the mesh prefill and decode, no
+    gradient): each unit runs as a ``layers.region`` that writes its
+    caches in place, and ``states`` itself is returned."""
     n_units = next(iter(tree_leaves(units_params))).shape[0]
     ups = _unstack(units_params, n_units)
     sts = [None] * n_units if states is None else _unstack(states, n_units)
     use_remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if donate:
+        for up, st in zip(ups, sts):
+            x, a = region(_unit_in_place, gather, up, x, cfg, pattern, mode,
+                          st, enc_out, pos, pos_offset, skip_causal)
+            aux = aux + a
+        return x, aux, states
     new_states = []
     for up, st in zip(ups, sts):
         fn, args = _apply_unit, (up, x, cfg, pattern, mode, st, enc_out, pos,
@@ -280,7 +326,7 @@ def _unit_gather(gather, key):
     return None if gather is None else (lambda up: gather(key, up))
 
 
-def _encode(params, enc_frames, cfg, gather=None):
+def _encode(params, enc_frames, cfg, gather=None, donate=False):
     """Whisper-style encoder over precomputed frame embeddings (stub
     frontend: the caller provides the frames)."""
     dev = params["embed"]["embedding"].device
@@ -289,7 +335,8 @@ def _encode(params, enc_frames, cfg, gather=None):
         s = x.shape[1]
         x = x + params["embed"]["pos_embedding"][:s].to(x.dtype)
     x, _, _ = _run_units(params["enc_units"], x, cfg, cfg.enc_unit_pattern,
-                         "train", gather=_unit_gather(gather, "enc_units"))
+                         "train", gather=_unit_gather(gather, "enc_units"),
+                         donate=donate)
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
@@ -340,11 +387,17 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         lambda a: a.new_zeros((cfg.n_units,) + tuple(a.shape)), unit_state)
 
 
-def prefill(params, batch, cfg, state, *, skip_causal=False):
+def prefill(params, batch, cfg, state, *, skip_causal=False, mesh=None,
+            specs=None):
     """Fill the decode state from a prompt; returns (hidden_last (B,1,d),
     state').  The hidden state is the one at the last position of
     ``batch["tokens"]``, padding included, as the reference's is.
-    ``skip_causal`` enables the triangular block enumeration."""
+    ``skip_causal`` enables the triangular block enumeration.  With a
+    ``mesh``: the mesh prefill (module docstring), which writes ``state``
+    in place and returns it with the rank's rows of the hidden state."""
+    if mesh is not None:
+        return _mesh_serve(params, cfg, state, mesh, specs, "prefill",
+                           batch=batch, skip_causal=skip_causal)
     x = embed_tokens(params["embed"], _as_tokens(batch["tokens"], params),
                      cfg)
     enc_out = None
@@ -357,12 +410,17 @@ def prefill(params, batch, cfg, state, *, skip_causal=False):
     return x[:, -1:, :], new_state
 
 
-def decode_step(params, tokens, cfg, state, pos):
+def decode_step(params, tokens, cfg, state, pos, *, mesh=None, specs=None):
     """One decode step: tokens (B,1) at position ``pos`` — an int when all
     rows advance in lock-step, or a (B,) int tensor of per-row positions
     (continuous batching: slots admitted at different times each write
     their KV-cache entry, RoPE angle, and learned-position lookup at their
-    own index).  Returns (hidden (B,1,d), new state)."""
+    own index).  Returns (hidden (B,1,d), new state).  With a ``mesh``:
+    the mesh decode step (module docstring), which writes ``state`` in
+    place and returns it with the rank's rows of the hidden state."""
+    if mesh is not None:
+        return _mesh_serve(params, cfg, state, mesh, specs, "decode",
+                           batch={"tokens": tokens}, pos=pos)
     dev = params["embed"]["embedding"].device
     pos = torch.as_tensor(pos, device=dev)
     x = embed_tokens(params["embed"], _as_tokens(tokens, params), cfg,
@@ -373,5 +431,145 @@ def decode_step(params, tokens, cfg, state, pos):
     return x, new_state
 
 
+# ---------------------------------------------------------------------------
+# the mesh prefill and decode
+# ---------------------------------------------------------------------------
+
+UNIT_KEYS = ("units", "enc_units")        # the stacked parameter trees
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+class MeshParams(NamedTuple):
+    """The params of the mesh prefill and decode, prepared once:
+    ``local`` the rank's shards, ``rules`` their ``serve_gather_rules``."""
+    local: dict
+    rules: dict
+
+
+def mesh_params(params, cfg, mesh, specs=None) -> MeshParams:
+    """:class:`MeshParams` of ``params``: ``DTensor``s (their specs read
+    back) or local shards under ``specs``.  ``prefill``, ``decode_step``
+    and ``serve_logits`` take the result in place of ``params`` (else
+    they prepare it on every call); ``params`` already prepared are
+    returned as they are."""
+    from ..launch.sharding import serve_gather_rules, spec_of
+
+    if isinstance(params, MeshParams):
+        return params
+    for mixer, _ in tuple(cfg.unit_pattern) + tuple(cfg.enc_unit_pattern):
+        if mixer not in _ATTN_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: the mesh prefill and decode run attention, "
+                f"MLP and MoE blocks; a {mixer} block's state split over "
+                "`model` waits (ROADMAP Queue 1 item 12c)")
+    if specs is None:
+        specs = tree_map(spec_of, params)
+    return MeshParams(tree_map(_local, params),
+                      serve_gather_rules(specs, mesh, cfg))
+
+
+def _rows(x, split, mesh, dev):
+    """The rank's rows of a batch leaf: a ``DTensor``'s local block, or
+    this rank's block of the global rows over ``split`` (all of them for
+    no axes)."""
+    from ..launch.sharding import local_block
+
+    if getattr(x, "to_local", None) is not None:
+        return x.to_local().to(dev)
+    x = torch.as_tensor(x, device=dev)
+    if not split or x.ndim == 0:
+        return x
+    return local_block(x, (split,) + (None,) * (x.ndim - 1), mesh)
+
+
+def _batch_split(mesh, cfg, rows: int) -> tuple:
+    """The axes a global batch of ``rows`` splits over: the batch axes
+    where they divide it (as ``state_specs`` splits the state), else
+    none."""
+    from ..launch.sharding import dp_axes
+
+    b_axes = dp_axes(mesh, cfg)
+    return b_axes if rows % shard_ctx.group_size(mesh, b_axes) == 0 else ()
+
+
+@contextlib.contextmanager
+def _serving(mesh, cfg, split):
+    """The sharding context of the mesh prefill and decode (the layers
+    split over `model`), without gradients."""
+    from ..launch.sharding import dp_axes
+
+    tp = () if "model" not in shard_ctx.axis_names(mesh) or getattr(
+        cfg, "dp_over_model", False) else ("model",)
+    saved = dict(shard_ctx._CTX)
+    shard_ctx.set_sharding_context(mesh, dp_axes(mesh, cfg), split=split,
+                                   tp=tp)
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        shard_ctx._CTX.update(saved)
+
+
+def _mesh_serve(params, cfg, state, mesh, specs, mode, *, batch, pos=None,
+                skip_causal=False):
+    local, rules = mesh_params(params, cfg, mesh, specs)
+    dev = local["embed"]["embedding"].device
+    split = _batch_split(mesh, cfg, batch["tokens"].shape[0])
+    tokens = _rows(batch["tokens"], split, mesh, dev).long()
+    if pos is not None:
+        pos = _rows(pos, split, mesh, dev)
+    states = tree_map(_local, state)
+
+    def gather(key, up):
+        return shard_ctx.gather_tree(up, rules[key], mesh)
+
+    with _serving(mesh, cfg, split):
+        full = {k: v if k in UNIT_KEYS
+                else shard_ctx.gather_tree(v, rules[k], mesh)
+                for k, v in local.items()}
+        x = embed_tokens(full["embed"], tokens, cfg,
+                         pos_offset=0 if pos is None else pos)
+        enc_out = None
+        if cfg.family == "encdec" and mode == "prefill":
+            enc_out = _encode(full, _rows(batch["enc_frames"], split, mesh,
+                                          dev), cfg, gather, donate=True)
+        x, _, _ = _run_units(full["units"], x, cfg, cfg.unit_pattern, mode,
+                             states=states, enc_out=enc_out, pos=pos,
+                             skip_causal=skip_causal,
+                             gather=_unit_gather(gather, "units"),
+                             donate=True)
+        x = apply_norm(full["final_norm"], x, cfg)
+    return (x[:, -1:, :] if mode == "prefill" else x), state
+
+
+def serve_logits(params, h, cfg, *, mesh=None, specs=None,
+                 global_batch=None):
+    """Logits of hidden states ``h``: ``layers.logits_fn`` off a mesh.  On
+    a mesh (``params`` as ``prefill(..., mesh=)`` takes them, ``h`` the
+    rank's rows it returns for a batch of ``global_batch`` rows): the
+    rank's block of the vocab for every row, ``(B, S, V/|model|)`` — the
+    head on the rank's rows, then those rows gathered over the batch
+    axes."""
+    if mesh is None:
+        return logits_fn(params["head"], params["embed"], h, cfg)
+    if global_batch is None:
+        raise ValueError("serve_logits on a mesh needs the global batch's "
+                         "rows (h holds this rank's)")
+    local, rules = mesh_params(params, cfg, mesh, specs)
+    split = _batch_split(mesh, cfg, global_batch)
+    with _serving(mesh, cfg, split):
+        out = logits_fn(
+            shard_ctx.gather_tree(local["head"], rules["head"], mesh),
+            shard_ctx.gather_tree(local["embed"], rules["embed"], mesh),
+            h, cfg)
+        return shard_ctx.gather_from(out, 0, mesh, split)
+
+
 __all__ = ["init_model", "forward", "init_decode_state", "prefill",
-           "decode_step", "tree_map", "tree_leaves"]
+           "decode_step", "serve_logits", "mesh_params", "MeshParams",
+           "tree_map", "tree_leaves"]

@@ -38,7 +38,7 @@ import torch
 
 from ..models import forward, shard_ctx
 from ..models.layers import cdtype, chunked_xent
-from ..models.transformer import tree_leaves, tree_map
+from ..models.transformer import UNIT_KEYS, tree_leaves, tree_map
 from .optimizer import (OptimizerConfig, OptState, adamw_update,
                         init_opt_state)
 
@@ -165,9 +165,6 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, *, microbatches: int = 1,
 # the step on a mesh
 # ---------------------------------------------------------------------------
 
-_UNIT_KEYS = ("units", "enc_units")
-
-
 def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
     """Per leaf of ``specs`` (the params' specs), the ``(spec, partial,
     keep)`` its gather takes: the axes its gradient is summed over and
@@ -182,7 +179,7 @@ def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
 
     def one(path, spec):
         name = _leaf_name(path)
-        if path[0] in _UNIT_KEYS:
+        if path[0] in UNIT_KEYS:
             spec = spec[1:]                 # one unit of the stack
         if name == "router":
             return spec, split, ()
@@ -197,22 +194,18 @@ def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
     return _map_with_path(one, specs)
 
 
-def _gather_tree(tree, rules, mesh):
-    return tree_map(lambda x, r: shard_ctx.gather_param(
-        x, r[0], mesh, partial=r[1], keep=r[2]), tree, rules)
-
-
 def make_mesh_loss_fn(cfg, rules, mesh, split_in, *, skip_causal=False):
     """``loss_fn(local_params, local_batch)``: this rank's share of the
     global batch's loss (its tokens' nll sum over the batch's mask count,
     plus the MoE aux, which every rank computes alike), with the params
     gathered by ``rules`` (:func:`mesh_gather_rules`)."""
     def gather(key, up):
-        return _gather_tree(up, rules[key], mesh)
+        return shard_ctx.gather_tree(up, rules[key], mesh)
 
     def loss_fn(params, batch):
         params_c = cast_params_for_compute(params, cfg)
-        full = {k: v if k in _UNIT_KEYS else _gather_tree(v, rules[k], mesh)
+        full = {k: v if k in UNIT_KEYS
+                else shard_ctx.gather_tree(v, rules[k], mesh)
                 for k, v in params_c.items()}
         h, aux = forward(full, batch, cfg, skip_causal=skip_causal,
                          gather=gather)

@@ -12,9 +12,14 @@ faults that blocked it.
 * a production ``train_4k`` cell at full width (depth cut) replayed
   and unrolled: equal to the byte;
 * a production ``train_4k`` cell's record (the reference's keys, the
-  roofline terms, the peak's parts), a serving cell's reason, an
-  args-only record recomputed when a cost is asked for, a failed cost run
-  recorded FAIL with exit 1, and ``roofline.summarize``'s tables.
+  roofline terms, the peak's parts), an args-only record recomputed when
+  a cost is asked for, a failed cost run recorded FAIL with exit 1, and
+  ``roofline.summarize``'s tables;
+* a production serving cell costed (llama3_2_1b ``decode_32k`` on
+  16 × 16: flops, collectives, peak, the cache held once, the state
+  donated) and one that waits (rwkv6_7b, its reason naming the roadmap
+  item it waits for);
+* ``fits`` with the headroom measured on the card, and ``margin_bytes``.
 
 Fake and gloo runs are subprocesses of ``tests/torch_cost_worker.py``.
 """
@@ -167,7 +172,9 @@ def test_train_cell_record_has_the_cost(out_dir, monkeypatch):
                                           + mem["temp_bytes"]
                                           - mem["alias_bytes"])
     assert mem["peak_estimate_bytes"] > mem["held_bytes"] >= args
-    assert rec["fits"] == (mem["peak_estimate_bytes"] <= 80 * 2**30)
+    assert rec["margin_bytes"] == (80 * 2**30 - dryrun.HEADROOM_BYTES
+                                   - mem["peak_estimate_bytes"])
+    assert rec["fits"] == (rec["margin_bytes"] >= 0)
     assert rec["bytes_per_device_upper"] > rec["bytes_per_device"] > 0
     assert set(rec["collectives"]) == {"all-gather", "all-reduce"}
     assert sum(rec["collectives_by_link"].values()) == \
@@ -205,12 +212,68 @@ def test_full_width_cell_replay_equals_unrolled(tmp_path):
         assert s[k] == u[k], k
 
 
+def test_serving_cell_record_has_the_cost(out_dir):
+    """llama3_2_1b ``decode_32k`` on 16 × 16 (rank 0 of a fake group of
+    256 ranks in a subprocess): the mesh decode step's flops, collectives
+    (the head_dim-parallel scores' all-reduce over `model` on top), peak
+    and fit.  The state is donated: the cache is held once — the step's
+    peak above what it holds is below one unit's cache — and the new
+    state's storages are the arguments'."""
+    cfg = get_config("llama3_2_1b")
+    rec = dryrun.run_cell("llama3_2_1b", "decode_32k", False, verbose=False,
+                          device_bytes=80 * 2**30)
+    assert rec["status"] == "OK" and rec["chips"] == 256
+    for k in ("flops_per_device", "collectives", "collectives_by_axis",
+              "roofline", "cost_s", "fits", "margin_bytes"):
+        assert rec[k] is not None, k
+    assert rec["flops_per_device"] > 0
+    assert set(rec["collectives"]) == {"all-gather", "all-reduce"}
+    assert rec["collectives_top"][0]["op"].startswith(
+        "all-reduce float32") and "over model" in \
+        rec["collectives_top"][0]["op"]
+    mem = rec["memory"]
+    state = mem["argument_bytes_by_arg"]["state"]
+    assert mem["held_bytes"] == mem["argument_bytes"]
+    assert mem["peak_estimate_bytes"] - mem["held_bytes"] < \
+        state // cfg.n_units
+    assert mem["alias_bytes"] == state
+    assert rec["regions"]["_unit_in_place"] == cfg.n_units
+    assert rec["fits"] and rec["margin_bytes"] == (
+        80 * 2**30 - dryrun.HEADROOM_BYTES - mem["peak_estimate_bytes"])
+    t = rec["roofline"]
+    assert t["model_flops"] == 2 * rec["n_params_active"] * 128
+
+
 def test_serving_cell_waits_with_a_reason(out_dir):
-    rec = dryrun.run_cell("llama3_2_1b", "decode_32k", True, verbose=False)
+    """rwkv6_7b's serving cells wait: the RWKV state splits over heads,
+    which the mesh decode does not run yet."""
+    rec = dryrun.run_cell("rwkv6_7b", "decode_32k", True, verbose=False)
     assert rec["status"] == "OK" and rec["cost"] is None
-    assert "head" in rec["cost_reason"] and "model" in rec["cost_reason"]
+    assert rec["cost_reason"] == dryrun.SERVE_REASON
+    assert "12c" in rec["cost_reason"] and "RWKV" in rec["cost_reason"]
     assert rec["memory"]["argument_bytes"] > 0
     assert "flops_per_device" not in rec
+
+
+def test_fits_keeps_the_measured_headroom():
+    """jamba ``train_4k`` on 16 × 16 peaks at 85,011,501,360 bytes against
+    the card's 85,017,493,504: 6 MB to spare no longer reads as a fit once
+    the headroom is kept; a peak that leaves exactly the headroom fits."""
+    card = 85_017_493_504
+    assert dryrun.HEADROOM_BYTES > card - 85_011_501_360
+    rec = {"status": "OK", "flops_per_device": 1.0,
+           "memory": {"peak_estimate_bytes": 85_011_501_360}}
+    dryrun._fit(rec, card)
+    assert rec["fits"] is False and rec["margin_bytes"] < 0
+    assert rec["headroom_bytes"] == dryrun.HEADROOM_BYTES
+    rec["memory"]["peak_estimate_bytes"] = card - dryrun.HEADROOM_BYTES
+    dryrun._fit(rec, card)
+    assert rec["fits"] is True and rec["margin_bytes"] == 0
+    args_only = {"status": "OK", "memory": {"argument_bytes": 10}}
+    dryrun._fit(args_only, card)
+    assert args_only["margin_bytes"] == card - dryrun.HEADROOM_BYTES - 10
+    dryrun._fit(args_only, None)
+    assert args_only["fits"] is None and args_only["margin_bytes"] is None
 
 
 def test_failed_cost_run_is_a_fail(out_dir, monkeypatch, capsys):
@@ -238,4 +301,4 @@ def test_summarize_prints_both_meshes(out_dir, capsys):
     assert "## single_pod_16x16 (2 OK)" in out
     assert "## multi_pod_2x16x16 (2 OK)" in out
     assert out.count("| yi_6b | long_500k | SKIP |") == 2
-    assert "head-parallel attention" in out
+    assert "args only: the cost was not asked for" in out

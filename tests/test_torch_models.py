@@ -287,6 +287,39 @@ def test_block_skip_visits_fewer_keys(monkeypatch):
     assert float((y0 - y1).abs().max()) < 1e-5
 
 
+def test_one_chunk_decode_attention_runs_no_more_ops_than_flash():
+    """Against a cache of one chunk, the decode's online softmax
+    (``grouped_decode_attention``) runs no more ops than
+    ``flash_attention(chunk_q=1)`` (a decode step is launch-bound), and
+    both give the same rows; over four chunks it still does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import attention
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, fn, types, args=(), kwargs=None):
+            self.n += 1
+            return fn(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((4, 1, 4, 8), generator=g)
+    k = torch.randn((4, 64, 2, 8), generator=g)
+    v = torch.randn((4, 64, 2, 8), generator=g)
+    q_pos = torch.tensor([[63], [40], [7], [0]])
+    kv_pos = torch.arange(64).expand(4, 64)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=True)
+    with Ops() as flash:
+        y0 = attention.flash_attention(q, k, v, chunk_q=1, **kw)
+    with Ops() as grouped:
+        y1 = attention.grouped_decode_attention(q, k, v, chunk_kv=64, **kw)
+    assert grouped.n <= flash.n, (grouped.n, flash.n)
+    y2 = attention.grouped_decode_attention(q, k, v, chunk_kv=16, **kw)
+    assert float((y1 - y0).abs().max()) < 1e-6
+    assert float((y2 - y0).abs().max()) < 1e-6
+
+
 def test_gemma2_softcap_and_window_active():
     jcfg, jp, tcfg, tp = setup("gemma2_2b")
     batch = make_batch(tcfg, 1, 96)       # > window 64 so local != global

@@ -19,7 +19,9 @@ torch's own flop counter, real gloo ranks and the JAX package.
 * ``count_params``, ``model_flops_for``, ``roofline()`` and
   ``summarize.table`` equal the reference's; rank 0's flops on a (4, 1)
   mesh are within ``FLOPS_TOL`` of the reference's ``analyze_hlo`` of the
-  compiled cell.
+  compiled cell, its prefill and decode flops on (2, 2) (llama3_2_1b
+  and moonshot) within ``SERVE_FLOPS_TOL``, and so its decode flops on
+  (1, 4) (llama3_2_1b and gemma2_2b: the cache split on head_dim).
 
 Fake and gloo runs are subprocesses of ``tests/torch_cost_worker.py`` (a
 fake group is its process's default group); the reference's compiled
@@ -28,7 +30,11 @@ cells run in a subprocess with 4 host devices.
   python tests/test_torch_roofline.py --ratios
 
 prints rank 0's flops against the reference's for every architecture on
-(4, 1) and (2, 2) (PERF.md's finding).
+(4, 1) and (2, 2): the train step, and the prefill and decode of the
+attention/MLP/MoE architectures; and on (1, 4) the prefill and decode of
+llama3_2_1b and gemma2_2b, and llama3_2_1b's decode against an
+8,192-deep cache; beside a serving step's flops, both sides' collective
+bytes by op (PERF.md's finding).
 """
 
 import json
@@ -56,6 +62,15 @@ from repro_torch.roofline import analysis, op_cost, summarize  # noqa: E402
 # (port / reference): 1.05 (jamba) to 1.18 (llama3_2_1b, yi, chameleon)
 FLOPS_TOL = (1.0, 1.2)
 REF_ARCHS = ("llama3_2_1b", "moonshot_v1_16b_a3b", "rwkv6_7b")
+# the mesh prefill and decode on (2, 2): the model peers split the dense
+# matmuls, as the reference's program does (without the split they would
+# repeat them, as the train cells' 1.61-2.36x shows)
+SERVE_FLOPS_TOL = (0.8, FLOPS_TOL[1])
+SERVE_ARCHS = ("llama3_2_1b", "moonshot_v1_16b_a3b")
+SERVE_KINDS = ("prefill", "decode")
+# on (1, 4) their 2 kv heads do not divide `model`: the cache splits on
+# head_dim, and the decode sums partial scores over `model`
+HEAD_DIM_ARCHS = ("llama3_2_1b", "gemma2_2b")
 
 REFERENCE_FLOPS = """
 import json, os, sys
@@ -69,11 +84,16 @@ from repro.roofline.hlo_cost import analyze_hlo
 
 d, m = (int(x) for x in sys.argv[1].split(","))
 out = {}
-for arch in sys.argv[2].split(","):
-    cfg = get_config(arch, smoke=True)
-    shape = ShapeConfig("t", 32, 4 * cfg.microbatches, "train")
-    jitted, specs = build_cell(cfg, shape, make_host_mesh(d, m))
-    out[arch] = analyze_hlo(jitted.lower(*specs).compile().as_text())["flops"]
+for kind in (sys.argv[3] if len(sys.argv) > 3 else "train").split(","):
+    for arch in sys.argv[2].split(","):
+        cfg = get_config(arch, smoke=True)
+        rows = 4 * cfg.microbatches if kind == "train" else 4
+        shape = ShapeConfig("t", int(sys.argv[4]) if len(sys.argv) > 4
+                            else 32, rows, kind)
+        jitted, specs = build_cell(cfg, shape, make_host_mesh(d, m))
+        key = arch if kind == "train" else f"{kind}/{arch}"
+        r = analyze_hlo(jitted.lower(*specs).compile().as_text())
+        out[key] = {k: r[k] for k in ("flops", "coll_bytes", "coll_by_op")}
 print(json.dumps(out))
 """
 
@@ -93,14 +113,14 @@ def start_worker(scenario, out: Path, rank=None, world=None, store=None):
                             stderr=subprocess.PIPE, text=True)
 
 
-def start_reference(dims: str, archs):
+def start_reference(dims: str, archs, kinds=("train",), depth: int = 32):
     env = _env()
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["JAX_PLATFORMS"] = "cpu"
     return subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(REFERENCE_FLOPS), dims,
-         ",".join(archs)], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         ",".join(archs), ",".join(kinds), str(depth)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def join(procs, outs=()):
@@ -338,6 +358,15 @@ def launched(tmp_path_factory):
     runs["flops41"] = ([start_worker(f"flops:4,1:{','.join(REF_ARCHS)}",
                                      out), start_reference("4,1", REF_ARCHS)],
                        [out, None])
+    out = tmp / "serve22.json"
+    runs["serve22"] = (
+        [start_worker(f"flops:2,2:{','.join(SERVE_ARCHS)}:"
+                      f"{','.join(SERVE_KINDS)}", out),
+         start_reference("2,2", SERVE_ARCHS, SERVE_KINDS)], [out, None])
+    out = tmp / "serve14.json"
+    runs["serve14"] = (
+        [start_worker(f"flops:1,4:{','.join(HEAD_DIM_ARCHS)}:decode", out),
+         start_reference("1,4", HEAD_DIM_ARCHS, ("decode",))], [out, None])
     yield runs
     for procs, _ in runs.values():
         for p in procs:
@@ -510,29 +539,80 @@ def test_summarize_table_matches_reference(tmp_path):
                   key=json.dumps) == sorted(recs, key=json.dumps)
 
 
-def flops_against_reference(dims: str, arch_ids, tmp: Path) -> dict:
-    """``{arch: (port's rank-0 flops, reference's)}`` on a (D, M) mesh."""
-    out = tmp / f"port_{dims.replace(',', 'x')}.json"
-    port, ref = join([start_worker(f"flops:{dims}:{','.join(arch_ids)}",
-                                   out),
-                      start_reference(dims, arch_ids)],
+def flops_against_reference(dims: str, arch_ids, tmp: Path,
+                            kinds=("train",), depth: int = 32) -> dict:
+    """``{key: (port's rank-0 result, reference's)}`` on a (D, M) mesh
+    (flops; a serving step's also ``coll_bytes`` and ``coll_by_op``); a
+    key is the architecture for a train step, ``kind/arch`` for a prefill
+    or decode step (``depth``: its tokens, or its cache's depth)."""
+    out = tmp / f"port_{dims.replace(',', 'x')}_{'_'.join(kinds)}.json"
+    tail = "" if tuple(kinds) == ("train",) else \
+        f":{','.join(kinds)}:{depth}"
+    port, ref = join([start_worker(f"flops:{dims}:{','.join(arch_ids)}"
+                                   + tail, out),
+                      start_reference(dims, arch_ids, kinds, depth)],
                      [out, None])
-    return {a: (port[a]["flops"], ref[a]) for a in arch_ids}
+    return {k: (port[k], ref[k]) for k in ref}
 
 
 def test_data_mesh_flops_within_tolerance_of_reference(launched):
     ports, refs = joined(launched, "flops41")
     for arch in REF_ARCHS:
-        port, ref = ports[arch]["flops"], refs[arch]
+        port, ref = ports[arch]["flops"], refs[arch]["flops"]
         assert FLOPS_TOL[0] <= port / ref <= FLOPS_TOL[1], (arch, port, ref)
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_flops_on_two_by_two_within_tolerance_of_reference(
+        launched, arch, kind):
+    """Rank 0's flops of the mesh prefill (4 × 32 tokens) and decode (4
+    rows against a 32-deep cache) on (data, model) = (2, 2), against the
+    reference's ``analyze_hlo`` of ``build_cell``'s compiled step."""
+    ports, refs = joined(launched, "serve22")
+    port = ports[f"{kind}/{arch}"]["flops"]
+    ref = refs[f"{kind}/{arch}"]["flops"]
+    assert SERVE_FLOPS_TOL[0] <= port / ref <= SERVE_FLOPS_TOL[1], \
+        (arch, kind, port, ref)
+
+
+@pytest.mark.parametrize("arch", HEAD_DIM_ARCHS)
+def test_head_dim_decode_flops_on_one_by_four_within_tolerance_of_reference(
+        launched, arch):
+    """Rank 0's flops of the mesh decode on (data, model) = (1, 4), where
+    the cache splits on head_dim, against the reference's ``analyze_hlo``.
+    The collectives differ by design (ROADMAP Queue 3): the port sums each
+    cache chunk's partial scores over `model`, where the reference's
+    compiled program gathers the cache's head_dim blocks; both are
+    there."""
+    ports, refs = joined(launched, "serve14")
+    port, ref = ports[f"decode/{arch}"], refs[f"decode/{arch}"]
+    assert SERVE_FLOPS_TOL[0] <= port["flops"] / ref["flops"] <= \
+        SERVE_FLOPS_TOL[1], (arch, port, ref)
+    assert port["coll_by_op"]["all-reduce"] > 0, port
+    assert ref["coll_by_op"]["all-gather"] > 0, ref
 
 
 if __name__ == "__main__" and "--ratios" in sys.argv:
     import tempfile
 
+    serving = [a for a in ARCH_IDS
+               if a not in ("rwkv6_7b", "jamba_1_5_large_398b")]
+    runs = [(dims, kinds, ARCH_IDS if kinds == ("train",) else serving, 32)
+            for dims in ("4,1", "2,2") for kinds in (("train",), SERVE_KINDS)]
+    # the head_dim layout, and its decode against a deeper cache (where
+    # each layer's cache is read in 2,048-row chunks)
+    runs += [("1,4", SERVE_KINDS, HEAD_DIM_ARCHS, 32),
+             ("1,4", ("decode",), HEAD_DIM_ARCHS[:1], 8192)]
     with tempfile.TemporaryDirectory() as tmp:
-        for dims in ("4,1", "2,2"):
-            got = flops_against_reference(dims, ARCH_IDS, Path(tmp))
-            for arch, (port, ref) in got.items():
-                print(f"({dims}) {arch}: port {port:.6g} reference "
-                      f"{ref:.6g} ratio {port / ref:.4f}")
+        for dims, kinds, ids, depth in runs:
+            got = flops_against_reference(dims, ids, Path(tmp), kinds, depth)
+            for key, (port, ref) in got.items():
+                line = (f"({dims}, depth {depth}) {key}: port "
+                        f"{port['flops']:.6g} "
+                        f"reference {ref['flops']:.6g} ratio "
+                        f"{port['flops'] / ref['flops']:.4f}")
+                if "coll_bytes" in port:
+                    line += (f"; collectives port {port['coll_by_op']} "
+                             f"reference {ref['coll_by_op']}")
+                print(line)

@@ -14,8 +14,9 @@ run it and hold the numbers to fixed answers, to torch's
 Scenarios (fake group): ``collective`` (4 ranks), ``archs[:A,B]`` (the
 architectures at smoke size on 2 × 2: unrolled beside
 ``FlopCounterMode``, then scaled), ``calls`` (llama3_2_1b and moonshot on
-2 × 2, the collectives in order), ``flops:D,M:A,B`` (rank 0's flops on a
-(D, M) mesh), ``group_fake`` (the (data, model) group made under
+2 × 2, the collectives in order), ``flops:D,M:A,B[:KINDS[:DEPTH]]``
+(rank 0's flops on a (D, M) mesh: the train step, or the prefill and
+decode steps), ``group_fake`` (the (data, model) group made under
 ``FakeTensorMode``), ``cell:ARCH:single|multi[:LAYERS[:MB]]`` (a
 production ``train_4k`` cell at full width, replayed and unrolled; at
 full depth the unrolled run of a scan architecture takes hours); gloo:
@@ -119,17 +120,32 @@ def calls(res) -> None:
                      "flops": r["flops"]}
 
 
-def flops(res, data: int, model: int, arch_ids) -> None:
+def flops(res, data: int, model: int, arch_ids, kinds=("train",),
+          depth: int = 32) -> None:
     """Rank 0's flops on a (data, model) mesh at smoke size, 32 tokens a
-    row, on a batch of 4 rows a microbatch (each microbatch splits over
-    the data ranks, as the reference's step shards it)."""
+    row: the train step on a batch of 4 rows a microbatch (each
+    microbatch splits over the data ranks, as the reference's step shards
+    it), keyed by architecture; the mesh prefill of 4 rows and the decode
+    step of 4 rows against a ``depth``-deep cache (the prefill: of
+    ``depth`` tokens), keyed ``kind/arch``, with their collectives."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
 
     mesh = mesh_of({"data": data, "model": model})
-    for arch in arch_ids:
-        b = 4 * get_config(arch, smoke=True).microbatches
-        r = step_cost(arch, mesh, scaled=True, batch=b, seq=32)
-        res[arch] = {"flops": r["flops"], "batch": b}
+    for kind in kinds:
+        for arch in arch_ids:
+            cfg = get_config(arch, smoke=True)
+            if kind == "train":
+                b = 4 * cfg.microbatches
+                r = step_cost(arch, mesh, scaled=True, batch=b, seq=32)
+                res[arch] = {"flops": r["flops"], "batch": b}
+                continue
+            r = dryrun.cost_serve_step(cfg, mesh,
+                                       ShapeConfig("t", depth, 4, kind))
+            res[f"{kind}/{arch}"] = {"flops": r["flops"], "batch": 4,
+                                     "coll_bytes": r["coll_bytes"],
+                                     "coll_by_op": r["coll_by_op"]}
 
 
 def _axis_group_ranks(mesh, axes=("data", "model")):
@@ -238,15 +254,19 @@ SCENARIOS = {"collective": (collective, 4), "archs": (archs, 4),
 
 
 def scenario_of(name: str):
-    """``(fn, world)``; ``flops:D,M:ARCH[,ARCH...]`` is :func:`flops` on a
-    (D, M) mesh, ``archs:ARCH[,ARCH...]`` :func:`archs` over those,
+    """``(fn, world)``; ``flops:D,M:ARCH[,ARCH...][:KIND[,KIND...][:DEPTH]]``
+    is :func:`flops` on a (D, M) mesh, ``archs:ARCH[,ARCH...]`` :func:`archs` over those,
     ``cell:ARCH:single|multi[:LAYERS[:MICROBATCHES]]`` :func:`cell` on
     that production mesh (rank 0 of a fake group of 256 or 512 ranks)."""
     head, _, rest = name.partition(":")
     if head == "flops":
         dims, _, ids = rest.partition(":")
+        ids, _, kinds = ids.partition(":")
+        kinds, _, depth = kinds.partition(":")
         d, m = (int(x) for x in dims.split(","))
-        return (lambda res: flops(res, d, m, ids.split(","))), d * m
+        kinds = tuple(kinds.split(",")) if kinds else ("train",)
+        return (lambda res: flops(res, d, m, ids.split(","), kinds,
+                                  int(depth or 32))), d * m
     if head == "archs" and rest:
         return (lambda res: archs(res, rest.split(","))), 4
     if head == "cell":
