@@ -103,8 +103,9 @@ just before it and read just after:
 * the mesh path (11h), in its own one-rank NCCL group: llama3_2_1b at
   full width and depth through ``build_trainer(..., mesh=make_host_mesh(1,
   1, "cuda"))`` (the state ``DTensor``s, each unit's parameters gathered
-  inside its remat boundary, each gradient reduced to its leaf's spec)
-  for 3 steps against the unsharded trainer's (losses 1e-6, the first
+  inside its remat boundary, the step under its tensor-parallel context
+  — `model` of one rank splits nothing —, each gradient reduced to its
+  leaf's spec) for 3 steps against the unsharded trainer's (losses 1e-6, the first
   step's gradients and weights as ``step_vs_cpu`` holds them), one MoE
   layer at moonshot_v1_16b_a3b's full width through the distributed path
   (the expert all-to-all) against the local one, grok's ffn mode at smoke
@@ -2111,7 +2112,9 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
     a. llama3_2_1b at full width and depth through ``build_trainer(...,
        mesh=make_host_mesh(1, 1, "cuda"))`` (the state ``DTensor``s placed
        by ``launch.sharding``'s rules; each unit's parameters gathered
-       inside its remat boundary, each gradient reduced to its leaf's spec)
+       inside its remat boundary, each gradient reduced to its leaf's spec;
+       every step under the tensor-parallel context ``tp=("model",)``,
+       checked, with the leaves ``tp_layout`` keeps on `model` counted)
        against 11g's unsharded trainer on the same seed, batches (4 × 512
        tokens) and optimizer: three steps each, the losses within 1e-6
        relative, the first step's weights held as ``step_vs_cpu`` holds
@@ -2146,9 +2149,10 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
     from repro_torch.configs import ARCH_IDS, SHAPES, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.sharding import distribute_state, gather_state
+    from repro_torch.launch.sharding import (distribute_state, gather_state,
+                                             param_specs, tp_layout)
     from repro_torch.launch.train import build_trainer
-    from repro_torch.models import init_model
+    from repro_torch.models import init_model, shard_ctx
     from repro_torch.models import moe as M
     from repro_torch.models.transformer import tree_leaves, tree_map
     from repro_torch.train import (CheckpointManager, OptimizerConfig,
@@ -2204,7 +2208,15 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
             torch.cuda.empty_cache()
             return p0, p1, losses, ms, peak
 
+        tp_seen = []
+        set_ctx = shard_ctx.set_sharding_context
+
+        def ctx_spy(m, batch_axes, split=(), tp=()):   # the steps' context
+            tp_seen.append(tuple(tp))
+            return set_ctx(m, batch_axes, split=split, tp=tp)
+
         TS.adamw_update = spy
+        shard_ctx.set_sharding_context = ctx_spy
         try:
             p0, p_plain, l_plain, ms_plain, peak_plain = steps(None)
             g_plain = seen[0]
@@ -2213,7 +2225,10 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
             g_mesh = seen[0]
         finally:
             TS.adamw_update = adamw_update
+            shard_ctx.set_sharding_context = set_ctx
         seen.clear()
+        layout = tp_layout(param_specs(p0, mesh, cfg), mesh, cfg)
+        kept = sum(keep == ("model",) for keep, _ in tree_leaves(layout))
         rows = step_vs_cpu(p0, p_mesh, p_plain, g_plain, g_mesh, cfg,
                            opt_cfg, float(lr_at(opt_cfg, 1)), device=dev)
         bad = [r for r in rows if r["grad_vs_cpu"] > 1e-4
@@ -2227,9 +2242,12 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
             grad_vs_plain=max(r["grad_vs_cpu"] for r in rows),
             adamw_vs_plain_lr=max(r["adamw_vs_cpu_lr"] for r in rows),
             step_excess_lr=max(r["excess_lr"] for r in rows),
-            step_worst=max(rows, key=lambda r: r["step_vs_cpu_lr"]))
+            step_worst=max(rows, key=lambda r: r["step_vs_cpu_lr"]),
+            tp_context=sorted(set(tp_seen)), leaves_kept_on_model=kept)
         check(loss_gap <= 1e-6, f"the mesh step's losses against 11g's: "
               f"{l_mesh} {l_plain}")
+        check(len(tp_seen) == 3 and set(tp_seen) == {("model",)},
+              f"the mesh steps' tensor-parallel context: {tp_seen}")
         check(not bad, f"the mesh step's weights against 11g's: {bad}")
         del p0, p_plain, p_mesh, g_plain, g_mesh, rows
         gc.collect()

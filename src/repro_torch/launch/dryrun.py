@@ -26,7 +26,10 @@ port's own mesh step — ``make_train_step(cfg, OptimizerConfig(),
 microbatches=cfg.microbatches, mesh=, donate=True)`` on the production
 ``DeviceMesh`` (``make_production_mesh(device_type="cpu")``), its state
 built and distributed as ``launch.train.build_trainer`` builds it, on the
-global batch — under ``FakeTensorMode`` and ``roofline.op_cost.OpCost``.
+global batch — under ``FakeTensorMode`` and ``roofline.op_cost.OpCost``
+(its layers split over `model` as the reference's GSPMD program does:
+attention, MLP, MoE and the vocab; Mamba and RWKV mixers repeat on every
+model peer until ROADMAP item 12c).
 That is the SPMD program each card runs, so its counts are one device's:
 ``flops_per_device``, ``bytes_per_device`` (matmul bytes, the memory
 term's input), ``bytes_per_device_upper`` (every op's), ``collectives``

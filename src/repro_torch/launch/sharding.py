@@ -24,11 +24,12 @@ partitioner.  The state's leaves are ``DTensor``s placed by these specs
 :func:`dp_axes` at its entry (:func:`make_shard_act`, the port's form of
 the reference's activation constraint), all-gathers each unit's
 parameters just before the unit runs, and reduces each gradient back to
-its leaf's spec (``train.train_step``): there the model axis shards
-storage and the MoE experts, not the dense matmuls.  The mesh prefill and
-decode (``models.transformer.prefill(..., mesh=)``) split their compute
-over `model` instead: :func:`serve_gather_rules` keeps each leaf's
-`model` shard where it is aligned with what its layer splits.
+its leaf's spec (``train.train_step``).  The `model` axis splits the
+compute of the train step and of the mesh prefill and decode
+(``models.transformer.prefill(..., mesh=)``) as GSPMD splits the
+reference's: :func:`tp_layout` keeps each leaf's `model` shard where it
+is aligned with what its layer splits, by the kind of block that holds
+it, and the layers split their matmuls on it.
 ``act_sharding="sp"`` (sequence-parallel activations) has no eager
 counterpart and is ignored.
 """
@@ -122,11 +123,14 @@ def _entry(axes):
     return None if not axes else axes[0] if len(axes) == 1 else axes
 
 
-def _map_with_path(fn, tree, path=()):
+def _map_with_path(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *leaves at the same path of rest)`` over a tree of
+    dicts."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,))
+        return {k: _map_with_path(fn, v, *(r[k] for r in rest),
+                                  path=path + (k,))
                 for k, v in tree.items()}
-    return fn(path, tree)
+    return fn(path, tree, *rest)
 
 
 def dp_axes(mesh, cfg) -> tuple:
@@ -136,6 +140,16 @@ def dp_axes(mesh, cfg) -> tuple:
     if getattr(cfg, "dp_over_model", False):
         axes = axes + ("model",)
     return axes
+
+
+def tp_axes(mesh, cfg) -> tuple:
+    """The axes the layers split their matmuls over (the context's
+    ``tp``): `model`, unless the mesh has none or the config puts the
+    batch on it (dp_over_model)."""
+    if "model" not in axis_names(mesh) or getattr(cfg, "dp_over_model",
+                                                  False):
+        return ()
+    return ("model",)
 
 
 def _resolve(logical, mesh, cfg):
@@ -417,41 +431,86 @@ def gather_state(tree):
     return full_tensor(tree)
 
 
-# the leaves a layer computes with on its `model` shard (tensor-parallel
-# compute), and the config's dim that shard must divide into whole units
-_TP_KEEP = {"w_q": "n_heads", "w_o": "n_heads", "w_k": "n_kv_heads",
-            "w_v": "n_kv_heads", "w_gate": None, "w_up": None,
-            "w_down": None, "embedding": None, "w_head": None}
+# what a layer computes with on its `model` shard (tensor-parallel
+# compute), by the kind of block that holds the leaf: each leaf the layer
+# splits, and the config dim that must divide `model` for the split (None:
+# any shard will do).  ``w_k``/``w_v`` follow the query heads: the rank's
+# kv heads where ``n_kv_heads`` divides `model` too, else the rank's block
+# of columns, whose products the layer gathers (``attention._project_qkv``)
+TP_SPLIT = {
+    "attn": {"w_q": "n_heads", "w_o": "n_heads", "w_k": "n_heads",
+             "w_v": "n_heads"},
+    "mlp": {"w_gate": None, "w_up": None, "w_down": None},
+    "moe": {"we_gate": None, "we_up": None, "we_down": None},
+    "embed": {"embedding": None},
+    "head": {"w_head": None},
+}
+# leaves an attention block with split query heads computes with on the
+# rank's heads only, though whole: their gradients are each rank's part
+_TP_PARTIAL_ATTN = ("w_k", "w_v", "q_norm", "k_norm")
+
+
+def _block_kind(path, cfg):
+    """The kind of layer that computes with the leaf at ``path`` (a key of
+    :data:`TP_SPLIT`), or None (norms, Mamba, RWKV: their `model` split
+    waits for ROADMAP Queue 1 item 12c)."""
+    from ..models.transformer import _ATTN_KINDS, UNIT_KEYS
+
+    if path[0] in ("embed", "head"):
+        return path[0]
+    if path[0] not in UNIT_KEYS or len(path) < 4:
+        return None
+    pattern = cfg.unit_pattern if path[0] == "units" else \
+        cfg.enc_unit_pattern
+    mixer, ffn = pattern[int(path[1][1:])]
+    kind = {"mixer": mixer, "cross": "attn", "ffn": ffn}.get(path[2])
+    return "attn" if kind in _ATTN_KINDS else kind
+
+
+def tp_layout(specs, mesh, cfg):
+    """Per leaf of ``specs`` (the params' specs, a unit stack's with its
+    leading dim), ``(keep, partial)``: ``keep`` is ``("model",)`` where the
+    layer computes with the rank's `model` shard (its block's kind splits
+    the leaf, the dim the split needs divides `model`, and the spec shards
+    the leaf over it), else ``()``; ``partial`` is ``("model",)`` where the
+    leaf is whole but the rank computes with it on its own query heads
+    only, so that its gradient must be summed over `model` (never where
+    `model` has one rank).  One table (:data:`TP_SPLIT`) for the mesh
+    train step and the mesh prefill and decode."""
+    tp = axis_size(mesh, "model") if "model" in axis_names(mesh) else 1
+    split_q = tp > 1 and bool(tp_axes(mesh, cfg)) and cfg.n_heads % tp == 0
+
+    def one(path, spec):
+        kind, name = _block_kind(path, cfg), _leaf_name(path)
+        unit = TP_SPLIT.get(kind, {}).get(name, 0)
+        aligned = unit is None or (unit and getattr(cfg, unit) % tp == 0)
+        keep = ("model",) if aligned and "model" in spec_axes(spec) else ()
+        partial = ("model",) if split_q and not keep and kind == "attn" \
+            and name in _TP_PARTIAL_ATTN else ()
+        return keep, partial
+
+    return _map_with_path(one, specs)
 
 
 def serve_gather_rules(specs, mesh, cfg):
     """Per leaf of ``specs`` (the params' specs), the ``(spec, partial,
     keep)`` that ``shard_ctx.gather_param`` takes in the mesh prefill and
     decode: every axis is gathered (the fsdp axes per unit, as the train
-    step gathers them) but `model`, which stays sharded where the leaf's
-    shard is aligned with what its layer splits — ``w_q``/``w_o`` where
-    ``n_heads`` divides `model`, ``w_k``/``w_v`` where ``n_kv_heads``
-    does, the MLP on d_ff, the embedding and head on the vocab, and the
-    experts on E (``moe_sharding="expert"``) or on d_ff (``"ffn"``).
-    Any other leaf is gathered over `model` too (at |model| = 16 llama's
-    ``w_k`` fused 512 columns split into 32-column blocks, each cutting a
-    kv head in half).  Forward only: no gradient is summed."""
+    step gathers them) but `model`, which stays sharded where
+    :func:`tp_layout` keeps it — attention where ``n_heads`` divides
+    `model` (``w_k``/``w_v`` on kv heads where ``n_kv_heads`` does too,
+    else on columns), the MLP on d_ff, the embedding and head on the
+    vocab, the experts on E (``moe_sharding="expert"``) or on d_ff
+    (``"ffn"``); Mamba and RWKV leaves are gathered.  Forward only: no
+    gradient is summed."""
     from ..models.transformer import UNIT_KEYS
 
-    tp = axis_size(mesh, "model")
-
-    def one(path, spec):
-        name = _leaf_name(path)
+    def one(path, spec, layout):
         if path[0] in UNIT_KEYS:
             spec = spec[1:]                   # one unit of the stack
-        unit = _TP_KEEP.get(name, 0)
-        if name in MOE_EXPERT_LEAVES:
-            unit = None
-        aligned = unit is None or (unit and getattr(cfg, unit) % tp == 0)
-        keep = ("model",) if aligned and "model" in spec_axes(spec) else ()
-        return spec, (), keep
+        return spec, (), layout[0]
 
-    return _map_with_path(one, specs)
+    return _map_with_path(one, specs, tp_layout(specs, mesh, cfg))
 
 
 def make_shard_act(mesh, cfg):
@@ -473,10 +532,11 @@ def make_shard_act(mesh, cfg):
 
 
 __all__ = ["PARAM_RULES", "PARAM_RULES_MOE_FFN", "STATE_RULES", "dp_axes",
+           "tp_axes",
            "param_specs", "train_state_specs", "state_specs", "batch_specs",
            "placements", "spec_of", "param_shardings",
            "train_state_shardings", "state_shardings", "batch_shardings",
            "local_block", "local_size_bytes", "shard_leaf",
-           "serve_gather_rules",
+           "TP_SPLIT", "tp_layout", "serve_gather_rules",
            "distribute_params", "distribute_state", "full_tensor", "gather_state",
            "make_shard_act"]

@@ -24,9 +24,11 @@ in one process that call has no meaning, so the port drops it.
 **On a mesh** (a tensor-parallel context, ``shard_ctx.tp_split``) each
 projection is whole or the rank's block of heads — ``w_q``/``w_o`` where
 ``n_heads`` divides the axis, ``w_k``/``w_v`` where ``n_kv_heads`` does —
-and the layer reads which from its shape.  The rank computes its own
-query heads against the kv heads they read (all of them when the query
-heads are whole), and ``w_o``'s rows are summed over the group
+or, for ``w_k``/``w_v`` where it does not, the rank's block of columns,
+whose products are gathered over the group (:func:`_project_qkv`); the
+layer reads which from its shape.  The rank computes its own query heads
+against the kv heads they read (all of them when the query heads are
+whole), and ``w_o``'s rows are summed over the group
 (``shard_ctx.row_split``).  The cache a rank holds follows the state's
 specs, chosen per cache:
 
@@ -144,7 +146,13 @@ def _column_input(x, *ws, full):
 
 def _project_qkv(p, x, kv_x, cfg):
     """q, k, v: (B, S, heads, D), the heads the rank's projections hold
-    (all of them off a mesh)."""
+    (all of them off a mesh).  Where ``w_k``/``w_v`` hold the rank's block
+    of columns but ``n_kv_heads`` does not divide the group (the block cuts
+    kv heads), the rank projects its columns and the group gathers them:
+    every rank then holds every kv head.  The query heads are then split
+    too (``launch.sharding.tp_layout`` keeps these blocks only then), so
+    each rank reads other kv heads, and the gather's backward sums the
+    gradient over the group."""
     dt = cdtype(cfg)
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -156,8 +164,13 @@ def _project_qkv(p, x, kv_x, cfg):
     q = (x @ p["w_q"].to(dt)).reshape(b, s, -1, dh)
     src = x if kv_x is None else kv_x
     sk = src.shape[1]
-    k = (src @ p["w_k"].to(dt)).reshape(b, sk, -1, dh)
-    v = (src @ p["w_v"].to(dt)).reshape(b, sk, -1, dh)
+    k, v = src @ p["w_k"].to(dt), src @ p["w_v"].to(dt)
+    tp = shard_ctx.tp_split()
+    if tp is not None and k.shape[-1] < hkv * dh and \
+            hkv % shard_ctx.group_size(*tp):
+        k, v = (shard_ctx.gather_from(t, -1, *tp, sum_grad=True)
+                for t in (k, v))
+    k, v = k.reshape(b, sk, -1, dh), v.reshape(b, sk, -1, dh)
     if cfg.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])

@@ -16,9 +16,12 @@ Conventions
 * under a tensor-parallel context (``shard_ctx.tp_split``) a layer handed
   the rank's block of a leaf splits its compute: the embedding looks up
   its vocab range and sums over the group, the MLP splits d_ff (columns,
-  then rows, one sum after ``w_down``), and ``logits_fn`` on the rank's
+  then rows, one sum after ``w_down``), ``logits_fn`` on the rank's
   vocab block returns the rank's block of the logits (no gather; the
-  final softcap is elementwise).
+  final softcap is elementwise), and ``chunked_xent`` takes the
+  logsumexp over the vocab shards (vocab-parallel loss: the group's
+  largest logit, then its sums of the shifted exponentials and of the
+  gold logit, which one rank's block holds).
 * the reference's gradient-dtype boundary (``_grad_same_dtype`` before
   every norm: the fp32 cotangent of the norm statistics is cast back to the
   primal's dtype, so the backward residual stream stays bf16) needs no
@@ -236,20 +239,62 @@ def softcap(logits: torch.Tensor, c: float) -> torch.Tensor:
 
 
 def logits_fn(head_p, emb_p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits of ``x``: the rank's block of the vocab where the head (or
+    the tied embedding) is the rank's block of it, ``x`` then read through
+    ``shard_ctx.copy_to`` (its gradient summed over the blocks)."""
     dt = cdtype(cfg)
     if cfg.tie_embeddings:
         w = emb_p["embedding"].to(dt).T
     else:
         w = head_p["w_head"].to(dt)
+    tp = shard_ctx.tp_split()
+    if tp is not None and w.shape[1] < pad_vocab(cfg.vocab_size):
+        x = shard_ctx.copy_to(x, *tp)
     return softcap(x @ w, cfg.final_softcap)
 
 
 def _xent_chunk(head_p, emb_p, xc, lc, mc, cfg) -> torch.Tensor:
     """Σ mask · (logsumexp − gold logit) over one (B, C) chunk, fp32."""
     logits = logits_fn(head_p, emb_p, xc, cfg).float()
+    tp = shard_ctx.tp_split()
+    if tp is not None and logits.shape[-1] < pad_vocab(cfg.vocab_size):
+        return (_VocabParallelXent.apply(logits, lc, *tp) * mc).sum()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, lc[..., None])[..., 0]
     return ((lse - gold) * mc).sum()
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per row, logsumexp − gold logit of rows whose ``logits`` are the
+    rank's block of the vocab (vocab-parallel loss): the group's largest
+    logit is the shift, and the shifted exponentials' sum and the gold
+    logit (zero on every rank but the one whose block holds the label) are
+    summed over the group in one all-reduce.  Its backward is the unsplit
+    loss's, ``g · (exp(logits − lse) − onehot(label))`` on the rank's
+    block, with no sum: the loss is the same on every rank of the group."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh, axes):
+        n = logits.shape[-1]
+        local = labels - shard_ctx.group_index(mesh, axes) * n
+        inside = (local >= 0) & (local < n)
+        local = torch.where(inside, local, 0)
+        gold = logits.gather(-1, local[..., None])[..., 0]
+        m = shard_ctx.reduce_max(logits.amax(dim=-1), mesh, axes)
+        sum_exp, gold = shard_ctx.reduce_sum(torch.stack([
+            torch.exp(logits - m[..., None]).sum(dim=-1),
+            torch.where(inside, gold, 0.0)]), mesh, axes)
+        lse = m + torch.log(sum_exp)
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, inside = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, local[..., None],
+                          torch.where(inside, -g, 0.0)[..., None])
+        return grad, None, None, None
 
 
 def chunked_xent(head_p, emb_p, x: torch.Tensor, labels, mask, cfg,

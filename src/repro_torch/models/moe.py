@@ -37,20 +37,25 @@ Two dispatch paths, as the reference's:
 
 ``moe_sharding="ffn"`` (grok-1: E=8 < TP axis 16) keeps the experts whole
 on every model peer and splits the tokens over the data axes only.  Under
-a tensor-parallel context (``shard_ctx.tp_split``: the mesh prefill and
-decode) two layouts follow the reference's GSPMD placement of the
+a tensor-parallel context (``shard_ctx.tp_split``: the mesh train step,
+prefill and decode) two layouts follow the reference's GSPMD placement of the
 buffer:
 
 * experts handed as the rank's block of d_ff (grok's ffn mode, the
   leaves' ``model`` split kept) run the rank's columns then rows, and the
   combined output is summed over `model` (tensor parallelism inside each
-  expert);
+  expert); the buffer and the gate weights are read through
+  ``shard_ctx.copy_to``, so their gradients — each rank's part, from its
+  block of d_ff — are summed over `model`, and the router's and the
+  input's are every rank's alike;
 * experts handed as the rank's block of E, with no all-to-all (tokens not
   split over `model`: 128 decode tokens over 16 data ranks), run on the
   rank's slice of the buffer, which every model peer holds alike, and the
   outputs are gathered over `model` — the reference's relayout of the
-  buffer onto ``("model", "batch", None)``, where the train step gathers
-  the experts' weights instead.
+  buffer onto ``("model", "batch", None)``.
+
+The mesh train step (a tensor-parallel context too) runs these layouts
+as the mesh prefill and decode do, each gradient summed as above.
 """
 
 from __future__ import annotations
@@ -238,9 +243,12 @@ def _apply_moe_dist(p, x, cfg, mesh, batch_axes_, split_in=()):
     if own:                # the rank's experts on its slice of the buffer
         j = shard_ctx.group_index(mesh, "model")
         n_own = experts["we_gate"].shape[0]
+        buf = shard_ctx.copy_to(buf, mesh, "model")  # every peer's grads
         buf = buf[j * n_own:(j + 1) * n_own]
-    if f_split:
+    if f_split:            # each rank's d_ff block reads all of the buffer
         buf = shard_ctx.copy_to(buf, *tp_ctx)
+        # and the gates weigh each rank's part of the outputs
+        w = shard_ctx.copy_to(w, *tp_ctx)
     if use_a2a:
         if not local:                      # this rank's experts of all E
             j = shard_ctx.group_index(mesh, "model")

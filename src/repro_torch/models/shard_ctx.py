@@ -21,7 +21,9 @@ the mesh (:func:`axis_group`), never the default group, and runs in
 autograd as Megatron's pairs do:
 
 * :func:`scatter_to` — forward: the rank's slice; backward: all-gather;
-* :func:`gather_from` — forward: all-gather; backward: the rank's slice;
+* :func:`gather_from` — forward: all-gather; backward: the rank's slice
+  (``sum_grad=True``: the gradient summed over the group first, for an
+  output whose ranks read different parts of it);
 * :func:`sum_over` — forward: all-reduce; backward: identity (the sum
   feeds a value every rank of the group computes alike);
 * :func:`all_to_all` — forward and backward: one ``all_to_all_single``;
@@ -35,15 +37,18 @@ autograd as Megatron's pairs do:
 None of them sums a gradient over ranks that only repeat work: that
 would multiply it by the group's size.
 
-**Tensor-parallel compute** (the mesh prefill and decode): the context's
-``tp`` entry names the axes the layers split their matmuls over
-(``"model"``; ``()``, the default, splits none).  A leaf a layer computes
-with is then either whole or the rank's block of it along the dimension
-the layer splits (``gather_param(..., keep=tp)``), and the layer reads
-which from its shape: a column split (:func:`copy_to`, then the local
-matmul: the rank's columns of the product), a row split
-(:func:`row_split`: the local matmul summed over the group) and a
-vocab-parallel lookup (:func:`vocab_lookup`).
+**Tensor-parallel compute** (the mesh train step, prefill and decode):
+the context's ``tp`` entry names the axes the layers split their matmuls
+over (``"model"``; ``()``, the default, splits none).  A leaf a layer
+computes with is then either whole or the rank's block of it along the
+dimension the layer splits (``gather_param(..., keep=tp)``), and the
+layer reads which from its shape: a column split (:func:`copy_to`, then
+the local matmul: the rank's columns of the product), a row split
+(:func:`row_split`: the local matmul summed over the group), a
+vocab-parallel lookup (:func:`vocab_lookup`) and a vocab-parallel loss
+(``layers.chunked_xent``: the logsumexp over the vocab shards, with
+:func:`reduce_max`).  The activations between layers stay whole on every
+rank of the group, so their gradients are too.
 """
 
 from __future__ import annotations
@@ -171,9 +176,10 @@ def _slice(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     return x.narrow(dim, group_index(mesh, axes) * rows, rows)
 
 
-def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, mesh, axes,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
     x = x.contiguous()
-    dist.all_reduce(x, group=axis_group(mesh, axes))
+    dist.all_reduce(x, op=op, group=axis_group(mesh, axes))
     return x
 
 
@@ -190,13 +196,18 @@ class _ScatterTo(torch.autograd.Function):
 
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, mesh, axes):
+    def forward(ctx, x, dim, mesh, axes, sum_grad):
         ctx.args = (dim, mesh, axes)
+        ctx.sum_grad = sum_grad
         return _all_gather(x, dim, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return (_slice(g, *ctx.args).contiguous(), None, None, None)
+        dim, mesh, axes = ctx.args
+        if ctx.sum_grad:
+            g = _all_reduce(g.clone(), mesh, axes)
+        return (_slice(g, dim, mesh, axes).contiguous(), None, None, None,
+                None)
 
 
 class _SumOver(torch.autograd.Function):
@@ -244,10 +255,15 @@ def scatter_to(x, dim, mesh, axes):
     return _ScatterTo.apply(x, dim, mesh, _axes(axes)) if _axes(axes) else x
 
 
-def gather_from(x, dim, mesh, axes):
+def gather_from(x, dim, mesh, axes, sum_grad=False):
     """The group's slices of ``x`` along ``dim`` joined in group order
-    (backward: the rank's slice).  No-op for no axes."""
-    return _GatherFrom.apply(x, dim, mesh, _axes(axes)) if _axes(axes) else x
+    (backward: the rank's slice, of the gradient summed over the group
+    first with ``sum_grad`` — where the ranks go on to read different
+    parts of the result, so each holds only its part of the gradient).
+    No-op for no axes."""
+    if not _axes(axes):
+        return x
+    return _GatherFrom.apply(x, dim, mesh, _axes(axes), sum_grad)
 
 
 def sum_over(x, mesh, axes):
@@ -359,8 +375,17 @@ def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _all_reduce(x.detach().clone(), mesh, axes)
 
 
+def reduce_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise largest ``x`` over the group of ``axes``, outside
+    autograd (a logsumexp's shift, which its value does not depend on)."""
+    if not _axes(axes):
+        return x.detach()
+    return _all_reduce(x.detach().clone(), mesh, axes, dist.ReduceOp.MAX)
+
+
 __all__ = ["set_sharding_context", "clear_sharding_context", "tp_split",
            "axis_names", "axis_sizes", "group_size", "group_index",
            "axis_group", "scatter_to", "gather_from", "sum_over", "copy_to",
            "row_split", "vocab_lookup", "all_to_all",
-           "spec_axes", "gather_param", "gather_tree", "reduce_sum"]
+           "spec_axes", "gather_param", "gather_tree", "reduce_sum",
+           "reduce_max"]

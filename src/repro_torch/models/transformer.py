@@ -23,10 +23,12 @@ decode.
 
 On a mesh the train step hands ``forward`` the units' parameters as this
 rank's shards and a ``gather(key, unit_params)`` callable (``key`` is
-``"units"`` or ``"enc_units"``) that all-gathers one unit's leaves; it runs
-inside the checkpointed unit, so the backward pass gathers again instead of
-keeping every unit's full weights alive (where the reference passes
-``shard_act`` to its scan body).  Without it nothing changes.
+``"units"`` or ``"enc_units"``) that all-gathers one unit's leaves — over
+every axis but the `model` shards its layers split on, under the step's
+tensor-parallel context; it runs inside the checkpointed unit, so the
+backward pass gathers again instead of keeping every unit's gathered
+weights alive (where the reference passes ``shard_act`` to its scan
+body).  Without it nothing changes.
 
 **The mesh prefill and decode** (``prefill(..., mesh=, specs=)``,
 ``decode_step(..., mesh=, specs=)``) take this rank's shards of the
@@ -501,13 +503,11 @@ def _batch_split(mesh, cfg, rows: int) -> tuple:
 def _serving(mesh, cfg, split):
     """The sharding context of the mesh prefill and decode (the layers
     split over `model`), without gradients."""
-    from ..launch.sharding import dp_axes
+    from ..launch.sharding import dp_axes, tp_axes
 
-    tp = () if "model" not in shard_ctx.axis_names(mesh) or getattr(
-        cfg, "dp_over_model", False) else ("model",)
     saved = dict(shard_ctx._CTX)
     shard_ctx.set_sharding_context(mesh, dp_axes(mesh, cfg), split=split,
-                                   tp=tp)
+                                   tp=tp_axes(mesh, cfg))
     try:
         with torch.no_grad():
             yield

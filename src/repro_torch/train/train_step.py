@@ -15,13 +15,20 @@ a device): the state's params and moments are ``DTensor``s placed by
 rank's block of the global batch (split over ``dp_axes``, or all of it
 when the batch does not divide them; then microbatches), runs the model
 with each unit's parameters all-gathered inside its remat boundary
-(``shard_ctx.gather_param``), and reduces each gradient to its leaf's
-spec in that gather's backward: a sum over the ranks that saw other
-tokens — the batch's axes for a dense leaf, the MoE's token split for the
-router and the experts — and a slice along the axes that shard the leaf,
-never a sum over ranks that only repeat work.  Each rank's loss is its
-tokens' share of the global mean, so the gradients and the metrics (loss,
-grad norm) are the global batch's; AdamW updates the local shards.
+(``shard_ctx.gather_param``) over every axis but `model` where the
+leaf's `model` shard is aligned with its layer's split
+(``launch.sharding.tp_layout``), and the layers split their compute over
+`model` as the mesh prefill and decode do (``shard_ctx.tp_split``):
+attention on heads, the MLP on d_ff, the experts on E or d_ff, the
+embedding, head and loss on the vocab.  Each gradient is reduced to its
+leaf's spec in that gather's backward: a sum over the ranks that saw
+other tokens — the batch's axes for a dense leaf, the MoE's token split
+for the router and the experts, and `model` too for a whole leaf that
+each model peer computes with on its own query heads only — and a slice
+along the axes that shard the leaf, never a sum over ranks that only
+repeat work.  Each rank's loss is its tokens' share of the global mean,
+so the gradients and the metrics (loss, grad norm) are the global
+batch's; AdamW updates the local shards.
 
 ``make_sparse_value_train_step(plan, loss_fn, opt_cfg)`` trains the
 ``(nnz,)`` values of a fixed sparsity pattern through the operator: each
@@ -168,16 +175,22 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, *, microbatches: int = 1,
 def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
     """Per leaf of ``specs`` (the params' specs), the ``(spec, partial,
     keep)`` its gather takes: the axes its gradient is summed over and
-    those that stay sharded in compute.  ``split_in``: the axes the batch
-    is split over; ``t``: a microbatch's tokens in the whole batch."""
+    those that stay sharded in compute (``launch.sharding.tp_layout``'s
+    `model`).  ``split_in``: the axes the batch is split over; ``t``: a
+    microbatch's tokens in the whole batch.  A leaf kept on `model` holds
+    other columns than its model peers' for the same tokens, and a leaf
+    every model peer computes with alike (norms, Mamba, RWKV) has its
+    inputs' gradients summed by ``shard_ctx.copy_to``: both are summed
+    over the batch's axes only."""
     from ..launch.sharding import (MOE_EXPERT_LEAVES, _leaf_name,
-                                   _map_with_path, dp_axes)
+                                   _map_with_path, dp_axes, tp_layout)
     from ..models.moe import moe_split
 
     split = (moe_split(t, mesh, dp_axes(mesh, cfg), cfg)[0]
              if cfg.n_experts else ())
 
-    def one(path, spec):
+    def one(path, spec, layout):
+        keep, rank_part = layout
         name = _leaf_name(path)
         if path[0] in UNIT_KEYS:
             spec = spec[1:]                 # one unit of the stack
@@ -186,12 +199,11 @@ def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
         if name in MOE_EXPERT_LEAVES:
             # the experts stay sharded over `model` where their specs put
             # them: a rank runs its own (the all-to-all brings the tokens)
-            keep = ("model",) if "model" in shard_ctx.spec_axes(
-                spec[:1]) else ()
+            # or its block of d_ff
             return spec, tuple(a for a in split if a not in keep), keep
-        return spec, tuple(split_in), ()
+        return spec, tuple(split_in) + rank_part, keep
 
-    return _map_with_path(one, specs)
+    return _map_with_path(one, specs, tp_layout(specs, mesh, cfg))
 
 
 def make_mesh_loss_fn(cfg, rules, mesh, split_in, *, skip_causal=False):
@@ -241,11 +253,13 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
     params and moments are ``DTensor``s, or — with their ``specs`` given —
     this rank's local shards (as the dispatch lint runs it on a mesh
     stand-in)."""
-    from ..launch.sharding import dp_axes, make_shard_act, param_specs
+    from ..launch.sharding import (dp_axes, make_shard_act, param_specs,
+                                   tp_axes)
     from .optimizer import _local
 
     shard = make_shard_act(mesh, cfg)
     b_axes = dp_axes(mesh, cfg)
+    tp = tp_axes(mesh, cfg)
     fixed_specs = specs
 
     def train_step(state: TrainState, batch):
@@ -263,7 +277,7 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
                                     skip_causal=skip_causal)
         params = tree_map(_local, state.params)
         saved = dict(shard_ctx._CTX)
-        shard_ctx.set_sharding_context(mesh, b_axes, split=split_in)
+        shard_ctx.set_sharding_context(mesh, b_axes, split=split_in, tp=tp)
         try:
             rows //= mb
             nll = aux = grads = None

@@ -209,10 +209,11 @@ def test_mesh_serve_workers_import_no_jax(ranks):
 
 def test_serve_gather_rules_keep_aligned_model_shards():
     """At |model| = 16: llama's q heads (32) divide `model` and stay split,
-    its kv heads (8) do not (each 32-column block of ``w_k`` cuts a kv head
-    in half), so ``w_k``/``w_v`` are gathered; the MLP, embedding and the
-    experts keep their shards; grok's experts keep d_ff's; moonshot's
-    fsdp axis is gathered."""
+    its kv heads (8) do not, so ``w_k``/``w_v`` keep their 32-column
+    blocks (each cuts a kv head in half: the layer gathers k and v);
+    gemma2's 8 q heads do not divide `model`, so its attention is
+    gathered; the MLP, embedding and the experts keep their shards;
+    grok's experts keep d_ff's; moonshot's fsdp axis is gathered."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import abstract_params
     from repro_torch.launch.mesh import production_mesh_shape
@@ -220,7 +221,8 @@ def test_serve_gather_rules_keep_aligned_model_shards():
 
     mesh = production_mesh_shape()
     want = {"llama3_2_1b": {"w_q": ("model",), "w_o": ("model",),
-                            "w_k": (), "w_v": (), "w_gate": ("model",),
+                            "w_k": ("model",), "w_v": ("model",),
+                            "w_gate": ("model",),
                             "w_down": ("model",), "embedding": ("model",)},
             "gemma2_2b": {"w_q": (), "w_o": (), "w_k": ()},
             "moonshot_v1_16b_a3b": {"w_q": ("model",), "w_k": ("model",),

@@ -17,11 +17,13 @@ torch's own flop counter, real gloo ranks and the JAX package.
 * llama3_2_1b and moonshot on a real 2 × 2 gloo group: rank 0's
   collectives, call by call, are the fake group's;
 * ``count_params``, ``model_flops_for``, ``roofline()`` and
-  ``summarize.table`` equal the reference's; rank 0's flops on a (4, 1)
-  mesh are within ``FLOPS_TOL`` of the reference's ``analyze_hlo`` of the
-  compiled cell, its prefill and decode flops on (2, 2) (llama3_2_1b
-  and moonshot) within ``SERVE_FLOPS_TOL``, and so its decode flops on
-  (1, 4) (llama3_2_1b and gemma2_2b: the cache split on head_dim).
+  ``summarize.table`` equal the reference's; rank 0's train flops on a
+  (4, 1) mesh, and on (2, 2) for llama3_2_1b and moonshot (the model
+  peers split the step), are within ``FLOPS_TOL`` of the reference's
+  ``analyze_hlo`` of the compiled cell, its prefill and decode flops on
+  (2, 2) (llama3_2_1b and moonshot) within ``SERVE_FLOPS_TOL``, and so
+  its prefill and decode flops on (1, 4) (llama3_2_1b and gemma2_2b: the
+  kv projection split on columns, the cache on head_dim).
 
 Fake and gloo runs are subprocesses of ``tests/torch_cost_worker.py`` (a
 fake group is its process's default group); the reference's compiled
@@ -69,8 +71,12 @@ SERVE_FLOPS_TOL = (0.8, FLOPS_TOL[1])
 SERVE_ARCHS = ("llama3_2_1b", "moonshot_v1_16b_a3b")
 SERVE_KINDS = ("prefill", "decode")
 # on (1, 4) their 2 kv heads do not divide `model`: the cache splits on
-# head_dim, and the decode sums partial scores over `model`
+# head_dim, and the decode sums partial scores over `model`; the kv
+# projection splits on columns, k and v gathered
 HEAD_DIM_ARCHS = ("llama3_2_1b", "gemma2_2b")
+# the train step on (2, 2): the model peers split the dense matmuls (rwkv6
+# waits: its mixer's split is ROADMAP item 12c)
+TP_ARCHS = tuple(a for a in REF_ARCHS if a != "rwkv6_7b")
 
 REFERENCE_FLOPS = """
 import json, os, sys
@@ -365,8 +371,13 @@ def launched(tmp_path_factory):
          start_reference("2,2", SERVE_ARCHS, SERVE_KINDS)], [out, None])
     out = tmp / "serve14.json"
     runs["serve14"] = (
-        [start_worker(f"flops:1,4:{','.join(HEAD_DIM_ARCHS)}:decode", out),
-         start_reference("1,4", HEAD_DIM_ARCHS, ("decode",))], [out, None])
+        [start_worker(f"flops:1,4:{','.join(HEAD_DIM_ARCHS)}:"
+                      f"{','.join(SERVE_KINDS)}", out),
+         start_reference("1,4", HEAD_DIM_ARCHS, SERVE_KINDS)], [out, None])
+    out = tmp / "train22.json"
+    runs["train22"] = ([start_worker(f"flops:2,2:{','.join(TP_ARCHS)}",
+                                     out), start_reference("2,2", TP_ARCHS)],
+                       [out, None])
     yield runs
     for procs, _ in runs.values():
         for p in procs:
@@ -430,10 +441,17 @@ def test_collective_bytes_fake_equal_gloo(calls, arch):
     assert fake[arch]["coll_by_op"] == gloo[arch]["coll_by_op"]
     assert fake[arch]["flops"] == gloo[arch]["flops"]
     ops = {c[0] for c in gloo[arch]["coll_calls"]}
-    assert {"all-gather", "all-reduce"} <= ops
     if arch.startswith("moonshot"):
+        # fsdp: the units' weights gathered over `data`
+        assert {"all-gather", "all-reduce"} <= ops
         assert "all-to-all" in ops                    # the MoE's exchange
         assert any(c[1] == "data,model" for c in gloo[arch]["coll_calls"])
+    else:
+        # no fsdp, every `model` shard computed on where it lies (the kv
+        # heads divide the axis): nothing gathered, only the split's and
+        # the batch's sums
+        assert ops == {"all-reduce"}
+        assert {c[1] for c in gloo[arch]["coll_calls"]} == {"data", "model"}
 
 
 # ---------------------------------------------------------------------------
@@ -591,6 +609,31 @@ def test_head_dim_decode_flops_on_one_by_four_within_tolerance_of_reference(
         SERVE_FLOPS_TOL[1], (arch, port, ref)
     assert port["coll_by_op"]["all-reduce"] > 0, port
     assert ref["coll_by_op"]["all-gather"] > 0, ref
+
+
+@pytest.mark.parametrize("arch", HEAD_DIM_ARCHS)
+def test_kv_split_prefill_flops_on_one_by_four_within_tolerance_of_reference(
+        launched, arch):
+    """Rank 0's flops of the mesh prefill (4 × 32 tokens) on (1, 4), where
+    the 2 kv heads do not divide `model`: each rank projects its block of
+    ``w_k``/``w_v``'s columns and gathers k and v, as the reference's
+    program splits that projection (a repeated kv projection read
+    1.2857×)."""
+    ports, refs = joined(launched, "serve14")
+    port, ref = ports[f"prefill/{arch}"], refs[f"prefill/{arch}"]
+    assert SERVE_FLOPS_TOL[0] <= port["flops"] / ref["flops"] <= \
+        SERVE_FLOPS_TOL[1], (arch, port, ref)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_train_flops_on_two_by_two_within_tolerance_of_reference(
+        launched, arch):
+    """Rank 0's train flops on (data, model) = (2, 2) against the
+    reference's ``analyze_hlo``: the model peers split the dense matmuls,
+    the head and the loss (a repeated step read 1.61–2.36×)."""
+    ports, refs = joined(launched, "train22")
+    port, ref = ports[arch]["flops"], refs[arch]["flops"]
+    assert FLOPS_TOL[0] <= port / ref <= FLOPS_TOL[1], (arch, port, ref)
 
 
 if __name__ == "__main__" and "--ratios" in sys.argv:
