@@ -104,7 +104,8 @@ just before it and read just after:
   full width and depth through ``build_trainer(..., mesh=make_host_mesh(1,
   1, "cuda"))`` (the state ``DTensor``s, each unit's parameters gathered
   inside its remat boundary, the step under its tensor-parallel context
-  — `model` of one rank splits nothing —, each gradient reduced to its
+  — `model` of one rank splits nothing, and the one-rank collectives are
+  skipped —, each gradient reduced to its
   leaf's spec) for 3 steps against the unsharded trainer's (losses 1e-6, the first
   step's gradients and weights as ``step_vs_cpu`` holds them), one MoE
   layer at moonshot_v1_16b_a3b's full width through the distributed path
@@ -2107,7 +2108,8 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
 def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
     """The mesh path (phase 11h), in its own one-rank NCCL group (an
     in-memory store), destroyed at its end; the card machine has one card,
-    so every collective is one rank's.
+    so every group is one rank's, and ``shard_ctx`` skips the collectives
+    on it (each is the identity there); the gloo tests hold them.
 
     a. llama3_2_1b at full width and depth through ``build_trainer(...,
        mesh=make_host_mesh(1, 1, "cuda"))`` (the state ``DTensor``s placed

@@ -447,7 +447,7 @@ TP_SPLIT = {
 }
 # leaves an attention block with split query heads computes with on the
 # rank's heads only, though whole: their gradients are each rank's part
-_TP_PARTIAL_ATTN = ("w_k", "w_v", "q_norm", "k_norm")
+_TP_PARTIAL_ATTN = ("q_norm", "k_norm")
 
 
 def _block_kind(path, cfg):
@@ -475,16 +475,28 @@ def tp_layout(specs, mesh, cfg):
     the leaf over it), else ``()``; ``partial`` is ``("model",)`` where the
     leaf is whole but the rank computes with it on its own query heads
     only, so that its gradient must be summed over `model` (never where
-    `model` has one rank).  One table (:data:`TP_SPLIT`) for the mesh
-    train step and the mesh prefill and decode."""
-    tp = axis_size(mesh, "model") if "model" in axis_names(mesh) else 1
-    split_q = tp > 1 and bool(tp_axes(mesh, cfg)) and cfg.n_heads % tp == 0
+    `model` has one rank).  Both are ``()`` where the layers split nothing
+    (:func:`tp_axes` empty: no `model` axis, or the batch on it).  One
+    table (:data:`TP_SPLIT`) for the mesh train step and the mesh prefill
+    and decode.  Raises where the query heads split but the spec leaves
+    ``w_k``/``w_v`` whole (no config meets it: a head_dim of 16 or more
+    on at most 16 `model` ranks)."""
+    on = bool(tp_axes(mesh, cfg))
+    tp = axis_size(mesh, "model") if on else 1
+    split_q = tp > 1 and cfg.n_heads % tp == 0
 
     def one(path, spec):
         kind, name = _block_kind(path, cfg), _leaf_name(path)
         unit = TP_SPLIT.get(kind, {}).get(name, 0)
         aligned = unit is None or (unit and getattr(cfg, unit) % tp == 0)
-        keep = ("model",) if aligned and "model" in spec_axes(spec) else ()
+        keep = ("model",) if on and aligned and \
+            "model" in spec_axes(spec) else ()
+        if split_q and kind == "attn" and name in ("w_k", "w_v") and \
+                not keep:
+            raise ValueError(
+                f"{'/'.join(path)}: {cfg.n_heads} query heads split over "
+                f"{tp} `model` ranks, but the spec {spec} leaves the kv "
+                f"projection whole")
         partial = ("model",) if split_q and not keep and kind == "attn" \
             and name in _TP_PARTIAL_ATTN else ()
         return keep, partial

@@ -35,7 +35,8 @@ autograd as Megatron's pairs do:
   shard.
 
 None of them sums a gradient over ranks that only repeat work: that
-would multiply it by the group's size.
+would multiply it by the group's size.  On a one-rank group each is the
+identity, and none runs (:func:`_live`).
 
 **Tensor-parallel compute** (the mesh train step, prefill and decode):
 the context's ``tp`` entry names the axes the layers split their matmuls
@@ -249,10 +250,18 @@ def _exchange(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return out
 
 
+def _live(mesh, axes) -> tuple:
+    """``axes`` as a tuple, or ``()`` where their group is one rank (every
+    collective on it is the identity)."""
+    axes = _axes(axes)
+    return axes if axes and group_size(mesh, axes) > 1 else ()
+
+
 def scatter_to(x, dim, mesh, axes):
     """The rank's slice of ``x`` along ``dim`` over ``axes`` (backward:
-    all-gather).  No-op for no axes."""
-    return _ScatterTo.apply(x, dim, mesh, _axes(axes)) if _axes(axes) else x
+    all-gather).  No-op for no axes or a one-rank group."""
+    axes = _live(mesh, axes)
+    return _ScatterTo.apply(x, dim, mesh, axes) if axes else x
 
 
 def gather_from(x, dim, mesh, axes, sum_grad=False):
@@ -260,23 +269,26 @@ def gather_from(x, dim, mesh, axes, sum_grad=False):
     (backward: the rank's slice, of the gradient summed over the group
     first with ``sum_grad`` — where the ranks go on to read different
     parts of the result, so each holds only its part of the gradient).
-    No-op for no axes."""
-    if not _axes(axes):
+    No-op for no axes or a one-rank group."""
+    axes = _live(mesh, axes)
+    if not axes:
         return x
-    return _GatherFrom.apply(x, dim, mesh, _axes(axes), sum_grad)
+    return _GatherFrom.apply(x, dim, mesh, axes, sum_grad)
 
 
 def sum_over(x, mesh, axes):
     """``x`` summed over the group (backward: identity).  No-op for no
-    axes."""
-    return _SumOver.apply(x, mesh, _axes(axes)) if _axes(axes) else x
+    axes or a one-rank group."""
+    axes = _live(mesh, axes)
+    return _SumOver.apply(x, mesh, axes) if axes else x
 
 
 def copy_to(x, mesh, axes):
     """``x`` as it is (backward: the gradient summed over the group): the
     input of a column-split matmul, whose every rank reads all of it.
-    No-op for no axes."""
-    return _CopyTo.apply(x, mesh, _axes(axes)) if _axes(axes) else x
+    No-op for no axes or a one-rank group."""
+    axes = _live(mesh, axes)
+    return _CopyTo.apply(x, mesh, axes) if axes else x
 
 
 def row_split(h, w, mesh, axes):
@@ -304,8 +316,9 @@ def vocab_lookup(table, tokens, mesh, axes, dtype=None):
 def all_to_all(x, mesh, axes):
     """One ``all_to_all_single`` over the group: dim 0 in ``n`` equal
     chunks, chunk ``j`` to rank ``j``, the received chunks stacked in
-    rank order (its own backward)."""
-    return _AllToAll.apply(x, mesh, _axes(axes))
+    rank order (its own backward).  No-op for a one-rank group."""
+    axes = _live(mesh, axes)
+    return _AllToAll.apply(x, mesh, axes) if axes else x
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +362,11 @@ def gather_param(x: torch.Tensor, spec, mesh, partial=(),
     under ``spec`` (one entry a dim: None, an axis, or a tuple of axes),
     gathered over every axis but those in ``keep`` (which stay sharded).
     Backward: the gradient summed over ``partial`` — the axes whose ranks
-    saw other tokens — then sliced back to the shard."""
+    saw other tokens — then sliced back to the shard.  One-rank groups
+    are skipped."""
     spec = tuple(None if entry is None or set(_axes(entry)) & set(keep)
-                 else entry for entry in spec)
-    partial = _axes(partial)
+                 or not _live(mesh, entry) else entry for entry in spec)
+    partial = _live(mesh, partial)
     if not spec_axes(spec) and not partial:
         return x
     return _GatherParam.apply(x, spec, mesh, partial)
@@ -370,7 +384,7 @@ def gather_tree(tree, rules, mesh):
 def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``x`` summed over the group of ``axes``, outside autograd (metrics,
     norms, counts)."""
-    if not _axes(axes):
+    if not _live(mesh, axes):
         return x
     return _all_reduce(x.detach().clone(), mesh, axes)
 
@@ -378,7 +392,7 @@ def reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 def reduce_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The elementwise largest ``x`` over the group of ``axes``, outside
     autograd (a logsumexp's shift, which its value does not depend on)."""
-    if not _axes(axes):
+    if not _live(mesh, axes):
         return x.detach()
     return _all_reduce(x.detach().clone(), mesh, axes, dist.ReduceOp.MAX)
 

@@ -12,17 +12,23 @@ keeps the same tokens as one device's), carried by ``convert.train_state``.
   reference's single-device step and the port's one-process step, held
   to ``tests/test_torch_mesh.py::_check_step``'s bounds — losses within
   2e-3 of the reference's and 1e-5 relative of the port's, grad norms
-  within 1e-4, the gathered weights within 1 % of lr — on (data, model) =
+  within 1e-4, the weights within 1 % of lr (as below) — on (data, model) =
   (2, 2) for all ten architectures (the eight attention/MLP/MoE ones split
   over `model`, grok's ``"ffn"`` experts on d_ff; jamba's Mamba and
   rwkv6's RWKV blocks gathered, their MLP/MoE and attention split), and
   llama3_2_1b on (1, 4), whose 2 kv heads do not divide `model`: the kv
-  projection splits on columns and k and v are gathered.  AdamW's eps is
-  1e-5 here: at 1e-8 an element whose gradient is ~1e-7 of its leaf's
-  largest moves by a share of lr that its fp32 rounding sets, and a
-  one-process step whose matmul sums are merely split in two, as the
-  model axis splits them, already moves such weights by 1.1–1.7 % of lr
-  from the plain one (moonshot, gemma2, phi3 smoke).
+  projection splits on columns and k and v are gathered, and llama3_2_1b
+  with fsdp and ``dp_over_model`` on (2, 2) (the batch on both axes, no
+  split).  AdamW's eps is its default, 1e-8.  The step is held in two
+  halves, as ``chip_smoke.py``'s ``step_vs_cpu`` holds 11h's: every
+  leaf's gradient (each step's) within 1e-4 of its largest, and the
+  weights within 1 % of lr of what the one-process AdamW makes of the
+  mesh step's gradients.  Against the one-process step's own weights they
+  read up to 2.5 % of lr (jamba, gemma2): at eps 1e-8 AdamW's first step
+  maps g to g/(|g| + eps), so an element whose gradient is a few eps
+  (gemma2's ``w_down``: 2.9e-8, 9e-7 of the leaf's largest) turns a
+  difference at fp32's rounding of the leaf's sums (2.8e-9, 9e-8 of its
+  largest) into ~2 % of lr.
 * **loss**: ``chunked_xent`` on the rank's vocab block of the head (phi3,
   untied), of the tied embedding (llama3_2_1b), with gemma2's final
   softcap (tied), and with a 2,000-token vocab whose last block holds
@@ -56,14 +62,19 @@ WORKER = Path(__file__).with_name("torch_mesh_train_tp_worker.py")
 JOIN_TIMEOUT = 420
 WORLD = 4
 LR = 1e-3
-EPS = 1e-5
+EPS = 1e-8
+GRAD_TOL = 1e-4
 LOSS_TOL = 1e-5
 ARCHS = ("llama3_2_1b", "yi_6b", "gemma2_2b", "phi3_mini_3_8b",
          "chameleon_34b", "moonshot_v1_16b_a3b", "grok_1_314b",
          "whisper_tiny", "jamba_1_5_large_398b", "rwkv6_7b")
 MESHES = {"dm22": {"data": 2, "model": 2}, "dm14": {"data": 1, "model": 4}}
-STEP_CASES = [(a, "dm22") for a in ARCHS] + [("llama3_2_1b", "dm14")]
-STEP_IDS = [f"{a}-{m}" for a, m in STEP_CASES]
+# (arch, mesh, the port's config replaced): the last puts the batch on
+# `model` too (no tensor-parallel split) with the params sharded over both
+STEP_CASES = [(a, "dm22", {}) for a in ARCHS] + [
+    ("llama3_2_1b", "dm14", {}),
+    ("llama3_2_1b", "dm22", {"fsdp": True, "dp_over_model": True})]
+STEP_IDS = [f"{a}-{m}" + ("-dpom" if r else "") for a, m, r in STEP_CASES]
 LOSS_VARIANTS = {"untied": ("phi3_mini_3_8b", {}),
                  "tied": ("llama3_2_1b", {}),
                  "softcap": ("gemma2_2b", {}),
@@ -119,13 +130,13 @@ def ranks(tmp_path_factory):
         cfg = jconfig(arch)
         params[arch] = jinit_model(jax.random.PRNGKey(0), cfg)
         _save_tree(in_dir / f"{arch}_params.npz", params[arch])
-    for name, (arch, mesh) in zip(STEP_IDS, STEP_CASES):
+    for name, (arch, mesh, rep) in zip(STEP_IDS, STEP_CASES):
         cfg = jconfig(arch)
         batches[name] = _batches(cfg)
         cases.append({"kind": "step", "name": name, "arch": arch,
                       "mesh": MESHES[mesh], "eps": EPS,
-                      "replace": {"capacity_factor": 8.0}
-                      if cfg.n_experts else {}})
+                      "replace": {**rep, **({"capacity_factor": 8.0}
+                                           if cfg.n_experts else {})}})
     for variant, (arch, rep) in LOSS_VARIANTS.items():
         for mesh in MESHES:
             cases.append({"kind": "loss", "name": f"loss-{variant}-{mesh}",
@@ -147,7 +158,7 @@ def ranks(tmp_path_factory):
     try:
         ref = {name: _reference_losses(jconfig(arch), params[arch],
                                        batches[name])
-               for name, (arch, _) in zip(STEP_IDS, STEP_CASES)}
+               for name, (arch, _, _) in zip(STEP_IDS, STEP_CASES)}
         for p in procs:
             _, err = p.communicate(
                 timeout=max(deadline - time.monotonic(), 1))
@@ -163,7 +174,12 @@ def ranks(tmp_path_factory):
 
 
 def _check_step(got, ref_losses):
-    """``tests/test_torch_mesh.py::_check_step``'s bounds, on every rank."""
+    """``tests/test_torch_mesh.py::_check_step``'s bounds, on every rank,
+    with the step held in its two halves: each step's gradient of every
+    leaf within ``GRAD_TOL`` of the leaf's largest in the one-process step
+    (AdamW's first steps are near sign(g), blind to a gradient's scale),
+    and the weights within 1 % of lr of the one-process AdamW's two steps
+    on the mesh step's gathered gradients."""
     for res in got:
         for r, row in zip(ref_losses, res["metrics"]):
             single, sharded = row["loss"]
@@ -171,7 +187,10 @@ def _check_step(got, ref_losses):
             assert abs(sharded - single) <= 1e-5 * abs(single), row
             g1, g2 = row["grad_norm"]
             assert abs(g1 - g2) <= 1e-4 * g1, row
-        assert res["weights"] <= 0.01 * LR, res["weights"]
+        bad = [g for g in res["grads"] if not g[1] <= GRAD_TOL]
+        assert not bad, bad
+        assert res["adamw"] <= 0.01 * LR, max(
+            res["weights_lr"], key=lambda w: w[2])
         assert res["steps"] == [2, 2]
 
 
@@ -265,6 +284,66 @@ def test_rules_keep_rwkv_time_mix_gathered():
             assert "model" in specs["units"]["b0"]["mixer"][leaf], leaf
             assert layout[leaf] == (keep, ()), (arch, leaf)
             assert rules[leaf][1:] == (("data",), keep), (arch, leaf)
+
+
+def test_batch_on_model_keeps_nothing_on_model(ranks):
+    """llama3_2_1b with fsdp and ``dp_over_model`` on (2, 2): the fsdp
+    dim shards over data and model together and the step's context splits
+    nothing, so every leaf is gathered whole and summed over the batch's
+    axes only."""
+    got = _layout(ranks, "llama3_2_1b-dm22-dpom")
+    assert got and all(v == [[], []] for v in got.values()), got
+
+
+@pytest.mark.parametrize("dp_over_model", [False, True])
+def test_layout_refuses_split_queries_on_a_whole_kv_projection(
+        dp_over_model):
+    """Query heads split over `model` with ``w_k``/``w_v`` left whole by
+    their spec (1 kv head of 2 dims on 4 ranks) would give each rank a
+    part of the kv gradient: ``tp_layout`` raises rather than compute it.
+    With the batch on `model` nothing splits, and the layout is empty."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import abstract_params
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.sharding import param_specs, tp_layout
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg = dataclasses.replace(get_config("llama3_2_1b", smoke=True),
+                              n_heads=4, n_kv_heads=1, head_dim=2,
+                              dp_over_model=dp_over_model)
+    mesh = ShapeMesh({"data": 1, "model": 4})
+    specs = param_specs(abstract_params(cfg), mesh, cfg)
+    assert specs["units"]["b0"]["mixer"]["w_k"][-1] is None
+    if dp_over_model:
+        layout = tp_layout(specs, mesh, cfg)
+        assert set(tree_leaves(layout)) == {((), ())}
+    else:
+        with pytest.raises(ValueError, match="kv projection whole"):
+            tp_layout(specs, mesh, cfg)
+
+
+def test_one_rank_groups_run_no_collective():
+    """On a 1 × 1 mesh every ``shard_ctx`` collective is the identity and
+    none runs: the mesh stand-in has no process group, so a call
+    would raise.  Values and gradients are the unsplit ones."""
+    import torch
+
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models import shard_ctx as S
+
+    mesh = ShapeMesh({"data": 1, "model": 1})
+    x = torch.arange(24.0).reshape(4, 6).requires_grad_(True)
+    y = S.copy_to(x, mesh, "model")
+    y = S.gather_from(S.scatter_to(y, 0, mesh, "model"), 0, mesh, "model",
+                      sum_grad=True)
+    y = S.all_to_all(S.row_split(y, torch.eye(6), mesh, "model"), mesh,
+                     ("data", "model"))
+    w = S.gather_param(x, ("data", "model"), mesh, partial=("data",))
+    (y * 2 + w).sum().backward()
+    assert torch.equal(y, x) and torch.equal(w, x)
+    assert torch.equal(x.grad, torch.full_like(x, 3.0))
+    assert torch.equal(S.reduce_max(x, mesh, "model"), x)
+    assert torch.equal(S.reduce_sum(x, mesh, ("data", "model")), x)
 
 
 def test_mesh_train_tp_workers_import_no_jax(ranks):

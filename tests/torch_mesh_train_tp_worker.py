@@ -9,8 +9,12 @@ runs, from ``IN/cases.json``:
   (data, model) mesh from the JAX package's initial weights (``IN/{arch}
   _params.npz``, carried by ``convert.train_state``) against two steps of
   the port's one-process step, on the batches in ``IN/batches.npz``: the
-  losses and grad norms of both, the gathered weights' largest difference,
-  the steps, and what ``launch.sharding.tp_layout`` kept on `model`;
+  losses and grad norms of both, each step's gradients that reach AdamW
+  (the mesh step's gathered) leaf by leaf, each against the largest of
+  the one-process leaf, the gathered weights' largest difference from
+  the one-process step's and from the one-process AdamW's two steps on
+  the mesh step's gradients, the steps, and what
+  ``launch.sharding.tp_layout`` kept on `model`;
 * every loss case: ``layers.chunked_xent`` under a tensor-parallel
   context on the rank's vocab block of the head (or of the tied
   embedding) against the unsplit loss on the whole weights: the loss,
@@ -81,11 +85,23 @@ def kept(specs, mesh, cfg) -> dict:
     return out
 
 
+def gathered(local, spec, mesh) -> torch.Tensor:
+    """A leaf's local shard under ``spec`` all-gathered (every rank)."""
+    from repro_torch.models.shard_ctx import _all_gather
+
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            local = _all_gather(local, d, mesh, entry)
+    return local
+
+
 def step_case(case, in_dir) -> dict:
     from repro_torch.launch.sharding import (distribute_state, gather_state,
                                              param_specs)
-    from repro_torch.models.transformer import tree_leaves
-    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train import (OptimizerConfig, adamw_update,
+                                   make_train_step)
+    from repro_torch.train import train_step as TS
 
     cfg = config(case)
     mesh = base.mesh_of(case["mesh"])
@@ -96,16 +112,44 @@ def step_case(case, in_dir) -> dict:
     specs = param_specs(s0.params, mesh, cfg)
     step0 = make_train_step(cfg, opt)
     step1 = make_train_step(cfg, opt, mesh=mesh, donate=True)
+    seen, real = [], TS.adamw_update
+
+    def spy(params, grads, *args, **kw):       # the gradients AdamW takes
+        seen.append([g.detach().clone() for g in tree_leaves(grads)])
+        return real(params, grads, *args, **kw)
+
     rows = []
-    for b in batches(case, in_dir):
-        s0, m0 = step0(s0, b)
-        s1, m1 = step1(s1, b)
-        rows.append({k: [float(m0[k]), float(m1[k])]
-                     for k in ("loss", "grad_norm")})
+    TS.adamw_update = spy
+    try:
+        for b in batches(case, in_dir):
+            s0, m0 = step0(s0, b)
+            s1, m1 = step1(s1, b)
+            rows.append({k: [float(m0[k]), float(m1[k])]
+                         for k in ("loss", "grad_norm")})
+    finally:
+        TS.adamw_update = real
     g = gather_state(s1)
+    names = [n for n, _ in base._names(s0.params)]
+    # seen: one-process, mesh, one-process, mesh (a step's each)
+    mesh_g = [[gathered(x, sp, mesh) for x, sp in zip(seen[i],
+                                                      tree_leaves(specs))]
+              for i in (1, 3)]
+    grads = [[n, max(_rel(mesh_g[k][j], seen[2 * k][j]) for k in (0, 1)),
+              float(seen[0][j].abs().max())] for j, n in enumerate(names)]
+    # the one-process AdamW on the mesh step's gradients, from the start
+    replay = base.ported_state(case["arch"], cfg)
+    p, o = replay.params, replay.opt
+    for k in (0, 1):
+        it = iter(mesh_g[k])
+        p, o, _ = adamw_update(p, tree_map(lambda _: next(it), p), o, opt)
+    moved = [[n, _err(a, b) / LR, _err(b, c) / LR] for n, a, b, c in zip(
+        names, tree_leaves(s0.params), tree_leaves(g.params),
+        tree_leaves(p))]
     return {"metrics": rows,
-            "weights": max(_err(a, b) for a, b in zip(
-                tree_leaves(s0.params), tree_leaves(g.params))),
+            "weights": max(d for _, d, _ in moved) * LR,
+            "adamw": max(d for _, _, d in moved) * LR,
+            "grads": grads,
+            "weights_lr": moved,
             "steps": [int(g.step), int(g.opt.step)],
             "layout": kept(specs, mesh, cfg)}
 
