@@ -127,7 +127,15 @@ just before it and read just after:
   ``serve_logits`` against the unsharded path on the same weights (logits
   1e-4, the caches, prefill and decode ms), and the same decode step
   costed by ``roofline.op_cost`` on a fake one-rank CPU mesh against the
-  card's own (peak 10 %, flops 1 %).
+  card's own (peak 10 %, flops 1 %);
+* the recurrent families on the mesh (11k), in its own one-rank NCCL
+  group: rwkv6_7b at full width, 16 of its 32 layers (a prefill of 4 × 512 tokens
+  and 16 decode steps) and one Mamba block at jamba_1_5_large_398b's full
+  width (4 decode steps), each through the mesh prefill and decode
+  against the unsharded path on the same weights (logits 1e-4, the RWKV
+  and Mamba states, prefill and decode ms, in turns), and rwkv6_7b's
+  decode step costed on a fake one-rank CPU mesh against the card's own
+  (peak 10 %, flops 1 %).
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -2391,21 +2399,95 @@ SERVE_MESH_TOL = 1e-4          # mesh logits against the unsharded path's
 
 
 # the costed decode step's fake run, in a process of its own: rank 0 of one
-# rank on a 1 × 1 CPU mesh; argv is (arch, batch, depth, pos, out file)
+# rank on a 1 × 1 CPU mesh; argv is (arch, batch, depth, pos, out file[,
+# layers])
 SERVE_CELL_CHILD = """
-import json, sys
+import dataclasses, json, sys
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
 arch, b, s, pos, out = sys.argv[1:6]
+cfg = get_config(arch)
+if len(sys.argv) > 6:
+    cfg = dataclasses.replace(cfg, n_layers=int(sys.argv[6]))
 dryrun.fake_group(1)
-res = dryrun.cost_serve_step(get_config(arch), make_host_mesh(1, 1, "cpu"),
+res = dryrun.cost_serve_step(cfg, make_host_mesh(1, 1, "cpu"),
                              ShapeConfig("card", int(s), int(b), "decode"),
                              pos=int(pos))
 with open(out, "w") as f:
     json.dump(res, f)
 """
+
+
+def serve_in_turns(dev, cfg, params, prepared, mesh, prompt, steps,
+                   cache_len: int) -> dict:
+    """The unsharded and the mesh prefill of ``prompt`` (B, P) into a
+    ``cache_len``-deep bf16 state, then a ``decode_step`` of each of
+    ``steps`` (N, B, 1), in turns (plain, mesh, mesh, plain): each run's
+    first prefill is a warm-up on a state of its own (a new group's first
+    collective creates its communicator), its second is timed.  Returns
+    ``{"plain": [run, run], "mesh": [run, run]}``, each run its logits,
+    its final state (on the host), its ms and whether the mesh wrote the
+    state it was handed."""
+    import torch
+
+    from repro_torch.models import decode_step, init_decode_state, prefill
+    from repro_torch.models.transformer import serve_logits, tree_leaves
+
+    b, p = prompt.shape
+    runs = {"plain": [], "mesh": []}
+    for name in ("plain", "mesh", "mesh", "plain"):
+        src = prepared if name == "mesh" else params
+        kw = {"mesh": mesh} if name == "mesh" else {}
+        logit_kw = dict(kw, global_batch=b) if kw else {}
+        for warm in (True, False):
+            state = init_decode_state(cfg, b, cache_len, torch.bfloat16,
+                                      device=dev)
+            handed = state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                h, state = prefill(src, {"tokens": prompt}, cfg,
+                                   state, **kw)
+                logits = [serve_logits(src, h, cfg,
+                                       **logit_kw).float()]
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            if warm:
+                warm_ms = prefill_ms
+                del state, handed
+        ms = []
+        for i in range(len(steps)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                h, state = decode_step(src, steps[i], cfg, state,
+                                       p + i, **kw)
+                logits.append(serve_logits(src, h, cfg,
+                                           **logit_kw).float())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name].append({
+            "logits": [x.cpu() for x in logits],
+            "state": [t.cpu() for t in tree_leaves(state)],
+            "warm_prefill_ms": warm_ms, "prefill_ms": prefill_ms,
+            "decode_ms": ms, "in_place": state is handed})
+        del state, handed, h, logits
+        torch.cuda.empty_cache()
+    return runs
+
+
+def turns_agreement(runs) -> tuple:
+    """The first mesh run's logits against the first plain run's (each
+    step's largest difference over the largest logit) and the largest
+    such difference of their final states' leaves."""
+    first = {k: v[0] for k, v in runs.items()}
+    errs = [rel_to_largest(a, b_) for a, b_ in zip(
+        first["mesh"]["logits"], first["plain"]["logits"])]
+    state_err = max(rel_to_largest(a.float(), b_.float()) for a, b_ in
+                    zip(first["mesh"]["state"], first["plain"]["state"]))
+    return errs, state_err
 
 
 def mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
@@ -2440,10 +2522,8 @@ def mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.sharding import param_specs
-    from repro_torch.models import decode_step, init_decode_state, init_model
-    from repro_torch.models import prefill
-    from repro_torch.models.transformer import (mesh_params, serve_logits,
-                                                tree_leaves)
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import mesh_params
 
     t_phase = time.perf_counter()
     for fn in all_kernels.values():
@@ -2469,53 +2549,9 @@ def mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
                                device=dev)
         steps = torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
                               device=dev)
-        runs = {"plain": [], "mesh": []}
-        # in turns (plain, mesh, mesh, plain); each run's first prefill is
-        # a warm-up on a state of its own (a new group's first collective
-        # creates its communicator), its second is timed
-        for name in ("plain", "mesh", "mesh", "plain"):
-            src = prepared if name == "mesh" else params
-            kw = {"mesh": mesh} if name == "mesh" else {}
-            logit_kw = dict(kw, global_batch=b) if kw else {}
-            for warm in (True, False):
-                state = init_decode_state(cfg, b, SERVE_MESH_LEN,
-                                          torch.bfloat16, device=dev)
-                handed = state
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with torch.no_grad():
-                    h, state = prefill(src, {"tokens": prompt}, cfg,
-                                       state, **kw)
-                    logits = [serve_logits(src, h, cfg,
-                                           **logit_kw).float()]
-                torch.cuda.synchronize()
-                prefill_ms = (time.perf_counter() - t0) * 1e3
-                if warm:
-                    warm_ms = prefill_ms
-                    del state, handed
-            ms = []
-            for i in range(n):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with torch.no_grad():
-                    h, state = decode_step(src, steps[i], cfg, state,
-                                           p + i, **kw)
-                    logits.append(serve_logits(src, h, cfg,
-                                               **logit_kw).float())
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            runs[name].append({
-                "logits": [x.cpu() for x in logits],
-                "state": [t.cpu() for t in tree_leaves(state)],
-                "warm_prefill_ms": warm_ms, "prefill_ms": prefill_ms,
-                "decode_ms": ms, "in_place": state is handed})
-            del state, handed, h, logits
-            torch.cuda.empty_cache()
-        first = {k: v[0] for k, v in runs.items()}
-        errs = [rel_to_largest(a, b_) for a, b_ in zip(
-            first["mesh"]["logits"], first["plain"]["logits"])]
-        state_err = max(rel_to_largest(a.float(), b_.float()) for a, b_ in
-                        zip(first["mesh"]["state"], first["plain"]["state"]))
+        runs = serve_in_turns(dev, cfg, params, prepared, mesh, prompt,
+                              steps, SERVE_MESH_LEN)
+        errs, state_err = turns_agreement(runs)
 
         def each(name, key):
             return [r[key] for r in runs[name]]
@@ -2542,7 +2578,7 @@ def mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
               f"unsharded path's: {state_err}")
         check(all(each("mesh", "in_place")),
               "the mesh state written in place")
-        del params, prepared, src, runs, first, prompt, steps
+        del params, prepared, runs, prompt, steps
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2598,6 +2634,177 @@ def mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
     check(not any(launches.values()),
           f"the mesh serve phase launched a hand-written kernel: {launches}")
     log("mesh-serve-phase", card=repr(smi),
+        seconds=round(time.perf_counter() - t_phase, 3))
+
+
+# phase 11k: rwkv6_7b served at full width, one Mamba block at jamba's.
+# rwkv6_7b's depth is cut from 32 layers to 16: `init_model` holds every
+# unit's tensors beside the stacked ones while it stacks them (2 × 30.4 GB
+# fp32 at 32 layers), which with the ~23 GB the earlier phases keep does
+# not fit the card (it fits when 11k runs alone)
+RECURRENT_SERVE_LAYERS = 16
+MAMBA_SERVE_STEPS = 4          # the Mamba block's decode steps
+
+
+def recurrent_mesh_serve_phase(dev, smi: str, all_kernels: dict) -> None:
+    """The mesh prefill and decode of the recurrent families (phase 11k),
+    in its own one-rank NCCL group (an in-memory store), destroyed at its
+    end.
+
+    a. rwkv6_7b at full width (d 4,096, 64 heads, d_ff 14,336, bf16
+       compute, fp32 weights from ``SEED``) and ``RECURRENT_SERVE_LAYERS``
+       layers: ``prefill`` of 4 × 512 tokens, then 16 ``decode_step``s,
+       unsharded and on ``make_host_mesh(1, 1, "cuda")`` from the same
+       weights, in turns (plain, mesh, mesh, plain; :func:`serve_in_turns`):
+       every step's logits within ``SERVE_MESH_TOL`` of the largest, the
+       final RWKV states (shifted tokens, WKV) alike, the mesh state
+       written in place; prefill and decode ms.
+    b. One Mamba block at jamba_1_5_large_398b's full width (d 8,192,
+       d_inner 16,384, d_state 16, dt_rank 512; its embedding and head
+       around it, no FFN): the same prefill and ``MAMBA_SERVE_STEPS``
+       decode steps, mesh against unsharded: the logits and the final
+       conv and SSM states agree.
+    c. (a)'s decode step costed by ``roofline.op_cost``: on a fake 1 × 1
+       CPU mesh in a subprocess (``SERVE_CELL_CHILD``) and on the card
+       in the one-rank group (``dryrun.cost_serve_step(..., fake=False)``):
+       the fake peak within ``PEAK_TOL`` of ``max_memory_allocated``
+       above what was held before the arguments were built, the flops
+       within ``FLOPS_TOL``.
+
+    No hand-written kernel may launch."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_specs
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import mesh_params
+
+    t_phase = time.perf_counter()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    b, p, n = SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS
+    pos_cost = p + n
+    rwkv = dc.replace(get_config("rwkv6_7b"),
+                      n_layers=RECURRENT_SERVE_LAYERS)
+    jamba = get_config("jamba_1_5_large_398b")
+    mamba = dc.replace(jamba, name="jamba_mamba_block", n_layers=1,
+                       unit_pattern=(("mamba", "none"),))
+    tmp = Path(tempfile.mkdtemp(prefix="serve_rec_", dir=ROOT / "build"))
+    child = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, "cuda")
+        gen = torch.Generator(dev).manual_seed(SEED + 12)
+        for part, cfg, n_steps in (("a", rwkv, n), ("b", mamba,
+                                                     MAMBA_SERVE_STEPS)):
+            t0 = time.perf_counter()
+            params = init_model(SEED, cfg, device=dev)
+            prepared = mesh_params(params, cfg, mesh,
+                                   param_specs(params, mesh, cfg))
+            prompt = torch.randint(0, cfg.vocab_size, (b, p),
+                                   generator=gen, device=dev)
+            steps = torch.randint(0, cfg.vocab_size, (n_steps, b, 1),
+                                  generator=gen, device=dev)
+            runs = serve_in_turns(dev, cfg, params, prepared, mesh, prompt,
+                                  steps, p + n_steps)
+            errs, state_err = turns_agreement(runs)
+
+            def each(name, key, runs=runs):
+                return [r[key] for r in runs[name]]
+
+            log(f"mesh-serve-recurrent-{part}", card=repr(smi),
+                model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                mesh="(1, 1)", batch=b, prompt=p, decode_steps=n_steps,
+                order="plain mesh mesh plain",
+                logits_rel_err_max=max(errs), state_rel_err=state_err,
+                state_leaves=len(runs["plain"][0]["state"]),
+                mesh_state_in_place=all(each("mesh", "in_place")),
+                warm_prefill_ms_plain=each("plain", "warm_prefill_ms"),
+                warm_prefill_ms_mesh=each("mesh", "warm_prefill_ms"),
+                prefill_ms_plain=each("plain", "prefill_ms"),
+                prefill_ms_mesh=each("mesh", "prefill_ms"),
+                decode_ms_plain_median=[statistics.median(m) for m in
+                                        each("plain", "decode_ms")],
+                decode_ms_mesh_median=[statistics.median(m) for m in
+                                       each("mesh", "decode_ms")],
+                decode_ms_plain=each("plain", "decode_ms"),
+                decode_ms_mesh=each("mesh", "decode_ms"),
+                seconds=round(time.perf_counter() - t0, 3))
+            check(max(errs) <= SERVE_MESH_TOL,
+                  f"{cfg.name}: the mesh prefill and decode against the "
+                  f"unsharded path: {errs}")
+            check(state_err <= SERVE_MESH_TOL,
+                  f"{cfg.name}: the mesh state against the unsharded "
+                  f"path's: {state_err}")
+            check(all(each("mesh", "in_place")),
+                  f"{cfg.name}: the mesh state written in place")
+            del params, prepared, runs, prompt, steps
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # -- c. rwkv6_7b's decode step costed on the card and on a fake rank -
+        child = subprocess.Popen(
+            [sys.executable, "-c", SERVE_CELL_CHILD, rwkv.name, str(b),
+             str(SERVE_MESH_LEN), str(pos_cost), str(tmp / "fake.json"),
+             str(rwkv.n_layers)],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        base = torch.cuda.memory_allocated(dev)
+
+        def ready():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        card = dryrun.cost_serve_step(
+            rwkv, mesh, ShapeConfig("card", SERVE_MESH_LEN, b, "decode"),
+            fake=False, pos=pos_cost, ready=ready)
+        torch.cuda.synchronize()
+        peak_card = torch.cuda.max_memory_allocated(dev) - base
+    finally:
+        dist.destroy_process_group()
+        if child is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _, err = child.communicate(timeout=600)
+        check(child.returncode == 0, f"rwkv6_7b's decode step's fake run: "
+              f"{err[-2000:]}")
+        fk = json.loads((tmp / "fake.json").read_text())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak_err = abs(fk["peak_bytes"] - peak_card) / peak_card
+    flops_err = abs(fk["flops"] - card["flops"]) / card["flops"]
+    log("mesh-serve-recurrent-cost", card=repr(smi), model=rwkv.name,
+        layers=rwkv.n_layers, mesh="(1, 1)", batch=b, pos=pos_cost,
+        peak_predicted=fk["peak_bytes"], held_predicted=fk["held_bytes"],
+        peak_card=peak_card, peak_rel_err=peak_err,
+        flops_predicted=fk["flops"], flops_card=card["flops"],
+        flops_rel_err=flops_err, coll_bytes=fk["coll_bytes"],
+        coll_bytes_card=card["coll_bytes"], regions=fk["regions"],
+        fake_s=round(fk["seconds"], 3), card_s=round(card["seconds"], 3))
+    check(peak_err <= PEAK_TOL, f"rwkv6_7b's decode step's predicted peak "
+          f"{fk['peak_bytes']} against the card's {peak_card}")
+    check(flops_err <= FLOPS_TOL, f"rwkv6_7b's decode step's flops "
+          f"{fk['flops']} against the card's {card['flops']}")
+    launches = {k: f.launches for k, f in all_kernels.items()}
+    check(not any(launches.values()),
+          f"the recurrent mesh serve phase launched a hand-written kernel: "
+          f"{launches}")
+    log("mesh-serve-recurrent-phase", card=repr(smi),
         seconds=round(time.perf_counter() - t_phase, 3))
 
 
@@ -4170,6 +4377,12 @@ def run(dev, nx: int) -> list:
     # one-rank mesh against the unsharded path, and its decode step costed
     mesh_serve_phase(dev, smi, all_kernels)
     healthy("mesh-serve")
+
+    # ---- 11k. the recurrent families on the mesh: rwkv6_7b at full width
+    # and one Mamba block at jamba's, against the unsharded path, and
+    # rwkv6_7b's decode step costed
+    recurrent_mesh_serve_phase(dev, smi, all_kernels)
+    healthy("mesh-serve-recurrent")
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)

@@ -28,8 +28,7 @@ microbatches=cfg.microbatches, mesh=, donate=True)`` on the production
 built and distributed as ``launch.train.build_trainer`` builds it, on the
 global batch — under ``FakeTensorMode`` and ``roofline.op_cost.OpCost``
 (its layers split over `model` as the reference's GSPMD program does:
-attention, MLP, MoE and the vocab; Mamba and RWKV mixers repeat on every
-model peer until ROADMAP item 12c).
+attention, MLP, MoE, Mamba, RWKV and the vocab).
 That is the SPMD program each card runs, so its counts are one device's:
 ``flops_per_device``, ``bytes_per_device`` (matmul bytes, the memory
 term's input), ``bytes_per_device_upper`` (every op's), ``collectives``
@@ -43,18 +42,16 @@ call, a scan chunk inside a unit running in the unit's measurement
 (``op_cost``'s repeats: its counts and its peak are the unrolled run's).  Each cell runs in a
 subprocess of its own: the fake group is the process's default group.
 
-**The cost** (serving cells of attention, MLP and MoE architectures).  The
-same fake rank runs :func:`cost_serve_step`, the reference's
-``build_cell`` serving branch on the port's mesh prefill and decode
-(``models.transformer.prefill(..., mesh=)`` / ``decode_step(...,
-mesh=)``, then ``serve_logits``: the logits kept vocab-sharded): bf16
-weights for the ≥ 2-D fp32 leaves, the decode state of
-``init_decode_state`` under ``state_specs``, the tokens under
+**The cost** (serving cells).  The same fake rank runs
+:func:`cost_serve_step`, the reference's ``build_cell`` serving branch on
+the port's mesh prefill and decode (``models.transformer.prefill(...,
+mesh=)`` / ``decode_step(..., mesh=)``, then ``serve_logits``: the logits
+kept vocab-sharded): bf16 weights for the ≥ 2-D fp32 leaves, the decode
+state of ``init_decode_state`` under ``state_specs`` (context-parallel
+for ``long_500k``: the caches' sequence over `data`), the tokens under
 ``batch_specs``, the triangular block enumeration for prefill, and the
 state donated (written in place: its storages are the output's).  Each
-unit is measured once per signature and replayed.  The serving cells of
-Mamba and RWKV architectures wait with ``"cost": null`` and
-``cost_reason`` (``SERVE_REASON``).
+unit is measured once per signature and replayed.
 
 ``fits`` compares the peak plus ``HEADROOM_BYTES`` (what a process holds
 on the card beyond its live tensors) with ``--device-bytes`` (default:
@@ -96,10 +93,6 @@ from .sharding import (_map_with_path, batch_specs, local_size_bytes,
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "dryrun")
 MESHES = {False: "single_pod_16x16", True: "multi_pod_2x16x16"}
-SERVE_REASON = ("no cost: the mesh prefill and decode run attention, MLP "
-                "and MoE blocks; the Mamba (d_inner) and RWKV (heads) "
-                "state splits over `model` and the long_500k context "
-                "parallelism wait for ROADMAP Queue 1 item 12c")
 # what a process holds on the card beyond its live tensors, as phase 11i
 # of chip_smoke.py measured it on an NVIDIA H100 80GB HBM3 at 700 W: the
 # CUDA context (and NCCL's and the libraries' buffers outside the caching
@@ -107,7 +100,6 @@ SERVE_REASON = ("no cost: the mesh prefill and decode run attention, MLP "
 # allocated bytes at the peak of the card cell's train step (llama3_2_1b,
 # 4 × 512 tokens, a one-rank mesh), 14,313,505,280 bytes
 HEADROOM_BYTES = 15_692_251_648
-SERVE_MIXERS = ("attn", "attn_local", "attn_bidir", "attn_cross")
 
 
 def _fake(fn):
@@ -265,15 +257,6 @@ def serve_params(params) -> dict:
             for k, v in params.items()}
 
 
-def serve_costed(cfg, shape_name: str) -> bool:
-    """Whether a serving cell of ``cfg`` runs the mesh prefill or decode:
-    attention, MLP and MoE blocks only, and no context parallelism."""
-    mixers = [m for m, _ in tuple(cfg.unit_pattern)
-              + tuple(cfg.enc_unit_pattern)]
-    return shape_name != "long_500k" and all(m in SERVE_MIXERS
-                                             for m in mixers)
-
-
 def _distribute(tree, specs, mesh):
     from .sharding import shard_leaf
 
@@ -290,7 +273,8 @@ def cost_serve_step(cfg, mesh, shape, *, fake: bool = True, pos=None,
     device), as the reference's ``build_cell`` serving branch builds it:
     ``serve_params`` of ``init_model(0)`` placed by ``param_specs``,
     the zero decode state of ``init_decode_state`` placed by
-    ``state_specs``, zero tokens (and encoder frames) placed by
+    ``state_specs`` (context-parallel for ``long_500k``: the caches'
+    sequence over `data`), zero tokens (and encoder frames) placed by
     ``batch_specs``; then the mesh ``prefill`` (block-skipping causal) or
     ``decode_step`` at ``pos`` (default the last position) and
     ``serve_logits`` (vocab-sharded).  A fake run replays the measured
@@ -319,8 +303,9 @@ def cost_serve_step(cfg, mesh, shape, *, fake: bool = True, pos=None,
         enc_len = s if cfg.family == "encdec" else 0
         state = init_decode_state(cfg, b, s, torch.bfloat16,
                                   enc_len=enc_len, device=dev)
-        state = _distribute(state, state_specs(state, mesh, cfg,
-                                               global_batch=b), mesh)
+        state = _distribute(state, state_specs(
+            state, mesh, cfg, global_batch=b,
+            context_parallel=shape.name == "long_500k"), mesh)
         if shape.kind == "prefill":
             batch = {"tokens": torch.zeros((b, s), dtype=torch.int32,
                                            device=dev)}
@@ -477,9 +462,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{arch}__{shape_name}.json")
     cfg = get_config(arch)
-    train = SHAPES[shape_name].kind == "train"
-    costed_kind = train or serve_costed(cfg, shape_name)
-    want_cost = cost and costed_kind
+    want_cost = cost
     if os.path.exists(out_path) and not force and costed is None:
         with open(out_path) as f:
             rec = json.load(f)
@@ -525,12 +508,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, force=False,
                 arch, shape_name, multi_pod)
             rec.update(cost_record(cfg, shape, mesh.size, c, params, total,
                                    per_arg))
-        elif costed_kind:
-            rec["cost"] = None
-            rec["cost_reason"] = "args only: the cost was not asked for"
         else:
             rec["cost"] = None
-            rec["cost_reason"] = SERVE_REASON
+            rec["cost_reason"] = "args only: the cost was not asked for"
         _fit(rec, device_bytes)
         if verbose:
             line = (f"[{mesh_name}] {arch} × {shape_name}: OK "
@@ -565,9 +545,7 @@ def run_cells(cells, *, force=False, verbose=True, device_bytes=None,
     subprocess); records in ``cells``' order."""
     def needs(cell):
         arch, name, multi = cell
-        cfg = get_config(arch)
-        if not (cost and name in cfg.shapes and (
-                SHAPES[name].kind == "train" or serve_costed(cfg, name))):
+        if not (cost and name in get_config(arch).shapes):
             return False
         path = os.path.join(OUT_DIR, MESHES[multi], f"{arch}__{name}.json")
         if force or not os.path.exists(path):
@@ -660,7 +638,7 @@ def main(argv=None) -> int:
 
 __all__ = ["cell_args", "count_params", "model_flops_for", "run_cell",
            "run_cells", "cost_train_step", "cost_serve_step", "serve_params",
-           "serve_costed", "HEADROOM_BYTES", "cost_cell",
+           "HEADROOM_BYTES", "cost_cell",
            "cost_in_subprocess", "fake_group", "main"]
 
 

@@ -29,7 +29,11 @@ compute of the train step and of the mesh prefill and decode
 (``models.transformer.prefill(..., mesh=)``) as GSPMD splits the
 reference's: :func:`tp_layout` keeps each leaf's `model` shard where it
 is aligned with what its layer splits, by the kind of block that holds
-it, and the layers split their matmuls on it.
+it (attention on heads, MLP and experts, Mamba on d_inner, RWKV's time
+mix on heads and channel mix on d_ff, the vocab), and the layers split
+their matmuls on it.  ``long_500k``'s decode state splits its caches'
+sequence over `data` (:func:`state_specs` ``context_parallel``), and
+the decode merges the blocks' softmax over it.
 ``act_sharding="sp"`` (sequence-parallel activations) has no eager
 counterpart and is ignored.
 """
@@ -436,24 +440,40 @@ def gather_state(tree):
 # splits, and the config dim that must divide `model` for the split (None:
 # any shard will do).  ``w_k``/``w_v`` follow the query heads: the rank's
 # kv heads where ``n_kv_heads`` divides `model` too, else the rank's block
-# of columns, whose products the layer gathers (``attention._project_qkv``)
+# of columns, whose products the layer gathers (``attention._project_qkv``).
+# Mamba splits on d_inner (``in_proj``'s column blocks re-laid out by one
+# all-to-all, ``mamba._own_x_and_z``), RWKV's time mix on heads, its
+# channel mix on d_ff (``w_k``) and d (``w_r``, ``w_v``: attention's rule
+# by name, the output's columns)
+_MAMBA = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+          "A_log", "D", "out_proj")
 TP_SPLIT = {
     "attn": {"w_q": "n_heads", "w_o": "n_heads", "w_k": "n_heads",
              "w_v": "n_heads"},
     "mlp": {"w_gate": None, "w_up": None, "w_down": None},
     "moe": {"we_gate": None, "we_up": None, "we_down": None},
+    "mamba": dict.fromkeys(_MAMBA, "mamba_d_inner"),
+    "rwkv": dict.fromkeys(("w_r", "w_k", "w_v", "w_g", "w_o", "bonus_u"),
+                          "rwkv_n_heads"),
+    "rwkv_cm": {"w_k": "d_ff", "w_r": "d_model", "w_v": "d_model"},
     "embed": {"embedding": None},
     "head": {"w_head": None},
 }
-# leaves an attention block with split query heads computes with on the
-# rank's heads only, though whole: their gradients are each rank's part
-_TP_PARTIAL_ATTN = ("q_norm", "k_norm")
+# whole leaves a split block computes with on the rank's part only (an
+# attention block's query heads, an RWKV time mix's channels): their
+# gradients are each rank's part
+_TP_PARTIAL = {"attn": ("q_norm", "k_norm"),
+               "rwkv": ("decay_base", "decay_b", "ln_x")}
+# blocks whose layer reads one layout for all their split leaves: each
+# keeps all of them on `model` or none
+_ALL_OR_NONE = ("mamba", "rwkv", "rwkv_cm")
 
 
 def _block_kind(path, cfg):
     """The kind of layer that computes with the leaf at ``path`` (a key of
-    :data:`TP_SPLIT`), or None (norms, Mamba, RWKV: their `model` split
-    waits for ROADMAP Queue 1 item 12c)."""
+    :data:`TP_SPLIT`: ``attn``, ``mlp``, ``moe``, ``mamba``, ``rwkv``,
+    ``rwkv_cm``, ``embed``, ``head``), or None (norms, and leaves outside
+    a block)."""
     from ..models.transformer import _ATTN_KINDS, UNIT_KEYS
 
     if path[0] in ("embed", "head"):
@@ -473,17 +493,22 @@ def tp_layout(specs, mesh, cfg):
     layer computes with the rank's `model` shard (its block's kind splits
     the leaf, the dim the split needs divides `model`, and the spec shards
     the leaf over it), else ``()``; ``partial`` is ``("model",)`` where the
-    leaf is whole but the rank computes with it on its own query heads
-    only, so that its gradient must be summed over `model` (never where
-    `model` has one rank).  Both are ``()`` where the layers split nothing
+    leaf is whole but the rank computes with it on its own part only — an
+    attention block's q_norm/k_norm on split query heads, an RWKV time
+    mix's ``decay_base``/``decay_b``/``ln_x`` on split heads — so that its
+    gradient must be summed over `model` (never where `model` has one
+    rank).  Both are ``()`` where the layers split nothing
     (:func:`tp_axes` empty: no `model` axis, or the batch on it).  One
     table (:data:`TP_SPLIT`) for the mesh train step and the mesh prefill
     and decode.  Raises where the query heads split but the spec leaves
     ``w_k``/``w_v`` whole (no config meets it: a head_dim of 16 or more
-    on at most 16 `model` ranks)."""
+    on at most 16 `model` ranks), and where a Mamba or RWKV block would
+    keep some of its split leaves and not others (its layer reads one
+    layout for all)."""
     on = bool(tp_axes(mesh, cfg))
     tp = axis_size(mesh, "model") if on else 1
-    split_q = tp > 1 and cfg.n_heads % tp == 0
+    split = {"attn": tp > 1 and cfg.n_heads % tp == 0,
+             "rwkv": tp > 1 and cfg.rwkv_n_heads % tp == 0}
 
     def one(path, spec):
         kind, name = _block_kind(path, cfg), _leaf_name(path)
@@ -491,17 +516,38 @@ def tp_layout(specs, mesh, cfg):
         aligned = unit is None or (unit and getattr(cfg, unit) % tp == 0)
         keep = ("model",) if on and aligned and \
             "model" in spec_axes(spec) else ()
-        if split_q and kind == "attn" and name in ("w_k", "w_v") and \
-                not keep:
+        if split["attn"] and kind == "attn" and name in ("w_k", "w_v") \
+                and not keep:
             raise ValueError(
                 f"{'/'.join(path)}: {cfg.n_heads} query heads split over "
                 f"{tp} `model` ranks, but the spec {spec} leaves the kv "
                 f"projection whole")
-        partial = ("model",) if split_q and not keep and kind == "attn" \
-            and name in _TP_PARTIAL_ATTN else ()
+        partial = ("model",) if split.get(kind) and not keep and \
+            name in _TP_PARTIAL.get(kind, ()) else ()
         return keep, partial
 
-    return _map_with_path(one, specs)
+    layout = _map_with_path(one, specs)
+    _check_all_or_none(layout, cfg)
+    return layout
+
+
+def _check_all_or_none(layout, cfg) -> None:
+    """Raises where a block of :data:`_ALL_OR_NONE` keeps some of its
+    :data:`TP_SPLIT` leaves on `model` and not others."""
+    from ..models.transformer import UNIT_KEYS
+
+    for key in UNIT_KEYS:
+        for b, block in layout.get(key, {}).items():
+            for part, leaves in block.items():
+                kind = _block_kind((key, b, part, ""), cfg)
+                if kind not in _ALL_OR_NONE:
+                    continue
+                kept = {n: bool(leaves[n][0]) for n in TP_SPLIT[kind]}
+                if len(set(kept.values())) > 1:
+                    raise ValueError(
+                        f"{key}/{b}/{part}: a {kind} block keeps only "
+                        f"some of its split leaves on `model` ({kept}); "
+                        f"its layer splits all or none")
 
 
 def serve_gather_rules(specs, mesh, cfg):
@@ -513,8 +559,8 @@ def serve_gather_rules(specs, mesh, cfg):
     `model` (``w_k``/``w_v`` on kv heads where ``n_kv_heads`` does too,
     else on columns), the MLP on d_ff, the embedding and head on the
     vocab, the experts on E (``moe_sharding="expert"``) or on d_ff
-    (``"ffn"``); Mamba and RWKV leaves are gathered.  Forward only: no
-    gradient is summed."""
+    (``"ffn"``), Mamba on d_inner, RWKV's time mix on heads and its
+    channel mix on d_ff and d.  Forward only: no gradient is summed."""
     from ..models.transformer import UNIT_KEYS
 
     def one(path, spec, layout):

@@ -43,6 +43,18 @@ A prefill never reads the cache: it attends over the k and v it has just
 computed and writes the rank's block of them into the cache
 (:func:`cache_part`).  With ``donate=True`` a decode step writes into the
 cache it is handed, as the reference's donated state is.
+
+**Context-parallel decode** (the context's ``ctx`` axes,
+``shard_ctx.ctx_split``: ``long_500k``'s caches split their sequence over
+`data`): a rank's cache holds the block of positions [i·L, (i+1)·L) for
+its index i and L rows.  The new token's k and v are written by the rank
+whose block holds ``pos`` only, the rank attends over its block (each
+position at its global index) and keeps the online softmax's running
+(max, sum, acc) (``grouped_decode_attention(..., partial=True)``), and
+the blocks are merged over the axes by one all-reduce MAX of the maxima
+and one all-reduce SUM of the rescaled (sum, acc) (:func:`_merge_blocks`).
+With the head_dim-parallel layout the scores are summed over `model`
+first, so the two compose.
 """
 
 from __future__ import annotations
@@ -242,14 +254,16 @@ def apply_attention(p, x, cfg, *, kind: str = "attn", kv_x=None,
 
 def grouped_decode_attention(q, k, v, *, q_pos, kv_pos, causal=True,
                              window=0, softcap=0.0, chunk_kv=2048,
-                             scale=None, score_sum=None):
+                             scale=None, score_sum=None, partial=False):
     """Decode-shape (small Sq) attention with grouped GQA: an online
     softmax over ``chunk_kv``-row chunks of the cache (the reference's
     ``_grouped_decode_attention``), each chunk cast to q's dtype as it is
     read.  q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D).  ``scale`` defaults to
     1/√D; ``score_sum(s)`` maps each chunk's raw fp32 scores before they
     are scaled (the head_dim-parallel layout's sum over the group).
-    Returns (B,Sq,Hq,D) in q.dtype."""
+    Returns (B,Sq,Hq,D) in q.dtype; with ``partial`` the running state
+    instead: the scores' max and the exponentials' sum, (B,Hkv,G,Sq)
+    each, and their weighted sum of v, (B,Sq,Hkv,G,D) in fp32."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -289,8 +303,39 @@ def grouped_decode_attention(q, k, v, *, q_pos, kv_pos, causal=True,
         acc = acc * c_old.permute(0, 3, 1, 2)[..., None] \
             + wv * c_new.permute(0, 3, 1, 2)[..., None]
         mx = mx_new
+    if partial:
+        return mx, l, acc
+    return _normalized(l, acc, q.dtype)
+
+
+def _normalized(l, acc, dtype):
+    """The attention output (B,Sq,Hq,D) of a running state's sum ``l`` and
+    weighted sum ``acc``."""
+    b, sq, hkv, g, dh = acc.shape
     out = acc / torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
-    return out.to(q.dtype).reshape(b, sq, hq, dh)
+    return out.to(dtype).reshape(b, sq, hkv * g, dh)
+
+
+def _merge_blocks(mx, l, acc, dtype, mesh, axes):
+    """The output of the ranks' running states over their blocks of the
+    sequence (``grouped_decode_attention(..., partial=True)``): each
+    rescaled to the group's largest max (one all-reduce MAX), then
+    summed (one all-reduce SUM of the sums and the weighted sums)."""
+    top = shard_ctx.reduce_max(mx, mesh, axes)
+    c = torch.exp(mx - top)
+    l = l * c
+    acc = acc * c.permute(0, 3, 1, 2)[..., None]
+    both = shard_ctx.sum_over(torch.cat([l.reshape(-1), acc.reshape(-1)]),
+                              mesh, axes)
+    return _normalized(both[:l.numel()].reshape(l.shape),
+                       both[l.numel():].reshape(acc.shape), dtype)
+
+
+def seq_start(cache: torch.Tensor) -> int:
+    """The global position of a cache's first row: the rank's block's
+    start under a context-parallel context, else 0."""
+    ctx = shard_ctx.ctx_split()
+    return 0 if ctx is None else shard_ctx.group_index(*ctx) * cache.shape[1]
 
 
 def _cached_attention(q, k, v, q_pos, kv_pos, cfg, *, causal, window,
@@ -298,21 +343,33 @@ def _cached_attention(q, k, v, q_pos, kv_pos, cfg, *, causal, window,
     """The rank's query heads ``q`` against a cache as the rank holds it:
     its kv heads, all of them, or (``k.shape[3] < head_dim``) every kv
     head's block of head_dim, whose partial scores are summed over the
-    group before the softmax and whose output blocks are gathered."""
+    group before the softmax and whose output blocks are gathered.
+    ``kv_pos``: the cache rows' positions in the rank's block; under a
+    context-parallel context they are moved to the block's start and the
+    blocks merged (:func:`_merge_blocks`)."""
+    ctx = shard_ctx.ctx_split()
+    if ctx is not None:
+        kv_pos = kv_pos + seq_start(k)
     kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
-              softcap=cfg.attn_softcap, chunk_kv=chunk_kv)
+              softcap=cfg.attn_softcap, chunk_kv=chunk_kv,
+              partial=ctx is not None)
+
+    def attend(q, k, v, **extra):
+        got = grouped_decode_attention(q, k, v, **kw, **extra)
+        return got if ctx is None else _merge_blocks(*got, q.dtype, *ctx)
+
     hq_l, dh = q.shape[2], cfg.head_dim
     if k.shape[3] == dh:
         ka, va = _kv_for_q(k, v, hq_l, cfg)
-        return grouped_decode_attention(q, ka, va, **kw)
+        return attend(q, ka, va)
     mesh, axes = shard_ctx.tp_split()
     r, dd = _tp_index(), k.shape[3]
     split_q = hq_l < cfg.n_heads
     if split_q:                                   # every query head
         q = shard_ctx.gather_from(q, 2, mesh, axes)
-    out = grouped_decode_attention(
+    out = attend(
         q[..., r * dd:(r + 1) * dd], k, v, scale=1.0 / np.sqrt(dh),
-        score_sum=lambda s: shard_ctx.sum_over(s, mesh, axes), **kw)
+        score_sum=lambda s: shard_ctx.sum_over(s, mesh, axes))
     out = shard_ctx.gather_from(out, 3, mesh, axes)
     return out[:, :, r * hq_l:(r + 1) * hq_l] if split_q else out
 
@@ -345,11 +402,19 @@ def decode_attention(p, x, cache, pos, cfg, *, kind="attn", chunk_kv=2048,
     if not donate:
         k_cache, v_cache = k_cache.clone(), v_cache.clone()
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, pos_b[:, 0]] = cache_part(k_new, k_cache)[:, 0].to(
-        k_cache.dtype)
-    v_cache[rows, pos_b[:, 0]] = cache_part(v_new, v_cache)[:, 0].to(
-        v_cache.dtype)
     smax = k_cache.shape[1]
+    at = pos_b[:, 0]
+    ctx = shard_ctx.ctx_split()
+    if ctx is not None:
+        # a row's pos lies in one rank's block: the others write back what
+        # their block holds (at a clamped row)
+        at = at - seq_start(k_cache)
+        inside = ((at >= 0) & (at < smax))[:, None, None]
+        at = at.clamp(0, smax - 1)
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        new = cache_part(new, c)[:, 0].to(c.dtype)
+        c[rows, at] = new if ctx is None else \
+            torch.where(inside, new, c[rows, at])
     kv_pos = torch.arange(smax, device=x.device).expand(b, smax)
     window = cfg.window_size if kind == "attn_local" else 0
     out = _cached_attention(q, k_cache, v_cache, pos_b, kv_pos, cfg,

@@ -8,6 +8,19 @@ loop is cut into chunks, and under grad mode each chunk runs in
 ``torch.utils.checkpoint`` (the reference's rematerialized inner scan), so
 the backward pass keeps one state a chunk, not one a step.  Decode keeps
 (conv_state, ssm_state).
+
+**On a mesh** (a tensor-parallel context, ``shard_ctx.tp_split``) the
+block splits on d_inner when its leaves are the rank's blocks of it
+(``launch.sharding.tp_layout`` keeps them all or none; the layer reads
+which from ``in_proj``'s shape).  The conv, ``dt_proj``, ``dt_bias``,
+``A_log``, ``D``, the SSM scan and the decode state are the rank's
+channels; ``x_proj`` holds the rank's rows, so its product (dt, B, C) is
+summed over the group (``shard_ctx.row_split``), and ``out_proj``'s rows
+are too.  ``in_proj``'s spec splits its 2·d_inner columns in contiguous
+blocks, which are not the rank's x and z blocks (ranks below |model|/2
+hold x's columns, the others z's): the rank projects its own block and
+one uneven all-to-all (:func:`_own_x_and_z`) hands each block of
+d_inner/|model| columns to the rank it belongs to — GSPMD's re-layout.
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import shard_ctx
 from .layers import _dense_init, cdtype, pdtype, remat
 
 
@@ -88,20 +102,61 @@ def _ssm_scan(dt_full, x_full, b_full, c_full, a, h0, chunk: int = 128):
     return torch.cat(ys).transpose(0, 1), h
 
 
+def _own_x_and_z(xz: torch.Tensor, mesh, axes):
+    """The rank's x and z blocks from its block of ``in_proj``'s product.
+
+    ``xz`` (B, S, 2w) holds columns [2rw, 2rw + 2w) of the 2·d_inner
+    (``m`` ranks, ``w`` = d_inner/m): blocks ``2r`` and ``2r + 1`` of the
+    ``2m`` blocks of ``w``, where block ``k < m`` is rank ``k``'s x and
+    block ``k ≥ m`` rank ``k − m``'s z.  Each goes to its rank in one
+    ``all_to_all_single`` of uneven chunks; the rank receives its x from
+    rank ``r // 2`` and its z from rank ``(m + r) // 2``, in that (rank)
+    order.  Returns (x, z), each (B, S, w)."""
+    m = shard_ctx.group_size(mesh, axes)
+    r = shard_ctx.group_index(mesh, axes)
+    b, s, two_w = xz.shape
+    w = two_w // 2
+    blocks = xz.reshape(b, s, 2, w).movedim(2, 0)           # (2, B, S, w)
+    dest = [(2 * r + j) % m for j in (0, 1)]
+    order = sorted((0, 1), key=dest.__getitem__)
+    send, recv = [0] * m, [0] * m
+    for j in (0, 1):
+        send[dest[j]] += 1
+    recv[r // 2] += 1
+    recv[(m + r) // 2] += 1
+    got = shard_ctx.exchange_blocks(blocks[list(order)], mesh, axes, send,
+                                    recv)
+    return got[0], got[1]
+
+
 def apply_mamba(p, x: torch.Tensor, cfg, state=None):
-    """x: (B,S,d). state: None (train) or {"conv","ssm"} for segment carry.
-    Returns (out, new_state)."""
+    """x: (B,S,d). state: None (train) or {"conv","ssm"} for segment carry
+    (the rank's channels on a mesh).  Returns (out, new_state)."""
     dt_ = cdtype(cfg)
     b, s, _ = x.shape
     di, n = cfg.mamba_d_inner, cfg.mamba_d_state
     r = cfg.dt_rank
-    xz = x @ p["in_proj"].to(dt_)
-    xs_, z = torch.chunk(xz, 2, dim=-1)
+    tp = shard_ctx.tp_split()
+    split = tp is not None and p["in_proj"].shape[1] < 2 * di
+    if split:
+        xs_, z = _own_x_and_z(shard_ctx.copy_to(x, *tp) @
+                              p["in_proj"].to(dt_), *tp)
+        di = xs_.shape[-1]
+    else:
+        xz = x @ p["in_proj"].to(dt_)
+        xs_, z = torch.chunk(xz, 2, dim=-1)
     conv_in = state["conv"] if state is not None else None
     xc = _causal_depthwise_conv(xs_, p["conv_w"].to(dt_),
                                 p["conv_b"].to(dt_), conv_in)
     xc = F.silu(xc)
-    dbc = _mm(xc, p["x_proj"], dt_)
+    if split:
+        # the rank's rows of x_proj: (dt, B, C) summed over the group,
+        # which every rank then reads on its own channels
+        dbc = shard_ctx.copy_to(shard_ctx.row_split(
+            xc, p["x_proj"].to(torch.promote_types(xc.dtype, dt_)), *tp),
+            *tp)
+    else:
+        dbc = _mm(xc, p["x_proj"], dt_)
     dt_raw, b_ssm, c_ssm = torch.split(dbc, [r, n, n], dim=-1)
     dts = F.softplus(_mm(dt_raw, p["dt_proj"], dt_).float()
                      + p["dt_bias"].float())
@@ -111,7 +166,10 @@ def apply_mamba(p, x: torch.Tensor, cfg, state=None):
     y, h_t = _ssm_scan(dts, xc.float(), b_ssm.float(), c_ssm.float(), a, h0)
     y = (y + xc.float() * p["D"].float()).to(dt_)
     y = y * F.silu(z)
-    out = y @ p["out_proj"].to(dt_)
+    if split:
+        out = shard_ctx.row_split(y, p["out_proj"].to(dt_), *tp)
+    else:
+        out = y @ p["out_proj"].to(dt_)
     new_state = None
     if state is not None:
         dc = cfg.mamba_d_conv

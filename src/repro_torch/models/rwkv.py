@@ -7,6 +7,23 @@ only the WKV state recurrence loops over time carrying S: (B, H, hs, hs) in
 fp32, in chunks that each run in ``torch.utils.checkpoint`` under grad mode
 (the reference's rematerialized inner scan: one state kept a chunk for the
 backward pass).  Decode carries (x_prev_tm, x_prev_cm, wkv state).
+
+**On a mesh** (a tensor-parallel context, ``shard_ctx.tp_split``) each
+block splits where its leaves are the rank's blocks
+(``launch.sharding.tp_layout`` keeps a block's all or none; the layer
+reads which from their shapes):
+
+* the time mix on heads: the ddlerp half (``mu_x``, ``mu_rwkvg``, the
+  LoRA, ``decay_a``) runs whole on every rank; ``w_r``/``w_k``/``w_v``/
+  ``w_g`` hold the rank's columns (its heads), ``bonus_u`` and the WKV
+  state its heads, ``decay_base``/``decay_b``/``ln_x`` are whole and
+  read on the rank's channels only, and ``w_o``'s rows are re-laid out
+  as the rank's columns (:func:`_output_columns`);
+* the channel mix on d_ff: ``w_k`` holds the rank's columns of d_ff,
+  ``w_r`` and ``w_v`` (which carry attention's rule by name) the rank's
+  columns of d; the rank's block of ``relu(xk @ w_k)²`` is gathered over
+  the group before ``w_v``, and the rank's columns of the output are
+  gathered after it.
 """
 
 from __future__ import annotations
@@ -14,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import shard_ctx
 from .layers import _dense_init, cdtype, pdtype, remat
 
 _LORA = 32       # ddlerp LoRA rank
@@ -86,13 +104,19 @@ def _shifted(x: torch.Tensor, x_prev) -> torch.Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
+def _channels(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The rank's block of ``n`` channels of ``t``'s last dim (a view)."""
+    return t.narrow(-1, shard_ctx.group_index(*shard_ctx.tp_split()) * n, n)
+
+
 def apply_rwkv_time_mix(p, x: torch.Tensor, cfg, x_prev=None,
                         wkv_state=None):
     """x: (B,S,d).  x_prev: (B,1,d) last token of previous segment (decode)
-    or None (train: internal shift).  Returns (out, (x_last, new_state))."""
+    or None (train: internal shift).  Returns (out, (x_last, new_state));
+    on a mesh the state holds the rank's heads."""
     dt_ = cdtype(cfg)
     b, s, d = x.shape
-    h, hs = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    hs = cfg.rwkv_head_size
     xx = _shifted(x, x_prev) - x
     # ddlerp: data-dependent token-shift amounts for r,w,k,v,g
     xxx = x + xx * p["mu_x"].to(dt_)
@@ -101,15 +125,26 @@ def apply_rwkv_time_mix(p, x: torch.Tensor, cfg, x_prev=None,
     mods = torch.einsum("fbsl,fld->fbsd", t5, p["lora_b"].to(dt_))
     mixed = x[None] + xx[None] * (p["mu_rwkvg"].to(dt_)[:, None, None, :]
                                   + mods)
-    xr, xw, xk, xv, xg = mixed
+    dl = p["w_r"].shape[1]                   # the rank's channels
+    decay_in = torch.tanh(mixed[1] @ p["decay_a"].to(dt_))
+    tp = shard_ctx.tp_split()
+    split = tp is not None and dl < d
+    if split:
+        # the ddlerp half ran whole; each rank reads it on its own heads
+        mixed = shard_ctx.copy_to(mixed, *tp)
+        decay_in = shard_ctx.copy_to(decay_in, *tp)
+    xr, _, xk, xv, xg = mixed
+    h = dl // hs
     r = (xr @ p["w_r"].to(dt_)).reshape(b, s, h, hs)
     k = (xk @ p["w_k"].to(dt_)).reshape(b, s, h, hs)
     v = (xv @ p["w_v"].to(dt_)).reshape(b, s, h, hs)
     g = F.silu(xg @ p["w_g"].to(dt_))
+    decay_base, decay_b, ln_x = p["decay_base"], p["decay_b"], p["ln_x"]
+    if split:
+        decay_base, decay_b, ln_x = (_channels(t, dl) for t in
+                                     (decay_base, decay_b, ln_x))
     # data-dependent per-channel decay (Finch's signature)
-    dec = (p["decay_base"].float()
-           + (torch.tanh(xw @ p["decay_a"].to(dt_))
-              @ p["decay_b"].to(dt_)).float())
+    dec = (decay_base.float() + (decay_in @ decay_b.to(dt_)).float())
     w = torch.exp(-torch.exp(dec)).reshape(b, s, h, hs)
     s0 = (wkv_state.float() if wkv_state is not None
           else torch.zeros((b, h, hs, hs), dtype=torch.float32,
@@ -119,10 +154,29 @@ def apply_rwkv_time_mix(p, x: torch.Tensor, cfg, x_prev=None,
     # per-head groupnorm
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, correction=0)[..., None]
-    y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
-    y = y.to(dt_) * p["ln_x"].to(dt_) * g
-    out = y @ p["w_o"].to(dt_)
+    y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, dl)
+    y = y.to(dt_) * ln_x.to(dt_) * g
+    if split:
+        out = _output_columns(y, p["w_o"].to(dt_), *tp)
+    else:
+        out = y @ p["w_o"].to(dt_)
     return out, (x[:, -1:, :], s_t)
+
+
+def _output_columns(y, w_o, mesh, axes):
+    """``y @ w_o`` for ``y`` the rank's channels (B, S, d/m) and ``w_o``
+    the rank's rows (d/m, d): one all-to-all re-lays the rank's rows out
+    as its columns of all rows, the group gathers ``y``, and then the
+    rank's columns of the output.  Each output element is one contraction
+    over all of d, as in one process: a row-parallel sum's fp32 reorder,
+    amplified by the per-head group norm's 1/σ, moves the train step's
+    gradients past 1e-4 of one process's."""
+    m = shard_ctx.group_size(mesh, axes)
+    dl = w_o.shape[0]
+    cols = shard_ctx.all_to_all(w_o.reshape(dl, m, dl).transpose(0, 1),
+                                mesh, axes).reshape(m * dl, dl)
+    y = shard_ctx.gather_from(y, -1, mesh, axes, sum_grad=True)
+    return shard_ctx.gather_from(y @ cols, -1, mesh, axes)
 
 
 def init_rwkv_channel_mix(gen: torch.Generator, cfg) -> dict:
@@ -143,8 +197,17 @@ def apply_rwkv_channel_mix(p, x: torch.Tensor, cfg, x_prev=None):
     xx = _shifted(x, x_prev) - x
     xk = x + xx * p["mu_k"].to(dt_)
     xr = x + xx * p["mu_r"].to(dt_)
+    tp = shard_ctx.tp_split()
+    split = tp is not None and p["w_k"].shape[1] < cfg.d_ff
+    if split:
+        xk, xr = shard_ctx.copy_to(xk, *tp), shard_ctx.copy_to(xr, *tp)
     k = torch.square(F.relu(xk @ p["w_k"].to(dt_)))
+    if split:
+        # every rank reads all of k on its own columns of w_v
+        k = shard_ctx.gather_from(k, -1, *tp, sum_grad=True)
     out = torch.sigmoid(xr @ p["w_r"].to(dt_)) * (k @ p["w_v"].to(dt_))
+    if split:
+        out = shard_ctx.gather_from(out, -1, *tp)
     return out, x[:, -1:, :]
 
 

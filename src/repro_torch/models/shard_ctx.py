@@ -26,7 +26,9 @@ autograd as Megatron's pairs do:
   output whose ranks read different parts of it);
 * :func:`sum_over` — forward: all-reduce; backward: identity (the sum
   feeds a value every rank of the group computes alike);
-* :func:`all_to_all` — forward and backward: one ``all_to_all_single``;
+* :func:`all_to_all` — forward and backward: one ``all_to_all_single``
+  (:func:`exchange_blocks`: of uneven chunks, the backward the reverse
+  exchange);
 * :func:`copy_to` — forward: identity; backward: all-reduce (the input of
   a column-split matmul, which every rank of the group reads);
 * :func:`gather_param` — forward: a leaf's shards all-gathered into the
@@ -50,6 +52,12 @@ vocab-parallel lookup (:func:`vocab_lookup`) and a vocab-parallel loss
 (``layers.chunked_xent``: the logsumexp over the vocab shards, with
 :func:`reduce_max`).  The activations between layers stay whole on every
 rank of the group, so their gradients are too.
+
+**Context-parallel decode**: the context's ``ctx`` entry names the axes
+a decode state's KV caches split their sequence over (``"data"`` under
+``launch.sharding.state_specs(..., context_parallel=True)``; ``()``, the
+default, none): each rank then holds its block of the sequence, and
+``models.attention`` merges the blocks' softmax statistics over them.
 """
 
 from __future__ import annotations
@@ -60,14 +68,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-_CTX: dict = {"mesh": None, "batch_axes": None, "split": (), "tp": ()}
+_CTX: dict = {"mesh": None, "batch_axes": None, "split": (), "tp": (),
+              "ctx": ()}
 
 
-def set_sharding_context(mesh, batch_axes, split=(), tp=()) -> None:
+def set_sharding_context(mesh, batch_axes, split=(), tp=(), ctx=()) -> None:
     _CTX["mesh"] = mesh
     _CTX["batch_axes"] = tuple(batch_axes) if batch_axes else None
     _CTX["split"] = tuple(split or ())
     _CTX["tp"] = _axes(tp)
+    _CTX["ctx"] = _axes(ctx)
 
 
 def tp_split():
@@ -75,6 +85,14 @@ def tp_split():
     if _CTX["mesh"] is None or not _CTX.get("tp"):
         return None
     return _CTX["mesh"], _CTX["tp"]
+
+
+def ctx_split():
+    """``(mesh, axes)`` the decode caches split their sequence over, or
+    None."""
+    if _CTX["mesh"] is None or not _CTX.get("ctx"):
+        return None
+    return _CTX["mesh"], _CTX["ctx"]
 
 
 def clear_sharding_context() -> None:
@@ -234,19 +252,27 @@ class _CopyTo(torch.autograd.Function):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.args = (mesh, axes)
-        return _exchange(x, mesh, axes)
+    def forward(ctx, x, mesh, axes, send=None, recv=None):
+        ctx.args = (mesh, axes, recv, send)
+        return _exchange(x, mesh, axes, send, recv)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, *ctx.args), None, None
+        return _exchange(g, *ctx.args), None, None, None, None
 
 
-def _exchange(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def _exchange(x: torch.Tensor, mesh, axes, send=None,
+              recv=None) -> torch.Tensor:
+    """One ``all_to_all_single``: even chunks of dim 0, or ``send[j]``
+    rows to rank ``j`` and ``recv[j]`` rows from it."""
     x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=axis_group(mesh, axes))
+    if send is None:
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=axis_group(mesh, axes))
+        return out
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, list(recv), list(send),
+                           group=axis_group(mesh, axes))
     return out
 
 
@@ -319,6 +345,19 @@ def all_to_all(x, mesh, axes):
     rank order (its own backward).  No-op for a one-rank group."""
     axes = _live(mesh, axes)
     return _AllToAll.apply(x, mesh, axes) if axes else x
+
+
+def exchange_blocks(x, mesh, axes, send, recv):
+    """One ``all_to_all_single`` of uneven chunks over the group: the
+    first ``send[0]`` rows of dim 0 to rank 0, the next ``send[1]`` to
+    rank 1, ...; the result the ``recv[j]`` rows from each rank ``j``,
+    stacked in rank order.  Backward: the reverse exchange.  Needs a live
+    group."""
+    axes = _live(mesh, axes)
+    if not axes:
+        raise ValueError("exchange_blocks needs a group of two or more "
+                         "ranks")
+    return _AllToAll.apply(x, mesh, axes, tuple(send), tuple(recv))
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +439,7 @@ def reduce_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 __all__ = ["set_sharding_context", "clear_sharding_context", "tp_split",
            "axis_names", "axis_sizes", "group_size", "group_index",
            "axis_group", "scatter_to", "gather_from", "sum_over", "copy_to",
-           "row_split", "vocab_lookup", "all_to_all",
+           "row_split", "vocab_lookup", "all_to_all", "exchange_blocks",
+           "ctx_split",
            "spec_axes", "gather_param", "gather_tree", "reduce_sum",
            "reduce_max"]

@@ -34,21 +34,25 @@ body).  Without it nothing changes.
 ``decode_step(..., mesh=, specs=)``) take this rank's shards of the
 params and of the decode state — ``DTensor``s, or local shards with the
 params' ``specs`` given (``launch.sharding.param_specs``; the state laid
-out by ``state_specs``), the params best prepared once by
-``mesh_params`` — and the global tokens, of which the rank takes
-its block of rows over the batch axes where the batch divides them.  Each
-unit's params are gathered over every axis but `model` where the leaf's
-`model` shard is aligned with its layer's split
-(``launch.sharding.serve_gather_rules``), and the layers split their
-compute over `model` (``shard_ctx.tp_split``): attention on heads or on
-head_dim, the MLP on d_ff, the embedding and head on the vocab.  The
-cache is written in place into the state handed in, as the reference
-donates it, and that same state is returned; the hidden states returned
-are the rank's rows.  ``serve_logits(..., mesh=)`` turns them into the
-rank's block of the vocab for every row (the reference's out-spec
-``P(None, None, "model")``).  Each unit runs through ``layers.region``,
-where the cost counter replays it.  Attention, MLP and MoE blocks only:
-Mamba and RWKV state splits wait (ROADMAP Queue 1 item 12c).
+out by ``state_specs``, whose specs ``state_specs=`` takes where the
+state is local shards split over the sequence), the params best
+prepared once by ``mesh_params`` — and the global tokens, of which the
+rank takes its block of rows over the batch axes where the batch divides
+them (else every rank of those axes runs every row).  Each unit's params
+are gathered over every axis but `model` where the leaf's `model` shard
+is aligned with its layer's split (``launch.sharding.serve_gather_rules``),
+and the layers split their compute over `model` (``shard_ctx.tp_split``):
+attention on heads or on head_dim, the MLP on d_ff, the embedding and
+head on the vocab, Mamba on d_inner, RWKV's time mix on heads and its
+channel mix on d_ff.  Where the caches split their sequence over `data`
+(``long_500k``: ``state_specs(..., context_parallel=True)``) the decode
+merges the blocks' softmax over `data` (``shard_ctx.ctx_split``).  The
+caches and the Mamba and RWKV states are written in place into the state
+handed in, as the reference donates it, and that same state is returned;
+the hidden states returned are the rank's rows.  ``serve_logits(...,
+mesh=)`` turns them into the rank's block of the vocab for every row (the
+reference's out-spec ``P(None, None, "model")``).  Each unit runs through
+``layers.region``, where the cost counter replays it.
 """
 
 from __future__ import annotations
@@ -155,17 +159,31 @@ def init_model(gen, cfg, device=None) -> dict:
 def _write_prefix(cache: torch.Tensor, new: torch.Tensor,
                   donate: bool = False) -> torch.Tensor:
     """``cache`` with its first ``new.shape[1]`` positions set to ``new``
-    (the rank's block of it, as the cache holds it); ``cache`` itself,
-    written in place, when ``donate``."""
+    (the rank's block of it, as the cache holds it: its heads or head_dim,
+    and under context parallelism the positions in its block of the
+    sequence); ``cache`` itself, written in place, when ``donate``."""
     out = cache if donate else cache.clone()
+    if shard_ctx.ctx_split() is not None:
+        start, s = attn.seq_start(cache), new.shape[1]
+        new = new[:, min(start, s):min(start + cache.shape[1], s)]
     out[:, :new.shape[1]] = attn.cache_part(new, cache).to(cache.dtype)
     return out
 
 
+def _carry(st: dict, new: dict, donate: bool) -> dict:
+    """A recurrent block's new state ``new`` in the dtypes of its old one
+    ``st``: written into ``st``'s tensors in place when ``donate``."""
+    if donate:
+        for k, v in new.items():
+            st[k].copy_(v)
+        return {k: st[k] for k in new}
+    return {k: v.to(st[k].dtype) for k, v in new.items()}
+
+
 def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
                 pos=None, pos_offset=0, skip_causal=False, donate=False):
-    """Returns (x, aux, new_state).  ``donate``: the attention caches are
-    written in place."""
+    """Returns (x, aux, new_state).  ``donate``: the attention caches and
+    the recurrent states are written in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_state = {} if state is not None else None
     for i, (mixer, ffn) in enumerate(pattern):
@@ -181,16 +199,15 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
         elif mixer == "mamba":
             out, new_st = mamba_mod.apply_mamba(bp["mixer"], h, cfg, st)
             if state is not None:
-                new_state[bkey] = new_st
+                new_state[bkey] = _carry(st, new_st, donate)
         elif mixer == "rwkv":
             out, (x_last, wkv) = rwkv_mod.apply_rwkv_time_mix(
                 bp["mixer"], h, cfg,
                 x_prev=None if st is None else st["x_prev_tm"],
                 wkv_state=None if st is None else st["wkv"])
             if state is not None:
-                new_state[bkey] = {
-                    "x_prev_tm": x_last.to(st["x_prev_tm"].dtype),
-                    "wkv": wkv.to(st["wkv"].dtype)}
+                new_state[bkey] = _carry(
+                    st, {"x_prev_tm": x_last, "wkv": wkv}, donate)
         else:
             raise ValueError(mixer)
         if cfg.post_norm:
@@ -210,8 +227,8 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
             out, x_last_cm = rwkv_mod.apply_rwkv_channel_mix(
                 bp["ffn"], h2, cfg, x_prev=prev)
             if state is not None:
-                new_state[bkey]["x_prev_cm"] = x_last_cm.to(
-                    st["x_prev_cm"].dtype)
+                new_state[bkey].update(_carry(
+                    st, {"x_prev_cm": x_last_cm}, donate))
         else:
             raise ValueError(ffn)
         if cfg.post_norm:
@@ -390,7 +407,7 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def prefill(params, batch, cfg, state, *, skip_causal=False, mesh=None,
-            specs=None):
+            specs=None, state_specs=None):
     """Fill the decode state from a prompt; returns (hidden_last (B,1,d),
     state').  The hidden state is the one at the last position of
     ``batch["tokens"]``, padding included, as the reference's is.
@@ -399,7 +416,8 @@ def prefill(params, batch, cfg, state, *, skip_causal=False, mesh=None,
     in place and returns it with the rank's rows of the hidden state."""
     if mesh is not None:
         return _mesh_serve(params, cfg, state, mesh, specs, "prefill",
-                           batch=batch, skip_causal=skip_causal)
+                           batch=batch, skip_causal=skip_causal,
+                           state_specs=state_specs)
     x = embed_tokens(params["embed"], _as_tokens(batch["tokens"], params),
                      cfg)
     enc_out = None
@@ -412,7 +430,8 @@ def prefill(params, batch, cfg, state, *, skip_causal=False, mesh=None,
     return x[:, -1:, :], new_state
 
 
-def decode_step(params, tokens, cfg, state, pos, *, mesh=None, specs=None):
+def decode_step(params, tokens, cfg, state, pos, *, mesh=None, specs=None,
+                state_specs=None):
     """One decode step: tokens (B,1) at position ``pos`` — an int when all
     rows advance in lock-step, or a (B,) int tensor of per-row positions
     (continuous batching: slots admitted at different times each write
@@ -422,7 +441,8 @@ def decode_step(params, tokens, cfg, state, pos, *, mesh=None, specs=None):
     place and returns it with the rank's rows of the hidden state."""
     if mesh is not None:
         return _mesh_serve(params, cfg, state, mesh, specs, "decode",
-                           batch={"tokens": tokens}, pos=pos)
+                           batch={"tokens": tokens}, pos=pos,
+                           state_specs=state_specs)
     dev = params["embed"]["embedding"].device
     pos = torch.as_tensor(pos, device=dev)
     x = embed_tokens(params["embed"], _as_tokens(tokens, params), cfg,
@@ -463,12 +483,6 @@ def mesh_params(params, cfg, mesh, specs=None) -> MeshParams:
 
     if isinstance(params, MeshParams):
         return params
-    for mixer, _ in tuple(cfg.unit_pattern) + tuple(cfg.enc_unit_pattern):
-        if mixer not in _ATTN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: the mesh prefill and decode run attention, "
-                f"MLP and MoE blocks; a {mixer} block's state split over "
-                "`model` waits (ROADMAP Queue 1 item 12c)")
     if specs is None:
         specs = tree_map(spec_of, params)
     return MeshParams(tree_map(_local, params),
@@ -499,15 +513,43 @@ def _batch_split(mesh, cfg, rows: int) -> tuple:
     return b_axes if rows % shard_ctx.group_size(mesh, b_axes) == 0 else ()
 
 
+def _context_axes(state, state_specs, mesh, split) -> tuple:
+    """The axes the state's KV caches split their sequence over (their
+    specs' second entry after the unit stack's: ``state_specs``, else the
+    ``DTensor``s' own, else none), over a live group.  Raises where the
+    caches split it differently or the batch is split over them too."""
+    from ..launch.sharding import _leaf_name, _map_with_path, spec_of
+
+    if state_specs is None:
+        state_specs = tree_map(spec_of, state)
+    found = set()
+
+    def one(path, spec):
+        if _leaf_name(path) in ("k", "v", "ck", "cv"):
+            entry = spec[2] if len(spec) > 2 else None
+            found.add(shard_ctx._live(mesh, entry))
+
+    _map_with_path(one, state_specs)
+    if len(found) > 1:
+        raise ValueError(f"the caches split their sequence over different "
+                         f"axes: {sorted(found)}")
+    axes = found.pop() if found else ()
+    if set(axes) & set(split):
+        raise ValueError(f"the caches' sequence and the batch both split "
+                         f"over {axes}")
+    return axes
+
+
 @contextlib.contextmanager
-def _serving(mesh, cfg, split):
+def _serving(mesh, cfg, split, ctx=()):
     """The sharding context of the mesh prefill and decode (the layers
-    split over `model`), without gradients."""
+    split over `model`, the caches' sequence over ``ctx``), without
+    gradients."""
     from ..launch.sharding import dp_axes, tp_axes
 
     saved = dict(shard_ctx._CTX)
     shard_ctx.set_sharding_context(mesh, dp_axes(mesh, cfg), split=split,
-                                   tp=tp_axes(mesh, cfg))
+                                   tp=tp_axes(mesh, cfg), ctx=ctx)
     try:
         with torch.no_grad():
             yield
@@ -516,10 +558,11 @@ def _serving(mesh, cfg, split):
 
 
 def _mesh_serve(params, cfg, state, mesh, specs, mode, *, batch, pos=None,
-                skip_causal=False):
+                skip_causal=False, state_specs=None):
     local, rules = mesh_params(params, cfg, mesh, specs)
     dev = local["embed"]["embedding"].device
     split = _batch_split(mesh, cfg, batch["tokens"].shape[0])
+    ctx = _context_axes(state, state_specs, mesh, split)
     tokens = _rows(batch["tokens"], split, mesh, dev).long()
     if pos is not None:
         pos = _rows(pos, split, mesh, dev)
@@ -528,7 +571,7 @@ def _mesh_serve(params, cfg, state, mesh, specs, mode, *, batch, pos=None,
     def gather(key, up):
         return shard_ctx.gather_tree(up, rules[key], mesh)
 
-    with _serving(mesh, cfg, split):
+    with _serving(mesh, cfg, split, ctx):
         full = {k: v if k in UNIT_KEYS
                 else shard_ctx.gather_tree(v, rules[k], mesh)
                 for k, v in local.items()}

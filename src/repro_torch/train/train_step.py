@@ -179,9 +179,10 @@ def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
     `model`).  ``split_in``: the axes the batch is split over; ``t``: a
     microbatch's tokens in the whole batch.  A leaf kept on `model` holds
     other columns than its model peers' for the same tokens, and a leaf
-    every model peer computes with alike (norms, Mamba, RWKV) has its
-    inputs' gradients summed by ``shard_ctx.copy_to``: both are summed
-    over the batch's axes only."""
+    every model peer computes with alike (norms, RWKV's ddlerp half) has
+    its inputs' gradients summed by ``shard_ctx.copy_to``: both are
+    summed over the batch's axes only — a whole leaf each peer reads on
+    its own part (``tp_layout``'s ``partial``) over `model` too."""
     from ..launch.sharding import (MOE_EXPERT_LEAVES, _leaf_name,
                                    _map_with_path, dp_axes, tp_layout)
     from ..models.moe import moe_split

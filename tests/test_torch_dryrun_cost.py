@@ -15,10 +15,9 @@ faults that blocked it.
   roofline terms, the peak's parts), an args-only record recomputed when
   a cost is asked for, a failed cost run recorded FAIL with exit 1, and
   ``roofline.summarize``'s tables;
-* a production serving cell costed (llama3_2_1b ``decode_32k`` on
+* production serving cells costed (llama3_2_1b ``decode_32k`` on
   16 × 16: flops, collectives, peak, the cache held once, the state
-  donated) and one that waits (rwkv6_7b, its reason naming the roadmap
-  item it waits for);
+  donated; rwkv6_7b ``decode_32k`` on 2 × 16 × 16, which once waited);
 * ``fits`` with the headroom measured on the card, and ``margin_bytes``.
 
 Fake and gloo runs are subprocesses of ``tests/torch_cost_worker.py``.
@@ -245,14 +244,26 @@ def test_serving_cell_record_has_the_cost(out_dir):
 
 
 def test_serving_cell_waits_with_a_reason(out_dir):
-    """rwkv6_7b's serving cells wait: the RWKV state splits over heads,
-    which the mesh decode does not run yet."""
-    rec = dryrun.run_cell("rwkv6_7b", "decode_32k", True, verbose=False)
-    assert rec["status"] == "OK" and rec["cost"] is None
-    assert rec["cost_reason"] == dryrun.SERVE_REASON
-    assert "12c" in rec["cost_reason"] and "RWKV" in rec["cost_reason"]
-    assert rec["memory"]["argument_bytes"] > 0
-    assert "flops_per_device" not in rec
+    """No serving cell waits any more: rwkv6_7b's ``decode_32k`` on
+    2 × 16 × 16 (rank 0 of a fake group of 512 ranks in a subprocess) is
+    costed like the attention cells — its time mix split on heads (4 of
+    64 a rank), its WKV state held once and donated, no reason given."""
+    cfg = get_config("rwkv6_7b")
+    rec = dryrun.run_cell("rwkv6_7b", "decode_32k", True, verbose=False,
+                          device_bytes=80 * 2**30)
+    assert rec["status"] == "OK" and rec["chips"] == 512
+    assert "cost" not in rec and "cost_reason" not in rec
+    for k in ("flops_per_device", "fits", "margin_bytes", "roofline",
+              "cost_s"):
+        assert rec[k] is not None, k
+    assert rec["flops_per_device"] > 0 and rec["fits"] is True
+    mem = rec["memory"]
+    assert rec["margin_bytes"] == (80 * 2**30 - dryrun.HEADROOM_BYTES
+                                   - mem["peak_estimate_bytes"])
+    assert mem["alias_bytes"] == mem["argument_bytes_by_arg"]["state"]
+    assert rec["regions"]["_unit_in_place"] == cfg.n_units
+    # the split's sums over `model` (w_o's rows, the channel mix's gathers)
+    assert rec["collectives_by_axis"]["model"] > 0
 
 
 def test_fits_keeps_the_measured_headroom():

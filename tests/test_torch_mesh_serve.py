@@ -10,11 +10,19 @@ tokens into a 16-deep cache, then 4 ``decode_step``s (the second at
 per-row positions), single-process and on the mesh from each rank's
 shards:
 
-* all eight attention/MLP/MoE architectures on (data, model) = (2, 2),
-  where every smoke config's kv heads divide `model` (head-parallel);
+* all ten architectures on (data, model) = (2, 2), where every smoke
+  config's kv heads divide `model` (head-parallel), rwkv6_7b's 4 heads
+  split 2 a rank and jamba's d_inner 128 splits 64 a rank;
 * llama3_2_1b and gemma2_2b on (1, 4), where the kv heads (2) do not:
-  the caches split on head_dim;
-* llama3_2_1b on (pod, data, model) = (2, 1, 2).
+  the caches split on head_dim; rwkv6_7b and jamba there too (1 head,
+  32 channels of d_inner a rank);
+* llama3_2_1b on (pod, data, model) = (2, 1, 2);
+* jamba's context-parallel decode (``state_specs(...,
+  context_parallel=True)``): 1 row into a 64-deep cache whose sequence
+  splits over `data`, on (2, 2) and (4, 1), the prompt 8 tokens (every
+  decode position in the first data block) or 56 (in the last), and on
+  (2, 2) with 1 kv head, whose cache splits on head_dim as well (the
+  score sum over `model` and the block merge over `data` composed).
 
 Each step's logits, the vocab gathered here, are within 1e-4 of the
 largest of both the single-process port's and the JAX package's
@@ -25,6 +33,7 @@ single process leaves its state untouched.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -50,23 +59,38 @@ JOIN_TIMEOUT = 300
 WORLD = 4
 TOL = 1e-4
 STATE_TOL = 1e-5
-B, S, MAX_LEN, STEPS = 4, 8, 16, 4
+STEPS = 4
 ARCHS = ("llama3_2_1b", "yi_6b", "gemma2_2b", "phi3_mini_3_8b",
          "chameleon_34b", "moonshot_v1_16b_a3b", "grok_1_314b",
-         "whisper_tiny")
+         "whisper_tiny", "rwkv6_7b", "jamba_1_5_large_398b")
+RECURRENT = ("rwkv6_7b", "jamba_1_5_large_398b")
+JAMBA = "jamba_1_5_large_398b"
 MESHES = {"dm22": {"data": 2, "model": 2}, "dm14": {"data": 1, "model": 4},
-          "pdm212": {"pod": 2, "data": 1, "model": 2}}
-CASES = ([(a, "dm22") for a in ARCHS]
-         + [("llama3_2_1b", "dm14"), ("gemma2_2b", "dm14"),
-            ("llama3_2_1b", "pdm212")])
-CASE_IDS = [f"{a}-{m}" for a, m in CASES]
+          "pdm212": {"pod": 2, "data": 1, "model": 2},
+          "dm41": {"data": 4, "model": 1}}
+# (batch, prompt, cache depth) of each input set
+DIMS = {"base": (4, 8, 16), "cp8": (1, 8, 64), "cp56": (1, 56, 64)}
+# the weights of each model id: (arch, config replaced)
+MODELS = {**{a: (a, {}) for a in ARCHS},
+          "jamba_kv1": (JAMBA, {"n_kv_heads": 1})}
+# (model, mesh, inputs, context parallel)
+CASES = ([(a, "dm22", "base", False) for a in ARCHS]
+         + [(a, "dm14", "base", False) for a in
+            ("llama3_2_1b", "gemma2_2b") + RECURRENT]
+         + [("llama3_2_1b", "pdm212", "base", False)]
+         + [(JAMBA, m, i, True) for m in ("dm22", "dm41")
+            for i in ("cp8", "cp56")]
+         + [("jamba_kv1", "dm22", "cp56", True)])
+CASE_IDS = [f"{mod}-{m}" + (f"-{i}" if cp else "")
+            for mod, m, i, cp in CASES]
+CP_IDS = [c for c in CASE_IDS if "-cp" in c]
 
 
-def jconfig(arch):
+def jconfig(arch, replace=None):
     cfg = jget_config(arch, smoke=True)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=8.0)
-    return cfg
+    return dataclasses.replace(cfg, **(replace or {}))
 
 
 def _save_tree(path, tree) -> None:
@@ -75,33 +99,48 @@ def _save_tree(path, tree) -> None:
     np.savez(path, **flat)
 
 
-def _inputs(arch, cfg) -> dict:
-    rng = np.random.default_rng(sum(map(ord, arch)))
-    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
-           "max_len": np.int64(MAX_LEN)}
+def _inputs(arch, cfg, dims) -> dict:
+    b, s, max_len = DIMS[dims]
+    rng = np.random.default_rng(sum(map(ord, arch if dims == "base"
+                                        else arch + dims)))
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+           "max_len": np.int64(max_len)}
     if cfg.family == "encdec":
         out["enc_frames"] = rng.standard_normal(
-            (B, S, cfg.d_model)).astype(np.float32)
+            (b, s, cfg.d_model)).astype(np.float32)
     for i in range(STEPS):
-        out[f"step{i}_tokens"] = rng.integers(0, cfg.vocab_size, (B, 1))
-        out[f"step{i}_pos"] = (np.array([S + i, S + i - 3, S + i - 1, S])
-                               if i == 1 else np.int64(S + i))
+        out[f"step{i}_tokens"] = rng.integers(0, cfg.vocab_size, (b, 1))
+        out[f"step{i}_pos"] = (
+            np.array([s + i, s + i - 3, s + i - 1, s][:b]) if i == 1
+            else np.int64(s + i))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(cfg):
+    """The JAX package's prefill and decode step of ``cfg``, compiled once
+    for every case that shares the config (eager, each call of a
+    recurrent family retraces its scans)."""
+    return (jax.jit(lambda p, b, st: jprefill(p, b, cfg, st)),
+            jax.jit(lambda p, t, st, pos: jdecode_step(p, t, cfg, st, pos)))
 
 
 def _reference(jp, cfg, inp) -> list:
     """The JAX package's logits of the prefill and every decode step."""
+    jit_prefill, jit_decode = _jitted(cfg)
+    b, s = inp["tokens"].shape
     batch = {"tokens": jnp.asarray(inp["tokens"])}
     enc = 0
     if cfg.family == "encdec":
         batch["enc_frames"] = jnp.asarray(inp["enc_frames"])
-        enc = S
-    st = jinit_decode_state(cfg, B, MAX_LEN, jnp.float32, enc_len=enc)
-    h, st = jprefill(jp, batch, cfg, st)
+        enc = s
+    st = jinit_decode_state(cfg, b, int(inp["max_len"]), jnp.float32,
+                            enc_len=enc)
+    h, st = jit_prefill(jp, batch, st)
     out = [np.asarray(jlogits_fn(jp["head"], jp["embed"], h, cfg))]
     for i in range(STEPS):
-        h, st = jdecode_step(jp, jnp.asarray(inp[f"step{i}_tokens"]), cfg,
-                             st, jnp.asarray(inp[f"step{i}_pos"]))
+        h, st = jit_decode(jp, jnp.asarray(inp[f"step{i}_tokens"]), st,
+                           jnp.asarray(inp[f"step{i}_pos"]))
         out.append(np.asarray(jlogits_fn(jp["head"], jp["embed"], h, cfg)))
     return out
 
@@ -115,17 +154,20 @@ def ranks(tmp_path_factory):
     in_dir.mkdir()
     out_dir.mkdir()
     inputs, params = {}, {}
-    for arch in ARCHS:
-        cfg = jconfig(arch)
-        params[arch] = jinit_model(jax.random.PRNGKey(0), cfg)
-        _save_tree(in_dir / f"{arch}_params.npz", params[arch])
-        inputs[arch] = _inputs(arch, cfg)
-    np.savez(in_dir / "inputs.npz", **{f"{a}//{k}": v for a, inp in
-                                       inputs.items() for k, v in
-                                       inp.items()})
+    for mod, (arch, rep) in MODELS.items():
+        params[mod] = jinit_model(jax.random.PRNGKey(0), jconfig(arch, rep))
+        _save_tree(in_dir / f"{mod}_params.npz", params[mod])
+    for mod, _, dims, _ in CASES:
+        arch, rep = MODELS[mod]
+        inputs[mod, dims] = _inputs(arch, jconfig(arch, rep), dims)
+    np.savez(in_dir / "inputs.npz", **{
+        f"{n}//{k}": v for n, (mod, _, dims, _) in zip(CASE_IDS, CASES)
+        for k, v in inputs[mod, dims].items()})
     (in_dir / "cases.json").write_text(json.dumps(
-        [{"name": n, "arch": a, "mesh": MESHES[m]}
-         for n, (a, m) in zip(CASE_IDS, CASES)]))
+        [{"name": n, "arch": MODELS[mod][0], "model": mod,
+          "replace": MODELS[mod][1], "mesh": MESHES[m],
+          "context_parallel": cp}
+         for n, (mod, m, _, cp) in zip(CASE_IDS, CASES)]))
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
     env.pop("XLA_FLAGS", None)
@@ -136,8 +178,8 @@ def ranks(tmp_path_factory):
     deadline = time.monotonic() + JOIN_TIMEOUT
     errors = []
     try:
-        ref = {a: _reference(params[a], jconfig(a), inputs[a])
-               for a in ARCHS}
+        ref = {key: _reference(params[key[0]], jconfig(*MODELS[key[0]]),
+                               inp) for key, inp in inputs.items()}
         for p in procs:
             _, err = p.communicate(
                 timeout=max(deadline - time.monotonic(), 1))
@@ -163,9 +205,9 @@ def _rel(a, b) -> float:
 @pytest.mark.parametrize("case", CASE_IDS)
 def test_mesh_logits_match_single_process_and_reference(ranks, case):
     res, logits, ref = ranks
-    arch = case.split("-")[0]
+    mod, _, dims, _ = CASES[CASE_IDS.index(case)]
     assert len(res[case]) == WORLD
-    for i, want in enumerate(ref[arch]):
+    for i, want in enumerate(ref[mod, dims]):
         mesh = logits[f"{case}//mesh//{i}"]
         single = logits[f"{case}//single//{i}"]
         vocab = want.shape[-1]
@@ -203,6 +245,46 @@ def test_head_parallel_layout_on_two_by_two(ranks):
         assert got["cache_local"] == [1, 16], got
 
 
+@pytest.mark.parametrize("mesh", ["dm22", "dm14"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_state_splits_over_model(ranks, arch, mesh):
+    """rwkv6_7b's WKV state holds the rank's heads (4 on 2 or 4 ranks),
+    jamba's conv and SSM states the rank's channels of d_inner (128 on
+    2 or 4 ranks); the shifted tokens stay whole."""
+    res, _, _ = ranks
+    m = MESHES[mesh]["model"]
+    for got in res[f"{arch}-{mesh}"]:
+        if arch == "rwkv6_7b":
+            assert got["wkv_spec"] == ["None", "data", "model", "None",
+                                       "None"], got
+            assert got["wkv_local"][2] == 4 // m, got
+            assert got["x_prev_tm_local"][-1] == 64, got
+        else:
+            assert got["conv_spec"] == ["None", "data", "None", "model"]
+            assert got["ssm_spec"] == ["None", "data", "model", "None"]
+            assert got["conv_local"][-1] == got["ssm_local"][2] == \
+                128 // m, got
+
+
+@pytest.mark.parametrize("case", CP_IDS)
+def test_context_parallel_cache_splits_sequence_over_data(ranks, case):
+    """One row: the batch cannot split, so the caches' 64 positions do,
+    over `data` (32 or 16 a rank), and every data rank runs the row; the
+    kv heads over `model` (2 on 2), or with 1 kv head head_dim (8 of
+    16)."""
+    res, _, _ = ranks
+    mod, mesh, _, _ = CASES[CASE_IDS.index(case)]
+    d, m = MESHES[mesh]["data"], MESHES[mesh]["model"]
+    kv1 = mod == "jamba_kv1"
+    want = ["None", "None", "data"] + (["None", "model"] if kv1
+                                       else ["model", "None"])
+    for got in res[case]:
+        assert got["k_spec"] == want, got
+        assert got["k_local"][2] == 64 // d, got
+        assert got["cache_local"] == ([1, 16 // m] if kv1
+                                      else [2 // m, 16]), got
+
+
 def test_mesh_serve_workers_import_no_jax(ranks):
     assert ranks[0]["jax_loaded"] is False
 
@@ -213,7 +295,9 @@ def test_serve_gather_rules_keep_aligned_model_shards():
     blocks (each cuts a kv head in half: the layer gathers k and v);
     gemma2's 8 q heads do not divide `model`, so its attention is
     gathered; the MLP, embedding and the experts keep their shards;
-    grok's experts keep d_ff's; moonshot's fsdp axis is gathered."""
+    grok's experts keep d_ff's; moonshot's fsdp axis is gathered;
+    rwkv6's 64 heads and jamba's d_inner (16,384) split too, and no
+    leaf's gradient is summed (forward only)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import abstract_params
     from repro_torch.launch.mesh import production_mesh_shape
@@ -228,7 +312,14 @@ def test_serve_gather_rules_keep_aligned_model_shards():
             "moonshot_v1_16b_a3b": {"w_q": ("model",), "w_k": ("model",),
                                     "we_gate": ("model",), "router": ()},
             "grok_1_314b": {"we_up": ("model",), "we_down": ("model",),
-                            "w_head": ("model",)}}
+                            "w_head": ("model",)},
+            "rwkv6_7b": {"w_g": ("model",), "w_o": ("model",),
+                         "bonus_u": ("model",), "w_k": ("model",),
+                         "decay_base": (), "lora_a": ()},
+            "jamba_1_5_large_398b": {"in_proj": ("model",),
+                                     "x_proj": ("model",),
+                                     "out_proj": ("model",),
+                                     "A_log": ("model",)}}
     for arch, leaves in want.items():
         cfg = get_config(arch)
         params = abstract_params(cfg)

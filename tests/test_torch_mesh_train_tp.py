@@ -13,9 +13,9 @@ keeps the same tokens as one device's), carried by ``convert.train_state``.
   to ``tests/test_torch_mesh.py::_check_step``'s bounds — losses within
   2e-3 of the reference's and 1e-5 relative of the port's, grad norms
   within 1e-4, the weights within 1 % of lr (as below) — on (data, model) =
-  (2, 2) for all ten architectures (the eight attention/MLP/MoE ones split
-  over `model`, grok's ``"ffn"`` experts on d_ff; jamba's Mamba and
-  rwkv6's RWKV blocks gathered, their MLP/MoE and attention split), and
+  (2, 2) for all ten architectures (every block split over `model`:
+  attention, MLP, MoE — grok's ``"ffn"`` experts on d_ff —, jamba's Mamba
+  on d_inner, rwkv6's time mix on heads and its channel mix on d_ff), and
   llama3_2_1b on (1, 4), whose 2 kv heads do not divide `model`: the kv
   projection splits on columns and k and v are gathered, and llama3_2_1b
   with fsdp and ``dp_over_model`` on (2, 2) (the batch on both axes, no
@@ -233,19 +233,44 @@ def test_grok_ffn_experts_split_on_d_ff(ranks):
     assert got["units/b0/ffn/router"] == [[], []]
 
 
+KEEP, PARTIAL, WHOLE = [["model"], []], [[], ["model"]], [[], []]
+# (2, 2): each Mamba and RWKV leaf's [keep, partial] in the step's gather
+RECURRENT_LAYOUT = {
+    "jamba_1_5_large_398b": {
+        **{f"mixer/{n}": KEEP for n in (
+            "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+            "A_log", "D", "out_proj")},
+        **{f"ffn/{n}": KEEP for n in ("w_gate", "w_up", "w_down")},
+        "ln1/scale": WHOLE},
+    "rwkv6_7b": {
+        **{f"mixer/{n}": KEEP for n in (
+            "w_r", "w_k", "w_v", "w_g", "w_o", "bonus_u")},
+        **{f"mixer/{n}": PARTIAL for n in ("decay_base", "decay_b",
+                                            "ln_x")},
+        **{f"mixer/{n}": WHOLE for n in ("mu_x", "mu_rwkvg", "lora_a",
+                                          "lora_b", "decay_a")},
+        **{f"ffn/{n}": KEEP for n in ("w_k", "w_r", "w_v")},
+        "ffn/mu_k": WHOLE, "ffn/mu_r": WHOLE},
+}
+
+
 @pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "rwkv6_7b"])
 def test_mamba_and_rwkv_blocks_gathered_over_model(ranks, arch):
-    """Their mixers (and RWKV's channel mix) wait for ROADMAP item 12c:
-    every leaf of theirs is gathered over `model`; jamba's MLP, MoE and
-    attention blocks keep their shards."""
+    """On (2, 2) no Mamba or RWKV leaf that its layer splits is gathered
+    over `model` any more: jamba's Mamba keeps every d_inner block
+    (``in_proj``'s column blocks too, re-laid out by one all-to-all),
+    rwkv6's time mix its heads — ``decay_base``/``decay_b``/``ln_x``
+    whole but summed over `model` (each rank reads its channels) and the
+    ddlerp half whole — and its channel mix d_ff and d; jamba's MLP
+    keeps its shards.  Every leaf of the block is asserted."""
     got = _layout(ranks, f"{arch}-dm22")
-    mixer = {k: v for k, v in got.items() if k.startswith("units/b0/mixer")}
-    assert mixer and all(v == [[], []] for v in mixer.values()), mixer
-    if arch == "rwkv6_7b":
-        assert all(v == [[], []] for k, v in got.items()
-                   if k.startswith("units/b0/ffn")), got
-    else:
-        assert got["units/b0/ffn/w_up"] == [["model"], []]
+    want = RECURRENT_LAYOUT[arch]
+    for leaf, layout in want.items():
+        assert got[f"units/b0/{leaf}"] == layout, (arch, leaf)
+    block = {k for k in got if k.startswith(("units/b0/mixer",
+                                             "units/b0/ffn"))}
+    asserted = {f"units/b0/{k}" for k in want}
+    assert block <= asserted, block - asserted
 
 
 @pytest.mark.parametrize("case", LOSS_IDS)
@@ -265,8 +290,11 @@ def test_vocab_parallel_loss_matches_unsplit(ranks, case):
 def test_rules_keep_rwkv_time_mix_gathered():
     """RWKV's time mix names leaves ``w_k``/``w_v``/``w_o`` as attention
     does, and the param rules shard them on `model` alike; the layout
-    keys on the block's kind, so at |model| = 16 they are gathered while
-    llama's attention keeps its shards (its ``w_k`` on columns)."""
+    keys on the block's kind.  At |model| = 16 rwkv6_7b's 64 heads split
+    4 a rank, so they keep their shards as llama's attention does (its
+    ``w_k`` on columns), and the train step sums the whole leaves its
+    ranks read on their own channels over `model` as well as the batch's
+    axes; jamba's Mamba keeps its d_inner blocks (1,024 of 16,384)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import abstract_params
     from repro_torch.launch.mesh import production_mesh_shape
@@ -274,7 +302,8 @@ def test_rules_keep_rwkv_time_mix_gathered():
     from repro_torch.train.train_step import mesh_gather_rules
 
     mesh = production_mesh_shape()
-    for arch, keep in (("rwkv6_7b", ()), ("llama3_2_1b", ("model",))):
+    for arch, keep in (("rwkv6_7b", ("model",)), ("llama3_2_1b",
+                                                  ("model",))):
         cfg = get_config(arch)
         specs = param_specs(abstract_params(cfg), mesh, cfg)
         layout = tp_layout(specs, mesh, cfg)["units"]["b0"]["mixer"]
@@ -284,6 +313,41 @@ def test_rules_keep_rwkv_time_mix_gathered():
             assert "model" in specs["units"]["b0"]["mixer"][leaf], leaf
             assert layout[leaf] == (keep, ()), (arch, leaf)
             assert rules[leaf][1:] == (("data",), keep), (arch, leaf)
+        if arch == "rwkv6_7b":
+            for leaf in ("decay_base", "decay_b", "ln_x"):
+                assert layout[leaf] == ((), ("model",)), leaf
+                assert rules[leaf][1:] == (("data", "model"), ()), leaf
+            assert layout["lora_a"] == ((), ())
+    cfg = get_config("jamba_1_5_large_398b")
+    specs = param_specs(abstract_params(cfg), mesh, cfg)
+    mamba = tp_layout(specs, mesh, cfg)["units"]["b0"]["mixer"]
+    assert mamba and all(v == (("model",), ()) for v in mamba.values())
+    assert specs["units"]["b0"]["mixer"]["in_proj"][-1] == "model"
+
+
+@pytest.mark.parametrize("arch,replace", [
+    ("rwkv6_7b", {"d_ff": 130}),
+    ("jamba_1_5_large_398b", {})])
+def test_layout_refuses_a_partly_split_recurrent_block(arch, replace):
+    """A Mamba or RWKV layer reads one layout for all its split leaves:
+    rwkv6's channel mix with a d_ff of 130 on 4 `model` ranks would keep
+    ``w_r``/``w_v`` (d 64) but gather ``w_k`` (130 columns), and
+    ``tp_layout`` raises rather than run it; jamba's Mamba at smoke size
+    (d_inner 128) keeps all of its leaves."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import abstract_params
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.launch.sharding import param_specs, tp_layout
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **replace)
+    mesh = ShapeMesh({"data": 1, "model": 4})
+    specs = param_specs(abstract_params(cfg), mesh, cfg)
+    if arch == "rwkv6_7b":
+        with pytest.raises(ValueError, match="only some of its split"):
+            tp_layout(specs, mesh, cfg)
+    else:
+        layout = tp_layout(specs, mesh, cfg)["units"]["b0"]["mixer"]
+        assert all(v == (("model",), ()) for v in layout.values())
 
 
 def test_batch_on_model_keeps_nothing_on_model(ranks):

@@ -18,12 +18,13 @@ torch's own flop counter, real gloo ranks and the JAX package.
   collectives, call by call, are the fake group's;
 * ``count_params``, ``model_flops_for``, ``roofline()`` and
   ``summarize.table`` equal the reference's; rank 0's train flops on a
-  (4, 1) mesh, and on (2, 2) for llama3_2_1b and moonshot (the model
-  peers split the step), are within ``FLOPS_TOL`` of the reference's
-  ``analyze_hlo`` of the compiled cell, its prefill and decode flops on
-  (2, 2) (llama3_2_1b and moonshot) within ``SERVE_FLOPS_TOL``, and so
-  its prefill and decode flops on (1, 4) (llama3_2_1b and gemma2_2b: the
-  kv projection split on columns, the cache on head_dim).
+  (4, 1) mesh, and on (2, 2) for llama3_2_1b, moonshot and rwkv6 (the
+  model peers split the step), are within ``FLOPS_TOL`` of the
+  reference's ``analyze_hlo`` of the compiled cell, its prefill and
+  decode flops on (2, 2) (llama3_2_1b, moonshot, rwkv6 and jamba) within
+  ``SERVE_FLOPS_TOL``, and so its prefill and decode flops on (1, 4)
+  (llama3_2_1b and gemma2_2b: the kv projection split on columns, the
+  cache on head_dim).
 
 Fake and gloo runs are subprocesses of ``tests/torch_cost_worker.py`` (a
 fake group is its process's default group); the reference's compiled
@@ -32,8 +33,8 @@ cells run in a subprocess with 4 host devices.
   python tests/test_torch_roofline.py --ratios
 
 prints rank 0's flops against the reference's for every architecture on
-(4, 1) and (2, 2): the train step, and the prefill and decode of the
-attention/MLP/MoE architectures; and on (1, 4) the prefill and decode of
+(4, 1) and (2, 2): the train step, and the prefill and decode; and on
+(1, 4) the prefill and decode of
 llama3_2_1b and gemma2_2b, and llama3_2_1b's decode against an
 8,192-deep cache; beside a serving step's flops, both sides' collective
 bytes by op (PERF.md's finding).
@@ -66,17 +67,20 @@ FLOPS_TOL = (1.0, 1.2)
 REF_ARCHS = ("llama3_2_1b", "moonshot_v1_16b_a3b", "rwkv6_7b")
 # the mesh prefill and decode on (2, 2): the model peers split the dense
 # matmuls, as the reference's program does (without the split they would
-# repeat them, as the train cells' 1.61-2.36x shows)
+# repeat them, as the train cells' 1.61-2.36x shows), Mamba and RWKV
+# blocks too
 SERVE_FLOPS_TOL = (0.8, FLOPS_TOL[1])
-SERVE_ARCHS = ("llama3_2_1b", "moonshot_v1_16b_a3b")
+SERVE_ARCHS = ("llama3_2_1b", "moonshot_v1_16b_a3b", "rwkv6_7b",
+               "jamba_1_5_large_398b")
 SERVE_KINDS = ("prefill", "decode")
 # on (1, 4) their 2 kv heads do not divide `model`: the cache splits on
 # head_dim, and the decode sums partial scores over `model`; the kv
 # projection splits on columns, k and v gathered
 HEAD_DIM_ARCHS = ("llama3_2_1b", "gemma2_2b")
-# the train step on (2, 2): the model peers split the dense matmuls (rwkv6
-# waits: its mixer's split is ROADMAP item 12c)
-TP_ARCHS = tuple(a for a in REF_ARCHS if a != "rwkv6_7b")
+# the train step on (2, 2): the model peers split the dense matmuls, and
+# rwkv6's time mix on heads and channel mix on d_ff (jamba's reference
+# compile of the train cell takes longer: `--ratios` prints its ratio)
+TP_ARCHS = REF_ARCHS
 
 REFERENCE_FLOPS = """
 import json, os, sys
@@ -639,9 +643,7 @@ def test_train_flops_on_two_by_two_within_tolerance_of_reference(
 if __name__ == "__main__" and "--ratios" in sys.argv:
     import tempfile
 
-    serving = [a for a in ARCH_IDS
-               if a not in ("rwkv6_7b", "jamba_1_5_large_398b")]
-    runs = [(dims, kinds, ARCH_IDS if kinds == ("train",) else serving, 32)
+    runs = [(dims, kinds, ARCH_IDS, 32)
             for dims in ("4,1", "2,2") for kinds in (("train",), SERVE_KINDS)]
     # the head_dim layout, and its decode against a deeper cache (where
     # each layer's cache is read in 2,048-row chunks)

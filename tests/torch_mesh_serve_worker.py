@@ -3,17 +3,20 @@
     python tests/torch_mesh_serve_worker.py RANK WORLD STORE IN OUT
 
 Joins a gloo group of WORLD ranks through a ``FileStore`` at STORE and,
-for every case of IN/cases.json (an architecture at smoke size on a mesh
-over those ranks), runs the port's single-process ``prefill`` and four
-``decode_step``s (the second at per-row positions) and the same steps on
-the mesh (``prefill(..., mesh=)``, ``decode_step(..., mesh=)``,
-``serve_logits``) from this rank's shards of the same weights and state.
-Rank 0 writes every step's logits (the mesh's with the vocab gathered
-here, and the single process's) to OUT/logits.npz and the numbers to
-OUT/result.json.  The weights are the JAX package's, read from IN as
-``.npz`` files; this process imports torch, numpy and ``repro_torch``
-only — never jax.  ``tests/test_torch_mesh_serve.py`` spawns WORLD of
-these and holds the logits to the JAX package's.
+for every case of IN/cases.json (an architecture at smoke size, its
+config replaced by the case's ``replace``, on a mesh over those ranks),
+runs the port's single-process ``prefill`` and four ``decode_step``s (the
+second at per-row positions) and the same steps on the mesh
+(``prefill(..., mesh=)``, ``decode_step(..., mesh=)``, ``serve_logits``)
+from this rank's shards of the same weights and state — laid out by
+``state_specs(..., context_parallel=True)`` for a case that asks for it,
+its caches' sequence split over `data`.  Rank 0 writes every step's
+logits (the mesh's with the vocab gathered here, and the single
+process's) to OUT/logits.npz and the numbers to OUT/result.json.  The
+weights are the JAX package's, read from IN as ``.npz`` files (one for
+each case's ``model``); this process imports torch, numpy and
+``repro_torch`` only — never jax.  ``tests/test_torch_mesh_serve.py``
+spawns WORLD of these and holds the logits to the JAX package's.
 """
 
 from __future__ import annotations
@@ -44,16 +47,22 @@ def load_tree(path) -> dict:
     return out
 
 
-def smoke_config(arch: str):
+def smoke_config(arch: str, replace=None):
     """The smoke config the test gives both packages: MoE at capacity
     factor 8 (with drops, the distributed MoE's per-shard capacity drops
-    other tokens than one device's, by design)."""
+    other tokens than one device's, by design), and ``replace``'s
+    fields."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch, smoke=True)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=8.0)
-    return cfg
+    return dataclasses.replace(cfg, **(replace or {}))
+
+
+def first_block(state, key):
+    """The first unit block of ``state`` that holds ``key``, or None."""
+    return next((k for k, v in state.items() if key in v), None)
 
 
 def run_case(case: dict, inputs: dict, in_dir: str) -> dict:
@@ -67,10 +76,11 @@ def run_case(case: dict, inputs: dict, in_dir: str) -> dict:
                                                 tree_leaves, tree_map)
 
     arch, shape = case["arch"], case["mesh"]
-    cfg = smoke_config(arch)
+    cfg = smoke_config(arch, case.get("replace"))
+    cp = bool(case.get("context_parallel"))
     mesh = init_device_mesh("cpu", tuple(shape.values()),
                             mesh_dim_names=tuple(shape))
-    tree = load_tree(os.path.join(in_dir, f"{arch}_params.npz"))
+    tree = load_tree(os.path.join(in_dir, f"{case['model']}_params.npz"))
     tree.setdefault("head", {})          # a tied head: an empty dict
     params = convert.lm_params(tree, cfg, device="cpu")
     b, s = inputs["tokens"].shape
@@ -100,7 +110,8 @@ def run_case(case: dict, inputs: dict, in_dir: str) -> dict:
 
     # the mesh: this rank's shards of the same weights and state
     p_specs = param_specs(params, mesh, cfg)
-    s_specs = state_specs(st0, mesh, cfg, global_batch=b)
+    s_specs = state_specs(st0, mesh, cfg, global_batch=b,
+                          context_parallel=cp)
     local_p = tree_map(lambda t, sp: local_block(t, sp, mesh).clone(),
                        params, p_specs)
     local_s = tree_map(lambda t, sp: local_block(t, sp, mesh).clone(),
@@ -123,7 +134,7 @@ def run_case(case: dict, inputs: dict, in_dir: str) -> dict:
 
     mesh_logits, errs = [], []
     h, out = prefill(local_p, batch, cfg, local_s, mesh=mesh,
-                     specs=p_specs)
+                     specs=p_specs, state_specs=s_specs)
     in_place = out is local_s
     mesh_logits.append(vocab(serve_logits(local_p, h, cfg, mesh=mesh,
                                           specs=p_specs, global_batch=b)))
@@ -131,18 +142,26 @@ def run_case(case: dict, inputs: dict, in_dir: str) -> dict:
     prepared = mesh_params(local_p, cfg, mesh, p_specs)   # the decode's
     for i, (tok, pos) in enumerate(steps):
         h, out = decode_step(prepared, tok, cfg, local_s,
-                             pos if pos.ndim else int(pos), mesh=mesh)
+                             pos if pos.ndim else int(pos), mesh=mesh,
+                             state_specs=s_specs)
         in_place &= out is local_s
         mesh_logits.append(vocab(serve_logits(
             prepared, h, cfg, mesh=mesh, global_batch=b)))
         errs.append(state_err(local_s, single_states[i + 1]))
-    k0 = local_s["b0"]["k"]
-    return {"logits": [(m.numpy(), x.numpy()) for m, x in
-                       zip(mesh_logits, single_logits)],
-            "state_err": max(errs), "in_place": in_place,
-            "input_untouched": untouched,
-            "cache_local": list(k0.shape[-2:]),
-            "cache_spec": list(map(str, s_specs["b0"]["k"]))}
+    got = {"logits": [(m.numpy(), x.numpy()) for m, x in
+                      zip(mesh_logits, single_logits)],
+           "state_err": max(errs), "in_place": in_place,
+           "input_untouched": untouched}
+    # the first block's local shape and spec of each state leaf kind
+    for leaf in ("k", "conv", "ssm", "wkv", "x_prev_tm"):
+        blk = first_block(local_s, leaf)
+        if blk is not None:
+            got[f"{leaf}_local"] = list(local_s[blk][leaf].shape)
+            got[f"{leaf}_spec"] = list(map(str, s_specs[blk][leaf]))
+    if "k_local" in got:                 # (heads, head_dim) of the cache
+        got["cache_local"] = got["k_local"][-2:]
+        got["cache_spec"] = got["k_spec"]
+    return got
 
 
 def main() -> int:
@@ -161,7 +180,7 @@ def main() -> int:
             name = case["name"]
             got = run_case(case, {k.split(SEP)[-1]: v for k, v in
                                   inputs.items()
-                                  if k.startswith(case["arch"] + SEP)},
+                                  if k.startswith(name + SEP)},
                            in_dir)
             for i, (m, x) in enumerate(got.pop("logits")):
                 arrays[f"{name}{SEP}mesh{SEP}{i}"] = m
