@@ -135,7 +135,13 @@ just before it and read just after:
   against the unsharded path on the same weights (logits 1e-4, the RWKV
   and Mamba states, prefill and decode ms, in turns), and rwkv6_7b's
   decode step costed on a fake one-rank CPU mesh against the card's own
-  (peak 10 %, flops 1 %).
+  (peak 10 %, flops 1 %);
+* sequence-parallel activations (11l), in its own one-rank NCCL group:
+  chameleon_34b at full width, cut to 1 layer, under its
+  ``act_sharding="sp"`` and under ``"dp"``: the mesh prefill's logits
+  and one mesh train step's loss, gradients and weights bit for bit
+  (one rank splits nothing), and the step costed on a fake one-rank CPU
+  mesh against the card's own (flops exact, peak 10 %).
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -194,6 +200,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2221,9 +2228,9 @@ def mesh_phase(dev, smi: str, all_kernels: dict) -> list:
         tp_seen = []
         set_ctx = shard_ctx.set_sharding_context
 
-        def ctx_spy(m, batch_axes, split=(), tp=()):   # the steps' context
+        def ctx_spy(m, batch_axes, split=(), tp=(), seq=()):  # the steps'
             tp_seen.append(tuple(tp))
-            return set_ctx(m, batch_axes, split=split, tp=tp)
+            return set_ctx(m, batch_axes, split=split, tp=tp, seq=seq)
 
         TS.adamw_update = spy
         shard_ctx.set_sharding_context = ctx_spy
@@ -2966,6 +2973,242 @@ def roofline_phase(dev, smi: str, all_kernels: dict, step_ms: list) -> None:
     check(not any(launches.values()),
           f"the roofline phase launched a hand-written kernel: {launches}")
     log("roofline-phase", card=repr(smi),
+        seconds=round(time.perf_counter() - t_phase, 3))
+
+
+# phase 11l: sequence-parallel activations (``act_sharding="sp"``) at
+# chameleon_34b's full width, cut to SP_LAYERS layers.  Its step's peak
+# is the weights' (the fake count: 50.35 GB at one layer and one
+# microbatch, whatever the tokens; 57.41 at two microbatches, 74.02 at
+# two layers), beside the ~23 GB the earlier phases keep
+SP_LAYERS = 1
+SP_BATCH, SP_SEQ = 1, 4096     # one microbatch of 4,096 tokens
+SP_CELL_CHILD = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+arch, layers, b, s, mb, out = sys.argv[1:7]
+cfg = dataclasses.replace(get_config(arch), n_layers=int(layers))
+dryrun.fake_group(1)
+res = dryrun.cost_train_step(cfg, make_host_mesh(1, 1, "cpu"), int(b),
+                             int(s), microbatches=int(mb), scaled=True)
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def sp_phase(dev, smi: str, all_kernels: dict) -> None:
+    """Sequence-parallel activations on the mesh (phase 11l), in its own
+    one-rank NCCL group (an in-memory store), destroyed at its end:
+    chameleon_34b at full width (d 8,192, 64 heads / 8 kv, qk-norm, d_ff
+    22,016, vocab 65,536; fp32 weights from ``SEED``, bf16 compute) and
+    ``SP_LAYERS`` layers, under ``act_sharding="sp"`` (its config's) and
+    ``"dp"``.  A `model` of one rank splits nothing, so the two must
+    agree bit for bit: the card shows that the sequence-parallel
+    configuration runs the full-width path, and the gloo tests hold the
+    split itself.
+
+    a. The mesh prefill of ``SP_BATCH`` × ``SP_SEQ`` tokens on
+       ``make_host_mesh(1, 1, "cuda")`` and ``serve_logits``: the two
+       configurations' logits equal.
+    b. One mesh train step of ``build_trainer(..., mesh=)`` on the same
+       seed and batch (``cfg.microbatches`` slices): the losses, every
+       gradient AdamW takes and every updated weight equal.
+    c. That step costed by ``roofline.op_cost`` on a fake 1 × 1 CPU mesh
+       in a subprocess (``SP_CELL_CHILD``, replayed) and on the card in
+       the one-rank group (``dryrun.cost_train_step(..., fake=False)``):
+       the flops equal, the fake peak within ``PEAK_TOL`` of
+       ``max_memory_allocated`` above what was held before the state was
+       built.
+
+    No hand-written kernel may launch."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (make_host_mesh,
+                                         production_mesh_shape)
+    from repro_torch.launch.sharding import param_specs, seq_axes
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import (init_decode_state, init_model, prefill,
+                                    shard_ctx)
+    from repro_torch.models.transformer import serve_logits, tree_leaves
+    from repro_torch.train import OptimizerConfig, adamw_update
+    from repro_torch.train import train_step as TS
+
+    t_phase = time.perf_counter()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    base_cfg = dc.replace(get_config("chameleon_34b"), n_layers=SP_LAYERS)
+    check(base_cfg.act_sharding == "sp", "chameleon_34b's config is "
+          "sequence-parallel")
+    cfgs = {act: dc.replace(base_cfg, act_sharding=act)
+            for act in ("sp", "dp")}
+    opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    mb = base_cfg.microbatches
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_sp_", dir=ROOT / "build"))
+    child = subprocess.Popen(
+        [sys.executable, "-c", SP_CELL_CHILD, base_cfg.name,
+         str(SP_LAYERS), str(SP_BATCH), str(SP_SEQ), str(mb),
+         str(tmp / "fake.json")],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    seen_seq = []
+    set_ctx = shard_ctx.set_sharding_context
+
+    def ctx_spy(*args, **kw):
+        seen_seq.append(tuple(kw.get("seq", ())))
+        return set_ctx(*args, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, "cuda")
+        gen = torch.Generator(dev).manual_seed(SEED + 13)
+        prompt = torch.randint(0, base_cfg.vocab_size, (SP_BATCH, SP_SEQ),
+                               generator=gen, device=dev)
+        # -- a. the mesh prefill under both configurations -----------------
+        t0 = time.perf_counter()
+        params = init_model(SEED, base_cfg, device=dev)
+        specs = param_specs(params, mesh, base_cfg)
+        logits, prefill_ms = {}, {}
+        shard_ctx.set_sharding_context = ctx_spy
+        try:
+            for act, cfg in cfgs.items():
+                state = init_decode_state(cfg, SP_BATCH, SP_SEQ,
+                                          torch.bfloat16, device=dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                h, _ = prefill(params, {"tokens": prompt}, cfg, state,
+                               mesh=mesh, specs=specs, skip_causal=True)
+                out = serve_logits(params, h, cfg, mesh=mesh, specs=specs,
+                                   global_batch=SP_BATCH)
+                torch.cuda.synchronize()
+                prefill_ms[act] = (time.perf_counter() - t1) * 1e3
+                logits[act] = out.float().cpu()
+                del state, h, out
+        finally:
+            shard_ctx.set_sharding_context = set_ctx
+        same_logits = torch.equal(logits["sp"], logits["dp"])
+        finite = bool(torch.isfinite(logits["sp"]).all())
+        log("mesh-sp-prefill", card=repr(smi), model=base_cfg.name,
+            layers=SP_LAYERS, d_model=base_cfg.d_model, mesh="(1, 1)",
+            batch=SP_BATCH, prompt=SP_SEQ,
+            logits_shape=list(logits["sp"].shape),
+            bit_identical=same_logits, finite=finite,
+            prefill_ms=prefill_ms,
+            seq_axes_production=seq_axes(production_mesh_shape(),
+                                         base_cfg, SP_SEQ),
+            seq_axes_seen=sorted(set(seen_seq)),
+            seconds=round(time.perf_counter() - t0, 3))
+        check(finite and logits["sp"].shape == (
+            SP_BATCH, 1, params["head"]["w_head"].shape[1]),
+            f"the sp prefill's logits: {logits['sp'].shape}")
+        check(same_logits, "the sp and dp prefill's logits bit for bit")
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- b. one mesh train step under both configurations --------------
+        t0 = time.perf_counter()
+        got = {}
+        for act, cfg in cfgs.items():
+            grads = []
+
+            def spy(p, g, *args, _grads=grads, **kw):
+                _grads.extend(t.detach().cpu() for t in tree_leaves(g))
+                return adamw_update(p, g, *args, **kw)
+
+            tr, st = build_trainer(cfg, opt_cfg, mesh=mesh, device=dev,
+                                   global_batch=SP_BATCH, seq_len=SP_SEQ,
+                                   ckpt_dir=tmp / act, seed=SEED)
+            TS.adamw_update = spy
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                st, met = tr.step_fn(st, tr.batch_fn(0))
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                TS.adamw_update = adamw_update
+            got[act] = {"loss": float(met["loss"]), "grads": grads,
+                        "step_ms": step_ms,
+                        "params": [t.to_local().cpu() for t in
+                                   tree_leaves(st.params)]}
+            del tr, st, met
+            gc.collect()
+            torch.cuda.empty_cache()
+        sp_run, dp_run = got["sp"], got["dp"]
+        same_grads = len(sp_run["grads"]) == len(dp_run["grads"]) and all(
+            torch.equal(a, b) for a, b in zip(sp_run["grads"],
+                                              dp_run["grads"]))
+        same_params = all(torch.equal(a, b) for a, b in
+                          zip(sp_run["params"], dp_run["params"]))
+        log("mesh-sp-train", card=repr(smi), model=base_cfg.name,
+            layers=SP_LAYERS, mesh="(1, 1)", batch=SP_BATCH, seq=SP_SEQ,
+            microbatches=mb, loss_sp=sp_run["loss"], loss_dp=dp_run["loss"],
+            grads_bit_identical=same_grads, grad_leaves=len(sp_run["grads"]),
+            weights_bit_identical=same_params,
+            step_ms_sp=sp_run["step_ms"], step_ms_dp=dp_run["step_ms"],
+            seconds=round(time.perf_counter() - t0, 3))
+        check(sp_run["loss"] == dp_run["loss"] and
+              math.isfinite(sp_run["loss"]),
+              f"the sp and dp steps' losses: {sp_run['loss']} "
+              f"{dp_run['loss']}")
+        check(same_grads, "the sp and dp steps' gradients bit for bit")
+        check(same_params, "the sp and dp steps' weights bit for bit")
+        del got, sp_run, dp_run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- c. the sp step costed on the card and on a fake rank ----------
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        card = dryrun.cost_train_step(cfgs["sp"], mesh, SP_BATCH, SP_SEQ,
+                                      microbatches=mb, scaled=False,
+                                      fake=False, seed=SEED)
+        torch.cuda.synchronize()
+        peak_card = torch.cuda.max_memory_allocated(dev) - base
+    finally:
+        shard_ctx.set_sharding_context = set_ctx
+        TS.adamw_update = adamw_update
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _, err = child.communicate(timeout=600)
+        check(child.returncode == 0, f"the sp step's fake run: "
+              f"{err[-2000:]}")
+        fk = json.loads((tmp / "fake.json").read_text())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak_err = abs(fk["peak_bytes"] - peak_card) / peak_card
+    log("mesh-sp-cost", card=repr(smi), model=base_cfg.name,
+        layers=SP_LAYERS, mesh="(1, 1)", batch=SP_BATCH, seq=SP_SEQ,
+        microbatches=mb, peak_predicted=fk["peak_bytes"],
+        peak_card=peak_card, peak_rel_err=peak_err,
+        flops_predicted=fk["flops"], flops_card=card["flops"],
+        coll_bytes=fk["coll_bytes"], coll_bytes_card=card["coll_bytes"],
+        fake_s=round(fk["seconds"], 3), card_s=round(card["seconds"], 3))
+    check(fk["flops"] == card["flops"], f"the sp step's flops "
+          f"{fk['flops']} against the card's {card['flops']}")
+    check(peak_err <= PEAK_TOL, f"the sp step's predicted peak "
+          f"{fk['peak_bytes']} against the card's {peak_card}")
+    launches = {k: f.launches for k, f in all_kernels.items()}
+    check(not any(launches.values()),
+          f"the sequence-parallel phase launched a hand-written kernel: "
+          f"{launches}")
+    log("mesh-sp-phase", card=repr(smi),
         seconds=round(time.perf_counter() - t_phase, 3))
 
 
@@ -4383,6 +4626,12 @@ def run(dev, nx: int) -> list:
     # rwkv6_7b's decode step costed
     recurrent_mesh_serve_phase(dev, smi, all_kernels)
     healthy("mesh-serve-recurrent")
+
+    # ---- 11l. sequence-parallel activations: chameleon_34b at full width,
+    # the mesh prefill and train step under "sp" and "dp", and the step
+    # costed
+    sp_phase(dev, smi, all_kernels)
+    healthy("mesh-sp")
 
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)

@@ -47,10 +47,11 @@ def build_dist_spmv(dev, mesh, axis: str = "data", space: str = "original"):
     """Deprecated: returns the matvec of a
     :class:`repro_torch.dist.ShardedOperator`.
 
-    ``dev`` may be a host ``SparseCSR`` or ``EHYB`` build or a bound
-    EHYB-family operator.  Any ``n_parts``/``n_dev`` combination works
-    (partitions are padded), and a non-float input is promoted to the
-    value dtype."""
+    ``dev`` may be a host ``SparseCSR`` or ``EHYB`` build, a bound
+    EHYB-family operator or a bare ``EHYBDevice`` (applies only: its
+    pseudo host build has no fill plan).  Any ``n_parts``/``n_dev``
+    combination works (partitions are padded), and a non-float input is
+    promoted to the value dtype."""
     from ..dist.operator import _build_sharded_operator
 
     warnings.warn(

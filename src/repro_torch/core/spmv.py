@@ -50,7 +50,16 @@ def column_rows(e: EHYB) -> np.ndarray:
     """(P, W) int32: how many rows of each partition hold an entry in ELL
     column k — the staircase's ``col_rows``, from the pattern's row widths
     (rows are width-sorted, so they are the prefix ``[0, col_rows[p, k])``
-    and row i's width is the number of k with ``col_rows[p, k] > i``)."""
+    and row i's width is the number of k with ``col_rows[p, k] > i``).
+    A build without a fill plan (one recovered from a device container,
+    ``dist.operator.ehyb_from_device``) takes each row's width from its
+    last nonzero instead, and each column's count reaches the last row
+    wide enough: a prefix that covers every stored entry."""
+    if e.fill_plan is None:
+        nz = np.asarray(e.ell_vals) != 0
+        wide = np.flip(np.logical_or.accumulate(np.flip(nz, -1), -1), -1)
+        rows = np.arange(1, e.vec_size + 1)[None, :, None]
+        return np.where(wide, rows, 0).max(axis=1).astype(np.int32)
     widths = e.fill_plan["ell_widths"].reshape(e.n_parts, e.vec_size)
     ks = np.arange(e.ell_width)[None, None, :]
     return (widths[:, :, None] > ks).sum(axis=1).astype(np.int32)

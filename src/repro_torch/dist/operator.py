@@ -51,8 +51,8 @@ import torch
 from ..core.counters import bump
 from ..core.ehyb import EHYB, EHYBBuckets
 from ..core.matrices import SparseCSR
-from ..core.spmv import _acc_dtype, _as_2d, _from_permuted, _tensor, \
-    column_rows
+from ..core.spmv import EHYBDevice, _acc_dtype, _as_2d, _from_permuted, \
+    _tensor, column_rows
 from ..kernels import ref as _ref
 from .halo import HaloPlan, build_halo_plan, fetch_layout
 
@@ -522,6 +522,29 @@ def _from_host(e: EHYB, mesh, axis: str, fmt: str, dtype, *,
         pattern_key=pattern_key, tuning=tuning, layout=lay)
 
 
+def ehyb_from_device(dev: EHYBDevice) -> EHYB:
+    """Pseudo host EHYB reconstructed from a bare device container (the
+    legacy ``build_dist_spmv`` path): no fill plan, so the live ER set
+    falls back to the nonzero mask (``halo``) and value refills are
+    unavailable (``update_values`` raises)."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    ell_vals = dev.ell_vals.detach().cpu().double().numpy()
+    er_vals = dev.er_vals.detach().cpu().double().numpy()
+    return EHYB(
+        n=dev.n, n_pad=dev.n_pad, n_parts=dev.n_parts,
+        vec_size=dev.vec_size, ell_width=ell_vals.shape[2],
+        ell_vals=ell_vals, ell_cols=host(dev.ell_cols),
+        part_widths=None, slice_widths=None,
+        er_rows=er_vals.shape[0], er_width=er_vals.shape[1],
+        er_vals=er_vals, er_cols=host(dev.er_cols),
+        er_row_idx=host(dev.er_row_idx),
+        perm=host(dev.perm), inv_perm=host(dev.inv_perm),
+        nnz=int((ell_vals != 0).sum() + (er_vals != 0).sum()),
+        nnz_in=int((ell_vals != 0).sum()))
+
+
 def shard_operator(op, mesh, axis: str = "data",
                    csr: Optional[SparseCSR] = None) -> ShardedOperator:
     """Shard a bound EHYB-family :class:`~repro_torch.api.LinearOperator`
@@ -553,7 +576,9 @@ def _build_sharded_operator(a, mesh, axis: str = "data",
     mesh=)``: format ranked in the ``"dist"`` context on a multi-rank mesh,
     preconditioned solve, value refills; with ``shared["ehyb"]``, the
     plan's own host build, it is sharded as it is), a bound EHYB-family
-    ``LinearOperator``, or a host :class:`EHYB` build.  Any
+    ``LinearOperator``, a host :class:`EHYB` build, or a bare
+    :class:`EHYBDevice` (the legacy shim's path: applies only,
+    :func:`ehyb_from_device`).  Any
     ``n_parts``/``n_dev`` works: partitions that do not divide the mesh
     axis are padded with empty tiles."""
     from ..api.operator import LinearOperator
@@ -576,6 +601,8 @@ def _build_sharded_operator(a, mesh, axis: str = "data",
         return _from_host(a, mesh, axis, "ehyb", dtype)
     if isinstance(a, EHYBBuckets):
         return _build_sharded_operator(a.base, mesh, axis, format, dtype)
+    if isinstance(a, EHYBDevice):
+        return _from_host(ehyb_from_device(a), mesh, axis, "ehyb", dtype)
     raise TypeError(f"cannot shard a {type(a).__name__}; pass the "
                     f"SparseCSR, its host EHYB build or a bound EHYB-family "
                     f"operator")

@@ -34,8 +34,11 @@ mix on heads and channel mix on d_ff, the vocab), and the layers split
 their matmuls on it.  ``long_500k``'s decode state splits its caches'
 sequence over `data` (:func:`state_specs` ``context_parallel``), and
 the decode merges the blocks' softmax over it.
-``act_sharding="sp"`` (sequence-parallel activations) has no eager
-counterpart and is ignored.
+``act_sharding="sp"`` (sequence-parallel activations, Megatron's
+explicit form of the reference's constraint) splits the residual
+stream's sequence over `model` between blocks in the train step and the
+mesh prefill (:func:`seq_axes`, set as ``shard_ctx``'s ``seq``): each
+block gathers the sequence at entry and reduce-scatters its output.
 """
 
 from __future__ import annotations
@@ -571,13 +574,31 @@ def serve_gather_rules(specs, mesh, cfg):
     return _map_with_path(one, specs, tp_layout(specs, mesh, cfg))
 
 
+def seq_axes(mesh, cfg, seq_len: int) -> tuple:
+    """The axes the residual stream of ``seq_len`` tokens splits its
+    sequence over between blocks (``shard_ctx``'s ``seq``): `model` under
+    ``act_sharding="sp"`` where it divides the sequence and has more than
+    one rank, as the reference's :func:`make_shard_act` constrains it;
+    none under ``dp_over_model`` (the batch is on `model`), for an
+    encoder-decoder (its encoder's activations stay whole), or where
+    `model` does not divide ``seq_len`` (a decode step's one token)."""
+    tp = tp_axes(mesh, cfg)
+    if cfg.act_sharding != "sp" or not tp or \
+            cfg.family == "encdec":
+        return ()
+    n = axis_size(mesh, tp)
+    return tp if n > 1 and seq_len % n == 0 else ()
+
+
 def make_shard_act(mesh, cfg):
     """The batch split at the train step's entry: ``shard(x)`` is the
     rank's block of ``x``'s leading (batch) dim over :func:`dp_axes`, or
     ``x`` itself when the dim does not divide them (the reference's
-    ``batch_shardings`` ``ok`` flag).  The reference's constraint also
-    shards the sequence over `model` under ``act_sharding="sp"``; eager
-    PyTorch has no counterpart, so that half is not ported."""
+    ``batch_shardings`` ``ok`` flag).  The reference's constraint's other
+    half, the sequence over `model` under ``act_sharding="sp"``, is
+    :func:`seq_axes`: the step and the mesh prefill set it as the
+    context's ``seq``, and each block leaves its output on the rank's
+    block of the sequence (``shard_ctx.leave_block``)."""
     b_axes = dp_axes(mesh, cfg)
     n = axis_size(mesh, b_axes)
 
@@ -597,4 +618,4 @@ __all__ = ["PARAM_RULES", "PARAM_RULES_MOE_FFN", "STATE_RULES", "dp_axes",
            "local_block", "local_size_bytes", "shard_leaf",
            "TP_SPLIT", "tp_layout", "serve_gather_rules",
            "distribute_params", "distribute_state", "full_tensor", "gather_state",
-           "make_shard_act"]
+           "make_shard_act", "seq_axes"]

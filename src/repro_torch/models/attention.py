@@ -29,8 +29,11 @@ whose products are gathered over the group (:func:`_project_qkv`); the
 layer reads which from its shape.  The rank computes its own query heads
 against the kv heads they read (all of them when the query heads are
 whole), and ``w_o``'s rows are summed over the group
-(``shard_ctx.row_split``).  The cache a rank holds follows the state's
-specs, chosen per cache:
+(``shard_ctx.leave_block``).  Under a sequence-parallel context the
+layer's input is the rank's block of the sequence: the projections'
+entry gathers the sequence (before RoPE and the causal mask read
+positions) and ``w_o``'s sum is reduce-scattered back onto the blocks.
+The cache a rank holds follows the state's specs, chosen per cache:
 
 * **head-parallel** — the cache holds the rank's kv heads (``n_kv_heads``
   divides the axis): everything stays local;
@@ -147,13 +150,13 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
 # ---------------------------------------------------------------------------
 
 def _column_input(x, *ws, full):
-    """``x`` as a column-split projection reads it: through
-    ``shard_ctx.copy_to`` when any of ``ws`` is the rank's block of its
-    ``full`` columns under a tensor-parallel context."""
+    """``x`` as the projections ``ws`` read it (``shard_ctx.enter_block``):
+    split where any of them is the rank's block of its ``full`` columns
+    under a tensor-parallel context — through ``shard_ctx.copy_to``, or
+    under a sequence-parallel one the sequence gathered."""
     tp = shard_ctx.tp_split()
-    if tp is not None and any(w.shape[1] < f for w, f in zip(ws, full)):
-        return shard_ctx.copy_to(x, *tp)
-    return x
+    return shard_ctx.enter_block(x, tp is not None and any(
+        w.shape[1] < f for w, f in zip(ws, full)))
 
 
 def _project_qkv(p, x, kv_x, cfg):
@@ -166,13 +169,13 @@ def _project_qkv(p, x, kv_x, cfg):
     each rank reads other kv heads, and the gather's backward sums the
     gradient over the group."""
     dt = cdtype(cfg)
-    b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if kv_x is None:
         x = _column_input(x, p["w_q"], p["w_k"], full=(hq * dh, hkv * dh))
     else:
         x = _column_input(x, p["w_q"], full=(hq * dh,))
         kv_x = _column_input(kv_x, p["w_k"], full=(hkv * dh,))
+    b, s, _ = x.shape
     q = (x @ p["w_q"].to(dt)).reshape(b, s, -1, dh)
     src = x if kv_x is None else kv_x
     sk = src.shape[1]
@@ -209,13 +212,14 @@ def _kv_for_q(k, v, hq_l: int, cfg):
 
 
 def _out_proj(out, w_o, cfg):
-    """``out @ w_o``, summed over the group where ``w_o`` holds the rank's
-    rows (its query heads)."""
-    dt = cdtype(cfg)
+    """``out @ w_o`` onto the residual stream (``shard_ctx.leave_block``):
+    summed over the group, or reduce-scattered onto the ranks' blocks of
+    the sequence, where ``w_o`` holds the rank's rows (its query
+    heads)."""
     tp = shard_ctx.tp_split()
-    if tp is not None and w_o.shape[0] < cfg.n_heads * cfg.head_dim:
-        return shard_ctx.row_split(out, w_o.to(dt), *tp)
-    return out @ w_o.to(dt)
+    return shard_ctx.leave_block(out @ w_o.to(cdtype(cfg)), tp is not None
+                                 and w_o.shape[0] < cfg.n_heads
+                                 * cfg.head_dim)
 
 
 def cache_part(new: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
@@ -231,9 +235,11 @@ def cache_part(new: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
 def apply_attention(p, x, cfg, *, kind: str = "attn", kv_x=None,
                     pos_offset=0, block_skip_causal=False):
     """Train/prefill path. kind: attn | attn_local | attn_bidir | attn_cross.
-    Returns (out, kv) — kv (k, v) is reused to seed a decode cache."""
-    b, s, _ = x.shape
+    Returns (out, kv) — kv (k, v) is reused to seed a decode cache.  Under
+    a sequence-parallel context ``x`` and ``out`` are the rank's block of
+    the sequence, and k and v the whole sequence's."""
     q, k, v = _project_qkv(p, x, kv_x if kind == "attn_cross" else None, cfg)
+    b, s = q.shape[:2]
     dev = x.device
     q_pos = (torch.arange(s, device=dev) + pos_offset).expand(b, s)
     sk = k.shape[1]

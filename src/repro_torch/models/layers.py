@@ -21,7 +21,12 @@ Conventions
   final softcap is elementwise), and ``chunked_xent`` takes the
   logsumexp over the vocab shards (vocab-parallel loss: the group's
   largest logit, then its sums of the shifted exponentials and of the
-  gold logit, which one rank's block holds).
+  gold logit, which one rank's block holds).  Under a sequence-parallel
+  context (``shard_ctx.seq_split``) the embedding reduce-scatters its
+  rows onto the rank's block of the sequence, the MLP gathers the
+  sequence at entry and reduce-scatters after ``w_down``
+  (``shard_ctx.enter_block`` / ``leave_block``), and :func:`head_input`
+  gathers the sequence before the head.
 * the reference's gradient-dtype boundary (``_grad_same_dtype`` before
   every norm: the fp32 cotangent of the norm statistics is cast back to the
   primal's dtype, so the backward residual stream stays bf16) needs no
@@ -155,12 +160,12 @@ def embed_tokens(p, tokens: torch.Tensor, cfg, pos_offset=0) -> torch.Tensor:
     if tp is not None and emb.shape[0] < pad_vocab(cfg.vocab_size):
         x = shard_ctx.vocab_lookup(emb, tokens, *tp, dtype=dt)
     else:
-        x = emb[tokens].to(dt)
+        x = shard_ctx.leave_block(emb[tokens].to(dt), False)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.pos_embedding == "learned":
         pos = _positions(pos_offset, tokens.shape[-1], x.device)
-        x = x + p["pos_embedding"][pos].to(dt)
+        x = x + p["pos_embedding"][shard_ctx.seq_block(pos)].to(dt)
     return x
 
 
@@ -206,11 +211,10 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
     dt = cdtype(cfg)
-    tp = shard_ctx.tp_split()
-    if tp is not None and p["w_down"].shape[0] < cfg.d_ff:
-        x = shard_ctx.copy_to(x, *tp)          # the rank's d_ff columns
-    else:
-        tp = None
+    # the rank's d_ff columns, then its rows, one sum
+    split = shard_ctx.tp_split() is not None and \
+        p["w_down"].shape[0] < cfg.d_ff
+    x = shard_ctx.enter_block(x, split)
     if "w_gate" in p:
         g = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
@@ -218,9 +222,7 @@ def apply_mlp(p, x: torch.Tensor, cfg) -> torch.Tensor:
         h = act * u
     else:
         h = _gelu(x @ p["w_up"].to(dt))
-    if tp is not None:                         # then its rows, one sum
-        return shard_ctx.row_split(h, p["w_down"].to(dt), *tp)
-    return h @ p["w_down"].to(dt)
+    return shard_ctx.leave_block(h @ p["w_down"].to(dt), split)
 
 
 # ---------------------------------------------------------------------------
@@ -238,18 +240,39 @@ def softcap(logits: torch.Tensor, c: float) -> torch.Tensor:
     return torch.tanh(logits / c) * c if c else logits
 
 
+def _vocab_split(head_p, emb_p, cfg) -> bool:
+    """Whether the head (or the tied embedding) is the rank's block of
+    the vocab under a tensor-parallel context."""
+    if shard_ctx.tp_split() is None:
+        return False
+    rows = (emb_p["embedding"].shape[0] if cfg.tie_embeddings
+            else head_p["w_head"].shape[1])
+    return rows < pad_vocab(cfg.vocab_size)
+
+
+def head_input(head_p, emb_p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The head's input from the final norm's output ``x``: under a
+    sequence-parallel context the whole sequence, gathered from the ranks'
+    blocks (``shard_ctx.enter_block``: where the head is the rank's block
+    of the vocab the backward reduce-scatters the blocks' parts of the
+    gradient, so :func:`logits_fn` reads it as it is); ``x`` otherwise."""
+    if shard_ctx.seq_split() is None:
+        return x
+    return shard_ctx.enter_block(x, _vocab_split(head_p, emb_p, cfg))
+
+
 def logits_fn(head_p, emb_p, x: torch.Tensor, cfg) -> torch.Tensor:
     """Logits of ``x``: the rank's block of the vocab where the head (or
     the tied embedding) is the rank's block of it, ``x`` then read through
-    ``shard_ctx.copy_to`` (its gradient summed over the blocks)."""
+    ``shard_ctx.copy_to`` (its gradient summed over the blocks) unless a
+    sequence-parallel context's gather (:func:`head_input`) sums it."""
     dt = cdtype(cfg)
     if cfg.tie_embeddings:
         w = emb_p["embedding"].to(dt).T
     else:
         w = head_p["w_head"].to(dt)
-    tp = shard_ctx.tp_split()
-    if tp is not None and w.shape[1] < pad_vocab(cfg.vocab_size):
-        x = shard_ctx.copy_to(x, *tp)
+    if _vocab_split(head_p, emb_p, cfg) and shard_ctx.seq_split() is None:
+        x = shard_ctx.copy_to(x, *shard_ctx.tp_split())
     return softcap(x @ w, cfg.final_softcap)
 
 
@@ -327,5 +350,5 @@ def chunked_xent(head_p, emb_p, x: torch.Tensor, labels, mask, cfg,
 __all__ = ["cdtype", "pdtype", "pad_vocab", "init_norm", "apply_norm",
            "init_embedding", "embed_tokens", "rope_frequencies",
            "apply_rope", "init_mlp", "apply_mlp", "init_lm_head",
-           "logits_fn", "softcap", "chunked_xent", "remat", "region",
-           "remat_through"]
+           "logits_fn", "head_input", "softcap", "chunked_xent", "remat",
+           "region", "remat_through"]

@@ -15,12 +15,16 @@ block splits on d_inner when its leaves are the rank's blocks of it
 which from ``in_proj``'s shape).  The conv, ``dt_proj``, ``dt_bias``,
 ``A_log``, ``D``, the SSM scan and the decode state are the rank's
 channels; ``x_proj`` holds the rank's rows, so its product (dt, B, C) is
-summed over the group (``shard_ctx.row_split``), and ``out_proj``'s rows
-are too.  ``in_proj``'s spec splits its 2·d_inner columns in contiguous
-blocks, which are not the rank's x and z blocks (ranks below |model|/2
-hold x's columns, the others z's): the rank projects its own block and
-one uneven all-to-all (:func:`_own_x_and_z`) hands each block of
-d_inner/|model| columns to the rank it belongs to — GSPMD's re-layout.
+summed over the group (``shard_ctx.row_split``, over the whole
+sequence), and ``out_proj``'s rows are too (``shard_ctx.leave_block``:
+reduce-scattered onto the ranks' blocks of the sequence under a
+sequence-parallel context, whose entry gathers the sequence before the
+conv and the scan read neighbouring tokens).  ``in_proj``'s spec splits
+its 2·d_inner columns in contiguous blocks, which are not the rank's x
+and z blocks (ranks below |model|/2 hold x's columns, the others z's):
+the rank projects its own block and one uneven all-to-all
+(:func:`_own_x_and_z`) hands each block of d_inner/|model| columns to
+the rank it belongs to — GSPMD's re-layout.
 """
 
 from __future__ import annotations
@@ -130,17 +134,18 @@ def _own_x_and_z(xz: torch.Tensor, mesh, axes):
 
 
 def apply_mamba(p, x: torch.Tensor, cfg, state=None):
-    """x: (B,S,d). state: None (train) or {"conv","ssm"} for segment carry
+    """x: (B,S,d) (the rank's block of S under a sequence-parallel
+    context). state: None (train) or {"conv","ssm"} for segment carry
     (the rank's channels on a mesh).  Returns (out, new_state)."""
     dt_ = cdtype(cfg)
-    b, s, _ = x.shape
     di, n = cfg.mamba_d_inner, cfg.mamba_d_state
     r = cfg.dt_rank
     tp = shard_ctx.tp_split()
     split = tp is not None and p["in_proj"].shape[1] < 2 * di
+    x = shard_ctx.enter_block(x, split)
+    b, s, _ = x.shape
     if split:
-        xs_, z = _own_x_and_z(shard_ctx.copy_to(x, *tp) @
-                              p["in_proj"].to(dt_), *tp)
+        xs_, z = _own_x_and_z(x @ p["in_proj"].to(dt_), *tp)
         di = xs_.shape[-1]
     else:
         xz = x @ p["in_proj"].to(dt_)
@@ -166,10 +171,7 @@ def apply_mamba(p, x: torch.Tensor, cfg, state=None):
     y, h_t = _ssm_scan(dts, xc.float(), b_ssm.float(), c_ssm.float(), a, h0)
     y = (y + xc.float() * p["D"].float()).to(dt_)
     y = y * F.silu(z)
-    if split:
-        out = shard_ctx.row_split(y, p["out_proj"].to(dt_), *tp)
-    else:
-        out = y @ p["out_proj"].to(dt_)
+    out = shard_ctx.leave_block(y @ p["out_proj"].to(dt_), split)
     new_state = None
     if state is not None:
         dc = cfg.mamba_d_conv

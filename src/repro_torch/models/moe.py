@@ -56,6 +56,19 @@ buffer:
 
 The mesh train step (a tensor-parallel context too) runs these layouts
 as the mesh prefill and decode do, each gradient summed as above.
+
+Under a sequence-parallel context (``shard_ctx.seq_split``: the rank's
+input is its block of the sequence) the experts' all-to-all takes the
+rank's tokens as they are where the token split runs over the batch's
+axes and then `model` (jamba's ``"expert"`` mode): the block is the
+rank's slice of the token stream, so nothing is gathered or re-split.
+Otherwise (grok's ``"ffn"`` mode) the sequence is gathered at entry, as
+the MLP's is, and the d_ff split's partial output reduce-scattered back
+onto the blocks in place of its sum.  The aux loss counts the whole
+batch's tokens either way.  With capacity drops a rank's slice of the
+stream is its rows' block of the sequence, where the reference's
+partitioner hands it a contiguous run of the flattened batch: the same
+per-shard capacity over other tokens.
 """
 
 from __future__ import annotations
@@ -216,6 +229,14 @@ def _apply_moe_dist(p, x, cfg, mesh, batch_axes_, split_in=()):
     holds all of it).  The expert leaves of ``p`` are either whole
     ``(E, d, f)`` or this rank's experts ``(E/tp, d, f)`` over `model`.
     Returns (y: x's shape, aux)."""
+    y, aux, _ = _moe_dist(p, x, cfg, mesh, batch_axes_, split_in)
+    return y, aux
+
+
+def _moe_dist(p, x, cfg, mesh, batch_axes_, split_in=(), reduce=True):
+    """:func:`_apply_moe_dist`'s (y, aux) and whether ``y`` is the rank's
+    part of a sum over `model` (the d_ff split's, left unsummed when not
+    ``reduce``)."""
     dt = cdtype(cfg)
     b, s, d = x.shape
     t = b * s * shard_ctx.group_size(mesh, split_in)
@@ -269,20 +290,38 @@ def _apply_moe_dist(p, x, cfg, mesh, batch_axes_, split_in=()):
         out_buf = shard_ctx.all_to_all(out_buf, mesh, "model").reshape(
             e, cap_dev, d)
     y = _combine(out_buf, slot, tok_of, w, t_dev)
-    if f_split:                            # the rows of the d_ff split
+    if f_split and reduce:                 # the rows of the d_ff split
         y = shard_ctx.sum_over(y, *tp_ctx)
     y = shard_ctx.gather_from(y, 0, mesh, extra)
     aux = e * torch.sum((me / t) * (ce / t)) * cfg.router_aux_coef
-    return y.reshape(b, s, d), aux
+    return y.reshape(b, s, d), aux, f_split and not reduce
+
+
+def _apply_moe_seq(p, x, cfg, mesh, batch_axes_, split_in, seq_axes):
+    """The distributed path on the rank's block ``x`` of the sequence (a
+    sequence-parallel context): see the module docstring."""
+    b, s, _ = x.shape
+    on_seq = tuple(split_in) + tuple(seq_axes)
+    t = b * s * shard_ctx.group_size(mesh, on_seq)
+    split, _, use_a2a = moe_split(t, mesh, batch_axes_, cfg)
+    if use_a2a and tuple(split[:len(on_seq)]) == on_seq:
+        return _apply_moe_dist(p, x, cfg, mesh, batch_axes_, on_seq)
+    y, aux, partial = _moe_dist(p, shard_ctx.enter_block(x, False), cfg,
+                                mesh, batch_axes_, split_in, reduce=False)
+    return shard_ctx.leave_block(y, partial), aux
 
 
 def apply_moe(p, x: torch.Tensor, cfg):
     """x: (B, S, d) → (y: (B, S, d), aux_loss scalar fp32)."""
     mesh = shard_ctx._CTX["mesh"]
-    if mesh is not None:
-        return _apply_moe_dist(p, x, cfg, mesh, shard_ctx._CTX["batch_axes"],
-                               shard_ctx._CTX["split"])
-    return _apply_moe_local(p, x, cfg)
+    if mesh is None:
+        return _apply_moe_local(p, x, cfg)
+    seq = shard_ctx.seq_split()
+    if seq is not None:
+        return _apply_moe_seq(p, x, cfg, mesh, shard_ctx._CTX["batch_axes"],
+                              shard_ctx._CTX["split"], seq[1])
+    return _apply_moe_dist(p, x, cfg, mesh, shard_ctx._CTX["batch_axes"],
+                           shard_ctx._CTX["split"])
 
 
 __all__ = ["init_moe", "apply_moe", "top_k", "expert_counts", "capacity",

@@ -50,8 +50,24 @@ the local matmul: the rank's columns of the product), a row split
 (:func:`row_split`: the local matmul summed over the group), a
 vocab-parallel lookup (:func:`vocab_lookup`) and a vocab-parallel loss
 (``layers.chunked_xent``: the logsumexp over the vocab shards, with
-:func:`reduce_max`).  The activations between layers stay whole on every
-rank of the group, so their gradients are too.
+:func:`reduce_max`).  A block reads its input through
+:func:`enter_block` and hands its output back through
+:func:`leave_block`; without sequence parallelism the activations
+between blocks stay whole on every rank of the group, and those two are
+:func:`copy_to` and :func:`sum_over`.
+
+**Sequence parallelism** (Megatron's; the reference's
+``act_sharding="sp"``): the context's ``seq`` entry names the axes the
+residual stream between blocks splits its sequence over (`model`, the
+``tp`` axes, set by the caller from ``launch.sharding.seq_axes`` where
+they divide the sequence; ``()``, the default, none).  Each rank then
+holds its block ``(B, S/|model|, d)``, and the norms, residual adds and
+post-norms run on it.  :func:`enter_block` all-gathers the sequence
+before a block (its backward a reduce-scatter, which sums the ranks'
+parts of the gradient: no :func:`copy_to` beside it) and
+:func:`leave_block` reduce-scatters a row split's partial sums onto the
+blocks (its backward an all-gather); a block whose weights are whole is
+gathered with a slice for backward and left with a slice.
 
 **Context-parallel decode**: the context's ``ctx`` entry names the axes
 a decode state's KV caches split their sequence over (``"data"`` under
@@ -69,15 +85,17 @@ import torch
 import torch.distributed as dist
 
 _CTX: dict = {"mesh": None, "batch_axes": None, "split": (), "tp": (),
-              "ctx": ()}
+              "ctx": (), "seq": ()}
 
 
-def set_sharding_context(mesh, batch_axes, split=(), tp=(), ctx=()) -> None:
+def set_sharding_context(mesh, batch_axes, split=(), tp=(), ctx=(),
+                         seq=()) -> None:
     _CTX["mesh"] = mesh
     _CTX["batch_axes"] = tuple(batch_axes) if batch_axes else None
     _CTX["split"] = tuple(split or ())
     _CTX["tp"] = _axes(tp)
     _CTX["ctx"] = _axes(ctx)
+    _CTX["seq"] = _axes(seq)
 
 
 def tp_split():
@@ -93,6 +111,15 @@ def ctx_split():
     if _CTX["mesh"] is None or not _CTX.get("ctx"):
         return None
     return _CTX["mesh"], _CTX["ctx"]
+
+
+def seq_split():
+    """``(mesh, axes)`` the residual stream splits its sequence over (a
+    live group), or None."""
+    mesh = _CTX["mesh"]
+    if mesh is None or not _live(mesh, _CTX.get("seq")):
+        return None
+    return mesh, _CTX["seq"]
 
 
 def clear_sharding_context() -> None:
@@ -189,6 +216,17 @@ def _all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _reduce_scatter(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """``x`` summed over the group, the rank's block of ``dim`` kept."""
+    n = group_size(mesh, axes)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    scatter(out, xt, group=axis_group(mesh, axes))
+    return out.movedim(0, dim)
+
+
 def _slice(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     n = group_size(mesh, axes)
     rows = x.shape[dim] // n
@@ -248,6 +286,28 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g.clone(), *ctx.args), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return _all_gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return _reduce_scatter(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -324,18 +384,58 @@ def row_split(h, w, mesh, axes):
     return sum_over(h @ w, mesh, axes)
 
 
+def enter_block(x, split: bool):
+    """A block's input from the residual stream ``x`` (B, S, d).  Under a
+    sequence-parallel context (:func:`seq_split`) the whole sequence,
+    all-gathered from the ranks' blocks; its backward reduce-scatters
+    where ``split`` (the block reads it through the rank's columns of a
+    split weight, so each rank holds a part of the gradient), else keeps
+    the rank's block of the gradient (every rank computed all of it
+    alike).  Otherwise ``x``, through :func:`copy_to` where ``split``."""
+    seq = seq_split()
+    if seq is not None:
+        return _SeqGather.apply(x, 1, *seq) if split else \
+            gather_from(x, 1, *seq)
+    tp = tp_split()
+    return copy_to(x, *tp) if split and tp is not None else x
+
+
+def leave_block(y, partial: bool):
+    """A block's output ``y`` (B, S, d) onto the residual stream.  Under a
+    sequence-parallel context the rank's block of the sequence:
+    reduce-scattered where ``partial`` (each rank holds a part of the sum,
+    a row split's), else sliced (backward: all-gather).  Otherwise ``y``
+    summed over the tensor-parallel group where ``partial``."""
+    seq = seq_split()
+    if seq is not None:
+        return _SeqScatter.apply(y, 1, *seq) if partial else \
+            scatter_to(y, 1, *seq)
+    tp = tp_split()
+    return sum_over(y, *tp) if partial and tp is not None else y
+
+
+def seq_block(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The rank's block of ``t`` along ``dim`` under a sequence-parallel
+    context (an index tensor: positions), else ``t``."""
+    seq = seq_split()
+    return t if seq is None else _slice(t, dim % t.ndim, *seq)
+
+
 def vocab_lookup(table, tokens, mesh, axes, dtype=None):
     """``table[tokens]`` for ``table`` the rank's block of rows of a table
     split over the group (vocab-parallel): the rank looks up the tokens in
     its range, zeroes the others, and the group sums (each token's row is
-    one rank's, so the sum is exact).  Rows cast to ``dtype`` before the
-    sum."""
+    one rank's, so the sum is exact); under a sequence-parallel context
+    the sum is reduce-scattered onto the rank's block of the sequence
+    (:func:`leave_block`).  Rows cast to ``dtype`` before the sum."""
     n = table.shape[0]
     local = tokens - group_index(mesh, axes) * n
     inside = (local >= 0) & (local < n)
     rows = table[torch.where(inside, local, torch.zeros_like(local))]
     rows = rows.to(dtype or rows.dtype)
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    if seq_split() is not None:
+        return leave_block(rows, True)
     return sum_over(rows, mesh, axes)
 
 
@@ -440,6 +540,7 @@ __all__ = ["set_sharding_context", "clear_sharding_context", "tp_split",
            "axis_names", "axis_sizes", "group_size", "group_index",
            "axis_group", "scatter_to", "gather_from", "sum_over", "copy_to",
            "row_split", "vocab_lookup", "all_to_all", "exchange_blocks",
-           "ctx_split",
+           "ctx_split", "seq_split", "enter_block", "leave_block",
+           "seq_block",
            "spec_axes", "gather_param", "gather_tree", "reduce_sum",
            "reduce_max"]

@@ -53,6 +53,19 @@ the hidden states returned are the rank's rows.  ``serve_logits(...,
 mesh=)`` turns them into the rank's block of the vocab for every row (the
 reference's out-spec ``P(None, None, "model")``).  Each unit runs through
 ``layers.region``, where the cost counter replays it.
+
+**Sequence parallelism** (``cfg.act_sharding == "sp"``, the reference's
+``make_shard_act`` constraint after every residual add): in the mesh
+train step and prefill, where ``launch.sharding.seq_axes`` splits the
+sequence over `model`, the residual stream between blocks is the rank's
+block of it, ``(B_rank, S/|model|, d)`` — the embedding reduce-scatters
+onto it, each block gathers the sequence at entry and reduce-scatters
+(or slices) its output back, the norms and residual adds run on the
+block, and the remat boundaries keep it.  ``forward`` then returns the
+rank's block of the hidden states (``layers.head_input`` gathers them
+for the head); the prefill's last hidden state comes from the last
+block.  The decode (one token) never splits.  An encoder-decoder keeps
+its activations whole (``seq_axes``).
 """
 
 from __future__ import annotations
@@ -201,10 +214,13 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
             if state is not None:
                 new_state[bkey] = _carry(st, new_st, donate)
         elif mixer == "rwkv":
+            # reads the sequence whole (its token shift and scan), its
+            # split inside, under a sequence-parallel context too
             out, (x_last, wkv) = rwkv_mod.apply_rwkv_time_mix(
-                bp["mixer"], h, cfg,
+                bp["mixer"], shard_ctx.enter_block(h, False), cfg,
                 x_prev=None if st is None else st["x_prev_tm"],
                 wkv_state=None if st is None else st["wkv"])
+            out = shard_ctx.leave_block(out, False)
             if state is not None:
                 new_state[bkey] = _carry(
                     st, {"x_prev_tm": x_last, "wkv": wkv}, donate)
@@ -225,7 +241,9 @@ def _apply_unit(up, x, cfg, pattern, mode, state=None, enc_out=None,
         elif ffn == "rwkv_cm":
             prev = None if st is None else st.get("x_prev_cm")
             out, x_last_cm = rwkv_mod.apply_rwkv_channel_mix(
-                bp["ffn"], h2, cfg, x_prev=prev)
+                bp["ffn"], shard_ctx.enter_block(h2, False), cfg,
+                x_prev=prev)
+            out = shard_ctx.leave_block(out, False)
             if state is not None:
                 new_state[bkey].update(_carry(
                     st, {"x_prev_cm": x_last_cm}, donate))
@@ -541,15 +559,15 @@ def _context_axes(state, state_specs, mesh, split) -> tuple:
 
 
 @contextlib.contextmanager
-def _serving(mesh, cfg, split, ctx=()):
+def _serving(mesh, cfg, split, ctx=(), seq=()):
     """The sharding context of the mesh prefill and decode (the layers
-    split over `model`, the caches' sequence over ``ctx``), without
-    gradients."""
+    split over `model`, the caches' sequence over ``ctx``, the residual
+    stream's over ``seq``), without gradients."""
     from ..launch.sharding import dp_axes, tp_axes
 
     saved = dict(shard_ctx._CTX)
     shard_ctx.set_sharding_context(mesh, dp_axes(mesh, cfg), split=split,
-                                   tp=tp_axes(mesh, cfg), ctx=ctx)
+                                   tp=tp_axes(mesh, cfg), ctx=ctx, seq=seq)
     try:
         with torch.no_grad():
             yield
@@ -557,12 +575,26 @@ def _serving(mesh, cfg, split, ctx=()):
         shard_ctx._CTX.update(saved)
 
 
+def _last_position(x):
+    """The hidden state at the last position of the sequence, (B, 1, d):
+    under a sequence-parallel context the last rank's block holds it, so
+    the ranks' last rows are gathered and the last one kept."""
+    seq = shard_ctx.seq_split()
+    if seq is not None:
+        x = shard_ctx.gather_from(x[:, -1:, :], 1, *seq)
+    return x[:, -1:, :]
+
+
 def _mesh_serve(params, cfg, state, mesh, specs, mode, *, batch, pos=None,
                 skip_causal=False, state_specs=None):
+    from ..launch.sharding import seq_axes
+
     local, rules = mesh_params(params, cfg, mesh, specs)
     dev = local["embed"]["embedding"].device
     split = _batch_split(mesh, cfg, batch["tokens"].shape[0])
     ctx = _context_axes(state, state_specs, mesh, split)
+    seq = seq_axes(mesh, cfg, batch["tokens"].shape[1]) \
+        if mode == "prefill" else ()
     tokens = _rows(batch["tokens"], split, mesh, dev).long()
     if pos is not None:
         pos = _rows(pos, split, mesh, dev)
@@ -571,7 +603,7 @@ def _mesh_serve(params, cfg, state, mesh, specs, mode, *, batch, pos=None,
     def gather(key, up):
         return shard_ctx.gather_tree(up, rules[key], mesh)
 
-    with _serving(mesh, cfg, split, ctx):
+    with _serving(mesh, cfg, split, ctx, seq):
         full = {k: v if k in UNIT_KEYS
                 else shard_ctx.gather_tree(v, rules[k], mesh)
                 for k, v in local.items()}
@@ -587,7 +619,9 @@ def _mesh_serve(params, cfg, state, mesh, specs, mode, *, batch, pos=None,
                              gather=_unit_gather(gather, "units"),
                              donate=True)
         x = apply_norm(full["final_norm"], x, cfg)
-    return (x[:, -1:, :] if mode == "prefill" else x), state
+        if mode == "prefill":
+            x = _last_position(x)
+    return x, state
 
 
 def serve_logits(params, h, cfg, *, mesh=None, specs=None,

@@ -20,15 +20,18 @@ leaf's `model` shard is aligned with its layer's split
 (``launch.sharding.tp_layout``), and the layers split their compute over
 `model` as the mesh prefill and decode do (``shard_ctx.tp_split``):
 attention on heads, the MLP on d_ff, the experts on E or d_ff, the
-embedding, head and loss on the vocab.  Each gradient is reduced to its
-leaf's spec in that gather's backward: a sum over the ranks that saw
-other tokens — the batch's axes for a dense leaf, the MoE's token split
-for the router and the experts, and `model` too for a whole leaf that
-each model peer computes with on its own query heads only — and a slice
-along the axes that shard the leaf, never a sum over ranks that only
-repeat work.  Each rank's loss is its tokens' share of the global mean,
-so the gradients and the metrics (loss, grad norm) are the global
-batch's; AdamW updates the local shards.
+embedding, head and loss on the vocab.  Under ``act_sharding="sp"`` the
+residual stream between blocks is the rank's block of the sequence
+(``launch.sharding.seq_axes``; the remat boundaries keep it), and the
+norms on it have their gradients summed over `model` too.  Each
+gradient is reduced to its leaf's spec in that gather's backward: a sum
+over the ranks that saw other tokens — the batch's axes for a dense
+leaf, the MoE's token split for the router and the experts, and `model`
+too for a whole leaf that each model peer computes with on its own query
+heads only — and a slice along the axes that shard the leaf, never a sum
+over ranks that only repeat work.  Each rank's loss is its tokens'
+share of the global mean, so the gradients and the metrics (loss, grad
+norm) are the global batch's; AdamW updates the local shards.
 
 ``make_sparse_value_train_step(plan, loss_fn, opt_cfg)`` trains the
 ``(nnz,)`` values of a fixed sparsity pattern through the operator: each
@@ -44,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from ..models import forward, shard_ctx
-from ..models.layers import cdtype, chunked_xent
+from ..models.layers import cdtype, chunked_xent, head_input
 from ..models.transformer import UNIT_KEYS, tree_leaves, tree_map
 from .optimizer import (OptimizerConfig, OptState, adamw_update,
                         init_opt_state)
@@ -172,17 +175,31 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, *, microbatches: int = 1,
 # the step on a mesh
 # ---------------------------------------------------------------------------
 
-def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
+# the leaves that act on the residual stream between blocks: under
+# sequence parallelism each rank reads them on its own block of the
+# sequence, so their gradients are summed over its axes too
+SEQ_NORMS = ("ln1", "ln2", "post_ln1", "post_ln2")
+
+
+def _on_residual_stream(path) -> bool:
+    return (path[0] == "final_norm" or path[-1] == "pos_embedding"
+            or (path[0] in UNIT_KEYS and path[2] in SEQ_NORMS))
+
+
+def mesh_gather_rules(specs, mesh, cfg, split_in, t: int, seq=()):
     """Per leaf of ``specs`` (the params' specs), the ``(spec, partial,
     keep)`` its gather takes: the axes its gradient is summed over and
     those that stay sharded in compute (``launch.sharding.tp_layout``'s
     `model`).  ``split_in``: the axes the batch is split over; ``t``: a
-    microbatch's tokens in the whole batch.  A leaf kept on `model` holds
-    other columns than its model peers' for the same tokens, and a leaf
-    every model peer computes with alike (norms, RWKV's ddlerp half) has
-    its inputs' gradients summed by ``shard_ctx.copy_to``: both are
-    summed over the batch's axes only — a whole leaf each peer reads on
-    its own part (``tp_layout``'s ``partial``) over `model` too."""
+    microbatch's tokens in the whole batch; ``seq``: the axes the
+    residual stream splits its sequence over.  A leaf kept on `model`
+    holds other columns than its model peers' for the same tokens, and a
+    leaf every model peer computes with alike (RWKV's ddlerp half, the
+    norms without ``seq``) has its inputs' gradients summed by
+    ``shard_ctx.copy_to``: both are summed over the batch's axes only — a
+    whole leaf each peer reads on its own part (``tp_layout``'s
+    ``partial``; the norms on the residual stream's blocks under
+    ``seq``) over `model` too."""
     from ..launch.sharding import (MOE_EXPERT_LEAVES, _leaf_name,
                                    _map_with_path, dp_axes, tp_layout)
     from ..models.moe import moe_split
@@ -202,6 +219,9 @@ def mesh_gather_rules(specs, mesh, cfg, split_in, t: int):
             # them: a rank runs its own (the all-to-all brings the tokens)
             # or its block of d_ff
             return spec, tuple(a for a in split if a not in keep), keep
+        if seq and _on_residual_stream(path):
+            rank_part = tuple(rank_part) + tuple(
+                a for a in seq if a not in rank_part)
         return spec, tuple(split_in) + rank_part, keep
 
     return _map_with_path(one, specs, tp_layout(specs, mesh, cfg))
@@ -222,6 +242,7 @@ def make_mesh_loss_fn(cfg, rules, mesh, split_in, *, skip_causal=False):
                 for k, v in params_c.items()}
         h, aux = forward(full, batch, cfg, skip_causal=skip_causal,
                          gather=gather)
+        h = head_input(full["head"], full["embed"], h, cfg)
         nll = chunked_xent(full["head"], full["embed"], h, batch["labels"],
                            batch["mask"], cfg)
         mask = torch.as_tensor(batch["mask"], device=h.device).float()
@@ -255,7 +276,7 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
     this rank's local shards (as the dispatch lint runs it on a mesh
     stand-in)."""
     from ..launch.sharding import (dp_axes, make_shard_act, param_specs,
-                                   tp_axes)
+                                   seq_axes, tp_axes)
     from .optimizer import _local
 
     shard = make_shard_act(mesh, cfg)
@@ -273,12 +294,15 @@ def make_mesh_train_step(cfg, opt_cfg, mesh, *, microbatches=1,
         local = {k: shard(v) for k, v in batch.items()}
         rows = len(local["tokens"])
         mb = rank_microbatches(rows, microbatches)
-        rules = mesh_gather_rules(specs, mesh, cfg, split_in, b // mb * s)
+        seq = seq_axes(mesh, cfg, s)
+        rules = mesh_gather_rules(specs, mesh, cfg, split_in, b // mb * s,
+                                  seq)
         loss_fn = make_mesh_loss_fn(cfg, rules, mesh, split_in,
                                     skip_causal=skip_causal)
         params = tree_map(_local, state.params)
         saved = dict(shard_ctx._CTX)
-        shard_ctx.set_sharding_context(mesh, b_axes, split=split_in, tp=tp)
+        shard_ctx.set_sharding_context(mesh, b_axes, split=split_in, tp=tp,
+                                       seq=seq)
         try:
             rows //= mb
             nll = aux = grads = None

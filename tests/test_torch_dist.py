@@ -445,6 +445,44 @@ def ranks4(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def bare_ranks(tmp_path_factory):
+    return {n: run_ranks("bare", n, tmp_path_factory.mktemp(f"bare{n}"))
+            for n in (1, 2)}
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_bare_device_dist_spmv_matches_reference(bare_ranks, world):
+    """``build_dist_spmv`` on a bare ``EHYBDevice`` (the reference's
+    ``ehyb_from_device`` path: no fill plan, the live ER set from the
+    nonzero mask) on 1 and 2 gloo ranks against the reference's
+    ``build_dist_spmv(dev, mesh)`` on the same build, fp32, at
+    ``tests/test_dist.py``'s tolerance; the pseudo build's refill is
+    refused, as the reference's is."""
+    import jax.numpy as jnp
+
+    from repro.compat import make_mesh
+    from repro.core import EHYBDevice as JEHYBDevice
+    from repro.core.dist_spmv import build_dist_spmv as jbuild_dist_spmv
+
+    m = poisson3d(12)
+    e = jbuild_ehyb(m, n_parts=8, vec_size=-(-m.n // 8 // 8) * 8)
+    x = np.random.default_rng(0).standard_normal(m.n).astype(np.float32)
+    with pytest.warns(DeprecationWarning):
+        mv = jbuild_dist_spmv(JEHYBDevice.from_ehyb(e),
+                              make_mesh((1,), ("data",)), "data")
+    want = np.asarray(mv(jnp.asarray(x)))
+    got = bare_ranks[world]
+    assert not got["jax_loaded"] and got["world"] == world
+    assert got["bare/warned"] and got["bare/refill_refused"]
+    assert got["bare/dtype"] == "torch.float32"
+    assert got["bare/nnz"] == [e.nnz, e.nnz_in]
+    np.testing.assert_allclose(np.asarray(got["bare/y"]), want, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(want, m.spmv(x.astype(np.float64)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
 def ranks8(tmp_path_factory):
     return run_ranks("sweep", 8, tmp_path_factory.mktemp("ranks8"))
 

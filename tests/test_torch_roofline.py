@@ -24,7 +24,10 @@ torch's own flop counter, real gloo ranks and the JAX package.
   decode flops on (2, 2) (llama3_2_1b, moonshot, rwkv6 and jamba) within
   ``SERVE_FLOPS_TOL``, and so its prefill and decode flops on (1, 4)
   (llama3_2_1b and gemma2_2b: the kv projection split on columns, the
-  cache on head_dim).
+  cache on head_dim); the three ``act_sharding="sp"`` architectures'
+  train flops on (2, 2) and prefill flops on (1, 4) within
+  ``SP_FLOPS_TOL``, with the sequence's reduce-scatters in the port's
+  collectives.
 
 Fake and gloo runs are subprocesses of ``tests/torch_cost_worker.py`` (a
 fake group is its process's default group); the reference's compiled
@@ -35,9 +38,10 @@ cells run in a subprocess with 4 host devices.
 prints rank 0's flops against the reference's for every architecture on
 (4, 1) and (2, 2): the train step, and the prefill and decode; and on
 (1, 4) the prefill and decode of
-llama3_2_1b and gemma2_2b, and llama3_2_1b's decode against an
-8,192-deep cache; beside a serving step's flops, both sides' collective
-bytes by op (PERF.md's finding).
+llama3_2_1b and gemma2_2b, llama3_2_1b's decode against an 8,192-deep
+cache, and the prefill of the three ``act_sharding="sp"``
+architectures; beside each step's flops, both sides' collective bytes
+by op (PERF.md's finding).
 """
 
 import json
@@ -81,6 +85,15 @@ HEAD_DIM_ARCHS = ("llama3_2_1b", "gemma2_2b")
 # rwkv6's time mix on heads and channel mix on d_ff (jamba's reference
 # compile of the train cell takes longer: `--ratios` prints its ratio)
 TP_ARCHS = REF_ARCHS
+# sequence-parallel activations (act_sharding="sp"): the (2, 2) train
+# step and the (1, 4) prefill, the port's rank 0 within 1 % of the
+# reference's flops (measured 0.9951-1.0041 train, 1.0000 prefill).  The
+# port's sequence reduce-scatters are reduce-scatters; the reference's
+# CPU-compiled program lowers them as all-reduces and slices (its
+# all-reduce bytes grow under SP, chameleon's (2, 2) train 7.76 -> 8.55
+# MB), and both gather the sequence
+SP_ARCHS = ("jamba_1_5_large_398b", "chameleon_34b", "grok_1_314b")
+SP_FLOPS_TOL = (0.99, 1.01)
 
 REFERENCE_FLOPS = """
 import json, os, sys
@@ -382,6 +395,14 @@ def launched(tmp_path_factory):
     runs["train22"] = ([start_worker(f"flops:2,2:{','.join(TP_ARCHS)}",
                                      out), start_reference("2,2", TP_ARCHS)],
                        [out, None])
+    out = tmp / "sp_train22.json"
+    runs["sp_train22"] = (
+        [start_worker(f"flops:2,2:{','.join(SP_ARCHS)}", out),
+         start_reference("2,2", SP_ARCHS)], [out, None])
+    out = tmp / "sp_prefill14.json"
+    runs["sp_prefill14"] = (
+        [start_worker(f"flops:1,4:{','.join(SP_ARCHS)}:prefill:32", out),
+         start_reference("1,4", SP_ARCHS, ("prefill",))], [out, None])
     yield runs
     for procs, _ in runs.values():
         for p in procs:
@@ -640,6 +661,27 @@ def test_train_flops_on_two_by_two_within_tolerance_of_reference(
     assert FLOPS_TOL[0] <= port / ref <= FLOPS_TOL[1], (arch, port, ref)
 
 
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("arch", SP_ARCHS)
+def test_sequence_parallel_flops_and_collectives_against_reference(
+        launched, arch, kind):
+    """The three ``act_sharding="sp"`` architectures: rank 0's train flops
+    on (data, model) = (2, 2) and prefill flops (4 × 32 tokens) on (1, 4)
+    within ``SP_FLOPS_TOL`` of the reference's ``analyze_hlo``; the
+    port's collectives hold the sequence's reduce-scatters and
+    all-gathers, the reference's its all-gathers (its reduce-scatters
+    compile to all-reduces on the CPU)."""
+    name, key = (("sp_train22", arch) if kind == "train"
+                 else ("sp_prefill14", f"prefill/{arch}"))
+    ports, refs = joined(launched, name)
+    port, ref = ports[key], refs[key]
+    assert SP_FLOPS_TOL[0] <= port["flops"] / ref["flops"] <= \
+        SP_FLOPS_TOL[1], (arch, kind, port["flops"], ref["flops"])
+    assert port["coll_by_op"].get("reduce-scatter", 0) > 0, port
+    assert port["coll_by_op"].get("all-gather", 0) > 0, port
+    assert ref["coll_by_op"].get("all-gather", 0) > 0, ref
+
+
 if __name__ == "__main__" and "--ratios" in sys.argv:
     import tempfile
 
@@ -648,7 +690,8 @@ if __name__ == "__main__" and "--ratios" in sys.argv:
     # the head_dim layout, and its decode against a deeper cache (where
     # each layer's cache is read in 2,048-row chunks)
     runs += [("1,4", SERVE_KINDS, HEAD_DIM_ARCHS, 32),
-             ("1,4", ("decode",), HEAD_DIM_ARCHS[:1], 8192)]
+             ("1,4", ("decode",), HEAD_DIM_ARCHS[:1], 8192),
+             ("1,4", ("prefill",), SP_ARCHS, 32)]
     with tempfile.TemporaryDirectory() as tmp:
         for dims, kinds, ids, depth in runs:
             got = flops_against_reference(dims, ids, Path(tmp), kinds, depth)

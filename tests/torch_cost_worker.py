@@ -127,7 +127,7 @@ def flops(res, data: int, model: int, arch_ids, kinds=("train",),
     microbatch splits over the data ranks, as the reference's step shards
     it), keyed by architecture; the mesh prefill of 4 rows and the decode
     step of 4 rows against a ``depth``-deep cache (the prefill: of
-    ``depth`` tokens), keyed ``kind/arch``, with their collectives."""
+    ``depth`` tokens), keyed ``kind/arch``; each with its collectives."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -139,7 +139,9 @@ def flops(res, data: int, model: int, arch_ids, kinds=("train",),
             if kind == "train":
                 b = 4 * cfg.microbatches
                 r = step_cost(arch, mesh, scaled=True, batch=b, seq=32)
-                res[arch] = {"flops": r["flops"], "batch": b}
+                res[arch] = {"flops": r["flops"], "batch": b,
+                             "coll_bytes": r["coll_bytes"],
+                             "coll_by_op": r["coll_by_op"]}
                 continue
             r = dryrun.cost_serve_step(cfg, mesh,
                                        ShapeConfig("t", depth, 4, kind))

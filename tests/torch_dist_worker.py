@@ -230,9 +230,41 @@ def store(mesh, res: dict) -> None:
         tuning.set_store(None)
 
 
+def bare(mesh, res: dict) -> None:
+    """``core.dist_spmv.build_dist_spmv`` on a bare ``EHYBDevice`` (the
+    legacy shim's path, ``dist.operator.ehyb_from_device``): the product
+    of poisson3d(12) built with 8 partitions, in fp32, on a seeded x;
+    its pseudo host build's refill refused (no fill plan)."""
+    from repro_torch.core.dist_spmv import build_dist_spmv
+    from repro_torch.core.ehyb import build_ehyb
+    from repro_torch.core.matrices import poisson3d
+    from repro_torch.core.spmv import EHYBDevice
+    from repro_torch.dist.operator import _build_sharded_operator
+
+    m = poisson3d(12)
+    e = build_ehyb(m, n_parts=8, vec_size=-(-m.n // 8 // 8) * 8)
+    dev = EHYBDevice.from_ehyb(e, device="cpu")
+    x = np.random.default_rng(0).standard_normal(m.n).astype(np.float32)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mv = build_dist_spmv(dev, mesh, "data")
+    res["bare/warned"] = any(issubclass(w.category, DeprecationWarning)
+                             for w in caught)
+    y = mv(torch.from_numpy(x))
+    res["bare/dtype"] = str(y.dtype)
+    res["bare/y"] = y.double().tolist()
+    op = _build_sharded_operator(dev, mesh, "data")
+    res["bare/nnz"] = [op.nnz, op.host_ehyb.nnz_in]
+    try:
+        op.update_values(m)
+        res["bare/refill_refused"] = False
+    except ValueError:
+        res["bare/refill_refused"] = True
+
+
 STORE_ROOT = ""
 SCENARIOS = {"sweep": sweep, "layer": layer, "decisions": decisions,
-             "store": store}
+             "store": store, "bare": bare}
 
 
 def main() -> int:
