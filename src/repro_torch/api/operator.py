@@ -10,14 +10,19 @@ same pattern (a refill, ``Plan.bind``); ``op.T`` is the operator of Aᵀ on
 the transpose plan.
 
 **Gradients.**  When grad mode is on and x or the bound values require
-grad (values bound from a tensor, ``plan.bind(tensor)``), an apply runs
-through :class:`_DiffApply`, the counterpart of the JAX package's
-``custom_vjp`` apply: the cotangent of the values is gathered per nonzero,
+grad (values bound from a tensor, ``plan.bind(tensor)``), or either is
+wrapped by a ``torch.func`` transform, an apply runs through
+:class:`_DiffApply`, the counterpart of the JAX package's ``custom_vjp``
+apply: the cotangent of the values is gathered per nonzero,
 ``v̄ₖ = Σ_r ḡ[rowₖ, r]·x[colₖ, r]``, once for each value (so no copy of a
 value in another table counts it twice), and the cotangent of x is Aᵀ ḡ,
 applied by the transpose plan's operator bound at the accumulation dtype
-(at least fp32, never the stored one).  Otherwise the apply is the guard's
-alone and builds no graph; a solve never does.
+(at least fp32, never the stored one) to the bound tensor reordered.  The
+backward is itself differentiable (double backward, HVPs), in either
+space and on a mesh, and ``torch.func.grad``, ``jacrev`` and ``vmap``
+accept the apply: ``vmap`` over right-hand sides is one batched apply,
+over value sets a bind and an apply a set.  Otherwise the apply is the
+guard's alone and builds no graph; a solve never does.
 
 **Sharded plans** (``plan(A, mesh=)``): every rank calls each method with
 the same arguments.  ``op @ x`` takes the replicated global x and returns
@@ -68,49 +73,123 @@ def _as_space(space) -> Space:
     raise ValueError(f"unknown space {space!r}; use repro_torch.api.Space")
 
 
+def _wrapped(t) -> bool:
+    """Whether ``t`` is a tensor that a ``torch.func`` transform wrapped."""
+    return isinstance(t, torch.Tensor) and \
+        torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def _unwrapped(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every ``torch.func`` wrapper peeled off (under ``vmap``,
+    the whole batch)."""
+    while _wrapped(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+def _to_original(plan: Plan, obj, t2: torch.Tensor) -> torch.Tensor:
+    """Permuted-space ``(rows, R)`` -> original ``(n, R)``: a local
+    container's padded space, or the rank's shard gathered from every
+    rank (one all-gather)."""
+    if plan.is_sharded:
+        from ..dist.operator import gather_original
+
+        return gather_original(obj, t2)
+    return _from_permuted(obj, t2, False)
+
+
+def _to_permuted_of(plan: Plan, obj, t2: torch.Tensor) -> torch.Tensor:
+    """Original ``(n, R)`` -> the permuted space (a sharded container's:
+    the rank's shard); padding slots get zero."""
+    if plan.is_sharded:
+        from ..dist.operator import shard_of
+
+        return shard_of(obj, t2)
+    return _to_permuted(obj, t2)[0]
+
+
 class _DiffApply(torch.autograd.Function):
     """``y = A x`` through ``plan``'s guarded apply of container ``obj``
-    (tables of ``dtype``), differentiable in the bound per-nnz ``values``
-    (None when they need no gradient) and in ``x`` (original space, or
-    permuted with ``permuted=True``).  y comes back in the wider of x's
-    and the tables' dtypes, so the cotangent keeps x's precision."""
+    (tables of ``dtype``; None: bound here from ``values``, for an operator
+    bound under a ``torch.func`` transform), differentiable in the bound
+    per-nnz ``values`` (None for host-bound values) and in ``x`` (original
+    space, or permuted with ``permuted=True``).  y comes back in the wider
+    of x's and the tables' dtypes, so the cotangent keeps x's precision.
+
+    The backward is built from differentiable ops, as the JAX package's
+    ``custom_vjp`` backward is, so it can be differentiated again: v̄ from
+    index ops, and x̄ = Aᵀ ḡ through :func:`apply_operator` on the
+    transpose plan bound to ``values`` reordered (the graph reaches
+    ``values``).  Under a plain ``backward()`` grad mode is off there and
+    x̄ is one transpose bind and one apply.  A sharded permuted-space
+    product is taken in the original space: ḡ and x are gathered there
+    (one all-gather each) and x̄ is cut back to the rank's shard.
+
+    ``vmap`` (the staticmethod) makes a batch of right-hand sides one
+    ``(n, B)`` apply, and binds and applies a batch of value sets one set
+    at a time."""
 
     @staticmethod
-    def forward(ctx, values, x, plan, obj, dtype, permuted):
+    def forward(values, x, plan, obj, dtype, permuted):
+        if obj is None:
+            obj = plan._container(values, dtype)
         guard = plan._raw_apply_permuted() if permuted else plan._raw_apply()
         y = guard(obj, x.to(dtype))
-        ctx.save_for_backward(x)
-        ctx.plan, ctx.obj, ctx.permuted = plan, obj, permuted
-        ctx.values_dtype = None if values is None else values.dtype
         return y.to(torch.promote_types(x.dtype, dtype))
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        values, x, plan, obj, dtype, permuted = inputs
+        ctx.save_for_backward(values, x)
+        ctx.plan, ctx.dtype, ctx.permuted = plan, dtype, permuted
+        ctx.obj = obj if obj is not None else plan._layout(dtype)
+
+    @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
+        values, x = ctx.saved_tensors
         plan, obj = ctx.plan, ctx.obj
         acc = torch.promote_types(torch.promote_types(g.dtype, x.dtype),
                                   torch.float32)
         x2, squeeze = _as_2d(x)
         g2 = _as_2d(g)[0]
         if ctx.permuted:         # the product is the original one, permuted
-            x2 = _from_permuted(obj, x2, False)
-            g2 = _from_permuted(obj, g2, False)
+            x2 = _to_original(plan, obj, x2)
+            g2 = _to_original(plan, obj, g2)
         grad_values = grad_x = None
         if ctx.needs_input_grad[0]:
             rows, cols = plan.coo_tensors()
             grad_values = (g2.index_select(0, rows).to(acc)
                            * x2.index_select(0, cols).to(acc)).sum(1).to(
-                               ctx.values_dtype)
+                               values.dtype)
         if ctx.needs_input_grad[1]:
-            tplan = plan.transpose
-            t_vals = plan.values_of(obj).to(acc).index_select(
-                0, plan.transpose_order_tensor())
-            t_obj = tplan.bind(t_vals, dtype=acc, validate=False).obj
-            gx = tplan._raw_apply()(t_obj, g2.to(acc))
+            # the tables' values: the bound tensor rounded as the bind
+            # rounded it, else read from the tables
+            vals = plan.values_of(obj) if values is None else \
+                values.to(ctx.dtype)
+            t_vals = vals.to(acc).index_select(0,
+                                               plan.transpose_order_tensor())
+            gx = plan.transpose.bind(t_vals, dtype=acc, validate=False) @ \
+                g2.to(acc)
             if ctx.permuted:
-                gx = _to_permuted(obj, gx)[0]
+                gx = _to_permuted_of(plan, obj, gx)
             grad_x = (gx[:, 0] if squeeze else gx).to(x.dtype)
         return grad_values, grad_x, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, values, x, plan, obj, dtype, permuted):
+        v_dim, x_dim = in_dims[:2]
+        if v_dim is None:
+            # a batch of right-hand sides: one apply of (rows, [K·]B)
+            xb = x.movedim(x_dim, -1)
+            y = _DiffApply.apply(values, xb.reshape(xb.shape[0], -1), plan,
+                                 obj, dtype, permuted)
+            return y.reshape(y.shape[:1] + xb.shape[1:]).movedim(-1, 0), 0
+        # a batch of value sets: each bound and applied in turn
+        ys = [_DiffApply.apply(
+            values.select(v_dim, i),
+            x if x_dim is None else x.select(x_dim, i), plan, None, dtype,
+            permuted) for i in range(info.batch_size)]
+        return torch.stack(ys), 0
 
 
 def apply_operator(plan: Plan, obj, dtype: torch.dtype, x,
@@ -121,18 +200,19 @@ def apply_operator(plan: Plan, obj, dtype: torch.dtype, x,
     ``permuted=True``, the permuted one.  The apply computes on x cast to
     ``dtype``; y comes back in the wider of x's dtype and ``dtype`` for a
     floating-point tensor x, and in ``dtype`` for any other x — with grad
-    mode on or off.  With grad mode on and ``x`` or the bound per-nnz
-    ``values`` requiring grad it runs through :class:`_DiffApply`."""
+    mode on or off.  It runs through :class:`_DiffApply` when grad mode is
+    on and ``x`` or the bound per-nnz ``values`` require grad, and when
+    either is wrapped by a ``torch.func`` transform (wrapped values were
+    bound under it, so ``obj`` holds the structure only and the apply binds
+    them); otherwise it is the guard's apply alone."""
     if isinstance(x, torch.Tensor) and x.is_floating_point():
         x = x.to(plan.device)
     else:
         x = torch.as_tensor(x, device=plan.device).to(dtype)
-    if torch.is_grad_enabled() and (x.requires_grad or (
-            values is not None and values.requires_grad)):
-        if permuted and plan.is_sharded:
-            raise NotImplementedError(
-                "the sharded permuted-space apply has no gradient; apply in "
-                "the original space, or detach x")
+    if _wrapped(values):
+        return _DiffApply.apply(values, x, plan, None, dtype, permuted)
+    if _wrapped(x) or (torch.is_grad_enabled() and (x.requires_grad or (
+            values is not None and values.requires_grad))):
         return _DiffApply.apply(values, x, plan, obj, dtype, permuted)
     guard = plan._raw_apply_permuted() if permuted else plan._raw_apply()
     return guard(obj, x.to(dtype)).to(torch.promote_types(x.dtype, dtype))

@@ -33,8 +33,10 @@ container bound before while an operator still holds it.  Plans are
 memoized in a :class:`PlanCache` keyed by the pattern hash.
 
 ``bind`` also takes a ``(nnz,)`` tensor of values, scattered in the same
-way with no host round trip, and an apply of the operator carries
-gradients back to that tensor (``api.operator``).  :attr:`Plan.transpose`
+way with no host round trip (on a mesh plan: the rank's three value
+tables, through an index composed once from the host build's fill plan
+and the rank's layout), and an apply of the operator carries gradients
+back to that tensor (``api.operator``).  :attr:`Plan.transpose`
 is the plan of the transposed pattern, from the same cache, so a
 structurally symmetric pattern is its own transpose.
 
@@ -343,10 +345,12 @@ class Plan:
     mesh: Any = None
     axis: str = "data"
     n_dev: int = 1
-    # dtype -> (this rank's ShardedOperator engine, matrix_key of its values)
+    # dtype -> (this rank's ShardedOperator engine, matrix_key of the values
+    # its container holds; None when no host bind may reuse it)
     _templates: dict = dataclasses.field(default_factory=dict)
-    # bound shard container -> the host matrix it was bound from
-    _bound_csr: Any = dataclasses.field(
+    # bound shard container -> its per-nnz values: the host matrix it was
+    # bound from until ``values_of`` uploads them once, or the tensor
+    _bound_vals: Any = dataclasses.field(
         default_factory=weakref.WeakKeyDictionary)
 
     @classmethod
@@ -580,10 +584,10 @@ class Plan:
         from .operator import LinearOperator
 
         dtype = dtype or self.execution.dtype or torch.float32
-        if self.is_sharded:
-            return self._bind_sharded(values, dtype, validate)
         if isinstance(values, torch.Tensor):
             return self._bind_tensor(values, dtype, validate)
+        if self.is_sharded:
+            return self._bind_sharded(values, dtype, validate)
         csr = self._as_csr(values)
         if validate:
             self._validate_bind(csr.data)
@@ -606,23 +610,16 @@ class Plan:
         return op
 
     def _bind_sharded(self, values, dtype, validate):
-        """:meth:`bind` of a mesh plan: this rank's shard of the halo-plan
-        operator (``dist.operator._build_sharded_operator`` on the plan's
-        host build), built at the first bind of a dtype and refilled at
-        every bind of new values (``ShardedOperator.update_values``: the
-        host build refilled, the rank's value tables uploaded, no structure
-        pass).  A tensor of values binds through the host, and cannot
-        carry gradients."""
+        """:meth:`bind` of host values on a mesh plan: this rank's shard of
+        the halo-plan operator (``dist.operator._build_sharded_operator`` on
+        the plan's host build), built at the first bind of a dtype and
+        refilled at every bind of new values
+        (``ShardedOperator.update_values``: the host build refilled, the
+        rank's value tables uploaded, no structure pass).  A tensor of
+        values binds on the device (:meth:`_bind_tensor`)."""
         from ..dist.operator import _build_sharded_operator
         from .operator import LinearOperator
 
-        if isinstance(values, torch.Tensor):
-            if values.requires_grad and torch.is_grad_enabled():
-                raise NotImplementedError(
-                    "a sharded plan binds values through the host; "
-                    "gradients with respect to bound values are not "
-                    "sharded (bind detached values or a SparseCSR)")
-            values = values.detach().cpu().double().numpy()
         csr = self._as_csr(values)
         if validate:
             self._validate_bind(csr.data)
@@ -640,7 +637,7 @@ class Plan:
         else:
             eng = slot[0]
         self._templates[dtype] = (eng, mk)
-        self._bound_csr[eng.obj] = csr
+        self._bound_vals.setdefault(eng.obj, csr)
         op = LinearOperator(plan=self, obj=eng.obj, dtype=dtype, _csr=csr)
         if validate == "full":
             self._verify_full(op)
@@ -650,7 +647,26 @@ class Plan:
         """This rank's :class:`~repro_torch.dist.ShardedOperator` behind a
         sharded operator ``op`` bound on this plan (its dtype's engine; the
         halo plan and the solver runner are the same for every bind)."""
-        return self._templates[op.dtype][0]
+        return self._shard_engine(op.dtype)
+
+    def _shard_engine(self, dtype):
+        """This rank's engine of ``dtype``: the one the last host bind of
+        that dtype left, else another dtype's (the structure is the same;
+        no host bind reuses its container), else one built once from a
+        host build of the pattern on the plan's partition."""
+        slot = self._templates.get(dtype)
+        if slot is None:
+            if self._templates:
+                other = next(iter(self._templates.values()))[0]
+                eng = dataclasses.replace(other, dtype=dtype)
+            else:
+                from ..dist.operator import _from_host
+
+                eng = _from_host(self._index_shared()["ehyb"], self.mesh,
+                                 self.axis, self.format, dtype,
+                                 pattern_key=self.key, tuning=self.tuning)
+            slot = self._templates[dtype] = (eng, None)
+        return slot[0]
 
     def _verify_full(self, op) -> None:
         """Raise on any error finding of the full verifier on ``op``."""
@@ -696,11 +712,15 @@ class Plan:
         return spec.refill(self._structure, vals, self._scatter_idx)
 
     def _bind_tensor(self, values: torch.Tensor, dtype, validate):
-        """:meth:`bind` of a ``(nnz,)`` tensor: a scatter into new value
-        tables on the plan's device (:meth:`_scatter`).  The operator keeps
-        ``values`` (moved to the device, still in its autograd graph) for
-        the gradients of its applies."""
-        from .operator import LinearOperator
+        """:meth:`bind` of a ``(nnz,)`` tensor: scatters into new value
+        tables on the plan's device (:meth:`_container`), with no host copy
+        and no hash of the values.  The operator keeps ``values`` (moved to
+        the device, still in its autograd graph) for the gradients of its
+        applies.  Under a ``torch.func`` transform (``values`` wrapped by
+        it) the scatter waits for the apply, which binds the unwrapped
+        values (``api.operator._DiffApply``), one value set at a time
+        under ``vmap``."""
+        from .operator import LinearOperator, _unwrapped, _wrapped
 
         if tuple(values.shape) != (self.nnz,):
             raise ValueError(f"bind() takes a ({self.nnz},) per-nnz value "
@@ -711,12 +731,35 @@ class Plan:
                             f"{values.dtype}")
         values = values.to(self.device)
         if validate:
-            self._validate_bind(values)
-        obj = self._scatter(values.detach().to(dtype))
+            self._validate_bind(_unwrapped(values))
+        obj = self._layout(dtype) if _wrapped(values) else \
+            self._container(values, dtype)
         op = LinearOperator(plan=self, obj=obj, dtype=dtype, _values=values)
         if validate == "full":
             self._verify_full(op)
         return op
+
+    def _container(self, values: torch.Tensor, dtype):
+        """The container of the per-nnz tensor ``values`` at ``dtype``: the
+        format's refill scatter (:meth:`_scatter`), or on a mesh plan the
+        rank's three value tables scattered on the device
+        (``ShardedOperator.update_values`` of the tensor)."""
+        vals = values.detach().to(dtype)
+        if not self.is_sharded:
+            return self._scatter(vals)
+        obj = self._shard_engine(dtype).update_values(vals).obj
+        self._bound_vals[obj] = vals
+        return obj
+
+    def _layout(self, dtype):
+        """A container with this plan's structure (its permutation, the
+        rank's tables' shapes), for an operator whose values are bound at
+        its apply."""
+        if self.is_sharded:
+            return self._shard_engine(dtype).obj
+        if self._structure is None:
+            self._first_bind(self.pattern, dtype)
+        return self._structure
 
     # ---- guarded applies ---------------------------------------------------
 
@@ -822,14 +865,17 @@ class Plan:
         plan.  A duplicate entry the format sums into another (the dense
         format's) reads a zero, so a product over the values counts each
         table entry once.  A sharded container holds only its rank's
-        tables: its values are those of the host matrix it was bound
-        from, in the tables' dtype."""
+        tables: its values are the tensor it was bound from, or the host
+        matrix's, uploaded once a container, in the tables' dtype."""
         if self.is_sharded:
-            csr = self._bound_csr.get(obj)
-            if csr is None:
+            vals = self._bound_vals.get(obj)
+            if vals is None:
                 raise ValueError("this container was not bound on this plan")
-            return torch.from_numpy(np.ascontiguousarray(csr.data)).to(
-                self.device, obj.ell_vals.dtype)
+            if isinstance(vals, SparseCSR):
+                vals = self._bound_vals[obj] = torch.from_numpy(
+                    np.ascontiguousarray(vals.data)).to(
+                        self.device, obj.ell_vals.dtype)
+            return vals
         if self._value_idx is None:
             self._value_idx = torch.from_numpy(
                 get_format(self.format).value_index(

@@ -42,6 +42,7 @@ stages on the kernels' plain versions, for validation only.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Callable, ClassVar, Optional
 
@@ -216,6 +217,55 @@ def _shards_from_ehyb(e: EHYB, hp: HaloPlan, dtype, device, rank: int,
         perm=t(perm.astype(np.int64)), inv_perm=t(inv_perm.astype(np.int64)),
         group=group)
     return obj, lay
+
+
+def shard_value_index(e: EHYB, lay: dict) -> dict:
+    """Where each nonzero's value goes in the rank's value tables:
+    ``{field: (dst, src)}`` for each of ``EHYBShards.VALUE_FIELDS``, flat
+    positions in the rank's table and CSR positions in the value stream
+    (host int64).  Composed from the build's ``fill_plan`` and the rank's
+    ``layout`` (its partition range with the padding, the fetch table's
+    ``dst``/``src``, ``pe_src``), so it is pattern-only and holds for
+    every bind of the pattern: scattering a value stream through it gives
+    the tables :func:`_value_tables` makes of the refilled build."""
+    if e.fill_plan is None:
+        raise ValueError("this sharded operator carries no host fill plan "
+                         "(a build recovered from a bare EHYBDevice); bind "
+                         "host values or rebuild from the SparseCSR")
+    fp = e.fill_plan
+    tile = e.vec_size * e.ell_width
+    ell_dst = np.asarray(fp["ell_dst"], dtype=np.int64)
+    part = ell_dst // tile
+    mine = (part >= lay["lo"]) & (part < lay["hi"])
+    # the ER table's flat slot -> its CSR position (-1: an empty slot)
+    er_src = np.full(e.er_rows * e.er_width, -1, dtype=np.int64)
+    er_src[np.asarray(fp["er_dst"], dtype=np.int64)] = fp["er_src"]
+    fl = lay["fetch"]
+    f_src = er_src[np.asarray(fl["src"], dtype=np.int64)]
+    f_live = f_src >= 0
+    p_src = er_src[lay["pe_src"]]
+    p_live = p_src >= 0
+    return {"ell_vals": (ell_dst[mine] - lay["lo"] * tile,
+                         np.asarray(fp["ell_src"], dtype=np.int64)[mine]),
+            "fer_vals": (np.asarray(fl["dst"], dtype=np.int64)[f_live],
+                         f_src[f_live]),
+            "pe_vals": (np.flatnonzero(p_live), p_src[p_live])}
+
+
+def scatter_shards(obj: EHYBShards, vals: torch.Tensor,
+                   index: dict) -> EHYBShards:
+    """``obj`` with its value tables scattered on the device from the
+    per-nnz ``vals`` (CSR order, the tables' dtype, on the rank's device)
+    through ``index`` (:func:`shard_value_index`, on the device): three
+    scatters into zeros, every structural tensor shared by reference."""
+    tables = {}
+    for f in EHYBShards.VALUE_FIELDS:
+        dst, src = index[f]
+        shape = getattr(obj, f).shape
+        flat = vals.new_zeros(math.prod(shape))
+        tables[f] = flat.index_copy_(0, dst, vals.index_select(0, src)
+                                     ).reshape(shape)
+    return dataclasses.replace(obj, **tables)
 
 
 def _refill_shards(obj: EHYBShards, e_new: EHYB, lay: dict,
@@ -406,6 +456,9 @@ class ShardedOperator:
     pattern_key: Optional[str] = None
     tuning: Any = None
     layout: Optional[dict] = None         # the rank's host index arrays
+    # shard_value_index on the device, made at the first tensor refill
+    value_index: Optional[dict] = dataclasses.field(default=None,
+                                                    repr=False)
 
     apply = staticmethod(sharded_apply)
     apply_permuted = staticmethod(sharded_apply_permuted)
@@ -461,17 +514,40 @@ class ShardedOperator:
 
     # ---- value refresh -----------------------------------------------------
 
-    def update_values(self, a_new: SparseCSR, *,
+    def device_value_index(self) -> dict:
+        """:func:`shard_value_index` of this rank on its device (made once
+        and carried to the operators :meth:`update_values` returns)."""
+        if self.value_index is None:
+            if self.host_ehyb is None:
+                raise ValueError("this sharded operator carries no host "
+                                 "build to index its value tables from")
+            self.value_index = {
+                f: tuple(torch.from_numpy(a).to(self.device) for a in ds)
+                for f, ds in shard_value_index(self.host_ehyb,
+                                               self.layout).items()}
+        return self.value_index
+
+    def update_values(self, a_new, *,
                       pattern: Optional[str] = None) -> "ShardedOperator":
-        """Same sparsity pattern, new values: the host build refilled
-        (``EHYB.refill``) and the rank's value tables filled through its
-        recorded layout and uploaded.  Zero partitioning, zero build, zero
-        halo re-planning; every structural tensor shared."""
+        """Same sparsity pattern, new values.  A :class:`SparseCSR`: the
+        host build refilled (``EHYB.refill``) and the rank's value tables
+        filled through its recorded layout and uploaded.  A ``(nnz,)``
+        tensor (CSR order): three scatters on the device through
+        :meth:`device_value_index`, no host copy.  Zero partitioning, zero
+        build, zero halo re-planning; every structural tensor shared."""
         from ..autotune.cost import pattern_hash
 
         if self.host_ehyb is None or self.host_ehyb.fill_plan is None:
             raise ValueError("this sharded operator carries no host fill "
                              "plan; rebuild with build_sharded_spmv")
+        if isinstance(a_new, torch.Tensor):
+            if tuple(a_new.shape) != (self.nnz,):
+                raise ValueError(f"update_values takes a ({self.nnz},) "
+                                 f"per-nnz tensor (CSR order); got shape "
+                                 f"{tuple(a_new.shape)}")
+            vals = a_new.detach().to(self.device, self.dtype)
+            obj = scatter_shards(self.obj, vals, self.device_value_index())
+            return dataclasses.replace(self, obj=obj, csr=None)
         if a_new.n != self.n or a_new.nnz != self.nnz or (
                 self.pattern_key is not None
                 and (pattern or pattern_hash(a_new)) != self.pattern_key):

@@ -262,9 +262,141 @@ def bare(mesh, res: dict) -> None:
         res["bare/refill_refused"] = True
 
 
+def _vec(m, seed: int) -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(m.n),
+                           dtype=torch.float32)
+
+
+def _coo(m):
+    return np.repeat(np.arange(m.n), m.row_lengths()), m.indices
+
+
+def _rel(a, b) -> float:
+    b = np.asarray(b, dtype=np.float64)
+    return _err(a, b) / max(float(np.abs(b).max()), 1e-12)
+
+
+def _tables(obj) -> list:
+    from repro_torch.dist.operator import EHYBShards
+
+    return [getattr(obj, f) for f in EHYBShards.VALUE_FIELDS]
+
+
+def autodiff(mesh, res: dict) -> None:
+    """Gradients through the sharded operator on poisson3d(8) and
+    powerlaw(512, 6), pinned ``ehyb`` and ``ehyb_packed`` on bfs partitions,
+    fp32, against float64 formulas (the parent holds them, and the value
+    gradient against the reference's one-device mesh): the value gradient
+    through ``p.bind(v)``; the permuted-space gradients, the padding slots
+    zero; the double backward ``∇_v uᵀ ∇ₓ(wᵀ A(v) x) = w[rows]·u[cols]``; a
+    tensor bind's tables against the host bind's, bit for bit (fp32, bf16),
+    with ``EHYB.refill`` and ``matrix_key`` patched to raise around it;
+    ``update_values(tensor)`` on the operator and on its engine; and a bare
+    ``EHYBDevice`` shard refusing a tensor."""
+    import importlib
+
+    from repro_torch.api import ExecutionConfig, PlanCache, plan
+    from repro_torch.core.ehyb import EHYB
+    from repro_torch.core.matrices import poisson3d, powerlaw
+
+    plan_mod = importlib.import_module("repro_torch.api.plan")
+    group = mesh.get_group("data")
+    for name, m in (("poisson", poisson3d(8)),
+                    ("powerlaw", powerlaw(512, 6))):
+        rows, cols = _coo(m)
+        d = m.to_dense()
+        x, w, u = _vec(m, 1), _vec(m, 2), _vec(m, 3)
+        xh, wh, uh = (t.double().numpy() for t in (x, w, u))
+        for fmt in ("ehyb", "ehyb_packed"):
+            key = f"{name}/{fmt}/"
+            p = plan(m, mesh=mesh, cache=PlanCache(), execution=
+                     ExecutionConfig(format=fmt, partition_method="bfs"))
+            # the value gradient through p.bind(v), and x's
+            vals = torch.tensor(m.data, dtype=torch.float32,
+                                requires_grad=True)
+            xg = x.clone().requires_grad_(True)
+            ((p.bind(vals) @ xg) * w).sum().backward()
+            res[key + "gv"] = _rel(vals.grad, wh[rows] * xh[cols])
+            res[key + "gv_values"] = vals.grad.double().tolist()
+            res[key + "gx"] = _rel(xg.grad, d.T @ wh)
+            res[key + "grad_same_on_ranks"] = _same_on_ranks(vals.grad,
+                                                             group)
+            # the permuted space: the rank's shard in and out
+            vals.grad = None
+            op = p.bind(vals)
+            x_loc = op.to_space(x).requires_grad_(True)
+            y_loc = op.apply(x_loc, space="permuted")
+            (y_loc * op.to_space(w)).sum().backward()
+            res[key + "perm_gx"] = _rel(op.from_space(x_loc.grad),
+                                        d.T @ wh)
+            live = op.obj.local_perm < m.n
+            res[key + "perm_pad_zero"] = not bool(x_loc.grad[~live].any())
+            res[key + "perm_gv"] = _rel(vals.grad, wh[rows] * xh[cols])
+            # double backward
+            vals.grad = None
+            xg = x.clone().requires_grad_(True)
+            gx, = torch.autograd.grad((p.bind(vals) @ xg) @ w, xg,
+                                      create_graph=True)
+            gv2, = torch.autograd.grad(gx @ u, vals)
+            res[key + "double"] = _rel(gv2, wh[rows] * uh[cols])
+            # a tensor bind's tables are the host bind's, bit for bit, and
+            # it does no host work
+            same = True
+            for dt in (torch.float32, torch.bfloat16):
+                host = p.bind(m, dtype=dt)
+                refill, mkey = EHYB.refill, plan_mod.matrix_key
+
+                def refuse(*a, **k):
+                    raise AssertionError("host work in a tensor bind")
+                EHYB.refill = plan_mod.matrix_key = refuse
+                try:
+                    dev = p.bind(torch.as_tensor(m.data,
+                                                 dtype=torch.float32),
+                                 dtype=dt)
+                    y_dev = dev @ x
+                    vg = torch.tensor(m.data, dtype=torch.float32,
+                                      requires_grad=True)
+                    ((p.bind(vg, dtype=dt) @ x.clone().requires_grad_(
+                        True)) @ w).backward()
+                finally:
+                    EHYB.refill, plan_mod.matrix_key = refill, mkey
+                same &= all(a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(_tables(dev.obj),
+                                            _tables(host.obj)))
+                same &= torch.equal(y_dev, host @ x)
+            got = [None] * dist.get_world_size(group)
+            dist.all_gather_object(got, bool(same), group=group)
+            res[key + "tables_bit_identical"] = all(got)
+            # update_values(tensor): the operator's and its engine's
+            op = p.bind(m)
+            t2 = torch.as_tensor(1.5 * m.data, dtype=torch.float32)
+            res[key + "update_op"] = _rel(op.update_values(t2) @ x,
+                                          1.5 * (d @ xh))
+            eng = p._engine(op)
+            e2 = eng.update_values(t2)
+            res[key + "update_engine_shared"] = bool(
+                e2.obj.ell_cols is eng.obj.ell_cols)
+            res[key + "update_engine"] = _rel(e2(x), 1.5 * (d @ xh))
+            res[key + "values_of"] = _rel(p.values_of(op.obj), m.data)
+    # a bare EHYBDevice shard has no fill plan: a tensor refill raises
+    from repro_torch.core.ehyb import build_ehyb
+    from repro_torch.core.spmv import EHYBDevice
+    from repro_torch.dist.operator import _build_sharded_operator
+
+    m = poisson3d(8)
+    e = build_ehyb(m, n_parts=4, vec_size=-(-m.n // 4 // 8) * 8)
+    sop = _build_sharded_operator(EHYBDevice.from_ehyb(e, device="cpu"),
+                                  mesh, "data")
+    try:
+        sop.update_values(torch.as_tensor(m.data, dtype=torch.float32))
+        res["bare/tensor_refused"] = False
+    except ValueError:
+        res["bare/tensor_refused"] = True
+
+
 STORE_ROOT = ""
 SCENARIOS = {"sweep": sweep, "layer": layer, "decisions": decisions,
-             "store": store, "bare": bare}
+             "store": store, "bare": bare, "autodiff": autodiff}
 
 
 def main() -> int:
